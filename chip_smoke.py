@@ -8,8 +8,10 @@ nvcc (sm_90a), then:
 
   1. device   — requires CUDA; prints the card's name and power limit;
   2. kernels  — holds each kernel against its plain PyTorch version on the
-                card at the serving path's shapes (page gather/scatter
-                bit-exact, attention within 3e-5 in f32) and times kernel,
+                card at the shapes of phases 3 and 5 (page gather/scatter
+                and the tile copy bit-exact, attention within 3e-5 in f32,
+                at max_len 1024 and at the launcher's 256), the tile copy
+                also on odd shapes, dtypes and sizes, and times kernel,
                 plain version and one library call for the same function;
   3. serving  — full-width tinyllama-1.1b (random weights from a seed)
                 through ``Engine``: 8 requests, 32 decode steps, a suspend
@@ -20,7 +22,18 @@ nvcc (sm_90a), then:
                 kernel's launch counter, reset just before the measured
                 Engine and read after its last step, must equal what that
                 run's stats call for (and so be above 0);
-  4. numbers  — serving and per-kernel times, each tagged with the card.
+  3b. tile_copy — every leaf of that Engine's live KV cache goes through a
+                device->device ``movement`` transfer (the ``tile_copy`` leg,
+                K4): each copy bit-exact and a new tensor, and K4's counter,
+                reset just before, equal to the number of executes;
+  4. numbers  — serving and per-kernel times, each tagged with the card;
+  5. launcher — ``python -m repro_torch.launch.serve`` (the scheduler over
+                the Engine) at full width, once plain and once with
+                ``--fork-prefix`` and ``--trace-out``: every job completes,
+                the stats and the resume waves add up, no resume fails its
+                checksums, each kernel's counter (reset before each run)
+                equals what the run's stats call for, K4 is not launched,
+                and the trace parses as Chrome trace JSON.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; any
 failure exits non-zero before it.  Imports torch, numpy and repro_torch only.
@@ -41,6 +54,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 SLOTS, MAX_LEN, N_SESSIONS, SEED = 8, 1024, 32, 0
+SERVE_LEN = 256                  # the launcher's --max-len in phase 5
 
 
 class SmokeFailure(RuntimeError):
@@ -84,6 +98,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: chip_smoke runs on a GPU only")
     import numpy as np
+    from repro_torch import movement as MV
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.models import lm
@@ -150,6 +165,19 @@ def main() -> int:
         b = ref.villa_scatter_ref(small.clone(), t, upd2)
         check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
               f"villa_scatter ({dt}) differs: duplicates / -1 skips")
+    # the launcher's snapshot (phase 5 serves at max_len SERVE_LEN)
+    spec_s = paging.PageSpec.for_cache(lm.init_cache(cfg, 1, SERVE_LEN,
+                                                     device=dev))
+    rtab = paging.row_page_table(spec_s, 3).to(dev)
+    check(torch.equal(ops.villa_gather(pool, rtab),
+                      ref.villa_gather_ref(pool, rtab)),
+          f"villa_gather differs at the max_len {SERVE_LEN} snapshot")
+    upd_s = upd[:spec_s.n_pages].contiguous()
+    check(torch.equal(ops.villa_scatter(pool.clone(), rtab, upd_s),
+                      ref.villa_scatter_ref(pool.clone(), rtab, upd_s)),
+          f"villa_scatter differs at the max_len {SERVE_LEN} snapshot")
+    print(f"villa_gather/villa_scatter: bit-exact at {n_pages} and "
+          f"{spec_s.n_pages} pages")
     widx = wtab.long()
     rows["villa_scatter"] = dict(
         ms=timed(lambda: ops.villa_scatter(pool, wtab, upd), flush=flush),
@@ -197,6 +225,16 @@ def main() -> int:
                                                               bucket + 1))])
         errs.append(attn_err(case, 3e-5)[0])
         print(f"attention prefill bucket {bucket}: max_abs_err {errs[-1]:.3g}")
+    # phase 5's shapes: the forked 24-token prefix prefills in bucket 32,
+    # and decode attends over the launcher's max_len
+    errs.append(attn_err(attn_case(1, 32, 32, [24]), 3e-5)[0])
+    print(f"attention prefill bucket 32 (24 valid): max_abs_err "
+          f"{errs[-1]:.3g}")
+    slens = [int(x) for x in rng.integers(7, 57, SLOTS)]
+    errs.append(attn_err(attn_case(SLOTS, 1, SERVE_LEN, slens,
+                                   empty_row=True), 3e-5)[0])
+    print(f"attention decode S=1 T={SERVE_LEN} B={SLOTS}: max_abs_err "
+          f"{errs[-1]:.3g}")
     dlens = [int(x) for x in rng.integers(17, 333, SLOTS)]
     dec = attn_case(SLOTS, 1, MAX_LEN, dlens, empty_row=True)
     err, out = attn_err(dec, 3e-5)
@@ -231,7 +269,39 @@ def main() -> int:
         ms = timed(lambda: ops.chunked_attention(pq, pk, pv, pqp, pkp))
         print(f"attention prefill bucket {bucket} (full): kernel {ms:.4f} ms "
               f"[{tag}]")
-    del scratch
+
+    # K4 at the tile_copy path's shape: one K leaf of the serving cache
+    leaf = torch.randn((cfg.n_layers, SLOTS, MAX_LEN, K, D), device=dev,
+                       generator=gen)
+    got, want = ops.rbm_copy(leaf), ref.rbm_copy_ref(leaf)
+    check(bit_equal(got, want),
+          f"rbm_copy differs from its plain version at {tuple(leaf.shape)}")
+    copy_err = float((got - want).abs().max())
+    del got, want
+    odd = [((1000, 333), torch.float32), ((7, 129, 65), torch.bfloat16),
+           ((4096,), torch.int32), ((256, 128), torch.int8),
+           ((13,), torch.uint8), ((0,), torch.float32),
+           ((3, 5, 7), torch.bool)]
+    for shape, dt in odd:
+        x = torch.randn(shape, device=dev, generator=gen).mul(60).to(dt)
+        got = ops.rbm_copy(x, tile_rows=64)
+        check(got.shape == x.shape and got.dtype == x.dtype
+              and bit_equal(got, ref.rbm_copy_ref(x, tile_rows=64))
+              and bit_equal(got, x), f"rbm_copy differs at {shape} {dt}")
+    skew = torch.randint(0, 256, (100_003,), dtype=torch.uint8, device=dev,
+                         generator=gen)[1:]          # not 16-byte aligned
+    check(bit_equal(ops.rbm_copy(skew), ref.rbm_copy_ref(skew)),
+          "rbm_copy differs on a misaligned view")
+    print(f"rbm_copy: bit-exact at {tuple(leaf.shape)} f32 and on "
+          f"{len(odd) + 1} odd cases")
+    c_bytes = 2 * leaf.numel() * leaf.element_size()
+    rows["rbm_copy"] = dict(
+        ms=timed(lambda: ops.rbm_copy(leaf), flush=flush),
+        plain_ms=timed(lambda: ref.rbm_copy_ref(leaf), flush=flush),
+        library_ms=timed(lambda: leaf.clone(), flush=flush),
+        bound_ms=c_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        max_abs_err=copy_err)
+    del scratch, leaf
     torch.cuda.synchronize()
 
     # ---- phase 3: full-width serving through the Engine ------------------
@@ -311,21 +381,30 @@ def main() -> int:
             + n_res * eng.plan_resume.cost.ns_lisa)
     check(math.isclose(st["modeled_move_ns_lisa"], want, rel_tol=1e-9),
           "modeled movement does not add up")
-    # K3 runs once a layer per prefill and per decode dispatch; a suspend
-    # writes the slow row and its fast copy (two K1), a resume reads the slow
-    # row and the fast slot (two K2) and may insert into the fast tier (K1),
-    # a demotion clones a row (one K2, one K1)
-    want_counts = {
-        "flash_attention": cfg.n_layers * (st["prefills"]
-                                           + st["decode_dispatches"]),
-        "villa_scatter": 2 * st["suspends"] + st["resumes"] + st["demotions"],
-        "villa_gather": 2 * st["resumes"] + st["demotions"]}
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the serving path")
-        check(n == want_counts[name], f"kernel {name}: {n} launches on the "
-                                      f"serving path, {want_counts[name]} due")
+    check_counts(counts, serving_launches(cfg, st), "the Engine's path")
     print(f"serving: tokens match the uninterrupted run for all 8 requests "
           f"({len(wave)} suspended+resumed); stats {json.dumps(st)}")
+
+    # ---- phase 3b: the tile_copy leg over the live KV cache --------------
+    ops.reset_launch_counts()
+    executes = 0
+    for x in paging.cache_leaves(eng.cache):         # k, pos, v
+        np_dtype = np.dtype(str(x.dtype).removeprefix("torch."))
+        p = MV.plan(MV.Transfer(MV.Tier("device"), MV.Tier("device"),
+                                MV.Layout.dense(x.shape, np_dtype)))
+        check([leg.kind for leg in p.legs] == ["tile_copy"],
+              f"device->device plan: {p.legs}")
+        out = MV.execute(p, data=x)["data"]
+        executes += 1
+        check(out.untyped_storage().data_ptr()
+              != x.untyped_storage().data_ptr(), "tile_copy aliased its source")
+        check(out.shape == x.shape and out.dtype == x.dtype
+              and bit_equal(out, x), f"tile_copy differs on {tuple(x.shape)}")
+    torch.cuda.synchronize()
+    check_counts(ops.launch_counts(), {"rbm_copy": executes}, "tile_copy")
+    counts["rbm_copy"] = executes
+    print(f"tile_copy: {executes} live cache leaves copied bit-exact through "
+          f"movement.execute")
 
     # ---- phase 4: numbers ----------------------------------------------
     snap = eng.snapshot_bytes
@@ -339,16 +418,28 @@ def main() -> int:
           f"{len(wave) * snap / suspend_s / 1e9:.2f} GB/s [{tag}]")
     print(f"resume wave of {len(wave)}: {resume_s * 1e3:.3f} ms, "
           f"{len(wave) * snap / resume_s / 1e9:.2f} GB/s [{tag}]")
+    profile_decode(eng, tag)
+    del eng, solo
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: scheduler-driven serving through the launcher ----------
+    for run in serve_runs(tag):
+        for name, n in run.items():
+            counts[name] += n
+
     replaces = {
         "villa_scatter": "src/repro/kernels/rbm_copy.py:93",
         "villa_gather": "src/repro/kernels/rbm_copy.py:58",
-        "flash_attention": "src/repro/kernels/flash_attention.py:81"}
+        "flash_attention": "src/repro/kernels/flash_attention.py:81",
+        "rbm_copy": "src/repro/kernels/rbm_copy.py:27"}
     sources = {"villa_scatter": "src/repro_torch/kernels/csrc/page_copy.cu",
                "villa_gather": "src/repro_torch/kernels/csrc/page_copy.cu",
                "flash_attention":
-                   "src/repro_torch/kernels/csrc/flash_attention.cu"}
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "rbm_copy": "src/repro_torch/kernels/csrc/rbm_copy.cu"}
     kernels = []
-    for name in ("villa_scatter", "villa_gather", "flash_attention"):
+    for name in ("villa_scatter", "villa_gather", "flash_attention",
+                 "rbm_copy"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],
@@ -361,13 +452,95 @@ def main() -> int:
               f"ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
               f"{counts[name]} [{tag}]")
-    profile_decode(eng, tag)
     print(json.dumps({"kernels": kernels}))
     print(tag)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def bit_equal(a, b) -> bool:
+    """Same shape and the same bytes (NaNs and signed zeros included)."""
+    import torch
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def serving_launches(cfg, st) -> dict:
+    """The launches a serving run's stats call for.  K3 runs once a layer
+    per prefill and per decode dispatch; a suspend writes the slow row and
+    its fast copy (two K1), a resume reads the slow row and the fast slot
+    (two K2) and may insert into the fast tier (K1), a demotion clones a
+    row (one K2, one K1); K4 is not on the serving path."""
+    return {"flash_attention": cfg.n_layers * (st["prefills"]
+                                               + st["decode_dispatches"]),
+            "villa_scatter": 2 * st["suspends"] + st["resumes"]
+            + st["demotions"],
+            "villa_gather": 2 * st["resumes"] + st["demotions"]}
+
+
+def check_counts(counts, due, path) -> None:
+    """Each kernel launched exactly as often as ``due`` says (never, for a
+    kernel ``due`` leaves out), and each kernel ``due`` names at least
+    once."""
+    for name, n in counts.items():
+        want = due.get(name, 0)
+        check(n == want, f"kernel {name}: {n} launches on {path}, {want} due")
+    for name, want in due.items():
+        check(want > 0, f"kernel {name} was not launched on {path}")
+
+
+def serve_runs(tag):
+    """Phase 5: ``repro_torch.launch.serve.run`` at full width, plain and
+    with a forked prefix plus a trace.  Yields each run's launch counts."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    cfg = get_config("tinyllama-1.1b")
+    argv = ["--arch", "tinyllama-1.1b", "--slots", str(SLOTS),
+            "--max-len", str(SERVE_LEN),
+            "--requests", "16", "--followups", "32", "--max-new", "32",
+            "--bursty", "--seed", "4"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = str(Path(tmp) / "trace.json")
+        for extra in ([], ["--fork-prefix", "24", "--trace-out",
+                           trace_path]):
+            ops.reset_launch_counts()
+            out, s = serve.run(argv + extra)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            eng, st = s.eng, s.eng.stats
+            name = "launcher" + (" fork+trace" if extra else "")
+            check(out["jobs_completed"] == 16 + 32
+                  and all(j.state == "done" for j in s.jobs()),
+                  f"{name}: not every job completed")
+            check(st["resumes"] == sum(s.metrics.wave_widths("resume_wave")),
+                  f"{name}: resumes outside the resume waves")
+            check(out["decode_dispatches"] == out["host_transfers"],
+                  f"{name}: not one host read per decode dispatch")
+            check(eng.verify_failure_count() == 0,
+                  f"{name}: a resume failed its checksums")
+            if extra:
+                check(out["fork"]["forks"] == 16
+                      and out["fork"]["prefills"] == 1,
+                      f"{name}: fork block {out['fork']}")
+                with open(trace_path) as f:
+                    events = json.load(f)["traceEvents"]
+                check(len(events) > 0 and all("ph" in e for e in events),
+                      f"{name}: the trace is not Chrome trace JSON")
+            check_counts(counts, serving_launches(cfg, st), name)
+            print(f"{name}: {out['jobs_completed']} jobs, "
+                  f"{out['tokens_per_s']} tok/s, {out['ticks']} ticks, "
+                  f"{out['seconds']} s, p50 {out['p50_latency_ns']} ns, "
+                  f"p99 {out['p99_latency_ns']} ns (virtual clock), "
+                  f"launches {json.dumps(counts)} [{tag}]")
+            yield counts
 
 
 def profile_decode(eng, tag, steps=4):

@@ -20,7 +20,8 @@ from repro_torch.kernels import ref
 # the CUDA wrappers whose ``launches`` a run reads, by kernel name
 KERNELS = {"villa_scatter": RC.villa_scatter,
            "villa_gather": RC.villa_gather,
-           "flash_attention": FA.chunked_attention}
+           "flash_attention": FA.chunked_attention,
+           "rbm_copy": RC.rbm_copy}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -44,6 +45,14 @@ def villa_scatter(pages: torch.Tensor, table, updates) -> torch.Tensor:
     if pages.is_cuda:
         return RC.villa_scatter(pages, table, updates)
     return ref.villa_scatter_ref(pages, torch.as_tensor(table), updates)
+
+
+def rbm_copy(x: torch.Tensor, *, tile_rows: int = 256,
+             lanes: int = 128) -> torch.Tensor:
+    """A copy of ``x`` through (tile_rows x lanes) tiles (K4)."""
+    if x.is_cuda:
+        return RC.rbm_copy(x, tile_rows=tile_rows, lanes=lanes)
+    return ref.rbm_copy_ref(x, tile_rows=tile_rows, lanes=lanes)
 
 
 def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,

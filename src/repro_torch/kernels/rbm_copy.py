@@ -1,9 +1,8 @@
 # Port of src/repro/kernels/rbm_copy.py: villa_gather (:58-84) and
-# villa_scatter (:93-122) as the CUDA kernels of csrc/page_copy.cu.  rbm_copy
-# (:27-49, the tile_copy leg) is not on the serving path and waits for its
-# own slice.
-"""Launch wrappers of the page kernels (K1 ``villa_scatter``, K2
-``villa_gather``) on CUDA tensors.
+# villa_scatter (:93-122) as the CUDA kernels of csrc/page_copy.cu, rbm_copy
+# (:27-49, the tile_copy leg) as the CUDA kernel of csrc/rbm_copy.cu.
+"""Launch wrappers of the copy kernels (K1 ``villa_scatter``, K2
+``villa_gather``, K4 ``rbm_copy``) on CUDA tensors.
 
 Each wrapper checks device, dtype, contiguity and shape, launches on
 ``torch.cuda.current_stream()``, allocates what it returns with
@@ -27,25 +26,29 @@ import torch
 
 from repro_torch import to_device
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import check_table
+from repro_torch.kernels.ref import check_copy_args, check_table
 
 _P = ctypes.c_void_p
-_LIB = None
+_I, _L = ctypes.c_int, ctypes.c_longlong
+# argtypes of each C entry point, by source file in csrc/
+_SIGNATURES = {
+    "page_copy": {
+        "villa_gather_launch": [_P, _P, _P, _I, _L, _I, _P],
+        "villa_scatter_launch": [_P, _P, _P, _I, _L, _I, _P, _P, _I, _P]},
+    "rbm_copy": {"rbm_copy_launch": [_P, _P, _L, _L, _P]},
+}
+_LIBS = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.library("page_copy")
-        lib.villa_gather_launch.argtypes = [_P, _P, _P, ctypes.c_int,
-                                            ctypes.c_longlong, ctypes.c_int, _P]
-        lib.villa_gather_launch.restype = ctypes.c_int
-        lib.villa_scatter_launch.argtypes = [_P, _P, _P, ctypes.c_int,
-                                             ctypes.c_longlong, ctypes.c_int,
-                                             _P, _P, ctypes.c_int, _P]
-        lib.villa_scatter_launch.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _build.library(name)
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
 
 
 def _check_pool(name: str, t: torch.Tensor) -> int:
@@ -93,9 +96,9 @@ def villa_gather(pages: torch.Tensor, table, out: torch.Tensor | None = None
     if n == 0:
         return out
     _check_pool("out", out)
-    err = _lib().villa_gather_launch(pages.data_ptr(), out.data_ptr(),
-                                     t.data_ptr(), n, pages.shape[0],
-                                     page_bytes, _stream())
+    err = _lib("page_copy").villa_gather_launch(
+        pages.data_ptr(), out.data_ptr(), t.data_ptr(), n, pages.shape[0],
+        page_bytes, _stream())
     if err:
         raise RuntimeError(f"villa_gather launch failed: cudaError {err}")
     villa_gather.launches += 1
@@ -123,7 +126,7 @@ def villa_scatter(pages: torch.Tensor, table, updates: torch.Tensor
     _check_pool("updates", updates)
     cap = 1 << max(1, (2 * n - 1).bit_length())
     scratch = torch.full((2, cap), -1, dtype=torch.int32, device=pages.device)
-    err = _lib().villa_scatter_launch(
+    err = _lib("page_copy").villa_scatter_launch(
         pages.data_ptr(), updates.data_ptr(), t.data_ptr(), n, pages.shape[0],
         page_bytes, scratch[0].data_ptr(), scratch[1].data_ptr(), cap,
         _stream())
@@ -134,3 +137,31 @@ def villa_scatter(pages: torch.Tensor, table, updates: torch.Tensor
 
 
 villa_scatter.launches = 0
+
+
+def rbm_copy(x: torch.Tensor, *, tile_rows: int = 256, lanes: int = 128
+             ) -> torch.Tensor:
+    """K4: a new tensor of ``x``'s shape and dtype holding every byte of
+    ``x``, copied by one CTA per tile of ``tile_rows * lanes`` elements.
+    ``x`` must be contiguous: a strided view would need a second copy first,
+    which would hide a library copy behind this kernel."""
+    if not x.is_cuda:
+        raise ValueError(f"x must be a CUDA tensor (got {x.device})")
+    check_copy_args(x, tile_rows, lanes)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    nbytes = x.numel() * x.element_size()
+    if nbytes == 0:
+        return out
+    tile_bytes = tile_rows * lanes * x.element_size()
+    if -(-nbytes // tile_bytes) > 2**31 - 1:
+        raise ValueError(f"{nbytes} bytes in tiles of {tile_bytes} exceed "
+                         f"the grid's 2**31 - 1 blocks; use larger tiles")
+    err = _lib("rbm_copy").rbm_copy_launch(x.data_ptr(), out.data_ptr(),
+                                           nbytes, tile_bytes, _stream())
+    if err:
+        raise RuntimeError(f"rbm_copy launch failed: cudaError {err}")
+    rbm_copy.launches += 1
+    return out
+
+
+rbm_copy.launches = 0

@@ -21,6 +21,36 @@ def check_table(table: torch.Tensor, n_pool: int) -> None:
                          f"{table[bad][:8].tolist()}")
 
 
+def check_copy_args(x: torch.Tensor, tile_rows: int, lanes: int) -> None:
+    """Raise on what the tile copy (K4) does not take: a non-contiguous
+    tensor (the reference's arrays have no strides) or a tile that is not
+    positive."""
+    if tile_rows < 1 or lanes < 1:
+        raise ValueError(f"tile_rows and lanes must be >= 1 "
+                         f"(got {tile_rows} x {lanes})")
+    if not x.is_contiguous():
+        raise ValueError(f"rbm_copy takes a contiguous tensor (got shape "
+                         f"{tuple(x.shape)}, strides {x.stride()})")
+
+
+def rbm_copy_ref(x: torch.Tensor, *, tile_rows: int = 256,
+                 lanes: int = 128) -> torch.Tensor:
+    """The reference's steps on tensors: flatten, pad to whole
+    ``(tile_rows, lanes)`` tiles, copy the tiles one by one, unpad."""
+    check_copy_args(x, tile_rows, lanes)
+    flat = x.reshape(-1)
+    n, per_tile = flat.numel(), tile_rows * lanes
+    n_tiles = -(-n // per_tile)
+    pad = n_tiles * per_tile - n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    tiled = flat.view(n_tiles, tile_rows, lanes)
+    out = torch.empty_like(tiled)
+    for i in range(n_tiles):
+        out[i].copy_(tiled[i])
+    return out.reshape(-1)[:n].reshape(x.shape)
+
+
 def villa_gather_ref(pages: torch.Tensor, table: torch.Tensor,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[j] = pages[table[j]]; with ``out`` given, entries of -1 leave

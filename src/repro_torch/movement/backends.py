@@ -8,8 +8,10 @@ adapter from a typed leg to the device work:
   page_gather / page_scatter ->  the CUDA page kernels K2 / K1
                                  (repro_torch.kernels.ops dispatch)
   page_alias                 ->  nothing (host bookkeeping, zero launches)
+  tile_copy                  ->  the CUDA tile copy kernel K4
+                                 (a new tensor; the source is not aliased)
   host_stage                 ->  device <-> host copies across the channel
-  tile_copy, hop_chain       ->  NotImplementedError until their slices
+  hop_chain                  ->  NotImplementedError until its slice
 
 The VILLA tier legs (``tier_read`` / ``tier_write``) are registered by
 :mod:`repro_torch.core.lisa.villa_cache`, which owns the caching policy.
@@ -21,9 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import to_device
 from repro_torch.kernels import ops
 from repro_torch.movement import paging
-from repro_torch.movement.plan import Leg, PackLeg, UnpackLeg
+from repro_torch.movement.plan import Leg, PackLeg, TileCopyLeg, UnpackLeg
 from repro_torch.movement.registry import Env, register_backend
 
 
@@ -90,10 +93,11 @@ def _page_scatter(leg, env: Env) -> Env:
 
 
 @register_backend("tile_copy")
-def _tile_copy(leg: Leg, env: Env) -> Env:
-    raise NotImplementedError(
-        "tile_copy (the rbm_copy kernel, K4) is not ported yet: plan() emits "
-        "it only for device->device transfers, which no serving path issues")
+def _tile_copy(leg: TileCopyLeg, env: Env) -> Env:
+    env = dict(env)
+    env["data"] = ops.rbm_copy(env["data"], tile_rows=leg.tile_rows,
+                               lanes=leg.lanes)
+    return env
 
 
 @register_backend("hop_chain")
@@ -119,8 +123,7 @@ def _host_stage(leg: Leg, env: Env) -> Env:
         env["data"] = [None if t is None else t.detach().cpu().numpy()
                        for t in leaves]
     else:
-        device = env["device"]
         env["data"] = [None if a is None else
-                       torch.as_tensor(np.asarray(a)).to(device)
+                       to_device(np.asarray(a), env["device"])
                        for a in leaves]
     return env

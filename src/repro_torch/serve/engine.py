@@ -1,9 +1,8 @@
 # Port of src/repro/serve/engine.py:64-881 in torch.  Not ported yet:
 # adopt_jits / compile_counts (no jit to share or count), step_unbatched (an
-# A/B-only path), attach_tracer and shared_uids (used by the obs layer and
-# the scheduler, which come with the next slice), and the cluster-facing
-# session_meta / adopt_session / adopt_alias / drop_session / degrade_fast,
-# which arrive with the cluster slice.
+# A/B-only path), and the cluster-facing session_meta / adopt_session /
+# adopt_alias / drop_session / degrade_fast, which arrive with the cluster
+# slice.
 """Continuous-batching decode engine with LISA-VILLA session caching.
 
 The serving data path stays on the device:
@@ -141,6 +140,18 @@ class Engine:
                       "forks": 0, "bytes_not_copied": 0,
                       "modeled_move_ns_lisa": 0.0,
                       "modeled_move_ns_memcpy": 0.0}
+        # observability (repro_torch.obs): fork/CoW/demotion/eviction events
+        # are marked as trace instants when a tracer is attached — host
+        # bookkeeping only, zero device launches
+        self.tracer = None
+        self.trace_lane = 0
+
+    def attach_tracer(self, tracer, lane: Optional[int] = None) -> None:
+        """Attach a :class:`repro_torch.obs.Tracer`; session lifecycle
+        events (fork / demotion / eviction) become instants on ``lane``
+        (default 0, the single-engine scheduler's lane)."""
+        self.tracer = tracer
+        self.trace_lane = lane if lane is not None else 0
 
     def _dev(self, x, dtype=torch.int32) -> torch.Tensor:
         return to_device(x, self.device, dtype)
@@ -320,6 +331,9 @@ class Engine:
         if old in self.forks and self.forks.resolve(old) == idx:
             self.forks.release(old)
         self.stats["evictions"] += 1
+        if self.tracer is not None:
+            self.tracer.instant("evict", lane=self.trace_lane, cat="fork",
+                                attrs={"uid": old, "row": idx})
 
     def _demote_row(self, src: int) -> None:
         """Migrate a SHARED row out of the way: device-clone its pages and
@@ -336,6 +350,12 @@ class Engine:
         self.store_uid[dst] = self.store_uid.pop(src)
         self.stats["demotions"] += 1
         self._charge_move(self.plan_demote)
+        if self.tracer is not None:
+            self.tracer.instant(
+                "cow_demote", lane=self.trace_lane, cat="fork",
+                attrs={"src_row": src, "dst_row": dst,
+                       "ns_lisa": self.plan_demote.cost.ns_lisa,
+                       "ns_memcpy": self.plan_demote.cost.ns_memcpy})
 
     def _own_row(self, uid: int, idx: int) -> None:
         """Post-write bookkeeping: a fresh uid binds its claimed row; any row
@@ -506,6 +526,13 @@ class Engine:
         self._charge_move(fplan)
         self.stats["forks"] += len(child_uids)
         self.stats["bytes_not_copied"] += fplan.cost.bytes
+        if self.tracer is not None:
+            self.tracer.instant(
+                "fork", lane=self.trace_lane, cat="fork",
+                attrs={"parent": parent_uid, "children": len(child_uids),
+                       "bytes_not_copied": fplan.cost.bytes,
+                       "ns_lisa": fplan.cost.ns_lisa,
+                       "ns_memcpy": fplan.cost.ns_memcpy})
 
     def fork(self, parent_uid: int, child_uid: int,
              seed_token: Optional[int] = None) -> None:
@@ -523,11 +550,19 @@ class Engine:
                 raise ValueError(f"uid {uid} is active in slot {slot}")
         self.session_tok[uid] = int(token)
 
+    def shared_uids(self) -> frozenset:
+        """uids whose snapshot row is aliased by at least one other session
+        (host dicts only — no device read).  The scheduler treats these as
+        the worst preemption victims."""
+        return frozenset(u for u, p in self.forks.phys_of.items()
+                         if self.forks.refs[p] > 1)
+
     def fast_resident_uids(self) -> frozenset:
         """uids whose snapshots are resident in the VILLA fast tier (one
         small device->host read of the policy tags)."""
+        tags = self.sessions.policy.tags.cpu().tolist()
         out = set()
-        for t in self.sessions.policy.tags.cpu().tolist():
+        for t in tags:
             if t < 0:
                 continue
             if t in self.forks.refs:

@@ -4,6 +4,7 @@ import ast
 import dataclasses
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -12,6 +13,8 @@ import pytest
 
 from repro import configs as R_cfg
 from repro import movement as R_MV
+from repro import sched as R_sched
+from repro.core.dram import bank as R_bank
 from repro.core.dram import spec as R_spec
 from repro.core.dram.villa import VillaConfig as R_Villa
 from repro.core.lisa import topology as R_topo
@@ -19,6 +22,8 @@ from repro.fork import ForkPageTable as R_Fork
 from repro.models import lm as R_lm
 from repro_torch import configs as P_cfg
 from repro_torch import movement as P_MV
+from repro_torch import sched as P_sched
+from repro_torch.core.dram import bank as P_bank
 from repro_torch.core.dram import spec as P_spec
 from repro_torch.core.dram.villa import VillaConfig as P_Villa
 from repro_torch.core.lisa import topology as P_topo
@@ -28,6 +33,29 @@ from repro_torch.models import lm as P_lm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+REF = ROOT / "src" / "repro"
+
+# modules the port holds as copies of the reference: the text after the
+# two-line header is the reference's, with ``repro`` renamed ``repro_torch``
+COPIES = ["configs/__init__.py", "configs/base.py",
+          "configs/deepseek_v2_236b.py", "configs/gemma3_27b.py",
+          "configs/gemma_7b.py", "configs/jamba_v01_52b.py",
+          "configs/olmoe_1b_7b.py", "configs/qwen15_110b.py",
+          "configs/qwen2_vl_72b.py", "configs/rwkv6_7b.py",
+          "configs/seamless_m4t_medium.py", "configs/tinyllama_11b.py",
+          "core/dram/bank.py", "core/dram/spec.py", "core/lisa/topology.py",
+          "fork/__init__.py", "fork/table.py", "movement/plan.py",
+          "obs/__init__.py", "obs/export.py", "obs/tracer.py",
+          "sched/metrics.py", "sched/policy.py", "sched/queue.py",
+          "sched/workload.py"]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_is_the_reference_module(rel):
+    port = (PORT / rel).read_text().split("\n")
+    assert port[0].startswith(f"# Port of src/repro/{rel}: a copy")
+    want = re.sub(r"\brepro(?=[. ])", "repro_torch", (REF / rel).read_text())
+    assert "\n".join(port[2:]) == want
 
 
 @pytest.mark.parametrize("name", R_cfg.ARCH_NAMES)
@@ -142,6 +170,37 @@ def test_fork_table_equal_on_a_random_stream():
         p.check_conserved()
 
 
+def test_bank_multiplexer_equal_on_a_random_stream():
+    rng = np.random.default_rng(3)
+    r = R_bank.RequestMultiplexer(R_spec.DDR3_1600, n_banks=4)
+    p = P_bank.RequestMultiplexer(P_spec.DDR3_1600, n_banks=4)
+    t = 0.0
+    for _ in range(400):
+        t += float(rng.exponential(2000.0))
+        uid, svc = int(rng.integers(0, 64)), float(rng.uniform(50, 5000))
+        assert p.bank_of(uid) == r.bank_of(uid)
+        assert (p.submit(p.bank_of(uid), t, svc)
+                == r.submit(r.bank_of(uid), t, svc))
+        assert p.decode_gate(t) == r.decode_gate(t)
+    assert p.snapshot() == r.snapshot()
+
+
+@pytest.mark.parametrize("arrival", ["poisson", "bursty"])
+def test_workload_equal(arrival):
+    kw = dict(n_fresh=8, n_followups=28, arrival=arrival, zipf_s=1.8)
+    r = R_sched.generate_workload(R_sched.WorkloadConfig(**kw), seed=4,
+                                  vocab_size=32000)
+    p = P_sched.generate_workload(P_sched.WorkloadConfig(**kw), seed=4,
+                                  vocab_size=32000)
+    assert len(p) == len(r)
+    for a, b in zip(p, r):
+        assert a[:6] == b[:6]
+        assert (a.prompt is None) == (b.prompt is None)
+        if a.prompt is not None:
+            np.testing.assert_array_equal(a.prompt, b.prompt)
+    assert P_sched.policies() == R_sched.policies()
+
+
 def _port_modules():
     for path in sorted(PORT.rglob("*.py")):
         rel = path.relative_to(PORT.parent).with_suffix("")
@@ -154,6 +213,9 @@ def _port_modules():
 def test_port_imports_without_jax():
     """Every module of the port imports with ``jax`` made unimportable."""
     mods = list(_port_modules())
+    assert {"repro_torch.sched.scheduler", "repro_torch.launch.serve",
+            "repro_torch.obs.tracer", "repro_torch.core.dram.bank",
+            "repro_torch.kernels.rbm_copy"} <= set(mods)
     code = ("import sys, importlib; sys.modules['jax'] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'repro' "

@@ -109,3 +109,74 @@ def test_engine_on_card_matches_cpu(dev):
                     e.sessions.policy.tags.cpu().tolist(),
                     e.verify_failure_count(), int(e.verify_store())))
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("shape,dt", [
+    ((1000, 333), torch.float32), ((7, 129, 65), torch.bfloat16),
+    ((4096,), torch.int32), ((256, 128), torch.int8), ((13,), torch.uint8),
+    ((0,), torch.float32), ((3, 5, 7), torch.bool),
+])
+def test_rbm_copy_bit_exact(dev, shape, dt):
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(shape, device=dev, generator=g).mul(60).to(dt)
+    n = ops.KERNELS["rbm_copy"].launches
+    got = ops.rbm_copy(x, tile_rows=64)
+    want = ref.rbm_copy_ref(x, tile_rows=64)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == x.dtype
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(got.view(torch.uint8), x.view(torch.uint8))
+    assert ops.KERNELS["rbm_copy"].launches == n + (x.numel() > 0)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 16])
+def test_rbm_copy_of_a_misaligned_view(dev, offset):
+    """A view with a storage offset: the source is not 16-byte aligned
+    (or not at the destination's alignment), so the kernel's byte path
+    copies it."""
+    base = torch.randint(0, 256, (100_003,), dtype=torch.uint8, device=dev)
+    x = base[offset:]
+    got = ops.rbm_copy(x, tile_rows=3, lanes=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.rbm_copy_ref(x, tile_rows=3, lanes=128))
+    assert got.data_ptr() % 16 == 0
+
+
+def test_tile_copy_leg_on_card(dev):
+    from repro_torch import movement as MV
+
+    x = torch.randn((37, 129), device=dev)
+    p = MV.plan(MV.Transfer(MV.Tier("device"), MV.Tier("device"),
+                            MV.Layout.dense(x.shape, np.float32)))
+    out = MV.execute(p, data=x)["data"]
+    torch.cuda.synchronize()
+    assert torch.equal(out, x) and out.data_ptr() != x.data_ptr()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rbm_copy(x.t())
+
+
+def test_scheduler_on_card_matches_cpu(dev):
+    """The scheduler reads fast-tier residency while the decode it issued
+    is in flight: its decisions on the card equal those on the CPU."""
+    import dataclasses
+
+    from repro_torch import sched
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_reduced("tinyllama-1.1b")
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    wl = sched.WorkloadConfig(n_fresh=8, n_followups=20, arrival="bursty",
+                              burst=4, zipf_s=1.8, mean_gap_ns=1600.0)
+    arrivals = sched.generate_workload(wl, seed=4, vocab_size=cfg.vocab_size)
+    out = []
+    for d in ("cpu", dev):
+        eng = Engine(cfg, params, slots=4, max_len=96, device=d,
+                     n_sessions=sched.n_sessions_for(wl))
+        s = sched.Scheduler(eng, policy="cost_aware", arrivals=arrivals)
+        summary = s.run()
+        out.append(([dataclasses.astuple(x) for x in s.metrics.decisions],
+                    summary, dict(eng.stats), eng.session_tok,
+                    eng.verify_failure_count()))
+    assert out[0] == out[1]
