@@ -8,9 +8,12 @@ nvcc (sm_90a), then:
 
   1. device   — requires CUDA; prints the card's name and power limit;
   2. kernels  — holds each kernel against its plain PyTorch version on the
-                card at the shapes of phases 3 and 5 (page gather/scatter
-                and the tile copy bit-exact, attention within 3e-5 in f32,
-                at max_len 1024 and at the launcher's 256), the tile copy
+                card at the shapes of phases 3, 5 and 6 (page gather/scatter
+                and the tile copy bit-exact, attention within 3e-5 in f32
+                and 2e-2 in bf16, at max_len 1024 and at the launcher's 256,
+                and at gemma3's: a 1500-token prefill with window 1024 and
+                without, decode over 1024-slot rings whose positions have
+                wrapped and over the 2048-slot global cache), the tile copy
                 also on odd shapes, dtypes and sizes, and times kernel,
                 plain version and one library call for the same function;
   3. serving  — full-width tinyllama-1.1b (random weights from a seed)
@@ -33,7 +36,19 @@ nvcc (sm_90a), then:
                 the stats and the resume waves add up, no resume fails its
                 checksums, each kernel's counter (reset before each run)
                 equals what the run's stats call for, K4 is not launched,
-                and the trace parses as Chrome trace JSON.
+                and the trace parses as Chrome trace JSON;
+  6. gemma3   — full-width gemma3-27b cut to 14 layers (f32, 28.8 GB of
+                random weights from a seed: the 62 layers, 108 GB, do not
+                fit), sliding-window layers with 1024-slot ring caches:
+                the Engine (4 slots, max_len 2048, prompts of 96-1500
+                tokens, a suspend and a resume wave of the two longest;
+                tokens must equal an uninterrupted run, no resume may fail
+                its checksums, the stats must add up, each launch counter
+                must equal what the stats call for), its numbers and a
+                decode profile, then the Scheduler over a fresh Engine with
+                prompts past the window (every job completes, resumes equal
+                the resume waves' widths, the counters add up, K4 is not
+                launched).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; any
 failure exits non-zero before it.  Imports torch, numpy and repro_torch only.
@@ -42,6 +57,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -55,6 +71,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 SLOTS, MAX_LEN, N_SESSIONS, SEED = 8, 1024, 32, 0
 SERVE_LEN = 256                  # the launcher's --max-len in phase 5
+# phase 6: gemma3-27b at full width, cut to 14 layers (two 6-layer periods
+# and the 2-layer local tail, so both stages run): 7.19 B f32 parameters,
+# 28.8 GB, where all 62 layers (27.0 B, 108 GB) do not fit in 80 GB
+G_LAYERS, G_SLOTS, G_MAX_LEN, G_SESSIONS = 14, 4, 2048, 16
+G_PROMPTS, G_MAX_NEW, G_FIRST = (96, 700, 1010, 1500), 48, 24
+G_SCHED_LENS = (300, 1100)       # the Scheduler run's prompt lengths
 
 
 class SmokeFailure(RuntimeError):
@@ -117,9 +139,13 @@ def main() -> int:
     print(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name in sorted(built):
         log = (_build.BUILD_DIR / f"{name}.log").read_text()
+        entry = ""
         for line in log.splitlines():
+            m = re.search(r"entry function '([^']+)'", line)
+            if m:
+                entry = kernel_name(m.group(1))
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+                print(f"  ptxas {name} {entry}: {line.strip()}")
 
     cfg = get_config("tinyllama-1.1b")
     spec = paging.PageSpec.for_cache(lm.init_cache(cfg, 1, MAX_LEN,
@@ -245,30 +271,26 @@ def main() -> int:
     print(f"attention bf16 prefill 64: max_abs_err {attn_err(bf, 2e-2)[0]:.3g}")
 
     dec = attn_case(SLOTS, 1, MAX_LEN, dlens)
-    q, k, v, qp, kp, lens = dec
+    q, k, v, qp, kp, _ = dec
     sdpa_mask = (kp[:, None, None, :] <= qp[:, None, :, None])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = lambda: sdpa(qt, kt, vt, attn_mask=sdpa_mask,  # noqa: E731
                            enable_gqa=True)
-    pairs = sum(lens)                            # valid (query, key) pairs
-    a_bytes = 4 * (2 * q.numel() + qp.numel() + kp.numel()
-                   + 2 * sum(n * K * D for n in lens))
-    a_flops = 4 * H * D * pairs
+    bound, by = attention_bound(q, k, qp, kp, 0)
     rows["flash_attention"] = dict(
         ms=timed(lambda: ops.chunked_attention(q, k, v, qp, kp), flush=flush),
         plain_ms=timed(lambda: ref.chunked_attention_ref(q, k, v, qp, kp),
                        flush=flush),
         library_ms=timed(library, flush=flush),
-        bound_ms=max(a_bytes / HBM_BYTES_PER_S, a_flops / F32_FLOP_PER_S) * 1e3,
-        bound_by=("bytes" if a_bytes / HBM_BYTES_PER_S
-                  >= a_flops / F32_FLOP_PER_S else "operations"),
-        max_abs_err=max(errs))
+        bound_ms=bound, bound_by=by, max_abs_err=max(errs))
     for bucket in (16, 64, 256, 512):
         pq, pk, pv, pqp, pkp, _ = attn_case(1, bucket, bucket, [bucket])
         ms = timed(lambda: ops.chunked_attention(pq, pk, pv, pqp, pkp))
         print(f"attention prefill bucket {bucket} (full): kernel {ms:.4f} ms "
               f"[{tag}]")
+    rows["flash_attention_window"] = window_attention_rows(dev, gen, flush,
+                                                           tag)
 
     # K4 at the tile_copy path's shape: one K leaf of the serving cache
     leaf = torch.randn((cfg.n_layers, SLOTS, MAX_LEN, K, D), device=dev,
@@ -427,19 +449,32 @@ def main() -> int:
         for name, n in run.items():
             counts[name] += n
 
+    # ---- phase 6: gemma3-27b through the Engine and the Scheduler --------
+    del params
+    torch.cuda.empty_cache()
+    g3 = gemma3_phase(tag)
+    for name in ("villa_scatter", "villa_gather", "rbm_copy"):
+        counts[name] += g3[name]
+    counts["flash_attention_window"] = g3["flash_attention"]
+
     replaces = {
         "villa_scatter": "src/repro/kernels/rbm_copy.py:93",
         "villa_gather": "src/repro/kernels/rbm_copy.py:58",
         "flash_attention": "src/repro/kernels/flash_attention.py:81",
+        "flash_attention_window": "src/repro/kernels/flash_attention.py:81",
         "rbm_copy": "src/repro/kernels/rbm_copy.py:27"}
     sources = {"villa_scatter": "src/repro_torch/kernels/csrc/page_copy.cu",
                "villa_gather": "src/repro_torch/kernels/csrc/page_copy.cu",
                "flash_attention":
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "flash_attention_window":
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
                "rbm_copy": "src/repro_torch/kernels/csrc/rbm_copy.cu"}
+    # flash_attention counts K3 on the tinyllama paths (phases 3 and 5),
+    # flash_attention_window the same kernel on gemma3's (phase 6)
     kernels = []
     for name in ("villa_scatter", "villa_gather", "flash_attention",
-                 "rbm_copy"):
+                 "flash_attention_window", "rbm_copy"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],
@@ -448,6 +483,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+        if "shapes" in r:
+            kernels[-1]["shapes"] = r["shapes"]
         print(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
@@ -458,6 +495,282 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def attention_bound(q, k, q_pos, kv_pos, window):
+    """(ms, "bytes" or "operations") of the least time the card could take
+    for this attention: q read and the output written once, positions read
+    once, the K/V rows that some query of their batch row attends read
+    once; 4*H*D FLOP per valid (query, key) pair, at the f32 peak."""
+    qp, kp = q_pos.cpu().numpy(), kv_pos.cpu().numpy()
+    valid = kp[:, None, :] <= qp[:, :, None]
+    if window > 0:
+        valid &= kp[:, None, :] > qp[:, :, None] - window
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    nbytes = (q.element_size() * (2 * q.numel()
+                                  + 2 * int(valid.any(1).sum()) * K * D)
+              + 4 * (qp.size + kp.size))
+    flops = 4 * H * D * int(valid.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def window_attention_rows(dev, gen, flush, tag) -> dict:
+    """Phase 2 at gemma3-27b's attention shapes (32 q / 16 kv heads, head
+    dim 128, window 1024), which phase 6 launches: K3 against its plain
+    version within 3e-5 in f32 and 2e-2 in bf16 for a 1500-token prefill
+    (local, window 1024, and global), a ragged decode of 4 rows over 1024-
+    slot rings whose positions have wrapped (slot t % 1024 holds token t),
+    and over the 2048-slot global cache; each f32 shape timed beside its
+    plain version, SDPA with the boolean (window) mask and its bound.
+    Returns the ``kernels`` entry: the ring decode's numbers (12 of the 14
+    layers launch it every decode step) and every shape's in ``shapes``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+
+    cfg = get_config("gemma3-27b")
+    H, K, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    ends = np.array(G_PROMPTS) + G_MAX_NEW - 1   # the last decode's positions
+    B, P = len(ends), max(G_PROMPTS)
+    prefill = np.arange(P, dtype=np.int32)[None]
+    ring = np.full((B, W), 2**30, np.int32)
+    glob = np.full((B, G_MAX_LEN), 2**30, np.int32)
+    for b, n in enumerate(ends):
+        t = np.arange(max(0, n - W + 1), n + 1)
+        ring[b, t % W] = t
+        glob[b, :n + 1] = np.arange(n + 1)
+    wrapped = [b for b in range(B) if ends[b] >= W and (ends[b] + 1) % W]
+    check(wrapped and all((np.diff(ring[b]) < 0).any() for b in wrapped),
+          "the ring positions did not wrap")
+    shapes = {  # name: (q_pos, kv_pos, window, check bf16 too)
+        "prefill_local": (prefill, prefill, W, True),
+        "prefill_global": (prefill, prefill, 0, False),
+        "decode_ring": (ends[:, None].astype(np.int32), ring, W, True),
+        "decode_global": (ends[:, None].astype(np.int32), glob, 0, False),
+        "decode_global_windowed": (ends[:, None].astype(np.int32), glob, W,
+                                   False)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, (qp_np, kp_np, window, bf16) in shapes.items():
+        nb, S = qp_np.shape
+        T = kp_np.shape[1]
+        qp = torch.from_numpy(qp_np).to(dev)
+        kp = torch.from_numpy(kp_np).to(dev)
+        q = torch.randn((nb, S, H, D), device=dev, generator=gen)
+        k = torch.randn((nb, T, K, D), device=dev, generator=gen)
+        v = torch.randn((nb, T, K, D), device=dev, generator=gen)
+        errs = {}
+        for dt, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
+            if dt == torch.bfloat16 and not bf16:
+                continue
+            args = (q.to(dt), k.to(dt), v.to(dt), qp, kp)
+            got = ops.chunked_attention(*args, window=window)
+            want = ref.chunked_attention_ref(*args, window=window)
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= tol, f"attention {name} window {window} {dt}: "
+                              f"error {err} > {tol}")
+            errs[str(dt).removeprefix("torch.")] = err
+        print(f"attention {name} S={S} T={T} B={nb} window {window}: "
+              f"max_abs_err {errs}")
+        if name == "decode_global_windowed":
+            continue                  # a check only: no layer launches it
+        mask = kp[:, None, None, :] <= qp[:, None, :, None]
+        if window > 0:
+            mask &= kp[:, None, None, :] > qp[:, None, :, None] - window
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        bound, by = attention_bound(q, k, qp, kp, window)
+        out[name] = dict(
+            ms=timed(lambda: ops.chunked_attention(q, k, v, qp, kp,
+                                                   window=window),
+                     flush=flush),
+            plain_ms=timed(lambda: ref.chunked_attention_ref(
+                q, k, v, qp, kp, window=window), flush=flush),
+            library_ms=timed(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                          enable_gqa=True), flush=flush),
+            bound_ms=bound, bound_by=by, max_abs_err=errs["float32"],
+            max_abs_err_bf16=errs.get("bfloat16"))
+        r = out[name]
+        print(f"attention {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}) [{tag}]")
+    row = {k: v for k, v in out["decode_ring"].items()
+           if k != "max_abs_err_bf16"}
+    row["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
+    row["shapes"] = out
+    return row
+
+
+def gemma3_phase(tag) -> dict:
+    """Phase 6: full-width gemma3-27b cut to G_LAYERS layers (f32, random
+    weights from a CUDA generator) served through the Engine (a suspend and
+    a resume wave of ring caches; tokens must equal an uninterrupted run)
+    and through the Scheduler (prompts past the window).  Returns the
+    launch counts of both runs, summed; each run's counts, reset just
+    before it, must equal what its stats call for."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import sched
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request
+
+    dev = torch.device("cuda")
+    full = get_config("gemma3-27b")
+    cfg = dataclasses.replace(full, n_layers=G_LAYERS)
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"gemma3-27b: {n_params} f32 parameters ({4 * n_params / 1e9:.1f} "
+          f"GB) in {time.perf_counter() - t0:.1f} s; {G_LAYERS} of "
+          f"{full.n_layers} layers, stages (reps, group size) "
+          f"{[(r, len(g)) for r, g in lm.stages_of(cfg)]}: at full "
+          f"depth the f32 weights ({4 * param_count(full) / 1e9:.0f} GB) do "
+          f"not fit in the card's memory, and {G_LAYERS} layers run both "
+          f"stages (the 5:1 local/global periods and the local tail)")
+    rng = np.random.default_rng(SEED + 6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in G_PROMPTS]
+    kw = dict(slots=G_SLOTS, max_len=G_MAX_LEN, n_sessions=G_SESSIONS,
+              device=dev)
+
+    solo = Engine(cfg, params, **kw)
+    solo_reqs = [Request(uid, p, G_MAX_NEW) for uid, p in enumerate(prompts)]
+    for r in solo_reqs:
+        solo.submit(r)
+    while solo.active:
+        solo.step()
+    solo.resume_many([0, 1], 2)      # warm the resume path before timing it
+    while solo.active:
+        solo.step()
+    del solo
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    eng = Engine(cfg, params, **kw)
+    lengths = sorted({lm.cache_len(cfg, m, G_MAX_LEN)
+                      for m in cfg.layer_kinds()})
+    print(f"gemma3 snapshot: {eng.snapshot_bytes} B = {eng.page_spec.n_pages}"
+          f" pages; cache lengths {lengths}")
+    reqs = [Request(uid, p, G_MAX_NEW) for uid, p in enumerate(prompts)]
+    prefill_ms = {}
+    for r in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.submit(r)                        # ends in the next-token read
+        prefill_ms[len(r.prompt)] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(G_FIRST):
+        eng.step()
+    decode_s = time.perf_counter() - t0
+    # the two longest prompts: one rolled at prefill, one crossing the
+    # window in decode
+    wave = sorted(eng.active, key=lambda s: len(eng.active[s].prompt))[-2:]
+    held = {s: eng.active[s] for s in wave}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.suspend_many(wave)
+    torch.cuda.synchronize()
+    suspend_s = time.perf_counter() - t0
+    uids = [held[s].uid for s in wave]
+    extra = [G_MAX_NEW - len(held[s].generated) + 1 for s in wave]
+    t0 = time.perf_counter()
+    slots = eng.resume_many(uids, extra)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resumed = {eng.active[s].uid: eng.active[s] for s in slots}
+    while eng.active:
+        eng.step()
+    counts = ops.launch_counts()
+
+    for r, s in zip(reqs, solo_reqs):
+        got = (r.generated + resumed[r.uid].generated[1:]
+               if r.uid in resumed else r.generated)
+        check(len(s.generated) == G_MAX_NEW and got == s.generated,
+              f"gemma3 uid {r.uid}: tokens differ from the uninterrupted run")
+    check(eng.verify_failure_count() == 0,
+          "gemma3: a resume failed its checksums")
+    check(int(eng.verify_store()) == 0, "gemma3: the store fails its scrub")
+    st = eng.stats
+    n_susp, n_res = len(wave) + len(reqs), len(wave)
+    check(st["prefills"] == len(reqs) and st["suspends"] == n_susp
+          and st["resumes"] == n_res, f"gemma3 stats counts: {st}")
+    check(st["decoded_tokens"] == len(reqs) * (G_MAX_NEW - 1),
+          f"gemma3 decoded_tokens {st['decoded_tokens']}")
+    check(st["decode_dispatches"] == st["host_transfers"], "one read a step")
+    want = (n_susp * eng.plan_suspend.cost.ns_lisa
+            + n_res * eng.plan_resume.cost.ns_lisa)
+    check(math.isclose(st["modeled_move_ns_lisa"], want, rel_tol=1e-9),
+          "gemma3: modeled movement does not add up")
+    check_counts(counts, serving_launches(cfg, st), "gemma3's Engine path")
+    print(f"gemma3 serving: tokens match the uninterrupted run for all "
+          f"{len(reqs)} requests ({len(wave)} suspended+resumed); launches "
+          f"{json.dumps(counts)}; stats {json.dumps(st)}")
+    snap = eng.snapshot_bytes
+    print(f"gemma3 decode: {G_FIRST} steps x {G_SLOTS} slots, "
+          f"{decode_s / G_FIRST * 1e3:.3f} ms/step, "
+          f"{G_FIRST * G_SLOTS / decode_s:.1f} tok/s [{tag}]")
+    for n, ms in prefill_ms.items():
+        print(f"gemma3 prefill {n} tokens: {ms:.3f} ms [{tag}]")
+    print(f"gemma3 suspend wave of {len(wave)}: {suspend_s * 1e3:.3f} ms, "
+          f"{len(wave) * snap / suspend_s / 1e9:.2f} GB/s [{tag}]")
+    print(f"gemma3 resume wave of {len(wave)}: {resume_s * 1e3:.3f} ms, "
+          f"{len(wave) * snap / resume_s / 1e9:.2f} GB/s [{tag}]")
+    profile_decode(eng, tag, label="gemma3 profile")
+    del eng
+    torch.cuda.empty_cache()
+
+    # the Scheduler over a fresh Engine, prompts on both sides of the window
+    wl = sched.WorkloadConfig(n_fresh=6, n_followups=12, arrival="bursty",
+                              prompt_lens=G_SCHED_LENS, new_tokens=(8, 16))
+    arrivals = sched.generate_workload(wl, seed=4, vocab_size=cfg.vocab_size)
+    eng = Engine(cfg, params, slots=G_SLOTS, max_len=G_MAX_LEN,
+                 n_sessions=sched.n_sessions_for(wl), device=dev)
+    ops.reset_launch_counts()
+    s = sched.Scheduler(eng, policy="cost_aware", arrivals=arrivals)
+    t0 = time.perf_counter()
+    summary = s.run()
+    torch.cuda.synchronize()
+    sched_s = time.perf_counter() - t0
+    sched_counts = ops.launch_counts()
+    st = eng.stats
+    check(summary["jobs_completed"] == 18
+          and all(j.state == "done" for j in s.jobs()),
+          "gemma3 scheduler: not every job completed")
+    check(st["resumes"] == sum(s.metrics.wave_widths("resume_wave")),
+          "gemma3 scheduler: resumes outside the resume waves")
+    check(st["decode_dispatches"] == st["host_transfers"],
+          "gemma3 scheduler: not one host read per decode dispatch")
+    check(eng.verify_failure_count() == 0,
+          "gemma3 scheduler: a resume failed its checksums")
+    check_counts(sched_counts, serving_launches(cfg, st), "gemma3 scheduler")
+    print(f"gemma3 scheduler: {summary['jobs_completed']} jobs, "
+          f"{st['decoded_tokens']} tokens in {s.tick_count} ticks, "
+          f"{sched_s:.3f} s, {st['decoded_tokens'] / sched_s:.1f} tok/s, "
+          f"{st['prefills']} prefills, {st['suspends']} suspends, "
+          f"{st['resumes']} resumes, launches {json.dumps(sched_counts)} "
+          f"[{tag}]")
+    del eng, s, params
+    torch.cuda.empty_cache()
+    return {name: counts[name] + sched_counts[name] for name in counts}
+
+
+def kernel_name(mangled: str) -> str:
+    """The kernel part of a mangled entry name, its namespace dropped:
+    ``attn_kernelIfLi128E`` is ``attn_kernel<float, 128>``,
+    ``attn_kernelI13__nv_bfloat16Li64E`` the bf16 one at head_dim 64."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    s = mangled[m.end() + int(m.group(1)):] if m else mangled
+    return re.sub(r"E(Ev|v|P).*$", "", re.sub(r"^\d+", "", s))
 
 
 def bit_equal(a, b) -> bool:
@@ -543,8 +856,8 @@ def serve_runs(tag):
             yield counts
 
 
-def profile_decode(eng, tag, steps=4):
-    """Device time by kernel over a few decode steps of all 8 sessions
+def profile_decode(eng, tag, steps=4, label="profile"):
+    """Device time by kernel over a few decode steps of every slot
     (torch.profiler), and the device's busy share of the host window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -571,11 +884,11 @@ def profile_decode(eng, tag, steps=4):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
-    print(f"profile: {steps} decode steps, host window {wall_ms:.3f} ms, "
+    print(f"{label}: {steps} decode steps, host window {wall_ms:.3f} ms, "
           f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
           f"{launches / steps:.0f} kernels/step [{tag}]")
     for ms, n, key in rows[:10]:
-        print(f"  profile kernel {ms / steps:.4f} ms/step, {n} launches: "
+        print(f"  {label} kernel {ms / steps:.4f} ms/step, {n} launches: "
               f"{key[:80]}")
     while eng.active:
         eng.step()

@@ -5,17 +5,19 @@
 // chunked_attention, which is what the serving model runs: q (B,S,H,D),
 // k/v (B,T,K,D) with H = K*G, per-row positions q_pos (B,S) and
 // kv_pos (B,T) (empty cache slots carry 2**30), key t valid for query s iff
-// kv_pos[t] <= q_pos[s] when causal.  Running max, sum and accumulator are
-// f32; a masked score is -1e30 and the sum is floored at 1e-30, so a row
-// with no valid key gives 0.  Sliding windows, int8 scales and Dv != Dk are
-// later slices' work (the wrapper raises on them).
+// kv_pos[t] <= q_pos[s] when causal and, with a sliding window W > 0, also
+// kv_pos[t] > q_pos[s] - W.  Running max, sum and accumulator are f32; a
+// masked score is -1e30 and the sum is floored at 1e-30, so a row with no
+// valid key gives 0.  Not taken yet: int8 scales (no entry), and, raising
+// in the wrapper, Dv != Dk (MLA) and head_dim outside 16/32/64/128
+// (gemma-7b's 256); ROADMAP Queue 2 lists them under K3.
 //
 // Bound on the H100: at the serving shapes, bytes.  Decode (S = 1) reads
 // each valid K/V row once for 2*G*D FMAs per key and head group: 8 FLOP per
-// 4-byte element at G = 8, far below the 67 TFLOP/s f32 / 3.35 TB/s = 20
-// FLOP/byte ridge.  Long prefill buckets cross the ridge and become bound by
-// f32 FMA throughput, since this kernel keeps IEEE f32 arithmetic (no TF32:
-// the reference's bar is 3e-5).
+// 4-byte element at G = 8 (tinyllama; 2 at gemma3's G = 2), far below the
+// 67 TFLOP/s f32 / 3.35 TB/s = 20 FLOP/byte ridge.  Long prefills cross the
+// ridge and become bound by f32 FMA throughput, since this kernel keeps IEEE
+// f32 arithmetic (no TF32: the reference's bar is 3e-5).
 //
 // Design (FA2-style, CUDA cores): one CTA per (batch, kv head, block of
 // query positions) holds all G query heads of that kv head, so the GQA
@@ -23,12 +25,18 @@
 // owns kRows = 64 (query, head) rows and loops over KV tiles of kBK = 32 keys
 // staged in shared memory; each warp owns 16 rows and keeps their running
 // max and sum in registers, one lane per key of the tile.  A tile is skipped
-// only when every key in it is masked for every row of the CTA (no key has
-// kv_pos <= the largest q_pos of the CTA), so a row with no valid key still
-// gives 0.  expf is the accurate one (no fast math).
+// only when every key in it is masked for every row of the CTA: no key has
+// kv_pos <= qmax, the largest q_pos of the CTA's rows, or (window W > 0) no
+// key has kv_pos > qmin - W, with qmin the smallest.  The masks come from the
+// staged kv_pos of each key, never from its slot index, because a ring cache
+// (attn_local) holds token t in slot t % W: positions do not grow with the
+// slot.  Window comparisons run in 64 bits (q_pos - W may not fit in int).
+// A row with no valid key still gives 0.  expf is the accurate one (no fast
+// math).
 //
-// Later work: split-KV for decode (B*K CTAs under-fill 132 SMs), wgmma for
-// bf16, TMA loads of the tiles.
+// Later work: split-KV for decode (B*K CTAs under-fill 132 SMs, and at
+// gemma3's G = 2 a decode CTA computes 64 rows for the 2 it keeps), wgmma
+// for bf16, TMA loads of the tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -68,7 +76,7 @@ __global__ void __launch_bounds__(kThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const int* __restrict__ q_pos,
             const int* __restrict__ kv_pos, T* __restrict__ out, int S, int T_,
-            int H, int K, int G, int BQ, int causal, float scale) {
+            int H, int K, int G, int BQ, int causal, int window, float scale) {
   constexpr int QS = D + 1;                 // padded row strides
   constexpr int PS = kBK + 1;
   constexpr int DG = D / 8;                 // 8 dims per thread in PV
@@ -84,14 +92,14 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* l_s = corr_s + kRows;              // [kRows]
   int* qpos_s = reinterpret_cast<int*>(l_s + kRows);   // [kRows]
   int* kvpos_s = qpos_s + kRows;                      // [kBK]
-  __shared__ int qmax;
+  __shared__ int qmax, qmin;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int qb = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int rows = BQ * G;                  // rows this CTA uses (<= kRows)
 
-  if (tid == 0) qmax = INT_MIN;
+  if (tid == 0) { qmax = INT_MIN; qmin = INT_MAX; }
   __syncthreads();
   for (int idx = tid; idx < kRows * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
@@ -109,7 +117,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool ok = tid < rows && s < S;
     const int p = ok ? q_pos[static_cast<long long>(b) * S + s] : INT_MIN;
     qpos_s[tid] = p;
-    if (ok) atomicMax(&qmax, p);
+    if (ok) { atomicMax(&qmax, p); atomicMin(&qmin, p); }
   }
   __syncthreads();
 
@@ -134,7 +142,10 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = t0 + tid;
       const int p = col < T_ ? kv_pos[kv_base + col] : INT_MAX;
       kvpos_s[tid] = p;
-      live = col < T_ && (!causal || p <= qmax);
+      live = col < T_ && (!causal || p <= qmax) &&
+             (window <= 0 ||
+              static_cast<long long>(p) >
+                  static_cast<long long>(qmin) - window);
     }
     if (!__syncthreads_or(live)) continue;  // every key masked for every row
 
@@ -185,7 +196,10 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = warp * 16 + i;
         const int qp = qpos_s[r];
         const bool valid = col < T_ && r < rows && qp != INT_MIN &&
-                           (!causal || kp <= qp);
+                           (!causal || kp <= qp) &&
+                           (window <= 0 ||
+                            static_cast<long long>(kp) >
+                                static_cast<long long>(qp) - window);
         const float s = valid ? Ps[r * PS + lane] : kNegInf;
         const float m_new = fmaxf(m_r[i], warp_max(s));
         const float p = valid ? expf(s - m_new) : 0.f;
@@ -247,7 +261,7 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
            const int* kv_pos, void* out, int B, int S, int T_, int H, int K,
-           int causal, float scale, cudaStream_t stream) {
+           int causal, int window, float scale, cudaStream_t stream) {
   const int G = H / K;
   const int BQ = kRows / G;
   const size_t smem = smem_bytes<D>();
@@ -259,7 +273,7 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
   attn_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), S, T_, H,
-      K, G, BQ, causal, scale);
+      K, G, BQ, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -272,7 +286,8 @@ extern "C" {
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            const int* q_pos, const int* kv_pos, void* out,
                            int B, int S, int T_, int H, int K, int D,
-                           int causal, float scale, int dtype, void* stream) {
+                           int causal, int window, float scale, int dtype,
+                           void* stream) {
   if (B == 0 || S == 0) return 0;
   if (K <= 0 || H % K != 0 || H / K > kRows) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -280,9 +295,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (D == DD) {                                                            \
     return dtype == 0                                                       \
                ? launch<float, DD>(q, k, v, q_pos, kv_pos, out, B, S, T_, H, \
-                                   K, causal, scale, s)                     \
+                                   K, causal, window, scale, s)             \
                : launch<__nv_bfloat16, DD>(q, k, v, q_pos, kv_pos, out, B, S, \
-                                           T_, H, K, causal, scale, s);     \
+                                           T_, H, K, causal, window, scale, \
+                                           s);                              \
   }
   DISPATCH(16)
   DISPATCH(32)

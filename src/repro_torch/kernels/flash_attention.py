@@ -9,9 +9,11 @@ tensors in the serving model's layout — q (B,S,H,D), k/v (B,T,K,D), per-row
 positions — checks device, dtype, contiguity and shape, launches on
 ``torch.cuda.current_stream()``, allocates its output with ``torch.empty``,
 raises if the launch reports an error, and counts its launches in
-``chunked_attention.launches``.  It raises ``NotImplementedError`` on what
-this slice does not port: a sliding window and Dv != Dk (int8 K/V, whose
-scales the reference passes here, has no entry yet).
+``chunked_attention.launches``.  It takes the reference's causal and
+sliding-window masks (``window > 0``, the ``attn_local`` layers).  It raises
+``NotImplementedError`` on Dv != Dk (MLA) and ``ValueError`` on a head_dim
+outside 16/32/64/128 (gemma-7b's 256): ROADMAP Queue 2 lists both under K3.
+int8 K/V, whose scales the reference passes here, has no entry yet.
 CPU tensors never reach it: :mod:`repro_torch.kernels.ops` routes them to the
 plain chunked twin.
 
@@ -38,7 +40,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library("flash_attention")
         lib.flash_attention_launch.argtypes = (
-            [_P] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, _P])
+            [_P] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, _P])
         lib.flash_attention_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -48,11 +50,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                       causal: bool = True, window: int = 0) -> torch.Tensor:
     """K3 on the card.  q: (B,S,H,D), k/v: (B,T,K,D), q_pos (B,S) and
-    kv_pos (B,T) int32; returns (B,S,H,D) in q's dtype."""
-    if window > 0:
-        raise NotImplementedError(
-            "the attention kernel takes window=0; sliding windows arrive "
-            "with the attn_local slice")
+    kv_pos (B,T) int32; key t is valid for query s iff kv_pos <= q_pos
+    (causal) and kv_pos > q_pos - window (window > 0).  Returns (B,S,H,D) in
+    q's dtype."""
     for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
                     ("kv_pos", kv_pos)):
         if not t.is_cuda:
@@ -82,7 +82,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, int(causal),
-        D ** -0.5, _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+        int(window), D ** -0.5, _DTYPES[q.dtype],
+        torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     chunked_attention.launches += 1

@@ -15,6 +15,9 @@ Quickstart::
   # on the CPU, at the reduced width
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch tinyllama-1.1b --reduced --requests 12 --followups 24
+  # sliding-window layers (ring caches): prompts and decode past the window
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch gemma3-27b --reduced --max-new 24
 
 This module drives no engine loop of its own: every submit, suspend and
 resume is a :class:`repro_torch.sched.Scheduler` decision.  Admission

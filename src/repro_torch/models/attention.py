@@ -1,6 +1,6 @@
 # Port of src/repro/models/attention.py:18-220 in torch: _cache_write,
-# chunked_attention and the GQA block (full attention; MLA, int8 KV and
-# cross attention arrive with their slices).
+# chunked_attention and the GQA block, full and sliding-window.  Not ported
+# yet: MLA, int8 KV, cross attention and M-RoPE (ROADMAP Queue 1 item 13).
 """GQA attention with a chunked online-softmax core.
 
 :func:`chunked_attention` is the contract the serving model runs; on the
@@ -70,18 +70,20 @@ def init_gqa_params(gen: torch.Generator, d_model: int, n_heads: int,
 
 def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
               n_heads: int, n_kv: int, head_dim: int,
-              rope_theta: float = 1e4, block: int = 512,
+              rope_theta: float = 1e4, window: int = 0, block: int = 512,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]] = None,
               cache_index: Optional[torch.Tensor] = None,
               rows: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Self-attention.  Without ``kv_cache``: causal over ``x``; returns
-    ``(y, (k, v))`` with the roped K/V a prefill writes into its cache.
-    With ``kv_cache=(k, v, kv_pos)``: one decode token per row; the new K/V
-    and position are written IN PLACE at ``cache_index`` for the batch rows
-    in ``rows``, and attention runs over the cache; returns
-    ``(y, kv_cache)``.  positions: (B, S) int32."""
+    """Self-attention; ``window > 0`` masks keys older than
+    ``position - window + 1`` (sliding window).  Without ``kv_cache``:
+    causal over ``x``; returns ``(y, (k, v))`` with the roped K/V a prefill
+    writes into its cache.  With ``kv_cache=(k, v, kv_pos)`` (a linear or
+    ring buffer): one decode token per row; the new K/V and position are
+    written IN PLACE at ``cache_index`` (the ring slot, which the caller
+    computes) for the batch rows in ``rows``, and attention runs over the
+    cache; returns ``(y, kv_cache)``.  positions: (B, S) int32."""
     B, S, _ = x.shape
     q = x @ params["wq"]
     k = x @ params["wk"]
@@ -94,7 +96,7 @@ def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
 
     if kv_cache is None:
         out = chunked_attention(q, k, v, positions, positions, causal=True,
-                                block=block)
+                                window=window, block=block)
         new = (k, v)
     else:
         ck, cv, cpos = kv_cache
@@ -102,7 +104,7 @@ def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
         _cache_write(cv, v, cache_index, rows)
         _cache_write(cpos, positions.to(cpos.dtype), cache_index, rows)
         out = chunked_attention(q, ck, cv, positions, cpos, causal=True,
-                                block=block)
+                                window=window, block=block)
         new = kv_cache
     y = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
     return y, new

@@ -1,5 +1,6 @@
 # Port of src/repro/models/lm.py:42-177 and :331-496 in torch, for stacks of
-# attn_full mixers with dense MLPs (tinyllama-1.1b, the serving path).
+# attn_full and attn_local (sliding-window, ring-buffer) mixers with dense
+# MLPs: tinyllama-1.1b and gemma3-27b.
 """LM assembly: stages of a repeating layer group with stacked parameters.
 
 Params and caches keep the reference's nested-dict layout and stacked
@@ -12,9 +13,13 @@ over reps is a Python loop over views of the stacked tensors.
 Caches are updated IN PLACE (the reference's donated buffers): prefill writes
 its tokens' K/V, decode writes one token per ACTIVE row only, so inactive
 rows stay bit-exact without the reference's select over every cache leaf.
+An ``attn_local`` layer keeps a ring of ``min(max_len, window)`` slots, token
+t in slot ``t % L``, as the reference does (its ``lm.py:135-137``,
+``:201-204``, ``:227-235``).
 
-Only ``attn_full`` + ``dense`` layers are ported; any other layer kind,
-enc-dec or M-RoPE raises ``NotImplementedError``.
+``attn_full`` and ``attn_local`` mixers with ``dense`` MLPs are ported; MLA,
+mamba, rwkv, MoE, enc-dec and M-RoPE raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch.models.layers import (embed, init_embed, init_mlp, init_rms,
 
 LayerSpec = Tuple[str, str]     # (mixer_kind, mlp_kind)
 POS_SENTINEL = 2**30
+PORTED = (("attn_full", "dense"), ("attn_local", "dense"))
 
 
 def stages_of(cfg: ModelConfig) -> List[Tuple[int, Tuple[LayerSpec, ...]]]:
@@ -51,14 +57,23 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not run."""
     bad = sorted({f"{m}+{f}" for m, f in zip(cfg.layer_kinds(),
                                              cfg.mlp_kinds())
-                  if (m, f) != ("attn_full", "dense")})
+                  if (m, f) not in PORTED})
     if bad or cfg.encdec or cfg.mrope:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {bad or ''}"
             f"{' enc-dec' if cfg.encdec else ''}"
-            f"{' m-rope' if cfg.mrope else ''} are not ported yet; they "
-            f"arrive with the other model families' slice (ROADMAP Queue 1 "
-            f"item 13)")
+            f"{' m-rope' if cfg.mrope else ''} are not ported yet (the port "
+            f"runs attn_full and attn_local with dense MLPs); MLA, mamba, "
+            f"rwkv, MoE, enc-dec and M-RoPE arrive with the other model "
+            f"families' slice (ROADMAP Queue 1 item 13)")
+
+
+def cache_len(cfg: ModelConfig, mixer_kind: str, max_len: int) -> int:
+    """Slots of a layer's K/V cache: ``max_len``, or the sliding window's
+    ring of ``min(max_len, window)`` for an ``attn_local`` layer."""
+    if mixer_kind == "attn_local" and cfg.window > 0:
+        return min(max_len, cfg.window)
+    return max_len
 
 
 # ---------------------------------------------------------------------------
@@ -98,18 +113,22 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> Dict:
-    """Zeroed K/V and sentinel positions: leaves (reps, batch, L, ...)."""
+    """Zeroed K/V and sentinel positions: leaves (reps, batch, L, ...),
+    with L from :func:`cache_len` (a ring for sliding-window layers)."""
     check_supported(cfg)
     dev = resolve_device(device)
     cache: Dict[str, Any] = {}
     for i, (reps, group) in enumerate(stages_of(cfg)):
-        shape = (reps, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        cache[f"stage{i}"] = {
-            f"b{j}": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                      "v": torch.zeros(shape, dtype=dtype, device=dev),
-                      "pos": torch.full((reps, batch, max_len), POS_SENTINEL,
-                                        dtype=torch.int32, device=dev)}
-            for j, _ in enumerate(group)}
+        stage = {}
+        for j, (mixer_kind, _) in enumerate(group):
+            L = cache_len(cfg, mixer_kind, max_len)
+            shape = (reps, batch, L, cfg.n_kv_heads, cfg.head_dim)
+            stage[f"b{j}"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "pos": torch.full((reps, batch, L), POS_SENTINEL,
+                                  dtype=torch.int32, device=dev)}
+        cache[f"stage{i}"] = stage
     return cache
 
 
@@ -137,30 +156,50 @@ def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
          slot: int, cache_index: Optional[torch.Tensor],
          rows: Optional[torch.Tensor]) -> torch.Tensor:
     B, Sq, _ = x.shape
+    ring_index: Dict[int, torch.Tensor] = {}    # cache length -> write slots
     for i, (reps, group) in enumerate(stages_of(cfg)):
         for r in range(reps):
-            for j, _ in enumerate(group):
+            for j, (mixer_kind, _) in enumerate(group):
                 p = _layer(params[f"stage{i}"][f"b{j}"], r)
                 c = (None if cache is None else
                      {k: t[r] for k, t in cache[f"stage{i}"][f"b{j}"].items()})
                 h = rms_norm(x, p["ln1"], cfg.norm_eps)
-                kv = None
+                kv, idx = None, None
                 if c is not None and mode == "decode":
                     kv = (c["k"], c["v"], c["pos"])
+                    L = c["k"].shape[1]
+                    if L not in ring_index:     # token t lives in slot t % L
+                        ring_index[L] = cache_index % L
+                    idx = ring_index[L]
                 y, new = A.gqa_block(
                     p["mixer"], h, positions, n_heads=cfg.n_heads,
                     n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                    rope_theta=cfg.rope_theta, block=cfg.attn_block,
-                    kv_cache=kv, cache_index=cache_index, rows=rows)
+                    rope_theta=cfg.rope_theta,
+                    window=cfg.window if mixer_kind == "attn_local" else 0,
+                    block=cfg.attn_block, kv_cache=kv, cache_index=idx,
+                    rows=rows)
                 if c is not None and mode == "prefill":
-                    take = min(Sq, c["k"].shape[1])
-                    c["k"][slot:slot + B, :take] = new[0][:, :take]
-                    c["v"][slot:slot + B, :take] = new[1][:, :take]
-                    c["pos"][slot:slot + B, :take] = positions[:, :take]
+                    _prefill_write(c, slot, new[0], new[1], positions)
                 x = x + y
                 x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
                             cfg.activation)
     return x
+
+
+def _prefill_write(c: Dict, slot: int, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor) -> None:
+    """Write a prefill's K/V and positions into cache rows ``slot:slot+B``
+    IN PLACE.  A ring of L < Sq slots keeps the last L tokens, rolled by
+    ``(Sq - L) % L`` so that token t lands in slot ``t % L`` and later
+    decodes (slot = position % L) overwrite the oldest entry first."""
+    B, Sq = positions.shape
+    L = c["k"].shape[1]
+    take = min(Sq, L)
+    roll = (Sq - take) % L
+    for name, t in (("k", k), ("v", v), ("pos", positions)):
+        tail = t[:, Sq - take:]
+        c[name][slot:slot + B, :take] = (torch.roll(tail, roll, dims=1)
+                                         if roll else tail)
 
 
 def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:

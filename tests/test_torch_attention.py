@@ -1,6 +1,7 @@
 """The port's attention (its plain chunked twin on the CPU) against the
 reference's ``chunked_attention`` and Pallas ``flash_attention`` (interpret
-mode), with ragged positions, 2**30 pads and a row with no valid key.
+mode), with ragged positions, 2**30 pads, a row with no valid key and
+sliding windows over ring caches whose positions have wrapped.
 Tolerances are the reference kernel tests' own: 3e-5 for f32, 2e-2 for
 bf16 (tests/test_kernels.py)."""
 import jax.numpy as jnp
@@ -65,6 +66,7 @@ def test_chunked_attention_matches_reference(B, S, H, K, T, D, block, dt):
     (1, 4, 2, 64, 64, 32, True, 0, "float32"),
     (2, 2, 1, 1, 100, 64, True, 0, "float32"),        # decode shape
     (1, 4, 4, 50, 50, 32, True, 12, "float32"),       # window (plain path)
+    (1, 4, 2, 48, 48, 32, True, 16, "bfloat16"),      # window, bf16
     (1, 2, 2, 32, 32, 32, False, 0, "float32"),       # bidirectional
     (2, 8, 8, 32, 64, 32, True, 0, "bfloat16"),
 ])
@@ -79,6 +81,63 @@ def test_flash_attention_matches_pallas(B, H, K, S, T, D, causal, window, dt):
     assert _err(out, ref) < TOL[dt]
     exact = P_ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert _err(exact, ref) < TOL[dt]
+
+
+def _ring_positions(B, L, ends):
+    """kv_pos of B ring caches of L slots: row b holds tokens
+    max(0, n - L + 1) .. n in slot ``t % L`` (n = ends[b]), so once a row
+    has wrapped its positions are not monotone in the slot index; slots
+    that hold no token carry 2**30."""
+    kv_pos = np.full((B, L), 2**30, np.int32)
+    for b, n in enumerate(ends):
+        t = np.arange(max(0, n - L + 1), n + 1)
+        kv_pos[b, t % L] = t
+    return kv_pos
+
+
+WINDOW_CASES = [
+    # B, S, H, K, L, D, window, block, dtype; S == 1 decodes over a ring of
+    # L slots, S > 1 prefills S tokens of which the last ``pad`` are pads
+    (4, 1, 8, 2, 16, 16, 16, 8, "float32"),
+    (3, 1, 4, 2, 24, 32, 24, 32, "float32"),
+    (3, 1, 4, 4, 40, 16, 12, 16, "float32"),      # ring longer than window
+    (2, 30, 4, 2, 30, 16, 8, 16, "float32"),
+    (4, 1, 8, 2, 16, 16, 16, 8, "bfloat16"),
+    (2, 30, 4, 2, 30, 16, 8, 16, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,L,D,window,block,dt", WINDOW_CASES)
+def test_chunked_attention_window_matches_reference(B, S, H, K, L, D,
+                                                    window, block, dt):
+    rng = np.random.default_rng(17)
+    rq, q = _pair(rng.standard_normal((B, S, H, D)), dt)
+    rk, k = _pair(rng.standard_normal((B, L, K, D)), dt)
+    rv, v = _pair(rng.standard_normal((B, L, K, D)), dt)
+    if S == 1:
+        ends = rng.integers(L // 2, 4 * L, B)
+        ends[0] = 3 * L + 5                   # wrapped: not monotone
+        kv_pos = _ring_positions(B, L, ends)
+        q_pos = ends[:, None].astype(np.int32)
+        assert (np.diff(kv_pos[0]) < 0).any()
+    else:
+        q_pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+        q_pos[1, S - 7:] = 2**30              # padded q rows (and keys)
+        kv_pos = q_pos.copy()
+    out = PA.chunked_attention(q, k, v, torch.from_numpy(q_pos),
+                               torch.from_numpy(kv_pos), window=window,
+                               block=block)
+    ref = RA.chunked_attention(rq, rk, rv, jnp.asarray(q_pos),
+                               jnp.asarray(kv_pos), window=window,
+                               block=block)
+    assert out.dtype == q.dtype and out.shape == (B, S, H, D)
+    assert _err(out, ref) < TOL[dt]
+    if L > window:
+        # the window masks keys here: without it the answer moves (a ring
+        # of exactly ``window`` slots holds only keys inside the window)
+        full = PA.chunked_attention(q, k, v, torch.from_numpy(q_pos),
+                                    torch.from_numpy(kv_pos), block=block)
+        assert _err(full, ref) > 10 * TOL[dt]
 
 
 def test_cache_write_touches_active_rows_only():

@@ -78,8 +78,88 @@ def test_attention_matches_plain(dev, B, S, T, H, K, D, dt):
     want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), causal=False)
     assert float((full.float() - want.float()).abs().max()) < tol
-    with pytest.raises(NotImplementedError):
-        ops.chunked_attention(q, k, v, qp, kp, window=4)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,window,dt", [
+    (4, 1, 1024, 32, 16, 128, 1024, torch.float32),   # gemma3's ring decode
+    (4, 1, 64, 8, 2, 64, 48, torch.float32),          # ring longer than W
+    (1, 300, 300, 32, 16, 128, 100, torch.float32),   # prefill past W
+    (2, 77, 77, 6, 3, 32, 1, torch.float32),          # only the diagonal
+    (4, 1, 1024, 32, 16, 128, 1024, torch.bfloat16),
+    (1, 300, 300, 32, 16, 128, 100, torch.bfloat16),
+])
+def test_window_attention_matches_plain(dev, B, S, T, H, K, D, window, dt):
+    """Sliding windows over ring caches whose positions wrapped (slot
+    t % T holds token t, so positions are not monotone in the slot), and
+    prefills with padded rows at 2**30."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((B, S, H, D), device=dev, generator=g).to(dt)
+    k = torch.randn((B, T, K, D), device=dev, generator=g).to(dt)
+    v = torch.randn((B, T, K, D), device=dev, generator=g).to(dt)
+    rng = np.random.default_rng(7)
+    if S == 1:
+        kv_pos = np.full((B, T), 2**30, np.int32)
+        ends = rng.integers(T // 2, 3 * T, B)
+        for b, n in enumerate(ends):
+            t = np.arange(max(0, n - T + 1), n + 1)
+            kv_pos[b, t % T] = t
+        q_pos = ends[:, None].astype(np.int32)
+    else:
+        q_pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+        q_pos[-1, S - 9:] = 2**30
+        kv_pos = q_pos.copy()
+    qp, kp = torch.from_numpy(q_pos).to(dev), torch.from_numpy(kv_pos).to(dev)
+    n = ops.KERNELS["flash_attention"].launches
+    out = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
+    tol = 2e-2 if dt == torch.bfloat16 else 3e-5
+    assert float((out.float() - want.float()).abs().max()) < tol
+    assert ops.KERNELS["flash_attention"].launches == n + 1
+    if S > 1:
+        full = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), window=window)
+        want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), window=window)
+        assert float((full.float() - want.float()).abs().max()) < tol
+
+
+def test_attention_still_raises_outside_its_shapes(dev):
+    q = torch.zeros((1, 4, 2, 256), device=dev)
+    pos = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        ops.chunked_attention(q, q, q, pos, pos, window=2)
+    q = torch.zeros((1, 4, 2, 64), device=dev)
+    with pytest.raises(NotImplementedError, match="Dv != Dk"):
+        ops.chunked_attention(q, q, q[..., :32].contiguous(), pos, pos)
+
+
+def test_gemma3_engine_on_card_matches_cpu(dev):
+    """Reduced gemma3 (ring caches of 16 slots) through a suspend and a
+    resume wave, on the card against the CPU."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = get_reduced("gemma3-27b")
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 21, 40)]
+    out = []
+    for d in ("cpu", dev):
+        e = Engine(cfg, params, slots=3, max_len=96, n_sessions=8, device=d)
+        reqs = [Request(i, p, 12 + 4 * i) for i, p in enumerate(prompts)]
+        for r in reqs:
+            e.submit(r)
+        while e.active:
+            e.step()
+        e.resume_many([0, 2], [20, 20])
+        while e.active:
+            e.step()
+        out.append(([r.generated for r in reqs], dict(e.stats),
+                    e.sessions.policy.tags.cpu().tolist(),
+                    e.verify_failure_count(), int(e.verify_store())))
+    assert out[0] == out[1]
 
 
 def test_engine_on_card_matches_cpu(dev):
