@@ -9,13 +9,15 @@ nvcc (sm_90a), then:
   1. device   — requires CUDA; prints the card's name and power limit;
   2. kernels  — holds each kernel against its plain PyTorch version on the
                 card at the shapes of phases 3, 5 and 6 (page gather/scatter
-                and the tile copy bit-exact, attention within 3e-5 in f32
+                and the tile copy bit-exact, the gather also as a masked
+                read into an existing buffer; attention within 3e-5 in f32
                 and 2e-2 in bf16, at max_len 1024 and at the launcher's 256,
                 and at gemma3's: a 1500-token prefill with window 1024 and
                 without, decode over 1024-slot rings whose positions have
-                wrapped and over the 2048-slot global cache), the tile copy
-                also on odd shapes, dtypes and sizes, and times kernel,
-                plain version and one library call for the same function;
+                wrapped and over the 2048-slot global cache; every decode
+                shape through the split-KV kernel), the tile copy also on
+                odd shapes, dtypes and sizes, and times kernel, plain
+                version and one library call for the same function;
   3. serving  — full-width tinyllama-1.1b (random weights from a seed)
                 through ``Engine``: 8 requests, 32 decode steps, a suspend
                 wave of 4 sessions, one resume wave, decode to completion;
@@ -29,7 +31,13 @@ nvcc (sm_90a), then:
                 device->device ``movement`` transfer (the ``tile_copy`` leg,
                 K4): each copy bit-exact and a new tensor, and K4's counter,
                 reset just before, equal to the number of executes;
-  4. numbers  — serving and per-kernel times, each tagged with the card;
+  4. numbers  — serving and per-kernel times, each tagged with the card
+                (a kernel's, its plain version's and its library call's
+                times, the host's time to run the wrapper included where it
+                outlasts the L2 flush, as in every earlier run; beside
+                them the kernel's and the library call's device time, that
+                host time hidden behind a GPU sleep, and the host's us to
+                queue one call), and a decode profile;
   5. launcher — ``python -m repro_torch.launch.serve`` (the scheduler over
                 the Engine) at full width, once plain and once with
                 ``--fork-prefix`` and ``--trace-out``: every job completes,
@@ -69,6 +77,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+SLEEP_CYCLES = 400_000           # ~0.2 ms of GPU sleep ahead of a timing
 SLOTS, MAX_LEN, N_SESSIONS, SEED = 8, 1024, 32, 0
 SERVE_LEN = 256                  # the launcher's --max-len in phase 5
 # phase 6: gemma3-27b at full width, cut to 14 layers (two 6-layer periods
@@ -95,9 +104,14 @@ def card() -> str:
     return out.strip().splitlines()[0].strip()
 
 
-def timed(fn, reps=20, flush=None):
-    """Median device ms of ``fn`` over ``reps`` calls (CUDA events), after
-    warm-up; ``flush`` runs before each call, outside the timed window."""
+def timed(fn, reps=20, flush=None, device=False):
+    """Median ms of ``fn`` over ``reps`` calls between CUDA events, after
+    warm-up; ``flush`` runs before each call, outside the timed window.
+    The start event is recorded before ``fn``'s Python runs, so the window
+    holds the host's time to queue the kernels wherever it outlasts the
+    flush on the card.  With ``device=True`` a GPU sleep queued ahead of
+    the start event keeps the card busy while the host runs ``fn``, and the
+    window holds the device time of the kernels alone."""
     import torch
     for _ in range(3):
         fn()
@@ -105,6 +119,8 @@ def timed(fn, reps=20, flush=None):
     for _ in range(reps):
         if flush is not None:
             flush()
+        if device:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -123,6 +139,7 @@ def main() -> int:
     from repro_torch import movement as MV
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import lm
     from repro_torch.movement import paging
     from repro_torch.serve.engine import Engine, Request
@@ -164,12 +181,26 @@ def main() -> int:
     got = ops.villa_gather(pool, table)
     check(torch.equal(got, ref.villa_gather_ref(pool, table)),
           "villa_gather differs from index_select")
+
+    def masked_gather(tab, label):
+        """K2 as the resume path calls it: -1 entries keep out's rows."""
+        tab = tab.clone()
+        tab[::5] = -1
+        before = torch.randint(0, 256, (tab.numel(), 8, 128),
+                               dtype=torch.uint8, device=dev, generator=gen)
+        got = ops.villa_gather(pool, tab, out=before.clone())
+        check(torch.equal(got, ref.villa_gather_ref(pool, tab,
+                                                    before.clone()))
+              and torch.equal(got[::5], before[::5]),
+              f"villa_gather's masked read differs at {label}")
+
+    masked_gather(table, f"{n_pages} pages")
     idx = table.long()
     nbytes = 2 * n_pages * page + 4 * n_pages
     rows["villa_gather"] = dict(
-        ms=timed(lambda: ops.villa_gather(pool, table), flush=flush),
-        plain_ms=timed(lambda: ref.villa_gather_ref(pool, table), flush=flush),
-        library_ms=timed(lambda: pool.index_select(0, idx), flush=flush),
+        **kernel_times(lambda: ops.villa_gather(pool, table),
+                       lambda: ref.villa_gather_ref(pool, table),
+                       lambda: pool.index_select(0, idx), flush),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         max_abs_err=0.0)
 
@@ -198,19 +229,18 @@ def main() -> int:
     check(torch.equal(ops.villa_gather(pool, rtab),
                       ref.villa_gather_ref(pool, rtab)),
           f"villa_gather differs at the max_len {SERVE_LEN} snapshot")
+    masked_gather(rtab, f"the max_len {SERVE_LEN} snapshot")
     upd_s = upd[:spec_s.n_pages].contiguous()
     check(torch.equal(ops.villa_scatter(pool.clone(), rtab, upd_s),
                       ref.villa_scatter_ref(pool.clone(), rtab, upd_s)),
           f"villa_scatter differs at the max_len {SERVE_LEN} snapshot")
     print(f"villa_gather/villa_scatter: bit-exact at {n_pages} and "
-          f"{spec_s.n_pages} pages")
+          f"{spec_s.n_pages} pages, the gather also as a masked read")
     widx = wtab.long()
     rows["villa_scatter"] = dict(
-        ms=timed(lambda: ops.villa_scatter(pool, wtab, upd), flush=flush),
-        plain_ms=timed(lambda: ref.villa_scatter_ref(pool, wtab, upd),
-                       flush=flush),
-        library_ms=timed(lambda: pool.index_copy_(0, widx, upd),
-                         flush=flush),
+        **kernel_times(lambda: ops.villa_scatter(pool, wtab, upd),
+                       lambda: ref.villa_scatter_ref(pool, wtab, upd),
+                       lambda: pool.index_copy_(0, widx, upd), flush),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         max_abs_err=0.0)
     del pool, upd, small, upd2
@@ -266,7 +296,12 @@ def main() -> int:
     err, out = attn_err(dec, 3e-5)
     check(not out[0].any(), "a row with no valid key must give 0")
     errs.append(err)
-    print(f"attention decode S=1 T={MAX_LEN} B={SLOTS}: max_abs_err {err:.3g}")
+    _, groups, n_split, split_len = FA.decode_plan(
+        SLOTS, K, H // K, MAX_LEN, 4,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"attention decode S=1 T={MAX_LEN} B={SLOTS}: max_abs_err {err:.3g}"
+          f"; {n_split} splits of {split_len} slots, "
+          f"{n_split * groups * K * SLOTS} CTAs")
     bf = attn_case(2, 64, 64, [40, 64], dtype=torch.bfloat16)
     print(f"attention bf16 prefill 64: max_abs_err {attn_err(bf, 2e-2)[0]:.3g}")
 
@@ -279,10 +314,9 @@ def main() -> int:
                            enable_gqa=True)
     bound, by = attention_bound(q, k, qp, kp, 0)
     rows["flash_attention"] = dict(
-        ms=timed(lambda: ops.chunked_attention(q, k, v, qp, kp), flush=flush),
-        plain_ms=timed(lambda: ref.chunked_attention_ref(q, k, v, qp, kp),
-                       flush=flush),
-        library_ms=timed(library, flush=flush),
+        **kernel_times(lambda: ops.chunked_attention(q, k, v, qp, kp),
+                       lambda: ref.chunked_attention_ref(q, k, v, qp, kp),
+                       library, flush),
         bound_ms=bound, bound_by=by, max_abs_err=max(errs))
     for bucket in (16, 64, 256, 512):
         pq, pk, pv, pqp, pkp, _ = attn_case(1, bucket, bucket, [bucket])
@@ -318,9 +352,9 @@ def main() -> int:
           f"{len(odd) + 1} odd cases")
     c_bytes = 2 * leaf.numel() * leaf.element_size()
     rows["rbm_copy"] = dict(
-        ms=timed(lambda: ops.rbm_copy(leaf), flush=flush),
-        plain_ms=timed(lambda: ref.rbm_copy_ref(leaf), flush=flush),
-        library_ms=timed(lambda: leaf.clone(), flush=flush),
+        **kernel_times(lambda: ops.rbm_copy(leaf),
+                       lambda: ref.rbm_copy_ref(leaf), lambda: leaf.clone(),
+                       flush),
         bound_ms=c_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         max_abs_err=copy_err)
     del scratch, leaf
@@ -483,18 +517,51 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
-        if "shapes" in r:
-            kernels[-1]["shapes"] = r["shapes"]
+        kernels[-1].update({key: r[key] for key in
+                            ("device_ms", "library_device_ms", "enqueue_us",
+                             "library_enqueue_us", "shapes") if key in r})
         print(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
-              f"{counts[name]} [{tag}]")
+              f"{counts[name]}; device time: kernel {r['device_ms']:.4f} "
+              f"ms, library {r['library_device_ms']:.4f} ms; host to queue "
+              f"a call: kernel {r['enqueue_us']:.1f} us, library "
+              f"{r['library_enqueue_us']:.1f} us [{tag}]")
     print(json.dumps({"kernels": kernels}))
     print(tag)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_times(kernel, plain, library, flush) -> dict:
+    """The times of one path shape: the kernel's, its plain version's and
+    the library call's ms as every run has timed them (``timed``); the
+    kernel's and the library call's device ms (``timed(device=True)``);
+    and the host's us a call to queue each (``enqueue_us``)."""
+    return dict(ms=timed(kernel, flush=flush),
+                plain_ms=timed(plain, flush=flush),
+                library_ms=timed(library, flush=flush),
+                device_ms=timed(kernel, flush=flush, device=True),
+                library_device_ms=timed(library, flush=flush, device=True),
+                enqueue_us=enqueue_us(kernel),
+                library_enqueue_us=enqueue_us(library))
+
+
+def enqueue_us(fn, calls=50) -> float:
+    """Host us a call of ``fn`` takes to return, its kernels queued but
+    not run: ``calls`` calls back to back on the host clock, the card
+    synchronised before and after, outside the window."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def attention_bound(q, k, q_pos, kv_pos, window):
@@ -530,9 +597,11 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
 
     cfg = get_config("gemma3-27b")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     H, K, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
     ends = np.array(G_PROMPTS) + G_MAX_NEW - 1   # the last decode's positions
     B, P = len(ends), max(G_PROMPTS)
@@ -563,6 +632,12 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
         q = torch.randn((nb, S, H, D), device=dev, generator=gen)
         k = torch.randn((nb, T, K, D), device=dev, generator=gen)
         v = torch.randn((nb, T, K, D), device=dev, generator=gen)
+        plan = ""
+        if S == 1:
+            gc, groups, n_split, split_len = FA.decode_plan(
+                nb, K, H // K, T, q.element_size(), n_sm)
+            plan = (f", {n_split} splits of {split_len} slots, "
+                    f"{n_split * groups * K * nb} CTAs")
         errs = {}
         for dt, tol in ((torch.float32, 3e-5), (torch.bfloat16, 2e-2)):
             if dt == torch.bfloat16 and not bf16:
@@ -574,7 +649,7 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
             check(err <= tol, f"attention {name} window {window} {dt}: "
                               f"error {err} > {tol}")
             errs[str(dt).removeprefix("torch.")] = err
-        print(f"attention {name} S={S} T={T} B={nb} window {window}: "
+        print(f"attention {name} S={S} T={T} B={nb} window {window}{plan}: "
               f"max_abs_err {errs}")
         if name == "decode_global_windowed":
             continue                  # a check only: no layer launches it
@@ -584,19 +659,22 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         bound, by = attention_bound(q, k, qp, kp, window)
         out[name] = dict(
-            ms=timed(lambda: ops.chunked_attention(q, k, v, qp, kp,
-                                                   window=window),
-                     flush=flush),
-            plain_ms=timed(lambda: ref.chunked_attention_ref(
-                q, k, v, qp, kp, window=window), flush=flush),
-            library_ms=timed(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                          enable_gqa=True), flush=flush),
+            **kernel_times(
+                lambda: ops.chunked_attention(q, k, v, qp, kp,
+                                              window=window),
+                lambda: ref.chunked_attention_ref(q, k, v, qp, kp,
+                                                  window=window),
+                lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                flush),
             bound_ms=bound, bound_by=by, max_abs_err=errs["float32"],
             max_abs_err_bf16=errs.get("bfloat16"))
         r = out[name]
         print(f"attention {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
-              f"{bound:.5f} ms ({by}) [{tag}]")
+              f"{bound:.5f} ms ({by}); device time: kernel "
+              f"{r['device_ms']:.4f} ms, SDPA {r['library_device_ms']:.4f} ms; "
+              f"host to queue a call: kernel {r['enqueue_us']:.1f} us, SDPA "
+              f"{r['library_enqueue_us']:.1f} us [{tag}]")
     row = {k: v for k, v in out["decode_ring"].items()
            if k != "max_abs_err_bf16"}
     row["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
@@ -887,7 +965,7 @@ def profile_decode(eng, tag, steps=4, label="profile"):
     print(f"{label}: {steps} decode steps, host window {wall_ms:.3f} ms, "
           f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
           f"{launches / steps:.0f} kernels/step [{tag}]")
-    for ms, n, key in rows[:10]:
+    for ms, n, key in rows[:12]:
         print(f"  {label} kernel {ms / steps:.4f} ms/step, {n} launches: "
               f"{key[:80]}")
     while eng.active:

@@ -1,38 +1,49 @@
 # Port of src/repro/kernels/flash_attention.py::flash_attention (:81-131) as
-# the CUDA kernel of csrc/flash_attention.cu, in the contract of
+# the CUDA kernels of csrc/flash_attention.cu, in the contract of
 # src/repro/models/attention.py::chunked_attention (:37-126).
-"""Launch wrapper of the attention kernel (K3) and the (B,H,S,D) layout
-wrapper around it.
+"""Launch wrapper of the attention kernels (K3) and the (B,H,S,D) layout
+wrapper around them.
 
 :func:`chunked_attention` launches ``csrc/flash_attention.cu`` on CUDA
 tensors in the serving model's layout — q (B,S,H,D), k/v (B,T,K,D), per-row
 positions — checks device, dtype, contiguity and shape, launches on
-``torch.cuda.current_stream()``, allocates its output with ``torch.empty``,
-raises if the launch reports an error, and counts its launches in
-``chunked_attention.launches``.  It takes the reference's causal and
-sliding-window masks (``window > 0``, the ``attn_local`` layers).  It raises
-``NotImplementedError`` on Dv != Dk (MLA) and ``ValueError`` on a head_dim
-outside 16/32/64/128 (gemma-7b's 256): ROADMAP Queue 2 lists both under K3.
-int8 K/V, whose scales the reference passes here, has no entry yet.
-CPU tensors never reach it: :mod:`repro_torch.kernels.ops` routes them to the
-plain chunked twin.
+q's device's current stream, allocates its output with ``torch.empty``,
+raises if the launch reports an error, and counts its calls in
+``chunked_attention.launches``, one a launch.  Decode (S = 1) runs the
+split-KV kernel, laid out by :func:`decode_plan`, with its partials and
+tickets in a workspace kept per device and stream (:func:`_workspace`);
+K/V that do not start on a 16-byte boundary, which its vector loads need,
+are copied first.  Prefill runs the tiled kernel.  It takes the reference's
+causal and sliding-window masks (``window > 0``, the ``attn_local``
+layers).  It raises ``NotImplementedError`` on Dv != Dk (MLA) and
+``ValueError`` on a head_dim outside 16/32/64/128 (gemma-7b's 256): ROADMAP
+Queue 2 lists both under K3.  int8 K/V, whose scales the reference passes
+here, has no entry yet.  CPU tensors never reach it:
+:mod:`repro_torch.kernels.ops` routes them to the plain chunked twin.
 
 :func:`flash_attention` is the reference kernel's own signature: q
 (B,H,S,D), k/v (B,K,T,D), q rows at the tail of the kv sequence
 (``q_pos = i + T - S``).  It builds those positions and goes through the
-same dispatch, so on the card it runs the same kernel.
+same dispatch, so on the card it runs the same kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 _LIB = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the split-KV decode kernel's layout (csrc/flash_attention.cu)
+DECODE_CTAS_PER_SM = 4      # the grid aims at this many CTAs an SM
+SPLIT_ALIGN = 16            # a split's length is a multiple of this
+MAX_SPLITS = 512            # the most splits the kernel's combine takes
 
 
 def _lib() -> ctypes.CDLL:
@@ -40,10 +51,70 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library("flash_attention")
         lib.flash_attention_launch.argtypes = (
-            [_P] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, _P])
-        lib.flash_attention_launch.restype = ctypes.c_int
+            [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P])
+        lib.flash_decode_launch.argtypes = (
+            [_P] * 8 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P])
+        lib.flash_attention_prepare.argtypes = []
+        for fn in (lib.flash_attention_launch, lib.flash_decode_launch,
+                   lib.flash_attention_prepare):
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(B: int, K: int, G: int, T: int, itemsize: int, n_sm: int
+                ) -> Tuple[int, int, int, int]:
+    """``(head_group, n_groups, n_split, split_len)`` of the split-KV
+    decode kernel for B batch rows, K kv heads of G query heads each, T
+    cache slots of ``itemsize``-byte elements on ``n_sm`` SMs.
+
+    A CTA holds ``head_group`` query heads (2, 4 or 8: the smallest power
+    of two >= G, at most 32 floats of q and of accumulator a lane, so 8 in
+    f32 and 4 in bf16), so a kv head needs ``n_groups`` CTAs.  The slots
+    are cut into ``n_split`` contiguous splits of ``split_len`` (a multiple
+    of SPLIT_ALIGN), enough that the grid ``n_split * K * n_groups * B``
+    reaches DECODE_CTAS_PER_SM CTAs an SM where T allows, at most
+    MAX_SPLITS; n_split = ceil(T / split_len), so no split is empty and
+    there is at least one."""
+    cap = 32 // (16 // itemsize)
+    head_group = min(cap, max(2, 1 << max(0, G - 1).bit_length()))
+    n_groups = -(-G // head_group)
+    want = min(MAX_SPLITS,
+               -(-DECODE_CTAS_PER_SM * n_sm // max(1, B * K * n_groups)))
+    per = -(-max(T, 1) // want)
+    split_len = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
+    return head_group, n_groups, -(-max(T, 1) // split_len), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _device(index: int) -> int:
+    """The SM count of CUDA device ``index``; on the first call for a
+    device, also the tiled kernel's shared-memory opt-in there."""
+    with torch.cuda.device(index):
+        err = _lib().flash_attention_prepare()
+    if err:
+        raise RuntimeError(f"attention kernel opt-in failed: error {err}")
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_WORKSPACE = {}
+
+
+def _workspace(device: torch.device, stream: int, n_part: int,
+               n_tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel's f32 partials and int32 tickets for one launch on
+    ``stream``: kept per (device, stream) and grown on demand, since calls
+    on one stream run in order.  Tickets start at 0, and the kernel leaves
+    them at 0."""
+    key = (device.index, stream)
+    part, tickets = _WORKSPACE.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+    _WORKSPACE[key] = part, tickets
+    return part, tickets
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,11 +150,25 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    err = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, int(causal),
-        int(window), D ** -0.5, _DTYPES[q.dtype],
-        torch.cuda.current_stream().cuda_stream)
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    n_sm = _device(q.device.index)
+    if S == 1:
+        k = k if k.data_ptr() % 16 == 0 else k.clone()
+        v = v if v.data_ptr() % 16 == 0 else v.clone()
+        gc, groups, n_split, split_len = decode_plan(
+            B, K, H // K, T, q.element_size(), n_sm)
+        part, tickets = _workspace(q.device, stream,
+                                   B * H * n_split * (D + 2), B * K * groups)
+        err = _lib().flash_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), B, T, H, K, D, int(causal), int(window),
+            D ** -0.5, _DTYPES[q.dtype], gc, n_split, split_len, stream)
+    else:
+        err = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, int(causal),
+            int(window), D ** -0.5, _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     chunked_attention.launches += 1

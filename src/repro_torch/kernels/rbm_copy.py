@@ -5,7 +5,7 @@
 ``villa_gather``, K4 ``rbm_copy``) on CUDA tensors.
 
 Each wrapper checks device, dtype, contiguity and shape, launches on
-``torch.cuda.current_stream()``, allocates what it returns with
+the device's current stream, allocates what it returns with
 ``torch.empty``, raises if the launch reports an error, and counts its
 launches in a plain integer attribute (``villa_gather.launches``), which a
 run resets and reads to show which kernels its path went through.  They take
@@ -21,6 +21,8 @@ without a sync: the kernels skip every entry outside ``[0, N)`` instead, so
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -33,7 +35,8 @@ _I, _L = ctypes.c_int, ctypes.c_longlong
 # argtypes of each C entry point, by source file in csrc/
 _SIGNATURES = {
     "page_copy": {
-        "villa_gather_launch": [_P, _P, _P, _I, _L, _I, _P],
+        "villa_gather_grid": [_P],
+        "villa_gather_launch": [_P, _P, _P, _I, _L, _I, _I, _P],
         "villa_scatter_launch": [_P, _P, _P, _I, _L, _I, _P, _P, _I, _P]},
     "rbm_copy": {"rbm_copy_launch": [_P, _P, _L, _L, _P]},
 }
@@ -56,7 +59,7 @@ def _check_pool(name: str, t: torch.Tensor) -> int:
         raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
     if not t.is_contiguous() or t.dim() < 2:
         raise ValueError(f"{name} must be a contiguous (N, ...) page array")
-    page_bytes = t[0].numel() * t.element_size()
+    page_bytes = math.prod(t.shape[1:]) * t.element_size()
     if page_bytes % 16 or t.data_ptr() % 16:
         raise ValueError(f"{name}: pages must be 16-byte sized and aligned "
                          f"(page of {page_bytes} bytes)")
@@ -75,8 +78,21 @@ def device_table(table, n_pool: int, device: torch.device) -> torch.Tensor:
     return to_device(host, device)
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream (without building a
+    ``torch.cuda.Stream``, which costs the wrapper microseconds a call)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_grid(index: int) -> int:
+    """K2's persistent grid on CUDA device ``index``, read once a device."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _lib("page_copy").villa_gather_grid(ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"villa_gather grid query failed: cudaError {err}")
+    return blocks.value
 
 
 def villa_gather(pages: torch.Tensor, table, out: torch.Tensor | None = None
@@ -98,7 +114,7 @@ def villa_gather(pages: torch.Tensor, table, out: torch.Tensor | None = None
     _check_pool("out", out)
     err = _lib("page_copy").villa_gather_launch(
         pages.data_ptr(), out.data_ptr(), t.data_ptr(), n, pages.shape[0],
-        page_bytes, _stream())
+        page_bytes, _gather_grid(pages.device.index), _stream(pages.device))
     if err:
         raise RuntimeError(f"villa_gather launch failed: cudaError {err}")
     villa_gather.launches += 1
@@ -129,7 +145,7 @@ def villa_scatter(pages: torch.Tensor, table, updates: torch.Tensor
     err = _lib("page_copy").villa_scatter_launch(
         pages.data_ptr(), updates.data_ptr(), t.data_ptr(), n, pages.shape[0],
         page_bytes, scratch[0].data_ptr(), scratch[1].data_ptr(), cap,
-        _stream())
+        _stream(pages.device))
     if err:
         raise RuntimeError(f"villa_scatter launch failed: cudaError {err}")
     villa_scatter.launches += 1
@@ -157,7 +173,8 @@ def rbm_copy(x: torch.Tensor, *, tile_rows: int = 256, lanes: int = 128
         raise ValueError(f"{nbytes} bytes in tiles of {tile_bytes} exceed "
                          f"the grid's 2**31 - 1 blocks; use larger tiles")
     err = _lib("rbm_copy").rbm_copy_launch(x.data_ptr(), out.data_ptr(),
-                                           nbytes, tile_bytes, _stream())
+                                           nbytes, tile_bytes,
+                                           _stream(x.device))
     if err:
         raise RuntimeError(f"rbm_copy launch failed: cudaError {err}")
     rbm_copy.launches += 1

@@ -131,6 +131,57 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             .reshape(B, S, H, Dv).to(q.dtype))
 
 
+def split_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                     n_split: int, split_len: int, causal: bool = True,
+                     window: int = 0) -> torch.Tensor:
+    """The split-KV decode kernel's algorithm (S = 1) in plain PyTorch, for
+    the tests: each split of ``split_len`` slots keeps f32 (max, sum,
+    accumulator) over its valid keys, -1e30 and 0 when it has none; then the
+    splits are combined in split order, m = max m_i, l = sum l_i
+    exp(m_i - m), the accumulator likewise over the splits with l_i > 0,
+    out = acc / max(l, 1e-30).  q: (B,1,H,D), k/v: (B,T,K,D)."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if S != 1 or n_split * split_len < T:
+        raise ValueError(f"decode takes S = 1 and splits covering T = {T} "
+                         f"(got S {S}, {n_split} x {split_len})")
+    G = H // K
+    qr = (q.reshape(B, K, G, D) * D ** -0.5).float()
+    qp = q_pos.reshape(B, 1, 1, 1)
+    parts = []
+    for i in range(n_split):
+        sl = slice(i * split_len, min(T, (i + 1) * split_len))
+        kp = kv_pos[:, sl][:, None, None, :]
+        s = torch.einsum("bkgd,btkd->bkgt", qr, k[:, sl].float())
+        valid = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            valid = valid & (kp <= qp)
+        if window > 0:
+            valid = valid & (kp > qp - window)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m = torch.full(s.shape[:-1], NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        if s.shape[-1]:
+            m = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - m[..., None]),
+                        torch.zeros_like(s))
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgt,btkd->bkgd", p, v[:, sl].float())))
+    m = parts[0][0]
+    for mi, _, _ in parts[1:]:
+        m = torch.maximum(m, mi)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for mi, li, ai in parts:
+        c = torch.exp(mi - m)
+        l = l + li * c
+        acc = acc + torch.where((li > 0)[..., None], ai * c[..., None],
+                                torch.zeros_like(ai))
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
     """Exact softmax attention.  q: (B,H,S,D), k/v: (B,K,T,D), H = K*G; the

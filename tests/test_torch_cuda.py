@@ -5,9 +5,11 @@ run time).  On a machine with one, run them with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-They cover shapes the smoke run does not: odd page counts, other head
-dims, group sizes and dtypes, sequence lengths that are not multiples of the
-kernel's tiles, and the Engine on the card against the Engine on the CPU.
+They cover shapes the smoke run does not: odd page counts, masked and
+out-of-range page tables, tables longer than the page gather's persistent
+grid, other head dims, group sizes and dtypes, sequence lengths that are not
+multiples of the kernels' tiles or splits, the decode kernel's dispatch
+rule, and the Engine on the card against the Engine on the CPU.
 """
 import numpy as np
 import pytest
@@ -121,6 +123,152 @@ def test_window_attention_matches_plain(dev, B, S, T, H, K, D, window, dt):
         want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                        v.transpose(1, 2), window=window)
         assert float((full.float() - want.float()).abs().max()) < tol
+
+
+DTYPES = [torch.uint8, torch.float32, torch.bfloat16, torch.int8,
+          torch.int32]
+
+
+def _bytes(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_gather_masked_read_keeps_out(dev, dt):
+    """-1 entries leave the rows of an existing ``out`` as they were."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    pages = torch.randn((1000, 8, 128), device=dev, generator=g).mul(9).to(dt)
+    table = torch.randint(0, 1000, (4099,), device=dev, generator=g,
+                          dtype=torch.int32)
+    table[::3] = -1
+    before = torch.randn((4099, 8, 128), device=dev, generator=g).mul(9).to(
+        dt)
+    out = before.clone()
+    n = ops.KERNELS["villa_gather"].launches
+    assert ops.villa_gather(pages, table, out=out) is out
+    want = ref.villa_gather_ref(pages, table, before.clone())
+    assert torch.equal(_bytes(out), _bytes(want))
+    assert torch.equal(_bytes(out[::3]), _bytes(before[::3]))
+    assert ops.KERNELS["villa_gather"].launches == n + 1
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_gather_never_reads_out_of_range_device_entries(dev, dt):
+    """A device table is not range-checked on the host: entries outside
+    [0, N) are skipped on the card and their rows of ``out`` kept."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    pages = torch.randn((300, 4, 64), device=dev, generator=g).mul(9).to(dt)
+    table = torch.randint(0, 300, (777,), device=dev, generator=g,
+                          dtype=torch.int32)
+    bad = torch.arange(777, device=dev) % 5 == 0
+    table[bad] = torch.tensor([300, 2**31 - 1, -2, -2**31, 301],
+                              dtype=torch.int32, device=dev).repeat(32)[
+                                  :int(bad.sum())]
+    out = torch.zeros((777, 4, 64), device=dev).to(dt)
+    ops.villa_gather(pages, table, out=out)
+    torch.cuda.synchronize()
+    assert not _bytes(out[bad]).any()
+    good = ~bad
+    assert torch.equal(_bytes(out[good]),
+                       _bytes(pages[table[good].long()]))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_gather_table_longer_than_the_persistent_grid(dev, dt):
+    """More entries than the resident warps take in one pass (132 SMs x at
+    most 64 warps x 4 pages), 16-byte pages and 1 KiB pages."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    for shape, n in (((5000, 16 // torch.empty(0, dtype=dt).element_size()),
+                      200_003), ((2000, 8, 128), 70_001)):
+        pages = torch.randn(shape, device=dev, generator=g).mul(9).to(dt)
+        table = torch.randint(-1, shape[0], (n,), device=dev, generator=g,
+                              dtype=torch.int32)
+        out = torch.ones((n,) + shape[1:], device=dev).to(dt)
+        got = ops.villa_gather(pages, table, out=out.clone())
+        want = ref.villa_gather_ref(pages, table, out.clone())
+        assert torch.equal(_bytes(got), _bytes(want))
+        full = ops.villa_gather(pages, table.clamp(min=0))
+        assert torch.equal(_bytes(full), _bytes(pages[table.clamp(
+            min=0).long()]))
+
+
+def _decode_case(dev, B, T, H, K, D, dt, window, ring, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, 1, H, D), device=dev, generator=g).to(dt)
+    k = torch.randn((B, T, K, D), device=dev, generator=g).to(dt)
+    v = torch.randn((B, T, K, D), device=dev, generator=g).to(dt)
+    rng = np.random.default_rng(seed)
+    kv_pos = np.full((B, T), 2**30, np.int32)
+    q_pos = np.zeros((B, 1), np.int32)
+    for b in range(1, B):            # row 0 has no valid key
+        n = int(rng.integers(1, (3 if ring else 1) * T + 1))
+        t = np.arange(max(0, n - T), n)
+        kv_pos[b, t % T] = t
+        q_pos[b, 0] = n - 1
+    return (q, k, v, torch.from_numpy(q_pos).to(dev),
+            torch.from_numpy(kv_pos).to(dev))
+
+
+@pytest.mark.parametrize("B,T,H,K,D,window,ring,dt", [
+    (4, 1024, 32, 16, 128, 1024, True, torch.float32),  # gemma3 ring
+    (4, 2048, 32, 16, 128, 0, False, torch.float32),    # gemma3 global
+    (4, 2048, 32, 16, 128, 1024, False, torch.float32),  # global, windowed
+    (8, 1024, 32, 4, 64, 0, False, torch.float32),      # tinyllama
+    (8, 256, 32, 4, 64, 0, False, torch.float32),       # the launcher's
+    (2, 77, 64, 1, 64, 0, False, torch.float32),        # G = 64
+    (3, 1000, 8, 2, 32, 0, False, torch.float32),
+    (2, 300, 4, 4, 16, 0, False, torch.float32),        # G = 1, D = 16
+    (2, 9, 8, 2, 32, 0, False, torch.float32),          # T < one split
+    (3, 500, 12, 4, 64, 100, True, torch.float32),      # G = 3, ring
+    (4, 1024, 32, 16, 128, 1024, True, torch.bfloat16),
+    (8, 1024, 32, 4, 64, 0, False, torch.bfloat16),     # two head groups
+    (2, 100, 6, 2, 16, 0, False, torch.bfloat16),       # G = 3, D = 16
+    (2, 64, 64, 1, 32, 0, False, torch.bfloat16),       # G = 64 in bf16
+    (1, 20000, 2, 1, 16, 0, False, torch.float32),      # 417 splits
+])
+def test_split_kv_decode_matches_plain(dev, B, T, H, K, D, window, ring, dt):
+    """The split-KV kernel against the plain chunked attention and its
+    plain twin, at the serving shapes and at the edges of its layout; a
+    row with no valid key gives exactly 0, two runs give the same bits,
+    and one call counts one launch."""
+    q, k, v, qp, kp = _decode_case(dev, B, T, H, K, D, dt, window, ring,
+                                   seed=B * T + H)
+    from repro_torch.kernels import flash_attention as FA
+
+    n = ops.KERNELS["flash_attention"].launches
+    out = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    again = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    torch.cuda.synchronize()
+    assert ops.KERNELS["flash_attention"].launches == n + 2
+    assert torch.equal(_bytes(out), _bytes(again))
+    assert not out[0].float().any()
+    tol = 2e-2 if dt == torch.bfloat16 else 3e-5
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
+    assert float((out.float() - want.float()).abs().max()) < tol
+    _, _, ns, sl = FA.decode_plan(B, K, H // K, T, q.element_size(),
+                                  torch.cuda.get_device_properties(
+                                      dev).multi_processor_count)
+    twin = ref.split_decode_ref(q, k, v, qp, kp, n_split=ns, split_len=sl,
+                                window=window)
+    assert float((out.float() - twin.float()).abs().max()) < tol
+
+
+def test_decode_of_k_v_off_16_byte_boundaries(dev):
+    """K/V views that do not start on a 16-byte boundary: the wrapper
+    copies them for the split-KV kernel's vector loads, and the result
+    matches the plain version."""
+    q, k, v, qp, kp = _decode_case(dev, 3, 200, 8, 2, 32, torch.float32, 0,
+                                   False, seed=14)
+    flat = torch.empty(2 * k.numel() + 2, device=dev)
+    off_k = flat[1:k.numel() + 1].view(k.shape)
+    off_v = flat[k.numel() + 2:].view(v.shape)
+    off_k.copy_(k)
+    off_v.copy_(v)
+    assert off_k.data_ptr() % 16 and off_v.data_ptr() % 16
+    out = ops.chunked_attention(q, off_k, off_v, qp, kp)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp)
+    assert float((out - want).abs().max()) < 3e-5
+    assert not out[0].any()
 
 
 def test_attention_still_raises_outside_its_shapes(dev):
