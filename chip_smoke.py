@@ -77,6 +77,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM tensor cores, dense TF32
+BF16_FLOP_PER_S = 989e12         # H100 SXM tensor cores, dense bf16
 SLEEP_CYCLES = 400_000           # ~0.2 ms of GPU sleep ahead of a timing
 SLOTS, MAX_LEN, N_SESSIONS, SEED = 8, 1024, 32, 0
 SERVE_LEN = 256                  # the launcher's --max-len in phase 5
@@ -163,6 +165,7 @@ def main() -> int:
                 entry = kernel_name(m.group(1))
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name} {entry}: {line.strip()}")
+    check_sass(built)
 
     cfg = get_config("tinyllama-1.1b")
     spec = paging.PageSpec.for_cache(lm.init_cache(cfg, 1, MAX_LEN,
@@ -318,11 +321,7 @@ def main() -> int:
                        lambda: ref.chunked_attention_ref(q, k, v, qp, kp),
                        library, flush),
         bound_ms=bound, bound_by=by, max_abs_err=max(errs))
-    for bucket in (16, 64, 256, 512):
-        pq, pk, pv, pqp, pkp, _ = attn_case(1, bucket, bucket, [bucket])
-        ms = timed(lambda: ops.chunked_attention(pq, pk, pv, pqp, pkp))
-        print(f"attention prefill bucket {bucket} (full): kernel {ms:.4f} ms "
-              f"[{tag}]")
+    rows["flash_attention_prefill"] = prefill_rows(attn_case, flush, tag)
     rows["flash_attention_window"] = window_attention_rows(dev, gen, flush,
                                                            tag)
 
@@ -490,12 +489,20 @@ def main() -> int:
     for name in ("villa_scatter", "villa_gather", "rbm_copy"):
         counts[name] += g3[name]
     counts["flash_attention_window"] = g3["flash_attention"]
+    routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
+                                  "decode": counts["flash_attention_decode"]},
+              "flash_attention_window": {
+                  "prefill": g3["flash_attention_prefill"],
+                  "decode": g3["flash_attention_decode"]}}
+    # K3 on tinyllama's paths by route: the decode row, then the prefill row
+    counts["flash_attention"] = counts["flash_attention_decode"]
 
     replaces = {
         "villa_scatter": "src/repro/kernels/rbm_copy.py:93",
         "villa_gather": "src/repro/kernels/rbm_copy.py:58",
         "flash_attention": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_window": "src/repro/kernels/flash_attention.py:81",
+        "flash_attention_prefill": "src/repro/kernels/flash_attention.py:81",
         "rbm_copy": "src/repro/kernels/rbm_copy.py:27"}
     sources = {"villa_scatter": "src/repro_torch/kernels/csrc/page_copy.cu",
                "villa_gather": "src/repro_torch/kernels/csrc/page_copy.cu",
@@ -503,12 +510,16 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
                "flash_attention_window":
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "flash_attention_prefill":
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
                "rbm_copy": "src/repro_torch/kernels/csrc/rbm_copy.cu"}
-    # flash_attention counts K3 on the tinyllama paths (phases 3 and 5),
-    # flash_attention_window the same kernel on gemma3's (phase 6)
+    # flash_attention counts K3's decode kernel on the tinyllama paths
+    # (phases 3 and 5), flash_attention_prefill its prefill kernel there,
+    # flash_attention_window both on gemma3's (phase 6), by route beside
     kernels = []
     for name in ("villa_scatter", "villa_gather", "flash_attention",
-                 "flash_attention_window", "rbm_copy"):
+                 "flash_attention_prefill", "flash_attention_window",
+                 "rbm_copy"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],
@@ -519,7 +530,10 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         kernels[-1].update({key: r[key] for key in
                             ("device_ms", "library_device_ms", "enqueue_us",
-                             "library_enqueue_us", "shapes") if key in r})
+                             "library_enqueue_us", "tc_bound_ms", "shapes")
+                            if key in r})
+        if name in routes:
+            kernels[-1]["launches_by_route"] = routes[name]
         print(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
@@ -564,11 +578,14 @@ def enqueue_us(fn, calls=50) -> float:
     return us
 
 
-def attention_bound(q, k, q_pos, kv_pos, window):
+def attention_bound(q, k, q_pos, kv_pos, window, peak=F32_FLOP_PER_S,
+                    passes=1):
     """(ms, "bytes" or "operations") of the least time the card could take
     for this attention: q read and the output written once, positions read
     once, the K/V rows that some query of their batch row attends read
-    once; 4*H*D FLOP per valid (query, key) pair, at the f32 peak."""
+    once; 4*H*D FLOP per valid (query, key) pair, at the f32 peak (or,
+    for the prefill kernel's own bound, ``passes`` products of each at a
+    tensor-core peak: 3 TF32 ones for f32, one bf16)."""
     qp, kp = q_pos.cpu().numpy(), kv_pos.cpu().numpy()
     valid = kp[:, None, :] <= qp[:, :, None]
     if window > 0:
@@ -578,10 +595,95 @@ def attention_bound(q, k, q_pos, kv_pos, window):
     nbytes = (q.element_size() * (2 * q.numel()
                                   + 2 * int(valid.any(1).sum()) * K * D)
               + 4 * (qp.size + kp.size))
-    flops = 4 * H * D * int(valid.sum())
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    flops = 4 * H * D * int(valid.sum()) * passes
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tc_bound(q, k, q_pos, kv_pos, window):
+    """The prefill kernel's tensor-core bound (ms): 3xTF32 for f32, one
+    bf16 product for bf16."""
+    import torch
+    if q.dtype == torch.bfloat16:
+        return attention_bound(q, k, q_pos, kv_pos, window,
+                               BF16_FLOP_PER_S)[0]
+    return attention_bound(q, k, q_pos, kv_pos, window, TF32_FLOP_PER_S,
+                           3)[0]
+
+
+def prefill_rows(attn_case, flush, tag) -> dict:
+    """Phase 2's tinyllama prefill shapes (the Engine's buckets 16 and 512,
+    a full prompt): the prefill kernel within 3e-5 of its plain version,
+    timed beside it and SDPA (causal boolean mask), with its f32 and
+    tensor-core bounds.  Returns the ``kernels`` entry: bucket 512's
+    numbers, both buckets' in ``shapes``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for bucket in (16, 512):
+        q, k, v, qp, kp, _ = attn_case(1, bucket, bucket, [bucket])
+        got = ops.chunked_attention(q, k, v, qp, kp)
+        want = ref.chunked_attention_ref(q, k, v, qp, kp)
+        err = float((got - want).abs().max())
+        check(err <= 3e-5, f"prefill bucket {bucket}: error {err} > 3e-5")
+        mask = kp[:, None, None, :] <= qp[:, None, :, None]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        bound, by = attention_bound(q, k, qp, kp, 0)
+        r = out[f"bucket_{bucket}"] = dict(
+            **kernel_times(lambda: ops.chunked_attention(q, k, v, qp, kp),
+                           lambda: ref.chunked_attention_ref(q, k, v, qp, kp),
+                           lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                        enable_gqa=True), flush),
+            bound_ms=bound, bound_by=by, tc_bound_ms=tc_bound(q, k, qp, kp, 0),
+            max_abs_err=err)
+        print(f"attention prefill bucket {bucket}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+              f"bound {bound:.5f} ms ({by}), tensor-core bound "
+              f"{r['tc_bound_ms']:.5f} ms; device time: kernel "
+              f"{r['device_ms']:.4f} ms, SDPA {r['library_device_ms']:.4f} ms;"
+              f" max_abs_err {err:.3g} [{tag}]")
+    row = dict(out["bucket_512"])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
+    row["shapes"] = out
+    return row
+
+
+def check_sass(built) -> None:
+    """The compiled code shows the design: every prefill kernel runs
+    tensor-core MMAs (HMMA), the attention library holds no kernel besides
+    the prefill and the split-KV decode kernels, and K4 issues bulk copies
+    (UBLKCP).  Reads the SASS with the toolkit's cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name in ("flash_attention", "rbm_copy"):
+        sass = subprocess.run([tool, "-sass", str(built[name])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = kernel_name(m.group(1))
+                counts[fn] = {"HMMA": 0, "UBLKCP": 0}
+            elif fn is not None:
+                for op in ("HMMA", "UBLKCP"):
+                    counts[fn][op] += op in line
+    prefill = {k: c for k, c in counts.items() if "prefill_kernel" in k}
+    other = [k for k in counts if "prefill_kernel" not in k
+             and "decode_split_kernel" not in k and "bulk_copy" not in k]
+    check(len(prefill) == 8 and all(c["HMMA"] > 0 for c in prefill.values()),
+          f"prefill kernels without tensor-core MMAs: {prefill}")
+    check(not other, f"kernels outside the design: {other}")
+    bulk = [c["UBLKCP"] for k, c in counts.items() if "bulk_copy" in k]
+    check(bulk and all(n > 0 for n in bulk), "K4 issues no bulk copies")
+    for k in sorted(prefill):
+        print(f"  sass {k}: {prefill[k]['HMMA']} HMMA")
+    print(f"  sass bulk_copy_kernel: {bulk[0]} UBLKCP")
 
 
 def window_attention_rows(dev, gen, flush, tag) -> dict:
@@ -669,6 +771,26 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
             bound_ms=bound, bound_by=by, max_abs_err=errs["float32"],
             max_abs_err_bf16=errs.get("bfloat16"))
         r = out[name]
+        if S > 1:
+            r["tc_bound_ms"] = tc_bound(q, k, qp, kp, window)
+        if name == "prefill_local":         # bf16, a finding beside SDPA's
+            qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+            qbt, kbt, vbt = (x.transpose(1, 2) for x in (qb, kb, vb))
+            r["bf16"] = dict(
+                ms=timed(lambda: ops.chunked_attention(qb, kb, vb, qp, kp,
+                                                       window=window),
+                         flush=flush),
+                device_ms=timed(lambda: ops.chunked_attention(
+                    qb, kb, vb, qp, kp, window=window), flush=flush,
+                    device=True),
+                library_device_ms=timed(lambda: sdpa(
+                    qbt, kbt, vbt, attn_mask=mask, enable_gqa=True),
+                    flush=flush, device=True),
+                tc_bound_ms=tc_bound(qb, kb, qp, kp, window))
+            print(f"attention {name} bf16: kernel {r['bf16']['ms']:.4f} ms, "
+                  f"device {r['bf16']['device_ms']:.4f} ms, SDPA device "
+                  f"{r['bf16']['library_device_ms']:.4f} ms, tensor-core "
+                  f"bound {r['bf16']['tc_bound_ms']:.5f} ms [{tag}]")
         print(f"attention {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
               f"{bound:.5f} ms ({by}); device time: kernel "
@@ -677,6 +799,11 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
               f"{r['library_enqueue_us']:.1f} us [{tag}]")
     row = {k: v for k, v in out["decode_ring"].items()
            if k != "max_abs_err_bf16"}
+    for name in ("prefill_local", "prefill_global"):
+        print(f"attention {name}: device {out[name]['device_ms']:.4f} ms "
+              f"against the target of 50% of the f32 bound "
+              f"({2 * out[name]['bound_ms']:.4f} ms); tensor-core bound "
+              f"{out[name]['tc_bound_ms']:.4f} ms [{tag}]")
     row["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
     row["shapes"] = out
     return row
@@ -843,12 +970,16 @@ def gemma3_phase(tag) -> dict:
 
 
 def kernel_name(mangled: str) -> str:
-    """The kernel part of a mangled entry name, its namespace dropped:
-    ``attn_kernelIfLi128E`` is ``attn_kernel<float, 128>``,
-    ``attn_kernelI13__nv_bfloat16Li64E`` the bf16 one at head_dim 64."""
-    m = re.match(r"_ZN(\d+)", mangled)
-    s = mangled[m.end() + int(m.group(1)):] if m else mangled
-    return re.sub(r"E(Ev|v|P).*$", "", re.sub(r"^\d+", "", s))
+    """The kernel part of a mangled entry name, its namespaces dropped:
+    ``prefill_kernelIfLi128E`` is ``pf::prefill_kernel<float, 128>``,
+    ``decode_split_kernelI13__nv_bfloat16Li64ELi4E`` the bf16 decode
+    kernel at head_dim 64, head group 4."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled
+    name = ""
+    while (m := re.match(r"\d+", s)):
+        n = int(m.group(0))
+        name, s = s[m.end():m.end() + n], s[m.end() + n:]
+    return re.sub(r"E(Ev|v|P).*$", "", name + s)
 
 
 def bit_equal(a, b) -> bool:
@@ -861,12 +992,15 @@ def bit_equal(a, b) -> bool:
 
 def serving_launches(cfg, st) -> dict:
     """The launches a serving run's stats call for.  K3 runs once a layer
-    per prefill and per decode dispatch; a suspend writes the slow row and
+    per prefill (its prefill kernel: every prompt is longer than one token)
+    and per decode dispatch (its decode kernel); a suspend writes the slow row and
     its fast copy (two K1), a resume reads the slow row and the fast slot
     (two K2) and may insert into the fast tier (K1), a demotion clones a
     row (one K2, one K1); K4 is not on the serving path."""
     return {"flash_attention": cfg.n_layers * (st["prefills"]
                                                + st["decode_dispatches"]),
+            "flash_attention_prefill": cfg.n_layers * st["prefills"],
+            "flash_attention_decode": cfg.n_layers * st["decode_dispatches"],
             "villa_scatter": 2 * st["suspends"] + st["resumes"]
             + st["demotions"],
             "villa_gather": 2 * st["resumes"] + st["demotions"]}

@@ -9,13 +9,15 @@ tensors in the serving model's layout — q (B,S,H,D), k/v (B,T,K,D), per-row
 positions — checks device, dtype, contiguity and shape, launches on
 q's device's current stream, allocates its output with ``torch.empty``,
 raises if the launch reports an error, and counts its calls in
-``chunked_attention.launches``, one a launch.  Decode (S = 1) runs the
-split-KV kernel, laid out by :func:`decode_plan`, with its partials and
-tickets in a workspace kept per device and stream (:func:`_workspace`);
-K/V that do not start on a 16-byte boundary, which its vector loads need,
-are copied first.  Prefill runs the tiled kernel.  It takes the reference's
-causal and sliding-window masks (``window > 0``, the ``attn_local``
-layers).  It raises ``NotImplementedError`` on Dv != Dk (MLA) and
+``chunked_attention.launches``, one a launch, and by route in
+``chunked_attention.prefill`` and ``chunked_attention.decode``.  Decode
+(S = 1) runs the split-KV kernel, laid out by :func:`decode_plan`, with its
+partials and tickets in a workspace kept per device and stream
+(:func:`_workspace`).  Prefill (S > 1) runs the tensor-core kernel, laid
+out by :func:`prefill_plan`.  q/k/v that do not start on a 16-byte
+boundary, which both kernels' vector loads need, are copied first.  It
+takes the reference's causal and sliding-window masks (``window > 0``, the
+``attn_local`` layers).  It raises ``NotImplementedError`` on Dv != Dk (MLA) and
 ``ValueError`` on a head_dim outside 16/32/64/128 (gemma-7b's 256): ROADMAP
 Queue 2 lists both under K3.  int8 K/V, whose scales the reference passes
 here, has no entry yet.  CPU tensors never reach it:
@@ -30,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -44,18 +46,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DECODE_CTAS_PER_SM = 4      # the grid aims at this many CTAs an SM
 SPLIT_ALIGN = 16            # a split's length is a multiple of this
 MAX_SPLITS = 512            # the most splits the kernel's combine takes
+# the prefill kernel's layout (csrc/flash_attention.cu, namespace pf)
+PREFILL_ROWS = 128          # (query, head) rows a CTA: 8 warps of 16
+PREFILL_KEYS = 64           # keys a K/V tile
+PREFILL_STAGES = 2          # K/V tiles in flight (cp.async ring)
 
 
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.library("flash_attention")
-        lib.flash_attention_launch.argtypes = (
-            [_P] * 6 + [_I] * 8 + [ctypes.c_float, _I, _P])
+        lib.flash_prefill_launch.argtypes = (
+            [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_I] * 6 + [_P])
         lib.flash_decode_launch.argtypes = (
             [_P] * 8 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P])
         lib.flash_attention_prepare.argtypes = []
-        for fn in (lib.flash_attention_launch, lib.flash_decode_launch,
+        for fn in (lib.flash_prefill_launch, lib.flash_decode_launch,
                    lib.flash_attention_prepare):
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -87,10 +93,45 @@ def decode_plan(B: int, K: int, G: int, T: int, itemsize: int, n_sm: int
     return head_group, n_groups, -(-max(T, 1) // split_len), split_len
 
 
+class PrefillPlan(NamedTuple):
+    rows: int                    # (query, head) rows a CTA
+    keys: int                    # keys a tile
+    stages: int                  # tiles in flight
+    bq: int                      # queries a CTA
+    grid: Tuple[int, int, int]   # (query blocks, kv heads, batch rows)
+
+
+@functools.lru_cache(maxsize=None)
+def prefill_plan(B: int, S: int, H: int, K: int) -> PrefillPlan:
+    """The prefill kernel's layout for q (B,S,H,D) over K kv heads: a CTA
+    holds ``bq = PREFILL_ROWS // G`` queries of all G = H / K heads of one
+    kv head (:func:`prefill_row`), and walks the keys in tiles of
+    PREFILL_KEYS through a ring of PREFILL_STAGES; the grid is one CTA per
+    (query block, kv head, batch row)."""
+    G = H // K
+    if G < 1 or H % K or G > PREFILL_ROWS:
+        raise ValueError(f"{H} heads over {K} kv heads: groups of 1 to "
+                         f"{PREFILL_ROWS} heads only")
+    bq = PREFILL_ROWS // G
+    return PrefillPlan(PREFILL_ROWS, PREFILL_KEYS, PREFILL_STAGES, bq,
+                       (-(-S // bq), K, B))
+
+
+def prefill_row(plan: PrefillPlan, S: int, G: int, qb: int, kvh: int,
+                r: int) -> Tuple[int, int] | None:
+    """``(query, head)`` of row ``r`` of the CTA of query block ``qb`` and kv
+    head ``kvh``, as the kernel computes it, or None for a row it leaves
+    empty."""
+    s = qb * plan.bq + r // G
+    if r >= plan.bq * G or s >= S:
+        return None
+    return s, kvh * G + r % G
+
+
 @functools.lru_cache(maxsize=None)
 def _device(index: int) -> int:
     """The SM count of CUDA device ``index``; on the first call for a
-    device, also the tiled kernel's shared-memory opt-in there."""
+    device, also the prefill kernel's shared-memory opt-in there."""
     with torch.cuda.device(index):
         err = _lib().flash_attention_prepare()
     if err:
@@ -146,15 +187,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head_dim {D} / group {H // K}: the kernel takes "
                          f"head_dim 16, 32, 64 or 128 and groups of at most "
                          f"64")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     n_sm = _device(q.device.index)
     if S == 1:
-        k = k if k.data_ptr() % 16 == 0 else k.clone()
-        v = v if v.data_ptr() % 16 == 0 else v.clone()
         gc, groups, n_split, split_len = decode_plan(
             B, K, H // K, T, q.element_size(), n_sm)
         part, tickets = _workspace(q.device, stream,
@@ -165,17 +206,25 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             tickets.data_ptr(), B, T, H, K, D, int(causal), int(window),
             D ** -0.5, _DTYPES[q.dtype], gc, n_split, split_len, stream)
     else:
-        err = _lib().flash_attention_launch(
+        plan = prefill_plan(B, S, H, K)
+        err = _lib().flash_prefill_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, int(causal),
-            int(window), D ** -0.5, _DTYPES[q.dtype], stream)
+            int(window), D ** -0.5, _DTYPES[q.dtype], plan.rows, plan.keys,
+            plan.stages, plan.bq, plan.grid[0], stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     chunked_attention.launches += 1
+    if S == 1:
+        chunked_attention.decode += 1
+    else:
+        chunked_attention.prefill += 1
     return out
 
 
 chunked_attention.launches = 0
+chunked_attention.prefill = 0
+chunked_attention.decode = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

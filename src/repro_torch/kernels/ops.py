@@ -24,13 +24,24 @@ KERNELS = {"villa_scatter": RC.villa_scatter,
            "rbm_copy": RC.rbm_copy}
 
 
+# K3's launches by route: the tensor-core prefill kernel and the split-KV
+# decode kernel, whose sum is ``flash_attention``
+ROUTES = {"flash_attention_prefill": (FA.chunked_attention, "prefill"),
+          "flash_attention_decode": (FA.chunked_attention, "decode")}
+
+
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts.update({name: getattr(fn, route)
+                   for name, (fn, route) in ROUTES.items()})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn, route in ROUTES.values():
+        setattr(fn, route, 0)
 
 
 def villa_gather(pages: torch.Tensor, table, out=None) -> torch.Tensor:

@@ -38,7 +38,8 @@ _SIGNATURES = {
         "villa_gather_grid": [_P],
         "villa_gather_launch": [_P, _P, _P, _I, _L, _I, _I, _P],
         "villa_scatter_launch": [_P, _P, _P, _I, _L, _I, _P, _P, _I, _P]},
-    "rbm_copy": {"rbm_copy_launch": [_P, _P, _L, _L, _P]},
+    "rbm_copy": {"rbm_copy_grid": [_P], "rbm_copy_chunk": [],
+                 "rbm_copy_launch": [_P, _P, _L, _I, _P]},
 }
 _LIBS = {}
 
@@ -155,26 +156,43 @@ def villa_scatter(pages: torch.Tensor, table, updates: torch.Tensor
 villa_scatter.launches = 0
 
 
+_COPY = {}           # device index -> (bound launch function, grid)
+
+
+def _copy_launcher(index: int):
+    """K4's launch function and persistent grid on CUDA device ``index``,
+    read once a device (the grid query also opts the kernel in to its
+    shared memory there)."""
+    got = _COPY.get(index)
+    if got is None:
+        lib = _lib("rbm_copy")
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = lib.rbm_copy_grid(ctypes.byref(blocks))
+        if err:
+            raise RuntimeError(f"rbm_copy grid query failed: cudaError {err}")
+        got = _COPY[index] = (lib.rbm_copy_launch, blocks.value)
+    return got
+
+
 def rbm_copy(x: torch.Tensor, *, tile_rows: int = 256, lanes: int = 128
              ) -> torch.Tensor:
     """K4: a new tensor of ``x``'s shape and dtype holding every byte of
-    ``x``, copied by one CTA per tile of ``tile_rows * lanes`` elements.
-    ``x`` must be contiguous: a strided view would need a second copy first,
-    which would hide a library copy behind this kernel."""
+    ``x``.  The reference's ``(tile_rows, lanes)`` tiles are checked, but the
+    kernel streams the bytes in its own chunks (``rbm_copy_chunk`` in
+    csrc/rbm_copy.cu) through a persistent grid.  ``x`` must be contiguous: a strided view would need a
+    second copy first, which would hide a library copy behind this kernel."""
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor (got {x.device})")
     check_copy_args(x, tile_rows, lanes)
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    nbytes = x.numel() * x.element_size()
+    out = torch.empty_like(x)
+    nbytes = x.nbytes
     if nbytes == 0:
         return out
-    tile_bytes = tile_rows * lanes * x.element_size()
-    if -(-nbytes // tile_bytes) > 2**31 - 1:
-        raise ValueError(f"{nbytes} bytes in tiles of {tile_bytes} exceed "
-                         f"the grid's 2**31 - 1 blocks; use larger tiles")
-    err = _lib("rbm_copy").rbm_copy_launch(x.data_ptr(), out.data_ptr(),
-                                           nbytes, tile_bytes,
-                                           _stream(x.device))
+    index = x.get_device()
+    launch, grid = _copy_launcher(index)
+    err = launch(x.data_ptr(), out.data_ptr(), nbytes, grid,
+                 torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"rbm_copy launch failed: cudaError {err}")
     rbm_copy.launches += 1

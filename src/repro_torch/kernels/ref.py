@@ -202,3 +202,70 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value, ties away from zero (the prefill
+    kernel's operand rounding: half an ulp added to the magnitude bits, the
+    low 13 bits cleared), as f32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 by dropping the low 13 bits: what the tensor cores read
+    of an f32 operand that is not already TF32."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(
+        torch.float32)
+
+
+def _tc_dot(a: torch.Tensor, b: torch.Tensor, eq: str,
+            split: bool) -> torch.Tensor:
+    """einsum ``eq`` of f32 operands as the prefill kernel's TF32 MMAs
+    compute it: with ``split``, a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (hi the
+    TF32 rounding, lo the rest truncated to TF32), else a_hi.b_hi."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    if not split:
+        return torch.einsum(eq, ah, bh)
+    al, bl = tf32_trunc(a - ah), tf32_trunc(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def prefill_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                   causal: bool = True, window: int = 0, keys: int = 64,
+                   split: bool = True) -> torch.Tensor:
+    """The f32 prefill kernel's arithmetic in plain PyTorch, for the tests:
+    tiles of ``keys`` keys, scores and P.V through :func:`_tc_dot` (3xTF32
+    with ``split``, one TF32 pass without), masks from kv_pos, the online
+    softmax in f32 per tile, -1e30 for a masked score, out = acc /
+    max(l, 1e-30).  q: (B,S,H,D), k/v: (B,T,K,D) float32."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qr = q.reshape(B, S, K, G, D).float() * D ** -0.5
+    qp = q_pos[:, None, None, :, None]
+    m = torch.full((B, K, G, S), NEG_INF, dtype=torch.float32)
+    l = torch.zeros((B, K, G, S), dtype=torch.float32)
+    acc = torch.zeros((B, K, G, S, D), dtype=torch.float32)
+    for t0 in range(0, T, keys):
+        sl = slice(t0, min(T, t0 + keys))
+        s = _tc_dot(qr, k[:, sl].float(), "bskgd,btkd->bkgst", split)
+        kp = kv_pos[:, sl][:, None, None, None, :]
+        valid = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            valid = valid & (kp <= qp)
+        if window > 0:
+            valid = valid & (kp > qp - window)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _tc_dot(p, v[:, sl].float(),
+                                              "bkgst,btkd->bkgsd", split)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)

@@ -408,3 +408,117 @@ def test_scheduler_on_card_matches_cpu(dev):
                     summary, dict(eng.stats), eng.session_tok,
                     eng.verify_failure_count()))
     assert out[0] == out[1]
+
+
+def _prefill_case(dev, B, S, T, H, K, D, dt, seed, empty_row=False):
+    """Prefill inputs: batch row b holds a prompt of n_b <= min(S, T)
+    tokens at positions 0..n_b-1 in its first slots; its other query rows
+    and slots are padding at 2**30 (as the Engine's buckets); with
+    ``empty_row`` row 0's keys are all padding and its queries at 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, D), device=dev, generator=g).to(dt)
+    k = torch.randn((B, T, K, D), device=dev, generator=g).to(dt)
+    v = torch.randn((B, T, K, D), device=dev, generator=g).to(dt)
+    rng = np.random.default_rng(seed)
+    q_pos = np.full((B, S), 2**30, np.int32)
+    kv_pos = np.full((B, T), 2**30, np.int32)
+    for b in range(B):
+        n = min(S, T) if b == B - 1 else int(rng.integers(1, min(S, T) + 1))
+        q_pos[b, :n] = np.arange(T - n, T)[:n] if T < S else np.arange(n)
+        kv_pos[b, :n] = np.arange(n)
+    if empty_row:
+        q_pos[0] = 0
+        kv_pos[0] = 2**30
+    return (q, k, v, torch.from_numpy(q_pos).to(dev),
+            torch.from_numpy(kv_pos).to(dev))
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,window,dt", [
+    (1, 1500, 1500, 32, 16, 128, 1024, torch.float32),  # gemma3 local
+    (1, 1500, 1500, 32, 16, 128, 0, torch.float32),     # gemma3 global
+    (1, 512, 512, 32, 4, 64, 0, torch.float32),         # tinyllama 512
+    (1, 16, 16, 32, 4, 64, 0, torch.float32),           # tinyllama 16
+    (2, 37, 37, 4, 4, 16, 0, torch.float32),            # G = 1, D = 16
+    (2, 300, 300, 8, 4, 32, 100, torch.float32),        # G = 2, D = 32
+    (3, 77, 130, 64, 1, 64, 1, torch.float32),          # G = 64, W = 1
+    (2, 200, 65, 24, 3, 128, 0, torch.float32),         # T < S, G = 8
+    (1, 1500, 1500, 32, 16, 128, 1024, torch.bfloat16),
+    (2, 300, 300, 16, 2, 64, 100, torch.bfloat16),
+    (2, 37, 37, 4, 4, 16, 0, torch.bfloat16),
+    (3, 77, 130, 64, 1, 32, 1, torch.bfloat16),
+])
+def test_prefill_matches_plain(dev, B, S, T, H, K, D, window, dt):
+    """The tensor-core prefill kernel against the plain chunked attention:
+    S and T not multiples of the 64-key tile or of a CTA's queries, G 1-64,
+    D 16-128, windows 1-1024, padded rows at 2**30, row 0 with no valid key
+    (exactly 0), bf16; one call counts one prefill launch, and two calls
+    give the same bits."""
+    q, k, v, qp, kp = _prefill_case(dev, B, S, T, H, K, D, dt,
+                                    seed=S * 7 + T + H + D, empty_row=B > 1)
+    fn = ops.KERNELS["flash_attention"]
+    n, n_pre, n_dec = fn.launches, fn.prefill, fn.decode
+    out = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    again = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.prefill, fn.decode) == (n + 2, n_pre + 2, n_dec)
+    assert torch.equal(_bytes(out), _bytes(again))
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
+    tol = 2e-2 if dt == torch.bfloat16 else 3e-5
+    assert float((out.float() - want.float()).abs().max()) < tol
+    if B > 1:
+        assert not out[0].float().any()
+
+
+def test_prefill_of_views_off_16_byte_boundaries(dev):
+    """q/k/v views that do not start on a 16-byte boundary: the wrapper
+    copies them for the prefill kernel's 16-byte loads."""
+    q, k, v, qp, kp = _prefill_case(dev, 2, 70, 70, 8, 2, 32, torch.float32,
+                                    seed=15)
+    views = []
+    for t in (q, k, v):
+        flat = torch.empty(t.numel() + 1, device=dev)
+        views.append(flat[1:].view(t.shape))
+        views[-1].copy_(t)
+        assert views[-1].data_ptr() % 16
+    out = ops.chunked_attention(*views, qp, kp, window=30)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=30)
+    assert float((out - want).abs().max()) < 3e-5
+
+
+def _copy_sizes(dev):
+    from repro_torch.kernels import rbm_copy as RC
+
+    _, grid = RC._copy_launcher(dev.index or 0)
+    chunk = RC._lib("rbm_copy").rbm_copy_chunk()
+    return [1, 15, 16, 17, chunk - 16, chunk, chunk + 16,
+            (grid + 3) * chunk + 5]
+
+
+@pytest.mark.parametrize("dt", DTYPES + [torch.bool, torch.float16])
+def test_rbm_copy_bulk_sizes(dev, dt):
+    """The bulk copy bit-exact at 1, 15, 16 and 17 bytes (head and tail
+    only), at a stage's size and 16 bytes either side, and at more chunks
+    than the persistent grid has CTAs, on every dtype; at an aligned start
+    and 1-15 bytes into a 16-byte line (head, body and tail)."""
+    item = torch.empty(0, dtype=dt).element_size()
+    g = torch.Generator(device=dev).manual_seed(16)
+    for nbytes in _copy_sizes(dev):
+        n = max(1, nbytes // item)
+        base = torch.randint(0, 256, (n * item + 16,), dtype=torch.uint8,
+                             device=dev, generator=g)
+        for skip in (0, item, 16 - item if item < 16 else 0):
+            x = base[skip:skip + n * item].view(dt)
+            got = ops.rbm_copy(x)
+            torch.cuda.synchronize()
+            assert torch.equal(_bytes(got), _bytes(x)), (nbytes, skip)
+
+
+def test_rbm_copy_misaligned_pair_large(dev):
+    """Source and destination that differ mod 16 over many chunks: the
+    byte path over the whole grid."""
+    base = torch.randint(0, 256, (3 * 32768 * 64 + 7,), dtype=torch.uint8,
+                         device=dev)
+    x = base[3:]
+    got = ops.rbm_copy(x)
+    torch.cuda.synchronize()
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
