@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch_kernels/<name>-<hash>.so``
 at the root of the checkout (a directory ``.gitignore`` lists), compiled for
 Hopper only (``sm_90a``) with a plain C interface — no PyTorch headers, so a
-build takes seconds.  The file name carries a hash of the source, so an edited
-source is rebuilt and a stale library is never loaded.  Nothing is built at
+build takes seconds.  The file name carries a hash of the source and of the
+headers beside it, so an edited source or header is rebuilt and a stale
+library is never loaded.  Nothing is built at
 import: the first launch builds (``library``), or ``build_all`` builds every
 source at once, one nvcc per source, all started together.
 """
@@ -35,8 +36,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of every
+    header in ``csrc/`` (a source may include any of them)."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def sources() -> List[str]:

@@ -9,12 +9,23 @@
 // kv_pos[t] > q_pos[s] - W.  Running max, sum and accumulator are f32; a
 // masked score is -1e30 and the sum is floored at 1e-30, so a row with no
 // valid key gives 0.  Not taken yet: int8 scales (no entry), and, raising
-// in the wrapper, Dv != Dk (MLA) and head_dim outside 16/32/64/128
-// (gemma-7b's 256); ROADMAP Queue 2 lists them under K3.
+// in the wrapper, Dv != Dk (MLA) and head_dim outside 16/32/64/128/256;
+// ROADMAP Queue 2 lists them under K3.
 //
-// Two kernels share that contract.  The wrapper launches the split-KV
-// decode kernel when S = 1 and the tensor-core prefill kernel otherwise;
-// it copies q/k/v that do not start on a 16-byte boundary first.
+// q and k/v may differ in dtype (bf16 weights over the Engine's f32 cache
+// give bf16 q over f32 K/V); k and v share one.  The kernels follow the
+// reference's order of rounding (attention.py:85, :100, :126): q is scaled
+// in its own dtype, then widened; scores, softmax and the accumulator are
+// f32; the output is written in q's dtype.  Both kernels are templates on
+// q's dtype TQ and the cache's TKV and read each in its own width: the
+// wrapper casts nothing.  A product with an f32 operand takes the f32 path
+// (3xTF32 in the prefill); only all-bf16 inputs run bf16 products.
+//
+// Two kernels share that contract: the tensor-core prefill kernel here and
+// the split-KV decode kernel in flash_decode.cu (the two build in parallel;
+// flash_common.cuh holds what they share).  The wrapper launches decode
+// when S = 1 and prefill otherwise; it copies q/k/v that do not start on a
+// 16-byte boundary first.
 //
 // Bounds on the H100.  Decode (S = 1) is bound by bytes: it reads each
 // valid K/V row once for 2*G*D FMAs per key and head group, 8 FLOP per
@@ -29,14 +40,16 @@
 // 989 TFLOP/s, 0.0168 ms.
 //
 // Prefill design (tensor cores, mma.sync).  One CTA per (batch row, kv
-// head, block of BQ queries) holds all G query heads of its kv head: kRows
-// = 128 (query, head) rows, 16 to each of 8 warps, so the GQA routing is
+// head, block of BQ queries) holds all G query heads of its kv head: 128
+// (query, head) rows up to head dim 128, 16 to each of 8 warps (64 rows at
+// head dim 256, below), so the GQA routing is
 // index math and each K/V tile is read once per head group
 // (kernels/flash_attention.py::prefill_plan lays out the grid).  The CTA
 // first lists its live tiles of kBN = 64 keys: those holding a key that
 // some row can see (kv_pos <= the largest row bound and > the smallest
 // q_pos - W, 64-bit), so fully masked tiles are never loaded.  K, V and
-// kv_pos of the live tiles stream through a two-stage ring in shared
+// kv_pos of the live tiles stream through a two-stage ring (one stage for
+// f32 at head dim 256, below) in shared
 // memory with cp.async (16-byte copies, zero-filled past T, one commit
 // group a tile): tile i + 1 loads while tile i is computed, one
 // __syncthreads a tile.  The last query blocks, which see the most keys,
@@ -59,6 +72,18 @@
 //   bf16: m16n8k16 bf16 MMAs with f32 accumulators: Q's fragments (scaled
 //         in bf16) in registers, K from ldmatrix, V from ldmatrix.trans,
 //         P rounded to bf16 for PV; K/V rows padded to D + 8.
+//   mixed: bf16 q over f32 K/V stages Q as f32 after its bf16 rounding;
+//         f32 q over bf16 K/V widens each bf16 K/V chunk to f32 on its way
+//         into shared memory (plain loads: cp.async cannot convert), whose
+//         TF32 split is exact (lo = 0).
+// Head dim 256 (gemma-7b).  A warp's accumulator of 16 rows by 256 columns
+// (128 registers) does not fit beside the scores, so two warps share each
+// 16-row block: both compute its scores in full, and each keeps D/2
+// output columns (DO), so a CTA holds 64 rows.  In f32 the 64-row Q and one
+// K/V tile take 194 KB, so the ring has one stage (the next tile loads
+// after the last warp is done with this one); bf16 keeps two stages and
+// reads Q's fragments from shared memory with ldmatrix instead of holding
+// them in registers.
 // mma.sync, not wgmma: TF32 wgmma reads B, and A unless it sits in
 // registers, as K-major tiles in shared memory, so 3xTF32 would need the
 // hi and lo halves of K, of a transposed V and (for want of registers) of
@@ -71,57 +96,20 @@
 // fragment; e^x is exp2f(x log2 e) (one FFMA, then 2^x to 2 ulp), and the
 // accumulator is rescaled only in the tiles where some row's max moved.
 //
-// Decode design (split-KV, "flash-decoding"): the grid is (split, kv head x
-// head group, batch row).  A split is a contiguous range of cache slots;
-// kernels/flash_attention.py::decode_plan picks the number of splits from
-// B*K, T and the SM count so that the grid holds about four CTAs per SM.  A
-// CTA computes only the query heads that exist: a group of GC of the G heads
-// of its kv head (GC*16 bytes of q and of accumulator a lane).  Its four
-// warps split the keys of the range; within a warp, D/VEC lanes hold one key
-// row in 16-byte vectors (one row a warp instruction at D = 128 f32,
-// several at smaller D), and each lane keeps its slice of the GC query
-// vectors and accumulators in registers.  A warp loads U key rows of K and
-// V before it uses any, scores them with a shuffle reduction over the lanes
-// of a row, and folds them into its running max, sum and accumulator once
-// per chunk.  The CTA stages the validity of up to kSeg slots at a time in
-// shared memory, from each slot's kv_pos; a stage with no valid key is
-// skipped, and a split with none loads no K/V and writes m = -1e30, l = 0.
-// The warps' states are merged in shared memory into the split's partials.
-// The last CTA of each (batch row, head group) to finish, found by an
-// integer ticket taken after its partials are fenced, combines that group's
-// splits in a fixed order: m = max m_i, l = sum l_i exp(m_i - m), the same
-// for the accumulator (in split order), out = acc / max(l, 1e-30).  So
-// decode is one launch; the partials and the tickets are the wrapper's
-// workspace, and the last CTA leaves its ticket at 0 for the next launch.
-// No float atomics: whichever CTA combines, it adds in the same order, and
-// the result is the same from run to run.
-//
 // Later work: wgmma (warpgroup MMAs from shared memory; TF32 wgmma takes
 // K-major operands only, so V needs a transposed copy) and TMA tensor-map
-// loads for prefill, which would free the registers and the issue slots
-// the fragment loads and splits take; cp.async double buffering of the
-// decode kernel's K/V rows.
+// loads, which would free the registers and the issue slots the fragment
+// loads and splits take; at head dim 256, a second stage (32-key tiles).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_common.cuh"
+
 namespace {
-
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
 
 // ---- prefill on tensor cores ---------------------------------------------
 
@@ -129,9 +117,7 @@ namespace pf {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;   // (query, head) rows a CTA: 16 a warp
 constexpr int kBN = 64;              // keys a tile
-constexpr int kStages = 2;           // K/V tiles in flight
 constexpr int kNT = kBN / 8;         // n-tiles of 8 keys in a tile
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -206,22 +192,43 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Shared-memory layout of one type and head dim (element strides).
+// The type the products run in: bf16 only when q and K/V are both bf16; an
+// f32 operand on either side takes the f32 (3xTF32) path.
+template <typename TQ, typename TKV> struct Path { using T = float; };
+template <> struct Path<__nv_bfloat16, __nv_bfloat16> {
+  using T = __nv_bfloat16;
+};
+
+// Rows by head dim: WPR warps share each 16-row block, each computing its
+// scores and DO = D / WPR output columns; a CTA holds ROWS (query, head)
+// rows.  Two warps a block at D = 256 (the accumulator of 256 columns does
+// not fit a warp's registers), one below.
+template <int D> struct Geom {
+  static constexpr int WPR = D > 128 ? 2 : 1;
+  static constexpr int ROWS = 16 * kWarps / WPR;
+  static constexpr int DO = D / WPR;
+};
+
+// Shared-memory layout of one compute type and head dim (element strides).
 //   f32:  K (and Q) rows padded to D + 4 floats, so the 16-byte fragment
 //         loads of 8 lanes fall on 8 distinct bank groups; V rows unpadded
-//         with their 16-byte chunks XOR-swizzled by vswz (below).
+//         with their 16-byte chunks XOR-swizzled by vswz (below).  Q is
+//         staged here; at D = 256 the ring has one stage (194 KB with Q).
 //   bf16: K and V rows padded to D + 8, so the 8 rows of an ldmatrix fall
-//         on 8 distinct bank groups.
+//         on 8 distinct bank groups; Q in registers, or at D = 256 here,
+//         padded the same way.
 template <typename T, int D> struct Layout;
 template <int D> struct Layout<float, D> {
   static constexpr int KS = D + 4, VS = D, QS = D + 4;
   static constexpr int KPB = D >= 32 ? 4 : D / 8;   // k-steps a K load
-  static constexpr int q_elems = kRows * QS;         // Q staged in smem
+  static constexpr int STAGES = D > 128 ? 1 : 2;     // K/V tiles in flight
+  static constexpr int q_elems = Geom<D>::ROWS * QS;
 };
 template <int D> struct Layout<__nv_bfloat16, D> {
-  static constexpr int KS = D + 8, VS = D + 8, QS = 0;
+  static constexpr int KS = D + 8, VS = D + 8, QS = D > 128 ? D + 8 : 0;
   static constexpr int KPB = 0;
-  static constexpr int q_elems = 0;                  // Q in registers
+  static constexpr int STAGES = 2;
+  static constexpr int q_elems = Geom<D>::ROWS * QS;
 };
 
 template <typename T, int D> struct Smem {
@@ -230,9 +237,9 @@ template <typename T, int D> struct Smem {
   static constexpr size_t stage_bytes =
       sizeof(T) * (k_elems + v_elems) + sizeof(int) * kBN;
   static constexpr size_t q_bytes = sizeof(T) * L::q_elems;
-  // the ring, then Q (f32), then the CTA's live-tile list
+  // the ring, then Q, then the CTA's live-tile list
   static size_t bytes(int n_tiles) {
-    return kStages * stage_bytes + q_bytes + sizeof(int) * n_tiles;
+    return L::STAGES * stage_bytes + q_bytes + sizeof(int) * n_tiles;
   }
 };
 
@@ -331,17 +338,18 @@ __device__ __forceinline__ void qk_tile(float (*s)[4], const float* Qw,
   }
 }
 
-// f32: o += P V.  The keys of k-step jj are ordered so that P's
-// accumulator fragment is its A fragment as it stands: slot t of the
-// fragment is key 8jj + 2t, slot t + 4 key 8jj + 2t + 1.  Output column
-// n of n-tile nt is physical column (D/8)*n + nt, so a lane reads the D/8
-// contiguous floats (D/8)*g.. of its two key rows, and writes D/4
-// contiguous output floats a row.
-template <int D>
+// f32: o += P V for the warp's DO output columns from half*DO on.  The
+// keys of k-step jj are ordered so that P's accumulator fragment is its A
+// fragment as it stands: slot t of the fragment is key 8jj + 2t, slot
+// t + 4 key 8jj + 2t + 1.  Output column n of n-tile nt is physical column
+// half*DO + (DO/8)*n + nt, so a lane reads the DO/8 contiguous floats
+// half*DO + (DO/8)*g.. of its two key rows, and writes DO/4 contiguous
+// output floats a row.
+template <int D, int DO>
 __device__ __forceinline__ void pv_tile(float (*o)[4], const float (*p)[4],
                                         const float* Vs, int g, int t,
-                                        unsigned long long live) {
-  constexpr int W = D / 8;                     // floats a lane reads a row
+                                        unsigned long long live, int half) {
+  constexpr int W = DO / 8;                    // floats a lane reads a row
   constexpr int NG = W < kJG ? W : kJG;        // accumulators a group
 #pragma unroll
   for (int jj = 0; jj < kNT; ++jj) {
@@ -357,7 +365,7 @@ __device__ __forceinline__ void pv_tile(float (*o)[4], const float (*p)[4],
     if constexpr (W >= 4) {
 #pragma unroll
       for (int c = 0; c < W / 4; ++c) {
-        const int lc = (W / 4) * g + c;        // logical chunk
+        const int lc = half * (DO / 4) + (W / 4) * g + c;   // logical chunk
         *reinterpret_cast<float4*>(va + 4 * c) =
             *reinterpret_cast<const float4*>(Vs + r0 * D +
                                              4 * (lc ^ vswz<D>(r0)));
@@ -386,29 +394,45 @@ __device__ __forceinline__ void pv_tile(float (*o)[4], const float (*p)[4],
 }
 
 // bf16: s += Q K^T with Q's fragments in registers (qa[kk] for k-step kk,
-// the natural m16n8k16 layout) and K's from ldmatrix.
+// the natural m16n8k16 layout) or, at D = 256, from the warp's 16 rows of
+// Q in shared memory (Qw) by ldmatrix, and K's from ldmatrix.
 template <int D>
 __device__ __forceinline__ void qk_tile_bf16(float (*s)[4],
                                              const uint32_t (*qa)[4],
+                                             const __nv_bfloat16* Qw,
                                              const __nv_bfloat16* Ks,
                                              int lane,
                                              unsigned long long live) {
-  constexpr int KS = Layout<__nv_bfloat16, D>::KS;
+  using L = Layout<__nv_bfloat16, D>;
+  constexpr int KS = L::KS;
   const __nv_bfloat16* row = Ks + (lane & 7) * KS;
   if constexpr (D >= 32) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; kk += 2) {
+      uint32_t a0[4], a1[4];                   // Q of k-steps kk and kk + 1
+      if constexpr (L::QS > 0) {
+        const __nv_bfloat16* qrow = Qw + (lane & 15) * L::QS +
+                                    8 * (lane >> 4);
+        ldsm_x4(a0, qrow + 16 * kk);
+        ldsm_x4(a1, qrow + 16 * (kk + 1));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a0[e] = qa[kk][e];
+          a1[e] = qa[kk + 1][e];
+        }
+      }
       uint32_t r[kNT][4];                      // k-steps kk and kk + 1
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         if (!((live >> (8 * j)) & 0xffull)) continue;
         ldsm_x4(r[j], row + 8 * j * KS + 16 * kk + 8 * (lane >> 3));
-        mma_bf16(s[j], qa[kk], r[j][0], r[j][1]);
+        mma_bf16(s[j], a0, r[j][0], r[j][1]);
       }
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         if (!((live >> (8 * j)) & 0xffull)) continue;
-        mma_bf16(s[j], qa[kk + 1], r[j][2], r[j][3]);
+        mma_bf16(s[j], a1, r[j][2], r[j][3]);
       }
     }
   } else {
@@ -424,13 +448,14 @@ __device__ __forceinline__ void qk_tile_bf16(float (*s)[4],
 
 // bf16: o += P V with P rounded to bf16 (the accumulator fragments of two
 // key n-tiles are the A fragment of one k-step) and V's fragments from
-// ldmatrix.trans; output n-tile nt is columns 8nt..8nt+7.
-template <int D>
+// ldmatrix.trans; output n-tile nt is columns half*DO + 8nt..+7.
+template <int D, int DO>
 __device__ __forceinline__ void pv_tile_bf16(float (*o)[4],
                                              const float (*p)[4],
                                              const __nv_bfloat16* Vs,
                                              int lane,
-                                             unsigned long long live) {
+                                             unsigned long long live,
+                                             int half) {
   constexpr int VS = Layout<__nv_bfloat16, D>::VS;
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
@@ -441,9 +466,9 @@ __device__ __forceinline__ void pv_tile_bf16(float (*o)[4],
     a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
     a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
     const __nv_bfloat16* row =
-        Vs + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * VS;
+        Vs + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * VS + half * DO;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; nt += 2) {
+    for (int nt = 0; nt < DO / 8; nt += 2) {
       uint32_t r[4];
       ldsm_x4_t(r, row + 8 * (nt + (lane >> 4)));
       mma_bf16(o[nt], a, r[0], r[1]);
@@ -457,19 +482,23 @@ __device__ __forceinline__ void pv_tile_bf16(float (*o)[4],
 // One CTA: batch row b = blockIdx.z, kv head kvh = blockIdx.y, query block
 // qb = gridDim.x - 1 - blockIdx.x.  Row r < BQ*G of the CTA is query
 // s = qb*BQ + r / G of head kvh*G + r % G
-// (kernels/flash_attention.py::prefill_plan and prefill_row).  Warp w owns rows 16w..16w+15; its lane (g = lane / 4,
-// t = lane % 4) holds rows 16w + g and 16w + g + 8 of every fragment.
-template <typename T, int D>
+// (kernels/flash_attention.py::prefill_plan and prefill_row).  Warp w owns
+// rows 16rb..16rb+15 of row block rb = w / WPR and the output columns
+// half*DO.. (half = w % WPR); its lane (g = lane / 4, t = lane % 4) holds
+// rows 16rb + g and 16rb + g + 8 of every fragment.
+template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const int* __restrict__ q_pos,
-               const int* __restrict__ kv_pos, T* __restrict__ out, int S,
+prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+               const TKV* __restrict__ v, const int* __restrict__ q_pos,
+               const int* __restrict__ kv_pos, TQ* __restrict__ out, int S,
                int T_, int H, int K, int G, int BQ, int causal, int window,
                float scale) {
-  using L = Layout<T, D>;
-  using SM = Smem<T, D>;
-  constexpr bool kF32 = sizeof(T) == 4;
-  constexpr int NO = D / 8;                    // output n-tiles
+  using C = typename Path<TQ, TKV>::T;         // the products' type
+  using L = Layout<C, D>;
+  using SM = Smem<C, D>;
+  constexpr bool kF32 = sizeof(C) == 4;
+  constexpr int WPR = Geom<D>::WPR, DO = Geom<D>::DO, ROWS = Geom<D>::ROWS;
+  constexpr int NO = DO / 8;                   // output n-tiles
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int w_hi[kWarps];
   __shared__ long long w_lo[kWarps];
@@ -477,11 +506,12 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  const int rb = warp / WPR, half = warp % WPR;
   // the last query blocks, which see the most keys, start first
   const int qb = gridDim.x - 1 - blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (T_ + kBN - 1) / kBN;
-  T* Qs = reinterpret_cast<T*>(smem + kStages * SM::stage_bytes);
-  int* tiles = reinterpret_cast<int*>(smem + kStages * SM::stage_bytes +
+  C* Qs = reinterpret_cast<C*>(smem + L::STAGES * SM::stage_bytes);
+  int* tiles = reinterpret_cast<int*>(smem + L::STAGES * SM::stage_bytes +
                                       SM::q_bytes);
 
   // the lane's two rows: existence, head, query, and key bounds; key p is
@@ -492,7 +522,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   bool row_ok[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + g + 8 * i;
+    const int r = rb * 16 + g + 8 * i;
     const int s = qb * BQ + r / G;
     row_ok[i] = r < BQ * G && s < S;
     row_s[i] = s;
@@ -519,21 +549,24 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     w_lo[warp] = wlo;
   }
 
-  // Q: f32 rows scaled (in f32) into shared memory; bf16 fragments scaled
-  // in bf16 (the reference scales q in its own dtype) into registers
-  uint32_t qa[kF32 ? 1 : D / 16][4];
-  if constexpr (kF32) {
-    for (int idx = tid; idx < kRows * (D / 4); idx += kThreads) {
-      const int r = idx / (D / 4), c = idx % (D / 4);
+  // Q, scaled in its own dtype (as the reference scales it): into shared
+  // memory in the products' type (f32; bf16 at D = 256), or as bf16
+  // fragments into registers
+  uint32_t qa[kF32 || L::QS > 0 ? 1 : D / 16][4];
+  if constexpr (L::QS > 0) {
+    constexpr int EPC = 16 / sizeof(C);        // elements a 16-byte chunk
+    for (int idx = tid; idx < ROWS * (D / EPC); idx += kThreads) {
+      const int r = idx / (D / EPC), c = idx % (D / EPC);
       const int s = qb * BQ + r / G;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < BQ * G && s < S) {
-        const int h = kvh * G + r % G;
-        x = *reinterpret_cast<const float4*>(
-            q + ((static_cast<long long>(b) * S + s) * H + h) * D + 4 * c);
-        x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
-      }
-      *reinterpret_cast<float4*>(Qs + r * L::QS + 4 * c) = x;
+      alignas(16) C x[EPC];
+      const bool ok = r < BQ * G && s < S;
+      const TQ* src = q + ((static_cast<long long>(b) * S + (ok ? s : 0)) *
+                           H + kvh * G + r % G) * D + EPC * c;
+#pragma unroll
+      for (int e = 0; e < EPC; ++e)
+        x[e] = from_f<C>(ok ? scaled(src[e], scale) : 0.f);
+      *reinterpret_cast<uint4*>(Qs + r * L::QS + EPC * c) =
+          *reinterpret_cast<const uint4*>(x);
     }
   } else {
 #pragma unroll
@@ -595,15 +628,17 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int n_live = n_live_s;
 
-  // one tile's K, V and kv_pos into ring stage st (cp.async, zero-filled
-  // past T)
+  // one tile's K, V and kv_pos into ring stage st, zero-filled past T:
+  // cp.async when K/V are already in the products' type; bf16 K/V on the
+  // f32 path are widened on the way (plain loads: the copy engine cannot
+  // convert), each 16-byte chunk of 8 values into two f32 chunks
   auto load_tile = [&](int tile, int st) {
     unsigned char* base = smem + st * SM::stage_bytes;
-    T* Ks = reinterpret_cast<T*>(base);
-    T* Vs = Ks + SM::k_elems;
+    C* Ks = reinterpret_cast<C*>(base);
+    C* Vs = Ks + SM::k_elems;
     int* Ps = reinterpret_cast<int*>(Vs + SM::v_elems);
-    constexpr int CPR = D * sizeof(T) / 16;    // 16-byte chunks a row
-    constexpr int EPC = 16 / sizeof(T);        // elements a chunk
+    constexpr int CPR = D * sizeof(TKV) / 16;  // 16-byte chunks a row
+    constexpr int EPC = 16 / sizeof(TKV);      // elements a chunk
     const int t0 = tile * kBN;
     for (int idx = tid; idx < kBN * CPR; idx += kThreads) {
       const int r = idx / CPR, c = idx % CPR;
@@ -613,10 +648,30 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
           ok ? ((static_cast<long long>(b) * T_ + key) * K + kvh) * D +
                    c * EPC
              : 0;
-      cp_async16(Ks + r * L::KS + c * EPC, k + off, ok);
-      int vc = c;
-      if constexpr (kF32) vc = c ^ vswz<D>(r);
-      cp_async16(Vs + r * L::VS + vc * EPC, v + off, ok);
+      if constexpr (std::is_same<C, TKV>::value) {
+        cp_async16(Ks + r * L::KS + c * EPC, k + off, ok);
+        int vc = c;
+        if constexpr (kF32) vc = c ^ vswz<D>(r);
+        cp_async16(Vs + r * L::VS + vc * EPC, v + off, ok);
+      } else {
+        uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
+        if (ok) {
+          kr = __ldg(reinterpret_cast<const uint4*>(k + off));
+          vr = __ldg(reinterpret_cast<const uint4*>(v + off));
+        }
+        alignas(16) float kf[8];
+        alignas(16) float vf[8];
+        Vec16<__nv_bfloat16>::widen(kr, kf);
+        Vec16<__nv_bfloat16>::widen(vr, vf);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          *reinterpret_cast<float4*>(Ks + r * L::KS + 8 * c + 4 * hh) =
+              *reinterpret_cast<const float4*>(kf + 4 * hh);
+          *reinterpret_cast<float4*>(
+              Vs + r * L::VS + 4 * ((2 * c + hh) ^ vswz<D>(r))) =
+              *reinterpret_cast<const float4*>(vf + 4 * hh);
+        }
+      }
     }
     if (tid < kBN) {
       const int key = t0 + tid;
@@ -636,18 +691,20 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (n_live > 0) load_tile(tiles[0], 0);
   cp_commit();
   for (int it = 0; it < n_live; ++it) {
-    const int st = it & 1;
+    const int st = it % L::STAGES;
     cp_wait_all();                              // tile it has landed
-    // every thread's copies of tile it are visible, and every warp is done
-    // with tile it - 1, whose stage the next load refills
+    // every thread's copies of tile it are visible, and (two stages) every
+    // warp is done with tile it - 1, whose stage the next load refills
     __syncthreads();
-    if (it + 1 < n_live) load_tile(tiles[it + 1], st ^ 1);
-    cp_commit();
+    if constexpr (L::STAGES > 1) {
+      if (it + 1 < n_live) load_tile(tiles[it + 1], (it + 1) % L::STAGES);
+      cp_commit();
+    }
 
     const int t0 = tiles[it] * kBN;
     const unsigned char* base = smem + st * SM::stage_bytes;
-    const T* Ks = reinterpret_cast<const T*>(base);
-    const T* Vs = Ks + SM::k_elems;
+    const C* Ks = reinterpret_cast<const C*>(base);
+    const C* Vs = Ks + SM::k_elems;
     const int* Ps = reinterpret_cast<const int*>(Vs + SM::v_elems);
     // bit c of `live`: some row of this warp sees key c; the products skip
     // the 8-key n-tiles no row sees (all of them when live is 0), and the
@@ -673,11 +730,14 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
       if constexpr (kF32)
-        qk_tile<D>(s, reinterpret_cast<const float*>(Qs) + warp * 16 * L::QS,
+        qk_tile<D>(s, reinterpret_cast<const float*>(Qs) + rb * 16 * L::QS,
                    reinterpret_cast<const float*>(Ks), g, t, live);
       else
-        qk_tile_bf16<D>(s, qa, reinterpret_cast<const __nv_bfloat16*>(Ks),
-                        lane, live);
+        qk_tile_bf16<D>(s, qa,
+                        reinterpret_cast<const __nv_bfloat16*>(Qs) +
+                            rb * 16 * L::QS,
+                        reinterpret_cast<const __nv_bfloat16*>(Ks), lane,
+                        live);
 
       // masks from the staged kv_pos; the online softmax on the fragments:
       // element (j, e) is row g + 8*(e >> 1), key 8j + 2t + (e & 1)
@@ -745,30 +805,37 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       if constexpr (kF32)
-        pv_tile<D>(o, s, reinterpret_cast<const float*>(Vs), g, t, live);
+        pv_tile<D, DO>(o, s, reinterpret_cast<const float*>(Vs), g, t, live,
+                       half);
       else
-        pv_tile_bf16<D>(o, s, reinterpret_cast<const __nv_bfloat16*>(Vs),
-                        lane, live);
+        pv_tile_bf16<D, DO>(o, s,
+                            reinterpret_cast<const __nv_bfloat16*>(Vs), lane,
+                            live, half);
+    }
+    if constexpr (L::STAGES == 1) {
+      __syncthreads();                  // every warp is done with the stage
+      if (it + 1 < n_live) load_tile(tiles[it + 1], 0);
+      cp_commit();
     }
   }
 
-  // out = acc / max(l, 1e-30), l summed over the quad
+  // out = acc / max(l, 1e-30), l summed over the quad, in q's dtype
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     if (!row_ok[i]) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = out + ((static_cast<long long>(b) * S + row_s[i]) * H +
-                     row_h[i]) * D;
+    TQ* orow = out + ((static_cast<long long>(b) * S + row_s[i]) * H +
+                      row_h[i]) * D + half * DO;
     if constexpr (kF32) {
-      // lane t holds columns (D/4)t.. : o[n][2i] at (D/8)*2t + n, then
-      // o[n][2i + 1] at (D/8)*(2t + 1) + n
-      float* dst = reinterpret_cast<float*>(orow) + (D / 4) * t;
+      // lane t holds columns (DO/4)t.. : o[n][2i] at (DO/8)*2t + n, then
+      // o[n][2i + 1] at (DO/8)*(2t + 1) + n
+      TQ* dst = orow + (DO / 4) * t;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        dst[n] = o[n][2 * i] / den;
-        dst[NO + n] = o[n][2 * i + 1] / den;
+        dst[n] = from_f<TQ>(o[n][2 * i] / den);
+        dst[NO + n] = from_f<TQ>(o[n][2 * i + 1] / den);
       }
     } else {
 #pragma unroll
@@ -779,312 +846,27 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+// A launch laid out by prefill_plan: -1 when its rows or stages are not
+// this instantiation's.
+template <typename TQ, typename TKV, int D>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
            const int* kv_pos, void* out, int B, int S, int T_, int H, int K,
-           int causal, int window, float scale, int BQ, int n_qblocks,
-           cudaStream_t stream) {
-  const size_t smem = Smem<T, D>::bytes((T_ + kBN - 1) / kBN);
+           int causal, int window, float scale, int rows, int stages, int BQ,
+           int n_qblocks, cudaStream_t stream) {
+  using C = typename Path<TQ, TKV>::T;
+  if (rows != Geom<D>::ROWS || stages != Layout<C, D>::STAGES ||
+      BQ * (H / K) > rows)
+    return -1;
+  const size_t smem = Smem<C, D>::bytes((T_ + kBN - 1) / kBN);
   dim3 grid(n_qblocks, K, B);
-  prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), S, T_,
-      H, K, H / K, BQ, causal, window, scale);
+  prefill_kernel<TQ, TKV, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), q_pos, kv_pos, static_cast<TQ*>(out), S,
+      T_, H, K, H / K, BQ, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
-
 }  // namespace pf
 
-
-// ---- split-KV decode ----------------------------------------------------
-
-constexpr int kDecWarps = 4;
-constexpr int kDecThreads = 32 * kDecWarps;
-constexpr int kSeg = 256;      // slots whose validity a CTA stages at once
-constexpr int kMaxSplits = 512;  // splits a combine weighs at once
-
-// 16 bytes of T: VEC elements, loaded raw and widened to f32 when used
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void widen(const uint4& r, float* f) {
-    f[0] = __uint_as_float(r.x); f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z); f[3] = __uint_as_float(r.w);
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void widen(const uint4& r, float* f) {
-    const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {      // bf16 -> f32 is a 16-bit shift
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-// One CTA: batch row b, kv head kvh, query heads [h0, h0 + ng) of it (a head
-// group of at most GC), slots [split * split_len, +split_len) of the cache.
-// Writes that range's f32 (max, sum, accumulator) for each of its heads to
-// part: m at [row], l at [BH*NS + row], acc at [2*BH*NS + row*D], with row =
-// (b*H + h)*NS + split.
-template <typename T, int D, int GC>
-__global__ void __launch_bounds__(kDecThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ q_pos,
-                    const int* __restrict__ kv_pos, T* __restrict__ out,
-                    float* part, int* counters, int T_, int H, int K, int G,
-                    int NS, int split_len, int causal, int window,
-                    float scale) {
-  constexpr int VEC = Vec16<T>::N;
-  constexpr int LPK = D / VEC;               // lanes holding one key row
-  constexpr int KPW = 32 / LPK;              // key rows a warp loads at once
-  constexpr int U = GC >= 8 ? 2 : 4;         // loads in flight per lane
-  constexpr int KPC = KPW * U;               // keys of a warp's chunk
-  static_assert(LPK >= 1 && LPK <= 32 && (32 % LPK) == 0, "head dim");
-
-  __shared__ unsigned char ok_s[kSeg];
-  __shared__ float red_m[kDecWarps][GC], red_l[kDecWarps][GC];
-  __shared__ float red_acc[kDecWarps][GC][D];
-
-  const int split = blockIdx.x;
-  const int kvh = blockIdx.y % K, hg = blockIdx.y / K;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane / LPK, dl = lane % LPK;
-  const int h0 = kvh * G + hg * GC;
-  const int ng = min(GC, G - hg * GC);
-  const int qp = q_pos[b];
-  const long long BH = static_cast<long long>(gridDim.z) * H;
-
-  float qv[GC][VEC];
-#pragma unroll
-  for (int g = 0; g < GC; ++g)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      float x = 0.f;
-      if (g < ng) {
-        // the reference scales q in its own dtype before the f32 cast
-        const T raw = q[(static_cast<long long>(b) * H + h0 + g) * D +
-                        dl * VEC + e];
-        x = to_f(from_f<T>(to_f(raw) * scale));
-      }
-      qv[g][e] = x;
-    }
-  float m[GC], l[GC], acc[GC][VEC];
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
-  }
-
-  const int t_begin = split * split_len;
-  const int t_end = min(T_, t_begin + split_len);
-  const long long kv_row = static_cast<long long>(b) * T_;
-  bool any_live = false;
-  for (int s0 = t_begin; s0 < t_end; s0 += kSeg) {
-    const int n = min(kSeg, t_end - s0);
-    bool live = false;
-    for (int i = threadIdx.x; i < n; i += kDecThreads) {
-      const int p = kv_pos[kv_row + s0 + i];
-      const bool ok = (!causal || p <= qp) &&
-                      (window <= 0 || static_cast<long long>(p) >
-                                          static_cast<long long>(qp) - window);
-      ok_s[i] = ok;
-      live |= ok;
-    }
-    if (!__syncthreads_or(live)) continue;   // no valid key in this stage
-    any_live = true;
-
-    for (int c = warp * KPC; c < n; c += kDecWarps * KPC) {
-      uint4 kr[U], vr[U];
-      bool ok[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {          // every load before any use
-        const int i = c + u * KPW + sub;
-        ok[u] = i < n && ok_s[i];
-        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (ok[u]) {
-          const long long off = ((kv_row + s0 + i) * K + kvh) * D + dl * VEC;
-          kr[u] = __ldg(reinterpret_cast<const uint4*>(k + off));
-          vr[u] = __ldg(reinterpret_cast<const uint4*>(v + off));
-        }
-      }
-      float s[U][GC];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float kf[VEC];
-        Vec16<T>::widen(kr[u], kf);
-#pragma unroll
-        for (int g = 0; g < GC; ++g) {
-          float d = 0.f;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) d = fmaf(qv[g][e], kf[e], d);
-          s[u][g] = d;
-        }
-      }
-#pragma unroll
-      for (int o = LPK / 2; o > 0; o >>= 1)  // sum over the lanes of a row
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-#pragma unroll
-          for (int g = 0; g < GC; ++g)
-            s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], o);
-#pragma unroll
-      for (int g = 0; g < GC; ++g) {         // the chunk's max, warp-wide
-        float cm = kNegInf;
-#pragma unroll
-        for (int u = 0; u < U; ++u) cm = fmaxf(cm, ok[u] ? s[u][g] : kNegInf);
-#pragma unroll
-        for (int o = 16; o >= LPK; o >>= 1)
-          cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, o));
-        const float mn = fmaxf(m[g], cm);
-        const float corr = expf(m[g] - mn);
-        m[g] = mn;
-        l[g] *= corr;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] *= corr;
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float vf[VEC];
-        Vec16<T>::widen(vr[u], vf);
-#pragma unroll
-        for (int g = 0; g < GC; ++g) {
-          const float p = ok[u] ? expf(s[u][g] - m[g]) : 0.f;
-          l[g] += p;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
-        }
-      }
-    }
-    __syncthreads();                         // before ok_s is restaged
-  }
-
-  const long long row0 = (static_cast<long long>(b) * H + h0) * NS + split;
-  if (!any_live) {                           // the split has no valid key
-    if (threadIdx.x < ng) {
-      part[row0 + threadIdx.x * NS] = kNegInf;
-      part[BH * NS + row0 + threadIdx.x * NS] = 0.f;
-    }
-  } else {
-    // a warp's state: sum over the KPW rows of its loads (m is warp-wide)
-#pragma unroll
-    for (int g = 0; g < GC; ++g)
-#pragma unroll
-      for (int o = 16; o >= LPK; o >>= 1) {
-        l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
-      }
-    if (lane == 0) {
-#pragma unroll
-      for (int g = 0; g < GC; ++g) {
-        red_m[warp][g] = m[g];
-        red_l[warp][g] = l[g];
-      }
-    }
-    if (sub == 0) {
-#pragma unroll
-      for (int g = 0; g < GC; ++g)
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          red_acc[warp][g][dl * VEC + e] = acc[g][e];
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < ng * D; idx += kDecThreads) {
-      const int g = idx / D, d = idx % D;
-      float mx = kNegInf;
-#pragma unroll
-      for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, red_m[w][g]);
-      float a = 0.f, ls = 0.f;
-#pragma unroll
-      for (int w = 0; w < kDecWarps; ++w) {
-        const float c = expf(red_m[w][g] - mx);
-        a = fmaf(red_acc[w][g][d], c, a);
-        ls = fmaf(red_l[w][g], c, ls);
-      }
-      const long long row = row0 + static_cast<long long>(g) * NS;
-      part[2 * BH * NS + row * D + d] = a;
-      if (d == 0) {
-        part[row] = mx;
-        part[BH * NS + row] = ls;
-      }
-    }
-  }
-
-  // The last CTA of this (batch row, head group) to finish combines its
-  // NS splits, in split order; it finds itself by a ticket taken after
-  // every thread's partials are fenced, and resets the counter for the
-  // next launch.
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* c = counters + static_cast<long long>(b) * gridDim.y + blockIdx.y;
-    last = atomicAdd(c, 1) == NS - 1;
-    if (last) atomicExch(c, 0);
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // a warp a head: its max over the splits, then each split's weight
-  // exp(m_i - m) (0 for an empty split) into shared memory and the sum;
-  // lanes stride over the splits and a butterfly adds them, a fixed order
-  __shared__ float w_s[GC][kMaxSplits], l_s[GC];
-  for (int g = warp; g < ng; g += kDecWarps) {
-    const long long r = static_cast<long long>(b) * H + h0 + g;
-    float mx = kNegInf, ls = 0.f;
-    for (int i = lane; i < NS; i += 32)
-      mx = fmaxf(mx, __ldcg(part + r * NS + i));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    for (int i = lane; i < NS; i += 32) {
-      const float li = __ldcg(part + BH * NS + r * NS + i);
-      const float w = li > 0.f ? expf(__ldcg(part + r * NS + i) - mx) : 0.f;
-      w_s[g][i] = w;
-      ls = fmaf(li, w, ls);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      ls += __shfl_xor_sync(0xffffffffu, ls, o);
-    if (lane == 0) l_s[g] = ls;
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < ng * D; idx += kDecThreads) {
-    const int g = idx / D, d = idx % D;
-    const long long r = static_cast<long long>(b) * H + h0 + g;
-    const float* pa = part + 2 * BH * NS + r * NS * D + d;
-    float a = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < NS; ++i) {   // in split order
-      const float x = __ldcg(pa + static_cast<long long>(i) * D);
-      const float w = w_s[g][i];
-      a = w != 0.f ? fmaf(x, w, a) : a;  // an empty split wrote no x
-    }
-    out[r * D + d] = from_f<T>(a / fmaxf(l_s[g], 1e-30f));
-  }
-}
-
-template <typename T, int D, int GC>
-int launch_decode(const void* q, const void* k, const void* v,
-                  const int* q_pos, const int* kv_pos, void* out, float* part,
-                  int* counters, int B, int T_, int H, int K, int causal,
-                  int window, float scale, int NS, int split_len,
-                  cudaStream_t stream) {
-  const int G = H / K;
-  dim3 grid(NS, K * ((G + GC - 1) / GC), B);
-  decode_split_kernel<T, D, GC><<<grid, kDecThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), part,
-      counters, T_, H, K, G, NS, split_len, causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace
 
@@ -1092,8 +874,9 @@ int launch_decode(const void* q, const void* k, const void* v,
 extern "C" {
 
 // The prefill kernel's shared-memory opt-in on the current device (all
-// that a block may have beside its static shared memory); the wrapper calls it once a device,
-// before that device's first launch.  Returns a cudaError_t.
+// that a block may have beside its static shared memory) for every
+// instantiation; the wrapper calls it once a device, before that device's
+// first launch.  Returns a cudaError_t.
 int flash_attention_prepare() {
   int device = 0, max_smem = 0;
   cudaError_t e = cudaGetDevice(&device);
@@ -1103,96 +886,60 @@ int flash_attention_prepare() {
                                device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaFuncAttributes attr;
-#define OPT_IN(TT, DD)                                                      \
-  if (cudaError_t err = cudaFuncGetAttributes(&attr,                        \
-                                              pf::prefill_kernel<TT, DD>))  \
+#define OPT_IN(TQ, TKV, DD)                                                 \
+  if (cudaError_t err = cudaFuncGetAttributes(                              \
+          &attr, pf::prefill_kernel<TQ, TKV, DD>))                          \
     return static_cast<int>(err);                                           \
   if (cudaError_t err = cudaFuncSetAttribute(                               \
-          pf::prefill_kernel<TT, DD>,                                       \
+          pf::prefill_kernel<TQ, TKV, DD>,                                  \
           cudaFuncAttributeMaxDynamicSharedMemorySize,                      \
           max_smem - static_cast<int>(attr.sharedSizeBytes)))               \
     return static_cast<int>(err);
-  OPT_IN(float, 16) OPT_IN(float, 32) OPT_IN(float, 64) OPT_IN(float, 128)
-  OPT_IN(__nv_bfloat16, 16) OPT_IN(__nv_bfloat16, 32)
-  OPT_IN(__nv_bfloat16, 64) OPT_IN(__nv_bfloat16, 128)
+#define OPT_IN_D(DD)                                                        \
+  OPT_IN(float, float, DD) OPT_IN(__nv_bfloat16, __nv_bfloat16, DD)         \
+  OPT_IN(__nv_bfloat16, float, DD) OPT_IN(float, __nv_bfloat16, DD)
+  OPT_IN_D(16) OPT_IN_D(32) OPT_IN_D(64) OPT_IN_D(128) OPT_IN_D(256)
+#undef OPT_IN_D
 #undef OPT_IN
   return 0;
 }
 
-// S > 1, laid out by prefill_plan: `rows` (query, head) rows a CTA,
-// `keys` keys a tile and `stages` tiles in flight must be the kernel's
-// (128, 64, 2); BQ queries a CTA with BQ*G <= rows, n_qblocks*BQ >= S.
-// q/k/v start on 16-byte boundaries.  dtype: 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t (0 = launched; an invalid-value error when T needs
-// more shared memory than the device has); -1 for a shape or plan this
-// kernel does not take.
+// S > 1, laid out by prefill_plan: `rows` (query, head) rows a CTA and
+// `stages` tiles in flight must be the instantiation's (128 and 2 up to
+// head dim 128; 64 at 256, with one stage on the f32 path), `keys` keys a
+// tile 64; BQ queries a CTA with BQ*G <= rows, n_qblocks*BQ >= S.  q/k/v
+// start on 16-byte boundaries.  dtype_q, dtype_kv: 0 = float32,
+// 1 = bfloat16.  Returns a cudaError_t (0 = launched; an invalid-value
+// error when T needs more shared memory than the device has); -1 for a
+// shape or plan this kernel does not take.
 int flash_prefill_launch(const void* q, const void* k, const void* v,
                          const int* q_pos, const int* kv_pos, void* out,
                          int B, int S, int T_, int H, int K, int D,
-                         int causal, int window, float scale, int dtype,
-                         int rows, int keys, int stages, int BQ,
+                         int causal, int window, float scale, int dtype_q,
+                         int dtype_kv, int rows, int keys, int stages, int BQ,
                          int n_qblocks, void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (K <= 0 || H % K != 0 || rows != pf::kRows || keys != pf::kBN ||
-      stages != pf::kStages || BQ < 1 || BQ * (H / K) > pf::kRows ||
+  if (K <= 0 || H % K != 0 || keys != pf::kBN || BQ < 1 ||
       static_cast<long long>(n_qblocks) * BQ < S || T_ < 1)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DISPATCH(DD)                                                        \
-  if (D == DD) {                                                            \
-    return dtype == 0                                                       \
-               ? pf::launch<float, DD>(q, k, v, q_pos, kv_pos, out, B, S,   \
-                                       T_, H, K, causal, window, scale, BQ, \
-                                       n_qblocks, s)                        \
-               : pf::launch<__nv_bfloat16, DD>(q, k, v, q_pos, kv_pos, out, \
-                                               B, S, T_, H, K, causal,      \
-                                               window, scale, BQ,           \
-                                               n_qblocks, s);               \
-  }
-  DISPATCH(16)
-  DISPATCH(32)
-  DISPATCH(64)
-  DISPATCH(128)
-#undef DISPATCH
-  return -1;
-}
-
-// S = 1.  part: B*H*n_split*(D + 2) floats of scratch; counters:
-// B*K*ceil(G/head_group) int32, zero before the launch and zero after it;
-// head_group GC is 2, 4 or 8 (at most 4 in bf16), n_split <= 512 and
-// n_split*split_len >= T, as decode_plan chooses them.  K and V start on 16-byte boundaries.
-// Returns a cudaError_t (0 = launched); -1 for a shape this kernel does
-// not take.
-int flash_decode_launch(const void* q, const void* k, const void* v,
-                        const int* q_pos, const int* kv_pos, void* out,
-                        float* part, int* counters, int B, int T_, int H,
-                        int K, int D,
-                        int causal, int window, float scale, int dtype,
-                        int head_group, int n_split, int split_len,
-                        void* stream) {
-  if (B == 0) return 0;
-  if (K <= 0 || H % K != 0 || n_split < 1 || n_split > kMaxSplits ||
-      split_len < 1 ||
-      static_cast<long long>(n_split) * split_len < T_)
-    return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DECODE(TT, DD, GG)                                                  \
-  if (D == DD && head_group == GG)                                          \
-    return launch_decode<TT, DD, GG>(q, k, v, q_pos, kv_pos, out, part,     \
-                                     counters, B, T_, H, K, causal, window, \
-                                     scale, n_split, split_len, s);
-#define DECODE_D(DD)                                                        \
-  if (dtype == 0) {                                                         \
-    DECODE(float, DD, 2) DECODE(float, DD, 4) DECODE(float, DD, 8)          \
-  } else {                                                                  \
-    DECODE(__nv_bfloat16, DD, 2) DECODE(__nv_bfloat16, DD, 4)               \
-  }
-  DECODE_D(16)
-  DECODE_D(32)
-  DECODE_D(64)
-  DECODE_D(128)
-#undef DECODE_D
-#undef DECODE
+#define PREFILL(TQ, TKV, CQ, CKV, DD)                                       \
+  if (D == DD && dtype_q == CQ && dtype_kv == CKV)                          \
+    return pf::launch<TQ, TKV, DD>(q, k, v, q_pos, kv_pos, out, B, S, T_,   \
+                                   H, K, causal, window, scale, rows,       \
+                                   stages, BQ, n_qblocks, s);
+#define PREFILL_D(DD)                                                       \
+  PREFILL(float, float, 0, 0, DD)                                           \
+  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, DD)                           \
+  PREFILL(__nv_bfloat16, float, 1, 0, DD)                                   \
+  PREFILL(float, __nv_bfloat16, 0, 1, DD)
+  PREFILL_D(16)
+  PREFILL_D(32)
+  PREFILL_D(64)
+  PREFILL_D(128)
+  PREFILL_D(256)
+#undef PREFILL_D
+#undef PREFILL
   return -1;
 }
 

@@ -1,12 +1,13 @@
 # Port of src/repro/kernels/flash_attention.py::flash_attention (:81-131) as
-# the CUDA kernels of csrc/flash_attention.cu, in the contract of
+# the CUDA kernels of csrc/flash_attention.cu (prefill) and
+# csrc/flash_decode.cu (decode), in the contract of
 # src/repro/models/attention.py::chunked_attention (:37-126).
 """Launch wrapper of the attention kernels (K3) and the (B,H,S,D) layout
 wrapper around them.
 
-:func:`chunked_attention` launches ``csrc/flash_attention.cu`` on CUDA
-tensors in the serving model's layout — q (B,S,H,D), k/v (B,T,K,D), per-row
-positions — checks device, dtype, contiguity and shape, launches on
+:func:`chunked_attention` launches the kernels on CUDA tensors in the
+serving model's layout — q (B,S,H,D), k/v (B,T,K,D), per-row positions —
+checks device, dtype, contiguity and shape, launches on
 q's device's current stream, allocates its output with ``torch.empty``,
 raises if the launch reports an error, and counts its calls in
 ``chunked_attention.launches``, one a launch, and by route in
@@ -17,10 +18,14 @@ partials and tickets in a workspace kept per device and stream
 out by :func:`prefill_plan`.  q/k/v that do not start on a 16-byte
 boundary, which both kernels' vector loads need, are copied first.  It
 takes the reference's causal and sliding-window masks (``window > 0``, the
-``attn_local`` layers).  It raises ``NotImplementedError`` on Dv != Dk (MLA) and
-``ValueError`` on a head_dim outside 16/32/64/128 (gemma-7b's 256): ROADMAP
-Queue 2 lists both under K3.  int8 K/V, whose scales the reference passes
-here, has no entry yet.  CPU tensors never reach it:
+``attn_local`` layers), head dims 16, 32, 64, 128 and 256, and q in another
+float dtype than k/v (bf16 weights over an f32 cache): the kernels read each
+in its own dtype and promote as the reference does, so nothing is cast
+here.  It raises ``NotImplementedError`` on Dv != Dk (MLA) and
+``ValueError`` on another head_dim, on k and v of different dtypes and on
+groups of more than 64 heads: ROADMAP Queue 2 lists them under K3.  int8
+K/V, whose scales the reference passes here, has no entry yet.  CPU
+tensors never reach it:
 :mod:`repro_torch.kernels.ops` routes them to the plain chunked twin.
 
 :func:`flash_attention` is the reference kernel's own signature: q
@@ -41,49 +46,67 @@ from repro_torch.kernels import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LIB = None
+_DECODE_LIB = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the split-KV decode kernel's layout (csrc/flash_attention.cu)
+# the split-KV decode kernel's layout (csrc/flash_decode.cu)
 DECODE_CTAS_PER_SM = 4      # the grid aims at this many CTAs an SM
 SPLIT_ALIGN = 16            # a split's length is a multiple of this
 MAX_SPLITS = 512            # the most splits the kernel's combine takes
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the head dims both kernels take
 # the prefill kernel's layout (csrc/flash_attention.cu, namespace pf)
 PREFILL_ROWS = 128          # (query, head) rows a CTA: 8 warps of 16
 PREFILL_KEYS = 64           # keys a K/V tile
 PREFILL_STAGES = 2          # K/V tiles in flight (cp.async ring)
+WIDE_D = 128                # above it two warps share a row block: 64 rows
 
 
 def _lib() -> ctypes.CDLL:
+    """The prefill kernel's library (``csrc/flash_attention.cu``), with
+    its shared-memory opt-in."""
     global _LIB
     if _LIB is None:
         lib = _build.library("flash_attention")
         lib.flash_prefill_launch.argtypes = (
-            [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_I] * 6 + [_P])
-        lib.flash_decode_launch.argtypes = (
-            [_P] * 8 + [_I] * 7 + [ctypes.c_float] + [_I] * 4 + [_P])
+            [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_I] * 7 + [_P])
         lib.flash_attention_prepare.argtypes = []
-        for fn in (lib.flash_prefill_launch, lib.flash_decode_launch,
-                   lib.flash_attention_prepare):
+        for fn in (lib.flash_prefill_launch, lib.flash_attention_prepare):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
+def _decode_lib() -> ctypes.CDLL:
+    """The split-KV decode kernel's library (``csrc/flash_decode.cu``)."""
+    global _DECODE_LIB
+    if _DECODE_LIB is None:
+        lib = _build.library("flash_decode")
+        lib.flash_decode_launch.argtypes = (
+            [_P] * 8 + [_I] * 7 + [ctypes.c_float] + [_I] * 5 + [_P])
+        lib.flash_decode_launch.restype = ctypes.c_int
+        _DECODE_LIB = lib
+    return _DECODE_LIB
+
+
 @functools.lru_cache(maxsize=None)
-def decode_plan(B: int, K: int, G: int, T: int, itemsize: int, n_sm: int
-                ) -> Tuple[int, int, int, int]:
+def decode_plan(B: int, K: int, G: int, T: int, itemsize: int, n_sm: int,
+                head_dim: int) -> Tuple[int, int, int, int]:
     """``(head_group, n_groups, n_split, split_len)`` of the split-KV
     decode kernel for B batch rows, K kv heads of G query heads each, T
-    cache slots of ``itemsize``-byte elements on ``n_sm`` SMs.
+    cache slots of ``itemsize``-byte elements (the cache's: q may be
+    another dtype) and ``head_dim`` on ``n_sm`` SMs.
 
-    A CTA holds ``head_group`` query heads (2, 4 or 8: the smallest power
-    of two >= G, at most 32 floats of q and of accumulator a lane, so 8 in
-    f32 and 4 in bf16), so a kv head needs ``n_groups`` CTAs.  The slots
+    A lane holds ``max(16 // itemsize, head_dim // 32)`` floats of a head's
+    q and accumulator: one 16-byte K/V chunk of a row, or two at head dim
+    256 in f32, where the 32 lanes of a warp share one row.  A CTA holds
+    ``head_group`` query heads (2, 4 or 8: the smallest power of two >= G,
+    at most 32 floats of q and of accumulator a lane, so 8 in f32 up to head
+    dim 128, else 4), so a kv head needs ``n_groups`` CTAs.  The slots
     are cut into ``n_split`` contiguous splits of ``split_len`` (a multiple
     of SPLIT_ALIGN), enough that the grid ``n_split * K * n_groups * B``
     reaches DECODE_CTAS_PER_SM CTAs an SM where T allows, at most
     MAX_SPLITS; n_split = ceil(T / split_len), so no split is empty and
     there is at least one."""
-    cap = 32 // (16 // itemsize)
+    cap = 32 // max(16 // itemsize, head_dim // 32)
     head_group = min(cap, max(2, 1 << max(0, G - 1).bit_length()))
     n_groups = -(-G // head_group)
     want = min(MAX_SPLITS,
@@ -102,19 +125,25 @@ class PrefillPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def prefill_plan(B: int, S: int, H: int, K: int) -> PrefillPlan:
+def prefill_plan(B: int, S: int, H: int, K: int, head_dim: int,
+                 f32: bool) -> PrefillPlan:
     """The prefill kernel's layout for q (B,S,H,D) over K kv heads: a CTA
-    holds ``bq = PREFILL_ROWS // G`` queries of all G = H / K heads of one
-    kv head (:func:`prefill_row`), and walks the keys in tiles of
-    PREFILL_KEYS through a ring of PREFILL_STAGES; the grid is one CTA per
-    (query block, kv head, batch row)."""
+    holds ``bq = rows // G`` queries of all G = H / K heads of one kv head
+    (:func:`prefill_row`), and walks the keys in tiles of PREFILL_KEYS
+    through a ring of ``stages``; the grid is one CTA per (query block, kv
+    head, batch row).  ``rows`` is PREFILL_ROWS up to head dim WIDE_D and
+    half that above it, where two warps share each 16-row block; there the
+    f32 path (``f32``: q or K/V is f32) has one stage, since its Q and one
+    K/V tile fill the CTA's shared memory."""
+    wide = head_dim > WIDE_D
+    rows = PREFILL_ROWS // 2 if wide else PREFILL_ROWS
     G = H // K
-    if G < 1 or H % K or G > PREFILL_ROWS:
+    if G < 1 or H % K or G > rows:
         raise ValueError(f"{H} heads over {K} kv heads: groups of 1 to "
-                         f"{PREFILL_ROWS} heads only")
-    bq = PREFILL_ROWS // G
-    return PrefillPlan(PREFILL_ROWS, PREFILL_KEYS, PREFILL_STAGES, bq,
-                       (-(-S // bq), K, B))
+                         f"{rows} heads only")
+    bq = rows // G
+    stages = 1 if wide and f32 else PREFILL_STAGES
+    return PrefillPlan(rows, PREFILL_KEYS, stages, bq, (-(-S // bq), K, B))
 
 
 def prefill_row(plan: PrefillPlan, S: int, G: int, qb: int, kvh: int,
@@ -163,15 +192,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, window: int = 0) -> torch.Tensor:
     """K3 on the card.  q: (B,S,H,D), k/v: (B,T,K,D), q_pos (B,S) and
     kv_pos (B,T) int32; key t is valid for query s iff kv_pos <= q_pos
-    (causal) and kv_pos > q_pos - window (window > 0).  Returns (B,S,H,D) in
-    q's dtype."""
+    (causal) and kv_pos > q_pos - window (window > 0).  q and k/v may
+    differ in dtype, k and v may not.  Returns (B,S,H,D) in q's dtype."""
     for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
                     ("kv_pos", kv_pos)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q/k/v must share float32 or bfloat16 "
-                         f"(got {q.dtype}, {k.dtype}, {v.dtype})")
+    if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
+        raise ValueError(f"q must be float32 or bfloat16 and k/v share "
+                         f"float32 or bfloat16 (got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype})")
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     if v.shape[-1] != D:
@@ -183,10 +213,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)} q_pos {tuple(q_pos.shape)} "
                          f"kv_pos {tuple(kv_pos.shape)} do not fit "
                          f"(B,S,H,D) / (B,T,K,D) with H % K == 0")
-    if D not in (16, 32, 64, 128) or H // K > 64:
+    if D not in HEAD_DIMS or H // K > 64:
         raise ValueError(f"head_dim {D} / group {H // K}: the kernel takes "
-                         f"head_dim 16, 32, 64 or 128 and groups of at most "
-                         f"64")
+                         f"head_dim 16, 32, 64, 128 or 256 and groups of at "
+                         f"most 64")
     q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
                else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
@@ -197,21 +227,24 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_sm = _device(q.device.index)
     if S == 1:
         gc, groups, n_split, split_len = decode_plan(
-            B, K, H // K, T, q.element_size(), n_sm)
+            B, K, H // K, T, k.element_size(), n_sm, D)
         part, tickets = _workspace(q.device, stream,
                                    B * H * n_split * (D + 2), B * K * groups)
-        err = _lib().flash_decode_launch(
+        err = _decode_lib().flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             kv_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
             tickets.data_ptr(), B, T, H, K, D, int(causal), int(window),
-            D ** -0.5, _DTYPES[q.dtype], gc, n_split, split_len, stream)
+            D ** -0.5, _DTYPES[q.dtype], _DTYPES[k.dtype], gc, n_split,
+            split_len, stream)
     else:
-        plan = prefill_plan(B, S, H, K)
+        plan = prefill_plan(B, S, H, K, D, torch.float32 in (q.dtype,
+                                                            k.dtype))
         err = _lib().flash_prefill_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, int(causal),
-            int(window), D ** -0.5, _DTYPES[q.dtype], plan.rows, plan.keys,
-            plan.stages, plan.bq, plan.grid[0], stream)
+            int(window), D ** -0.5, _DTYPES[q.dtype], _DTYPES[k.dtype],
+            plan.rows, plan.keys, plan.stages, plan.bq, plan.grid[0],
+            stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     chunked_attention.launches += 1

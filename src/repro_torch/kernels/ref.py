@@ -269,3 +269,40 @@ def prefill_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+F32_BAR, BF16_CAP = 3e-5, 2e-2      # K3's bars against chunked_attention_ref
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at ``|x|``: 2**(e - 8) for |x| in
+    [2**(e-1), 2**e), 0 where x is 0."""
+    a = x.float().abs()
+    _, e = torch.frexp(a)
+    return torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8),
+                       torch.zeros_like(a))
+
+
+def attention_bar(got: torch.Tensor, want: torch.Tensor, q: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                  kv_pos: torch.Tensor, *, causal: bool = True,
+                  window: int = 0) -> torch.Tensor:
+    """The bar, element by element, that K3's output ``got`` meets against
+    ``want``, :func:`chunked_attention_ref` on the same inputs.  An f32
+    output: F32_BAR.  A bf16 output is the rounding of an f32 result that
+    lies within F32_BAR of the plain version's, so it may sit one bf16 step
+    from ``want``: F32_BAR plus two ulps (twice that step) of the larger of
+    the two.  Where q
+    and K/V are both bf16 and S > 1 the prefill kernel rounds the weights P
+    to bf16 for P V, each off by at most 2**-9 of itself (its row sum too),
+    which adds 2**-8 of the same attention over |v|.  Never above
+    BF16_CAP."""
+    if got.dtype == torch.float32:
+        return torch.full(got.shape, F32_BAR, device=got.device)
+    bar = F32_BAR + 2 * bf16_ulp(torch.maximum(got.float().abs(),
+                                               want.float().abs()))
+    if q.shape[1] > 1 and q.dtype == k.dtype == torch.bfloat16:
+        bar = bar + 2**-8 * chunked_attention_ref(
+            q, k, v.abs(), q_pos, kv_pos, causal=causal,
+            window=window).float()
+    return bar.clamp(max=BF16_CAP)

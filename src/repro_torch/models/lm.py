@@ -114,8 +114,17 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> Dict:
     """Zeroed K/V and sentinel positions: leaves (reps, batch, L, ...),
-    with L from :func:`cache_len` (a ring for sliding-window layers)."""
+    with L from :func:`cache_len` (a ring for sliding-window layers).
+    The K/V dtype is float32 or bfloat16: an int8 cache needs the
+    reference's per-token scales, which arrive with int8 KV (ROADMAP Queue 1
+    item 13, with K3d), and any other dtype would truncate the floats that
+    prefill and decode write into it."""
     check_supported(cfg)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"a {dtype} KV cache is not ported: the cache holds float32 or "
+            f"bfloat16; int8 KV with its scales arrives with ROADMAP Queue 1 "
+            f"item 13 (int8 KV, with K3d)")
     dev = resolve_device(device)
     cache: Dict[str, Any] = {}
     for i, (reps, group) in enumerate(stages_of(cfg)):

@@ -95,6 +95,9 @@ def pack_slot(spec: PageSpec, cache, slot: int,
     return out
 
 
+CHECKSUM_PAGES = 1 << 16     # pages a checksum pass widens at once
+
+
 def page_checksums(pages: torch.Tensor) -> torch.Tensor:
     """Per-page position-weighted byte checksum, ``sum(byte[i] * (2*i + 1))
     mod 2^32`` — the reference's uint32 arithmetic, held in int64.
@@ -102,11 +105,17 @@ def page_checksums(pages: torch.Tensor) -> torch.Tensor:
     ``pages`` is (..., P, d) uint8.  The weights are odd, hence units mod
     2^32, so ANY single-byte change is detected.  A page's sum is at most
     255 * (P*d)^2 (2.7e8 for 1 KB pages), so the int32 products and int64
-    sum are exact and the final mask reproduces the wrap-around."""
+    sum are exact and the final mask reproduces the wrap-around.  The bytes
+    are widened CHECKSUM_PAGES pages at a time (64 MB of 1 KB pages), so a
+    wave of GB-sized snapshots needs no int32 copy of its own size."""
     pb = pages.shape[-2] * pages.shape[-1]
-    flat = pages.reshape(pages.shape[:-2] + (pb,)).to(torch.int32)
+    flat = pages.reshape(-1, pb)
     w = 2 * torch.arange(pb, dtype=torch.int32, device=pages.device) + 1
-    return torch.sum(flat * w, dim=-1, dtype=torch.int64) & 0xFFFFFFFF
+    sums = [torch.sum(flat[i:i + CHECKSUM_PAGES].to(torch.int32) * w,
+                      dim=-1, dtype=torch.int64)
+            for i in range(0, max(1, flat.shape[0]), CHECKSUM_PAGES)]
+    out = sums[0] if len(sums) == 1 else torch.cat(sums)
+    return (out & 0xFFFFFFFF).reshape(pages.shape[:-2])
 
 
 def verify_pages(pages: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:

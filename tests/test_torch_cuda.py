@@ -7,8 +7,9 @@ run time).  On a machine with one, run them with
 
 They cover shapes the smoke run does not: odd page counts, masked and
 out-of-range page tables, tables longer than the page gather's persistent
-grid, other head dims, group sizes and dtypes, sequence lengths that are not
-multiples of the kernels' tiles or splits, the decode kernel's dispatch
+grid, other head dims (256 included), group sizes and dtypes (q over k/v
+of another dtype included), sequence lengths that are not multiples of the
+kernels' tiles or splits, the decode kernel's dispatch
 rule, and the Engine on the card against the Engine on the CPU.
 """
 import numpy as np
@@ -26,6 +27,17 @@ def dev():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _assert_within_bar(out, want, q, k, v, qp, kp, *, window=0,
+                       causal=True):
+    """K3's output against the plain ``want`` under ref.attention_bar:
+    3e-5 where it is f32; where it is bf16, the rounding of the same f32
+    result (and the prefill's bf16 P), never past 2e-2."""
+    bar = ref.attention_bar(out, want, q, k, v, qp, kp, causal=causal,
+                            window=window)
+    assert out.dtype == want.dtype
+    assert bool(((out.float() - want.float()).abs() < bar).all())
 
 
 @pytest.mark.parametrize("dt", [torch.uint8, torch.float32, torch.bfloat16,
@@ -73,12 +85,13 @@ def test_attention_matches_plain(dev, B, S, T, H, K, D, dt):
     qp, kp = torch.from_numpy(q_pos).to(dev), torch.from_numpy(kv_pos).to(dev)
     out = ops.chunked_attention(q, k, v, qp, kp)
     want = ref.chunked_attention_ref(q, k, v, qp, kp)
-    tol = 2e-2 if dt == torch.bfloat16 else 3e-5
-    assert float((out.float() - want.float()).abs().max()) < tol
+    _assert_within_bar(out, want, q, k, v, qp, kp)
     full = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=False)
     want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), causal=False)
+    # the exact softmax scales q after promoting it: bf16's 2e-2
+    tol = 2e-2 if dt == torch.bfloat16 else 3e-5
     assert float((full.float() - want.float()).abs().max()) < tol
 
 
@@ -114,14 +127,14 @@ def test_window_attention_matches_plain(dev, B, S, T, H, K, D, window, dt):
     n = ops.KERNELS["flash_attention"].launches
     out = ops.chunked_attention(q, k, v, qp, kp, window=window)
     want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
-    tol = 2e-2 if dt == torch.bfloat16 else 3e-5
-    assert float((out.float() - want.float()).abs().max()) < tol
+    _assert_within_bar(out, want, q, k, v, qp, kp, window=window)
     assert ops.KERNELS["flash_attention"].launches == n + 1
     if S > 1:
         full = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                    v.transpose(1, 2), window=window)
         want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                        v.transpose(1, 2), window=window)
+        tol = 2e-2 if dt == torch.bfloat16 else 3e-5
         assert float((full.float() - want.float()).abs().max()) < tol
 
 
@@ -242,15 +255,14 @@ def test_split_kv_decode_matches_plain(dev, B, T, H, K, D, window, ring, dt):
     assert ops.KERNELS["flash_attention"].launches == n + 2
     assert torch.equal(_bytes(out), _bytes(again))
     assert not out[0].float().any()
-    tol = 2e-2 if dt == torch.bfloat16 else 3e-5
     want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
-    assert float((out.float() - want.float()).abs().max()) < tol
-    _, _, ns, sl = FA.decode_plan(B, K, H // K, T, q.element_size(),
+    _assert_within_bar(out, want, q, k, v, qp, kp, window=window)
+    _, _, ns, sl = FA.decode_plan(B, K, H // K, T, k.element_size(),
                                   torch.cuda.get_device_properties(
-                                      dev).multi_processor_count)
+                                      dev).multi_processor_count, D)
     twin = ref.split_decode_ref(q, k, v, qp, kp, n_split=ns, split_len=sl,
                                 window=window)
-    assert float((out.float() - twin.float()).abs().max()) < tol
+    _assert_within_bar(out, twin, q, k, v, qp, kp, window=window)
 
 
 def test_decode_of_k_v_off_16_byte_boundaries(dev):
@@ -272,9 +284,9 @@ def test_decode_of_k_v_off_16_byte_boundaries(dev):
 
 
 def test_attention_still_raises_outside_its_shapes(dev):
-    q = torch.zeros((1, 4, 2, 256), device=dev)
+    q = torch.zeros((1, 4, 2, 512), device=dev)
     pos = torch.zeros((1, 4), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head_dim 256"):
+    with pytest.raises(ValueError, match="head_dim 512"):
         ops.chunked_attention(q, q, q, pos, pos, window=2)
     q = torch.zeros((1, 4, 2, 64), device=dev)
     with pytest.raises(NotImplementedError, match="Dv != Dk"):
@@ -463,8 +475,7 @@ def test_prefill_matches_plain(dev, B, S, T, H, K, D, window, dt):
     assert (fn.launches, fn.prefill, fn.decode) == (n + 2, n_pre + 2, n_dec)
     assert torch.equal(_bytes(out), _bytes(again))
     want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
-    tol = 2e-2 if dt == torch.bfloat16 else 3e-5
-    assert float((out.float() - want.float()).abs().max()) < tol
+    _assert_within_bar(out, want, q, k, v, qp, kp, window=window)
     if B > 1:
         assert not out[0].float().any()
 
@@ -522,3 +533,96 @@ def test_rbm_copy_misaligned_pair_large(dev):
     got = ops.rbm_copy(x)
     torch.cuda.synchronize()
     assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
+
+
+# ---- head dim 256 and q over k/v of another dtype -------------------------
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,window,qdt,kvdt", [
+    (2, 1, 1000, 16, 16, 256, 0, F32, F32),       # gemma-7b decode (MHA)
+    (2, 1, 1000, 16, 16, 256, 0, BF16, BF16),
+    (3, 1, 777, 8, 2, 256, 100, F32, F32),        # G = 4 at 256, a window
+    (3, 1, 777, 8, 2, 256, 100, BF16, BF16),
+    (2, 1, 300, 12, 4, 256, 0, BF16, F32),        # mixed at 256, G = 3
+    (2, 1, 300, 12, 4, 256, 0, F32, BF16),
+    (4, 1, 1024, 32, 16, 128, 1024, BF16, F32),   # gemma3's ring, bf16 q
+    (4, 1, 2048, 32, 16, 128, 0, BF16, F32),      # gemma3's global
+    (3, 1, 500, 24, 3, 64, 0, F32, BF16),         # G = 8 over a bf16 cache
+    (3, 1, 500, 24, 3, 64, 0, BF16, F32),         # G = 8, head group 8
+    (4, 1, 1024, 64, 8, 128, 0, BF16, F32),       # qwen1.5's: G = 8, D 128
+    (2, 1, 100, 6, 2, 16, 0, BF16, F32),          # D = 16
+    (2, 1, 9, 8, 2, 32, 0, F32, BF16),            # T < one split
+    (2, 300, 300, 16, 16, 256, 0, F32, F32),      # gemma-7b prefill
+    (2, 300, 300, 16, 16, 256, 0, BF16, BF16),
+    (2, 130, 200, 8, 2, 256, 50, F32, F32),       # T > S, T % 64, a window
+    (2, 130, 200, 8, 2, 256, 50, BF16, BF16),
+    (3, 77, 77, 64, 1, 256, 0, F32, F32),         # G = 64 at 256: 1 query
+    (2, 200, 200, 8, 2, 256, 0, BF16, F32),
+    (2, 200, 200, 8, 2, 256, 0, F32, BF16),
+    (1, 1500, 1500, 32, 16, 128, 1024, BF16, F32),  # gemma3's, bf16 q
+    (2, 100, 100, 8, 4, 64, 30, F32, BF16),
+    (2, 37, 37, 4, 4, 16, 0, BF16, F32),          # D = 16, G = 1
+])
+def test_wide_and_mixed_attention_match_plain(dev, B, S, T, H, K, D, window,
+                                              qdt, kvdt):
+    """Both kernels at head dim 256 and over q and k/v of different dtypes
+    (the reference promotes inside the kernel region, and so do the
+    kernels: nothing is cast before the launch), against the plain chunked
+    attention: T not a multiple of the tiles or splits, windows, G 1-64,
+    batch row 0 with no valid key (exactly 0), the output in q's dtype,
+    one launch a call on its route, two calls giving the same bits."""
+    if S == 1:
+        q, k, v, qp, kp = _decode_case(dev, B, T, H, K, D, F32, window,
+                                       window > 0, seed=B * T + H + D)
+    else:
+        q, k, v, qp, kp = _prefill_case(dev, B, S, T, H, K, D, F32,
+                                        seed=S * 7 + T + H + D,
+                                        empty_row=True)
+    q, k, v = q.to(qdt), k.to(kvdt), v.to(kvdt)
+    fn = ops.KERNELS["flash_attention"]
+    n, n_pre, n_dec = fn.launches, fn.prefill, fn.decode
+    out = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    again = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    torch.cuda.synchronize()
+    step = (2, 0) if S > 1 else (0, 2)
+    assert (fn.launches, fn.prefill, fn.decode) == (n + 2, n_pre + step[0],
+                                                    n_dec + step[1])
+    assert out.dtype == qdt and out.shape == q.shape
+    assert torch.equal(_bytes(out), _bytes(again))
+    assert not out[0].float().any()
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
+    _assert_within_bar(out, want, q, k, v, qp, kp, window=window)
+
+
+@pytest.mark.parametrize("S", [1, 90])
+@pytest.mark.parametrize("qdt,kvdt", [(F32, F32), (BF16, F32)])
+def test_wide_attention_of_a_q_off_16_byte_boundaries(dev, S, qdt, kvdt):
+    """A q view that does not start on a 16-byte boundary, at head dim
+    256: the wrapper copies it for the kernels' 16-byte loads."""
+    T = 90
+    q, k, v, qp, kp = (_decode_case(dev, 2, T, 8, 4, 256, F32, 0, False,
+                                    seed=16) if S == 1 else
+                       _prefill_case(dev, 2, S, T, 8, 4, 256, F32, seed=16))
+    q, k, v = q.to(qdt), k.to(kvdt), v.to(kvdt)
+    flat = torch.empty(q.numel() + 1, device=dev, dtype=qdt)
+    off_q = flat[1:].view(q.shape)
+    off_q.copy_(q)
+    assert off_q.data_ptr() % 16
+    out = ops.chunked_attention(off_q, k, v, qp, kp)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp)
+    _assert_within_bar(out, want, q, k, v, qp, kp)
+
+
+@pytest.mark.parametrize("S", [1, 8])
+def test_mixed_k_and_v_raise(dev, S):
+    """k and v of different dtypes are outside the contract (the
+    reference's cache holds one dtype for both): the wrapper raises."""
+    q = torch.zeros((1, S, 4, 64), device=dev)
+    k = torch.zeros((1, 16, 2, 64), device=dev)
+    pos = torch.zeros((1, S), dtype=torch.int32, device=dev)
+    kv_pos = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="k/v share"):
+        ops.chunked_attention(q, k, k.bfloat16(), pos, kv_pos)
+

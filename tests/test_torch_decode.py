@@ -1,6 +1,6 @@
 """The split-KV decode kernel's algorithm and layout, on the CPU.
 
-The CUDA kernel (``csrc/flash_attention.cu``, decode) cuts the cache slots
+The CUDA kernel (``csrc/flash_decode.cu``) cuts the cache slots
 into splits, keeps f32 (max, sum, accumulator) for each split and combines
 the splits in a fixed order.  Its plain twin ``ref.split_decode_ref`` runs
 the same algorithm; here it is held against the port's plain chunked
@@ -86,7 +86,8 @@ def test_split_decode_matches_reference(G, D):
     4), row 0 ending at 37 so its later splits have no valid key."""
     K = 1 if G == 64 else 2
     B, T = 2, 100
-    gc, n_groups, n_split, split_len = FA.decode_plan(B, K, G, T, 4, N_SM)
+    gc, n_groups, n_split, split_len = FA.decode_plan(B, K, G, T, 4, N_SM,
+                                                      D)
     assert T % split_len and n_split * split_len >= T
     assert (n_split - 1) * split_len > 37            # splits past row 0's end
     jx, tx, q_pos, kv_pos = _inputs(G * 1000 + D, B, K * G, K, T, D,
@@ -140,8 +141,8 @@ def test_split_decode_edge_cases(name):
 ])
 def test_decode_plan_covers_the_cache_without_empty_splits(B, K, G, T,
                                                            itemsize):
-    plan = FA.decode_plan(B, K, G, T, itemsize, N_SM)
-    assert plan == FA.decode_plan(B, K, G, T, itemsize, N_SM)  # the same
+    plan = FA.decode_plan(B, K, G, T, itemsize, N_SM, 128)
+    assert plan == FA.decode_plan(B, K, G, T, itemsize, N_SM, 128)  # same
     gc, n_groups, n_split, split_len = plan
     assert gc in (2, 4, 8) and gc * (16 // itemsize) <= 32
     assert n_groups == -(-G // gc) and (n_groups - 1) * gc < G
@@ -150,12 +151,30 @@ def test_decode_plan_covers_the_cache_without_empty_splits(B, K, G, T,
     assert (n_split - 1) * split_len < T <= n_split * split_len
 
 
-@pytest.mark.parametrize("name,B,K,G,T", [
-    ("gemma3-ring", 4, 16, 2, 1024), ("gemma3-global", 4, 16, 2, 2048),
-    ("tinyllama-1024", 8, 4, 8, 1024), ("tinyllama-256", 8, 4, 8, 256),
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 64])
+def test_decode_plan_at_head_dim_256(G, itemsize):
+    """At head dim 256 a lane holds 8 floats of a head's q and accumulator
+    (two 16-byte chunks of an f32 row, one of a bf16 row), so a CTA holds
+    at most 4 heads, in f32 as in bf16; below 256 an f32 cache keeps 8."""
+    gc, n_groups, n_split, split_len = FA.decode_plan(4, 16, G, 1024,
+                                                      itemsize, N_SM, 256)
+    assert gc in (2, 4) and gc * 8 <= 32
+    assert gc == min(4, max(2, 1 << max(0, G - 1).bit_length()))
+    assert n_groups == -(-G // gc)
+    assert (n_split - 1) * split_len < 1024 <= n_split * split_len
+    assert FA.decode_plan(4, 16, 8, 1024, 4, N_SM, 128)[0] == 8
+    assert FA.decode_plan(4, 16, 8, 1024, 2, N_SM, 128)[0] == 4
+
+
+@pytest.mark.parametrize("name,B,K,G,T,D", [
+    ("gemma3-ring", 4, 16, 2, 1024, 128),
+    ("gemma3-global", 4, 16, 2, 2048, 128),
+    ("tinyllama-1024", 8, 4, 8, 1024, 64),
+    ("tinyllama-256", 8, 4, 8, 256, 64),
 ])
-def test_decode_plan_fills_the_card_at_the_path_shapes(name, B, K, G, T):
-    gc, n_groups, n_split, _ = FA.decode_plan(B, K, G, T, 4, N_SM)
+def test_decode_plan_fills_the_card_at_the_path_shapes(name, B, K, G, T, D):
+    gc, n_groups, n_split, _ = FA.decode_plan(B, K, G, T, 4, N_SM, D)
     assert n_split * n_groups * K * B >= 2 * N_SM
 
 
@@ -171,7 +190,7 @@ def _twin_decode(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
     K = k.shape[2]
     _twin_decode.calls += 1
     _, _, n_split, split_len = FA.decode_plan(B, K, H // K, k.shape[1],
-                                              q.element_size(), N_SM)
+                                              k.element_size(), N_SM, D)
     return P_ref.split_decode_ref(q, k, v, q_pos, kv_pos, n_split=n_split,
                                   split_len=split_len, causal=causal,
                                   window=window)

@@ -13,8 +13,8 @@ held here, without the card:
   rounding of the operands, the three-product 3xTF32 split, f32 sums and
   the online softmax per 64-key tile).  On numpy inputs from a seed it holds
   the reference's ``chunked_attention`` (``src/repro/models/attention.py``)
-  to the reference kernel tests' 3e-5, at head_dim 64 and 128, under a
-  window of 100 over S = 300 and over rows that see 1500 keys, while a
+  to the reference kernel tests' 3e-5, at head_dim 64, 128 and 256, under a
+  window of 100 over S = 300 and over rows that see 1024-1500 keys, while a
   single TF32 pass does not: that is why the kernel splits.
 """
 import jax.numpy as jnp
@@ -34,10 +34,10 @@ PATH_SHAPES = ([(s, 32, 4) for s in (16, 32, 64, 128, 256, 512)]  # tinyllama
                + [(s, 32, 16) for s in (96, 300, 700, 1010, 1100, 1500)])
 
 
-def _coverage(B, S, H, K):
+def _coverage(B, S, H, K, head_dim=128, f32=True):
     """How many CTA rows compute each (batch, query, head): the grid of
     ``prefill_plan`` walked through ``prefill_row``."""
-    plan = FA.prefill_plan(B, S, H, K)
+    plan = FA.prefill_plan(B, S, H, K, head_dim, f32)
     G = H // K
     nq, nk, nb = plan.grid
     assert (nk, nb) == (K, B) and plan.bq * G <= plan.rows
@@ -84,6 +84,39 @@ def test_prefill_plan_covers_ragged_shapes(S, G, D):
     assert dims == list(range(D))
 
 
+@pytest.mark.parametrize("f32", [True, False])
+@pytest.mark.parametrize("G", [1, 2, 8, 64])
+@pytest.mark.parametrize("S", [1, 37, 300, 1024])
+def test_prefill_plan_at_head_dim_256(S, G, f32):
+    """Head dim 256 (gemma-7b): two warps share each 16-row block, so a CTA
+    holds 64 rows; the f32 path (q or K/V f32) has one K/V stage, bf16 two.
+    Every (query, head) row once, G = 64 at one query a CTA, and the head
+    dim read once by the f32 fragment order (eight k-blocks)."""
+    K = 2
+    plan, seen = _coverage(2, S, K * G, K, 256, f32)
+    assert (seen == 1).all()
+    assert (plan.rows, plan.keys, plan.stages) == (64, 64, 1 if f32 else 2)
+    assert plan.bq == 64 // G
+    dims = sorted(blk * 32 + 8 * t + 2 * kk + e for blk in range(8)
+                  for t in range(4) for kk in range(4) for e in range(2))
+    assert dims == list(range(256))
+
+
+@pytest.mark.parametrize("S", [16, 64, 256, 512, 1024])
+def test_prefill_plan_covers_gemma_7b_buckets(S):
+    """gemma-7b's Engine buckets (16 heads over 16 kv heads, head dim
+    256): one query of every head a CTA row, 64 queries a CTA."""
+    plan, seen = _coverage(1, S, 16, 16, 256)
+    assert (seen == 1).all() and plan.bq == 64 and plan.grid == (
+        -(-S // 64), 16, 1)
+
+
+def test_prefill_plan_refuses_groups_past_its_rows():
+    with pytest.raises(ValueError, match="groups of 1 to 64"):
+        FA.prefill_plan(1, 8, 128, 1, 256, True)
+    assert FA.prefill_plan(1, 8, 128, 1, 128, True).bq == 1
+
+
 def _inputs(seed, B, S, T, H, K, D, ends):
     """q/k/v from numpy normals; batch row b holds tokens 0..ends[b]-1 in
     its first slots, its query rows the last S of them (earlier rows and
@@ -106,6 +139,8 @@ CASES = {  # name: (B, S, T, H, K, D, window, ends)
     "S300-window100-D128": (2, 300, 300, 4, 2, 128, 100, [300, 173]),
     "rows-of-1500-keys-D64": (1, 6, 1500, 4, 2, 64, 0, [1500]),
     "rows-of-1500-keys-D128": (1, 6, 1500, 4, 2, 128, 0, [1500]),
+    "S300-window100-D256": (2, 300, 300, 4, 2, 256, 100, [300, 190]),
+    "rows-of-1024-keys-D256": (1, 6, 1024, 4, 4, 256, 0, [1024]),
 }
 
 
