@@ -18,9 +18,12 @@ nvcc (sm_90a), then:
                 rings whose positions have wrapped and over the 2048-slot
                 global cache, these also with bf16 q over f32 K/V; at
                 gemma-7b's head dim 256: decode over its cache and prefill
-                of a long and a short bucket in f32 and bf16; every decode
-                shape through the split-KV kernel), the tile copy also on
-                odd shapes, dtypes and sizes, and times kernel, plain
+                of a long and a short bucket in f32 and bf16; at
+                deepseek-v2's MLA prefill, Dk 192 / Dv 128 over 128 heads,
+                buckets 1024 and 64 in bf16 and f32; at olmoe's, a
+                1024-bucket prefill and a ragged decode of 8 rows; every
+                decode shape through the split-KV kernel), the tile copy
+                also on odd shapes, dtypes and sizes, and times kernel, plain
                 version and one library call for the same function;
   3. serving  — full-width tinyllama-1.1b (random weights from a seed)
                 through ``Engine``: 8 requests, 32 decode steps, a suspend
@@ -69,7 +72,20 @@ nvcc (sm_90a), then:
                 over f32 K/V; the Engine and the Scheduler, as in phase 6;
   9. qwen1.5  — qwen1.5-110b at full width with bf16 weights, cut to 8 of
                 its 80 layers (26.8 GB; 80 are 222 GB): the Engine with one
-                suspend and one resume wave.
+                suspend and one resume wave;
+  10. olmoe   — olmoe-1b-7b at full width and depth (16 layers of attn_full
+                + MoE, 64 experts top-8; f32, 27.7 GB): the Engine (8
+                slots, prompts 16-700) and the Scheduler, as in phase 7;
+                one decode batch run twice, each from its own copy of the
+                same cache, must give bit-equal logits (the MoE combine is
+                deterministic); a decode profile with the expert products'
+                and the dispatch's device time;
+  11. deepseek — deepseek-v2-236b at full width with bf16 weights over the
+                Engine's f32 cache, cut to 8 of its 60 alike MLA + MoE
+                layers (65.7 GB; fewer, at least 4, if the card's free
+                memory says so): the Engine with one suspend and one resume
+                wave; K3 runs its prefill at Dk 192 / Dv 128 and never
+                decodes (MLA decodes through its absorbed einsums).
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -118,6 +134,21 @@ G62_SESSIONS = 6
 # (13.4 B parameters, 26.8 GB)
 Q_LAYERS, Q_SLOTS, Q_MAX_LEN, Q_SESSIONS = 8, 4, 1024, 8
 Q_PROMPTS, Q_MAX_NEW, Q_FIRST = (24, 150, 400, 800), 24, 12
+# phase 10: olmoe-1b-7b at full width and depth (16 layers, 64 experts of
+# which 8 a token, MHA 16/16, head dim 128), f32: 6.92 B parameters, 27.7
+# GB; K/V take 16 KB a token a layer, so 8 slots at max_len 1024 hold 2.1
+# GB and a store of 16 sessions (and its fast tier of 4) 5.4 GB
+O_SLOTS, O_MAX_LEN, O_SESSIONS = 8, 1024, 16
+O_PROMPTS = (16, 40, 90, 150, 260, 380, 520, 700)
+O_MAX_NEW, O_FIRST = 32, 16
+O_SCHED_LENS = (100, 600)
+# phase 11: deepseek-v2-236b at full width, bf16 weights, cut to 8 of its
+# 60 layers (3.97 B parameters a layer: 63.6 GB, 65.7 GB with the
+# embedding and the head); its compressed cache takes 576 f32 a token a
+# layer, 75 MB at 4 slots x 1024
+DS_LAYERS, DS_MIN_LAYERS, DS_RESERVE = 8, 4, 8e9
+DS_SLOTS, DS_MAX_LEN, DS_SESSIONS = 4, 1024, 8
+DS_PROMPTS, DS_MAX_NEW, DS_FIRST = (24, 150, 400, 800), 24, 12
 
 
 class SmokeFailure(RuntimeError):
@@ -363,6 +394,8 @@ def main() -> int:
                                                            tag)
     rows["flash_attention_d256"], rows["flash_attention_mixed"] = \
         wide_and_mixed_rows(dev, gen, flush, tag)
+    rows["flash_attention_mla"], rows["flash_attention_moe"] = \
+        mla_and_moe_rows(dev, gen, flush, tag)
 
     # K4 at the tile_copy path's shape: one K leaf of the serving cache
     leaf = torch.randn((cfg.n_layers, SLOTS, MAX_LEN, K, D), device=dev,
@@ -525,8 +558,9 @@ def main() -> int:
             counts[name] += n
     wall(5)
 
-    # ---- phases 6-9: gemma3-27b (14 layers, f32), gemma-7b (f32),
-    # gemma3-27b (62 layers, bf16 weights), qwen1.5-110b (bf16 weights) ---
+    # ---- phases 6-11: gemma3-27b (14 layers, f32), gemma-7b (f32),
+    # gemma3-27b (62 layers, bf16 weights), qwen1.5-110b (bf16 weights),
+    # olmoe-1b-7b (f32), deepseek-v2-236b (bf16 weights) ------------------
     del params
     torch.cuda.empty_cache()
     paths = {}
@@ -534,7 +568,9 @@ def main() -> int:
             (("flash_attention_window", gemma3_phase),
              ("flash_attention_d256", gemma7b_phase),
              ("flash_attention_mixed", gemma3_bf16_phase),
-             ("flash_attention_mixed", qwen_phase)), start=6):
+             ("flash_attention_mixed", qwen_phase),
+             ("flash_attention_moe", olmoe_phase),
+             ("flash_attention_mla", deepseek_phase)), start=6):
         run = fn(tag)
         for name in ("villa_scatter", "villa_gather", "rbm_copy"):
             counts[name] += run[name]
@@ -558,6 +594,8 @@ def main() -> int:
         "flash_attention_prefill": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_d256": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_mixed": "src/repro/kernels/flash_attention.py:81",
+        "flash_attention_moe": "src/repro/kernels/flash_attention.py:81",
+        "flash_attention_mla": "src/repro/kernels/flash_attention.py:81",
         "rbm_copy": "src/repro/kernels/rbm_copy.py:27"}
     csrc = "src/repro_torch/kernels/csrc/"
     decode_src = csrc + "flash_decode.cu"
@@ -568,6 +606,8 @@ def main() -> int:
                "flash_attention_prefill": csrc + "flash_attention.cu",
                "flash_attention_d256": decode_src,
                "flash_attention_mixed": decode_src,
+               "flash_attention_moe": decode_src,
+               "flash_attention_mla": csrc + "flash_attention.cu",
                "rbm_copy": csrc + "rbm_copy.cu"}
     # flash_attention counts K3's decode kernel on the tinyllama paths
     # (phases 3 and 5), flash_attention_prefill its prefill kernel there;
@@ -575,12 +615,16 @@ def main() -> int:
     # flash_attention_d256 both on gemma-7b's (phase 7), and
     # flash_attention_mixed both on the bf16-weight paths (phases 8, 9:
     # bf16 prefill, bf16 q over the f32 cache in decode), by route beside,
-    # with the dtypes each route ran there; a row's source is its headline
-    # route's (the prefill kernel is csrc/flash_attention.cu)
+    # with the dtypes each route ran there; flash_attention_moe both on
+    # olmoe's path (phase 10), flash_attention_mla the prefill at Dk 192 /
+    # Dv 128 on deepseek-v2's (phase 11, which decodes without K3); a
+    # row's source is its headline route's (the prefill kernel is
+    # csrc/flash_attention.cu)
     kernels = []
     for name in ("villa_scatter", "villa_gather", "flash_attention",
                  "flash_attention_prefill", "flash_attention_window",
                  "flash_attention_d256", "flash_attention_mixed",
+                 "flash_attention_moe", "flash_attention_mla",
                  "rbm_copy"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
@@ -669,38 +713,39 @@ def attention_err(label, got, q, k, v, qp, kp, window=0):
 
 
 def attention_bound(q, k, q_pos, kv_pos, window, peak=F32_FLOP_PER_S,
-                    passes=1):
+                    passes=1, dv=None):
     """(ms, "bytes" or "operations") of the least time the card could take
     for this attention: q read and the output written once (in q's dtype),
     positions read once, the K/V rows that some query of their batch row
-    attends read once (in k's dtype); 4*H*D FLOP per valid (query, key)
-    pair, at the f32 peak (or,
-    for the prefill kernel's own bound, ``passes`` products of each at a
-    tensor-core peak: 3 TF32 ones for f32, one bf16)."""
+    attends read once (in k's dtype); 2*H*(Dk + Dv) FLOP per valid (query,
+    key) pair (4*H*D where V's head dim ``dv`` is q's and K's), at the f32
+    peak (or, for the prefill kernel's own bound, ``passes`` products of
+    each at a tensor-core peak: 3 TF32 ones for f32, one bf16)."""
     qp, kp = q_pos.cpu().numpy(), kv_pos.cpu().numpy()
     valid = kp[:, None, :] <= qp[:, :, None]
     if window > 0:
         valid &= kp[:, None, :] > qp[:, :, None] - window
     B, S, H, D = q.shape
     K = k.shape[2]
-    nbytes = (q.element_size() * 2 * q.numel()
-              + k.element_size() * 2 * int(valid.any(1).sum()) * K * D
+    dv = D if dv is None else dv
+    nbytes = (q.element_size() * B * S * H * (D + dv)
+              + k.element_size() * int(valid.any(1).sum()) * K * (D + dv)
               + 4 * (qp.size + kp.size))
-    flops = 4 * H * D * int(valid.sum()) * passes
+    flops = 2 * H * (D + dv) * int(valid.sum()) * passes
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def tc_bound(q, k, q_pos, kv_pos, window):
+def tc_bound(q, k, q_pos, kv_pos, window, dv=None):
     """The prefill kernel's tensor-core bound (ms): one bf16 product when
     q and K/V are bf16, else 3xTF32 (any f32 operand takes that path)."""
     import torch
     if q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16:
         return attention_bound(q, k, q_pos, kv_pos, window,
-                               BF16_FLOP_PER_S)[0]
+                               BF16_FLOP_PER_S, dv=dv)[0]
     return attention_bound(q, k, q_pos, kv_pos, window, TF32_FLOP_PER_S,
-                           3)[0]
+                           3, dv=dv)[0]
 
 
 def prefill_rows(attn_case, flush, tag) -> dict:
@@ -925,8 +970,10 @@ def attention_row(label, q, k, v, qp, kp, window, flush, tag) -> dict:
     # the operations at the peak of the products' type: bf16 only when q
     # and K/V are both bf16 (an f32 operand promotes the product)
     bf16 = q.dtype == k.dtype == torch.bfloat16
+    dv = v.shape[-1]
     bound, by = attention_bound(q, k, qp, kp, window,
-                                BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+                                BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S,
+                                dv=dv)
     r = dict(**kernel_times(
         lambda: ops.chunked_attention(q, k, v, qp, kp, window=window),
         lambda: ref.chunked_attention_ref(q, k, v, qp, kp, window=window),
@@ -936,7 +983,7 @@ def attention_row(label, q, k, v, qp, kp, window, flush, tag) -> dict:
     if mixed:
         r["library_operands"] = "promoted to float32 outside its timed window"
     if q.shape[1] > 1:
-        r["tc_bound_ms"] = tc_bound(q, k, qp, kp, window)
+        r["tc_bound_ms"] = tc_bound(q, k, qp, kp, window, dv)
     print(f"attention {label} ({r['dtypes']}) S={q.shape[1]} T={k.shape[1]} "
           f"B={q.shape[0]} window {window}: max_abs_err {err:.3g} "
           f"({share:.3g} of its bar); kernel "
@@ -1178,7 +1225,8 @@ def serve_phase(label, cfg, params, prompts, tag, *, slots, max_len,
     print(f"{label} resume wave of {len(wave)}: {resume_s * 1e3:.3f} ms, "
           f"{len(wave) * snap / resume_s / 1e9:.2f} GB/s [{tag}]")
     if profile:
-        profile_decode(eng, tag, label=f"{label} profile")
+        profile_decode(eng, tag, label=f"{label} profile",
+                       experts=cfg.n_experts)
     del eng
     torch.cuda.empty_cache()
     if sched_wl is None:
@@ -1334,6 +1382,169 @@ def qwen_phase(tag) -> dict:
     return counts
 
 
+def mla_and_moe_rows(dev, gen, flush, tag):
+    """Phase 2 at the shapes phases 10-11 launch.  deepseek-v2's MLA
+    prefill: q and K (1, S, 128, 192), V (1, S, 128, 128), causal, for the
+    1024 bucket of a 700-token prompt and the 64 bucket of a 40-token one
+    (pads at 2**30, as the Engine's buckets), in bf16 (phase 11's path)
+    and f32 (the other instantiation the wrapper takes).  olmoe-1b-7b's
+    (16 heads MHA, head dim 128, f32): the prefill of the 1024 bucket of
+    its longest prompt and a decode over its 1024-slot cache for O_SLOTS
+    rows with ragged ends.  Each held to ``ref.attention_bar`` and timed
+    beside its plain version and SDPA, which takes Dv != Dk.  Returns the
+    two ``kernels`` entries: MLA's headline the bf16 bucket-1024 row,
+    olmoe's its decode row (16 layers launch it every step), every row in
+    ``shapes``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    def case(S, H, dk, dv, n, dt):
+        pos = np.full((1, S), 2**30, np.int32)
+        pos[0, :n] = np.arange(n)
+        q = torch.randn((1, S, H, dk), device=dev, generator=gen).to(dt)
+        k = torch.randn((1, S, H, dk), device=dev, generator=gen).to(dt)
+        v = torch.randn((1, S, H, dv), device=dev, generator=gen).to(dt)
+        qp = torch.from_numpy(pos).to(dev)
+        return q, k, v, qp, qp
+
+    ds = get_config("deepseek-v2-236b")
+    dk, dv = ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim
+    mla = {}
+    for bucket, n in ((1024, 700), (64, 40)):
+        for dt in (torch.bfloat16, torch.float32):
+            mla[f"prefill_{bucket}_{str(dt)[6:]}"] = attention_row(
+                f"deepseek-v2 MLA prefill bucket {bucket} ({n} tokens)",
+                *case(bucket, ds.n_heads, dk, dv, n, dt), 0, flush, tag)
+    om = get_config("olmoe-1b-7b")
+    H, K, D = om.n_heads, om.n_kv_heads, om.head_dim
+    moe = {}
+    n = max(O_PROMPTS)
+    bucket = min(max(16, 1 << (n - 1).bit_length()), O_MAX_LEN)
+    moe[f"prefill_{bucket}"] = attention_row(
+        f"olmoe prefill bucket {bucket} ({n} tokens)",
+        *case(bucket, H, D, D, n, torch.float32), 0, flush, tag)
+    ends = np.array(O_PROMPTS) + O_MAX_NEW - 1
+    kp_np = np.full((len(ends), O_MAX_LEN), 2**30, np.int32)
+    for b, e in enumerate(ends):
+        kp_np[b, :e + 1] = np.arange(e + 1)
+    B = len(ends)
+    q = torch.randn((B, 1, H, D), device=dev, generator=gen)
+    k = torch.randn((B, O_MAX_LEN, K, D), device=dev, generator=gen)
+    v = torch.randn((B, O_MAX_LEN, K, D), device=dev, generator=gen)
+    moe["decode"] = attention_row(
+        "olmoe decode", q, k, v,
+        torch.from_numpy(ends[:, None].astype(np.int32)).to(dev),
+        torch.from_numpy(kp_np).to(dev), 0, flush, tag)
+    out = []
+    for head, rows in ((mla["prefill_1024_bfloat16"], mla),
+                       (moe["decode"], moe)):
+        row = dict(head)
+        row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values()
+                                 if r["dtypes"] == head["dtypes"])
+        row["shapes"] = rows
+        out.append(row)
+    return out
+
+
+def repeat_decode(label, cfg, params, prompts, slots, max_len) -> None:
+    """One decode batch run twice, each from its own copy of the same cache
+    (prefilled with ``prompts``, one a slot, the last slot idle): the
+    logits and both caches must be bit-equal, which the MoE combine's fixed
+    order of summation makes them."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    cache = lm.init_cache(cfg, slots, max_len, device=dev)
+    for s, p in enumerate(prompts[:slots - 1]):
+        lm.prefill(cfg, params, torch.from_numpy(p)[None].to(dev), cache,
+                   slot=s)
+    lens = [len(p) for p in prompts[:slots - 1]] + [0]
+    active = np.array([n > 0 for n in lens])
+    toks = torch.tensor([int(p[-1]) for p in prompts[:slots - 1]] + [0],
+                        device=dev)
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    copies = [{st: {b: {k: t.clone() for k, t in c.items()}
+                    for b, c in blocks.items()}
+               for st, blocks in cache.items()} for _ in range(2)]
+    del cache
+    logits = [lm.decode_logits(cfg, params, c, toks, pos, active)
+              for c in copies]
+    torch.cuda.synchronize()
+    check(bit_equal(logits[0], logits[1]),
+          f"{label}: a decode batch run twice gives different logits")
+    check(all(bit_equal(a, b) for a, b in zip(_leaves(copies[0]),
+                                                _leaves(copies[1]))),
+          f"{label}: a decode batch run twice writes different caches")
+    print(f"{label}: one decode batch of {int(active.sum())} rows, run twice "
+          f"from two copies of one cache: logits and caches bit-equal")
+    del copies
+    torch.cuda.empty_cache()
+
+
+def olmoe_phase(tag) -> dict:
+    """Phase 10: olmoe-1b-7b at full width and depth (attn_full + MoE, f32)
+    through the Engine and the Scheduler, K3 on both routes at head dim 128
+    and G 1; one decode batch run twice must give bit-equal logits."""
+    import torch
+    from repro_torch import sched
+    from repro_torch.configs import get_config
+
+    cfg = get_config("olmoe-1b-7b")
+    params = model_params(cfg, torch.float32, "olmoe-1b-7b",
+                          "full depth: the f32 weights fit")
+    prompts = _prompts(cfg, O_PROMPTS, SEED + 10)
+    repeat_decode("olmoe", cfg, params, prompts, O_SLOTS, O_MAX_LEN)
+    wl = sched.WorkloadConfig(n_fresh=6, n_followups=12, arrival="bursty",
+                              prompt_lens=O_SCHED_LENS, new_tokens=(8, 16))
+    counts = serve_phase("olmoe", cfg, params, prompts, tag, slots=O_SLOTS,
+                         max_len=O_MAX_LEN, n_sessions=O_SESSIONS,
+                         max_new=O_MAX_NEW, first=O_FIRST, sched_wl=wl)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def deepseek_phase(tag) -> dict:
+    """Phase 11: deepseek-v2-236b at full width with bf16 weights over the
+    Engine's f32 cache, cut to DS_LAYERS of its 60 layers, or to as many as
+    the card's free memory holds beside DS_RESERVE bytes (at least
+    DS_MIN_LAYERS): the Engine with one suspend and one resume wave.  Its
+    prefill runs K3 at Dk 192 / Dv 128 in bf16; its decode the absorbed
+    einsums over the compressed cache."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, param_count
+
+    full = get_config("deepseek-v2-236b")
+    one = 2 * param_count(dataclasses.replace(full, n_layers=1))
+    layer = 2 * param_count(dataclasses.replace(full, n_layers=2)) - one
+    free, _ = torch.cuda.mem_get_info()
+    fit = int((free - DS_RESERVE - (one - layer)) // layer)
+    n = min(DS_LAYERS, fit)
+    check(n >= DS_MIN_LAYERS, f"deepseek-v2: {free / 1e9:.1f} GB free holds "
+          f"{fit} layers, fewer than {DS_MIN_LAYERS}")
+    cfg = dataclasses.replace(full, n_layers=n)
+    params = model_params(
+        cfg, torch.bfloat16, "deepseek-v2-236b bf16",
+        f"{n} of {full.n_layers} layers ({DS_LAYERS} asked; "
+        f"{free / 1e9:.1f} GB free held {fit} beside {DS_RESERVE / 1e9:.0f} "
+        f"GB kept for the Engine): all {full.n_layers} in bf16 are "
+        f"{2 * param_count(full) / 1e9:.0f} GB, past the card's 80 GB, and "
+        f"every layer is alike (MLA + MoE), so depth adds no path")
+    counts = serve_phase("deepseek-v2", cfg, params,
+                         _prompts(cfg, DS_PROMPTS, SEED + 11), tag,
+                         slots=DS_SLOTS, max_len=DS_MAX_LEN,
+                         n_sessions=DS_SESSIONS, max_new=DS_MAX_NEW,
+                         first=DS_FIRST)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def kernel_name(mangled: str) -> str:
     """The kernel part of a mangled entry name, its namespaces dropped:
     ``prefill_kernelIfLi128E`` is ``pf::prefill_kernel<float, 128>``,
@@ -1358,17 +1569,23 @@ def bit_equal(a, b) -> bool:
 def serving_launches(cfg, st) -> dict:
     """The launches a serving run's stats call for.  K3 runs once a layer
     per prefill (its prefill kernel: every prompt is longer than one token)
-    and per decode dispatch (its decode kernel); a suspend writes the slow row and
-    its fast copy (two K1), a resume reads the slow row and the fast slot
-    (two K2) and may insert into the fast tier (K1), a demotion clones a
-    row (one K2, one K1); K4 is not on the serving path."""
-    return {"flash_attention": cfg.n_layers * (st["prefills"]
-                                               + st["decode_dispatches"]),
-            "flash_attention_prefill": cfg.n_layers * st["prefills"],
-            "flash_attention_decode": cfg.n_layers * st["decode_dispatches"],
-            "villa_scatter": 2 * st["suspends"] + st["resumes"]
-            + st["demotions"],
-            "villa_gather": 2 * st["resumes"] + st["demotions"]}
+    and, in an attention layer, per decode dispatch (its decode kernel; an
+    MLA layer decodes through its absorbed einsums, without K3); a suspend
+    writes the slow row and its fast copy (two K1), a resume reads the slow
+    row and the fast slot (two K2) and may insert into the fast tier (K1),
+    a demotion clones a row (one K2, one K1); K4 is not on the serving
+    path.  Kernels due no launch are left out (``check_counts`` holds them
+    to 0)."""
+    n_dec = sum(kind != "mla" for kind in cfg.layer_kinds())
+    prefill = cfg.n_layers * st["prefills"]
+    decode = n_dec * st["decode_dispatches"]
+    due = {"flash_attention": prefill + decode,
+           "flash_attention_prefill": prefill,
+           "flash_attention_decode": decode,
+           "villa_scatter": 2 * st["suspends"] + st["resumes"]
+           + st["demotions"],
+           "villa_gather": 2 * st["resumes"] + st["demotions"]}
+    return {name: n for name, n in due.items() if n}
 
 
 def check_counts(counts, due, path) -> None:
@@ -1433,9 +1650,13 @@ def serve_runs(tag):
             yield counts
 
 
-def profile_decode(eng, tag, steps=4, label="profile"):
+def profile_decode(eng, tag, steps=4, label="profile", experts=0):
     """Device time by kernel over a few decode steps of every slot
-    (torch.profiler), and the device's busy share of the host window."""
+    (torch.profiler), and the device's busy share of the host window.
+    With ``experts`` (an MoE model's expert count) also the device time of
+    the routed expert products (the batched matmuls over ``experts``
+    weight matrices) and of the dispatch (sort, searchsorted, gather,
+    scatter, topk), from the operators that launched them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1444,8 +1665,8 @@ def profile_decode(eng, tag, steps=4, label="profile"):
     eng.resume_many(sorted(eng.session_pos)[:eng.slots], steps + 3)
     eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=experts > 0) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -1467,6 +1688,29 @@ def profile_decode(eng, tag, steps=4, label="profile"):
     for ms, n, key in rows[:12]:
         print(f"  {label} kernel {ms / steps:.4f} ms/step, {n} launches: "
               f"{key[:80]}")
+    if experts:
+        dispatch = ("aten::sort", "aten::searchsorted", "aten::gather",
+                    "aten::scatter_", "aten::topk")
+        part = {"experts": [0.0, 0], "dispatch": [0.0, 0]}
+        for e in prof.key_averages(group_by_input_shape=True):
+            us = getattr(e, "device_time_total", None)
+            us = e.cuda_time_total if us is None else us
+            shapes = e.input_shapes or [[]]
+            if e.key == "aten::bmm" and shapes[0][:1] == [experts]:
+                name = "experts"
+            elif e.key in dispatch:
+                name = "dispatch"
+            else:
+                continue
+            part[name][0] += us / 1e3
+            part[name][1] += e.count
+        print(f"{label}: routed expert products (bmm over {experts} "
+              f"experts) {part['experts'][0] / steps:.4f} ms/step in "
+              f"{part['experts'][1] / steps:.0f} calls; dispatch "
+              f"(sort/searchsorted/gather/scatter/topk) "
+              f"{part['dispatch'][0] / steps:.4f} ms/step in "
+              f"{part['dispatch'][1] / steps:.0f} calls; "
+              f"{launches / steps:.0f} kernels/step [{tag}]")
     while eng.active:
         eng.step()
 

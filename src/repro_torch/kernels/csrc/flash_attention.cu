@@ -2,15 +2,17 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (body
 // _kernel) in the contract of src/repro/models/attention.py::
-// chunked_attention, which is what the serving model runs: q (B,S,H,D),
-// k/v (B,T,K,D) with H = K*G, per-row positions q_pos (B,S) and
+// chunked_attention, which is what the serving model runs: q (B,S,H,Dk),
+// k (B,T,K,Dk), v (B,T,K,Dv) with H = K*G, per-row positions q_pos (B,S) and
 // kv_pos (B,T) (empty cache slots carry 2**30), key t valid for query s iff
 // kv_pos[t] <= q_pos[s] when causal and, with a sliding window W > 0, also
 // kv_pos[t] > q_pos[s] - W.  Running max, sum and accumulator are f32; a
 // masked score is -1e30 and the sum is floored at 1e-30, so a row with no
-// valid key gives 0.  Not taken yet: int8 scales (no entry), and, raising
-// in the wrapper, Dv != Dk (MLA) and head_dim outside 16/32/64/128/256;
-// ROADMAP Queue 2 lists them under K3.
+// valid key gives 0.  Head dims: Dk = Dv in 16/32/64/128/256, and here in
+// the prefill also Dk 192 / Dv 128 (MLA's expanded K and V: deepseek-v2).
+// Not taken yet: int8 scales (no entry), and, raising in the wrapper, any
+// other (Dk, Dv) and Dv != Dk in decode; ROADMAP Queue 2 lists them under
+// K3.
 //
 // q and k/v may differ in dtype (bf16 weights over the Engine's f32 cache
 // give bf16 q over f32 K/V); k and v share one.  The kernels follow the
@@ -76,6 +78,13 @@
 //         f32 q over bf16 K/V widens each bf16 K/V chunk to f32 on its way
 //         into shared memory (plain loads: cp.async cannot convert), whose
 //         TF32 split is exact (lo = 0).
+// Dk 192 / Dv 128 (MLA).  Rows, the accumulator and the output columns go
+// by Dv, as at 128: 128 rows a CTA, one warp a 16-row block.  Q, K and the
+// scores' k-steps go by Dk: K rows of Dk + 4 floats (f32) or Dk + 8 bf16,
+// 24 k-steps of 8 (TF32) or 12 of 16 (bf16).  In f32 the 128-row Q (100 KB)
+// and one tile (83 KB) leave no room for a second stage, so the ring has
+// one, as at 256; in bf16 Q's fragments (48 registers) are read from shared
+// memory by ldmatrix, as at 256, and the ring keeps two stages (43 KB each).
 // Head dim 256 (gemma-7b).  A warp's accumulator of 16 rows by 256 columns
 // (128 registers) does not fit beside the scores, so two warps share each
 // 16-row block: both compute its scores in full, and each keeps D/2
@@ -199,40 +208,44 @@ template <> struct Path<__nv_bfloat16, __nv_bfloat16> {
   using T = __nv_bfloat16;
 };
 
-// Rows by head dim: WPR warps share each 16-row block, each computing its
-// scores and DO = D / WPR output columns; a CTA holds ROWS (query, head)
-// rows.  Two warps a block at D = 256 (the accumulator of 256 columns does
-// not fit a warp's registers), one below.
-template <int D> struct Geom {
-  static constexpr int WPR = D > 128 ? 2 : 1;
+// Rows by V's head dim DV: WPR warps share each 16-row block, each
+// computing its scores and DO = DV / WPR output columns; a CTA holds ROWS
+// (query, head) rows.  Two warps a block at DV = 256 (the accumulator of
+// 256 columns does not fit a warp's registers), one below.
+template <int DV> struct Geom {
+  static constexpr int WPR = DV > 128 ? 2 : 1;
   static constexpr int ROWS = 16 * kWarps / WPR;
-  static constexpr int DO = D / WPR;
+  static constexpr int DO = DV / WPR;
 };
 
-// Shared-memory layout of one compute type and head dim (element strides).
-//   f32:  K (and Q) rows padded to D + 4 floats, so the 16-byte fragment
+// Shared-memory layout of one compute type and pair of head dims, DK of
+// q and K, DV of V (element strides).
+//   f32:  K (and Q) rows padded to DK + 4 floats, so the 16-byte fragment
 //         loads of 8 lanes fall on 8 distinct bank groups; V rows unpadded
 //         with their 16-byte chunks XOR-swizzled by vswz (below).  Q is
-//         staged here; at D = 256 the ring has one stage (194 KB with Q).
-//   bf16: K and V rows padded to D + 8, so the 8 rows of an ldmatrix fall
-//         on 8 distinct bank groups; Q in registers, or at D = 256 here,
-//         padded the same way.
-template <typename T, int D> struct Layout;
-template <int D> struct Layout<float, D> {
-  static constexpr int KS = D + 4, VS = D, QS = D + 4;
-  static constexpr int KPB = D >= 32 ? 4 : D / 8;   // k-steps a K load
-  static constexpr int STAGES = D > 128 ? 1 : 2;     // K/V tiles in flight
-  static constexpr int q_elems = Geom<D>::ROWS * QS;
+//         staged here; above DK = 128 the ring has one stage (194 KB with
+//         Q at 256, 184 KB at 192 / 128).
+//   bf16: K and V rows padded to DK + 8 and DV + 8, so the 8 rows of an
+//         ldmatrix fall on 8 distinct bank groups; Q in registers, or
+//         above DK = 128 here, padded the same way.
+template <typename T, int DK_, int DV_> struct Layout;
+template <int DK_, int DV_> struct Layout<float, DK_, DV_> {
+  static constexpr int DK = DK_, DV = DV_;
+  static constexpr int KS = DK + 4, VS = DV, QS = DK + 4;
+  static constexpr int KPB = DK >= 32 ? 4 : DK / 8;  // k-steps a K load
+  static constexpr int STAGES = DK > 128 ? 1 : 2;     // K/V tiles in flight
+  static constexpr int q_elems = Geom<DV>::ROWS * QS;
 };
-template <int D> struct Layout<__nv_bfloat16, D> {
-  static constexpr int KS = D + 8, VS = D + 8, QS = D > 128 ? D + 8 : 0;
+template <int DK_, int DV_> struct Layout<__nv_bfloat16, DK_, DV_> {
+  static constexpr int DK = DK_, DV = DV_;
+  static constexpr int KS = DK + 8, VS = DV + 8, QS = DK > 128 ? DK + 8 : 0;
   static constexpr int KPB = 0;
   static constexpr int STAGES = 2;
-  static constexpr int q_elems = Geom<D>::ROWS * QS;
+  static constexpr int q_elems = Geom<DV>::ROWS * QS;
 };
 
-template <typename T, int D> struct Smem {
-  using L = Layout<T, D>;
+template <typename T, int DK, int DV> struct Smem {
+  using L = Layout<T, DK, DV>;
   static constexpr int k_elems = kBN * L::KS, v_elems = kBN * L::VS;
   static constexpr size_t stage_bytes =
       sizeof(T) * (k_elems + v_elems) + sizeof(int) * kBN;
@@ -286,13 +299,12 @@ __device__ __forceinline__ void mma_3xtf32(float (*c)[4], const uint32_t* ahi,
 // Both operands read the head dim in the same permuted order: in k-block
 // `blk` of KPB k-steps, lane t holds dims blk*8*KPB + 2*KPB*t + 2*kk + {0,1}
 // for k-step kk, its slots t and t + 4 of the TF32 fragment, so each row is
-// one 2*KPB-float load.
-template <int D>
+// one 2*KPB-float load.  L is the f32 Layout; D its DK.
+template <class L>
 __device__ __forceinline__ void qk_tile(float (*s)[4], const float* Qw,
                                         const float* Ks, int g, int t,
                                         unsigned long long live) {
-  using L = Layout<float, D>;
-  constexpr int KPB = L::KPB, RL = 2 * KPB, NB = D / (8 * KPB);
+  constexpr int KPB = L::KPB, RL = 2 * KPB, NB = L::DK / (8 * KPB);
 #pragma unroll
   for (int blk = 0; blk < NB; ++blk) {
     alignas(16) float a0[RL];
@@ -395,16 +407,16 @@ __device__ __forceinline__ void pv_tile(float (*o)[4], const float (*p)[4],
 
 // bf16: s += Q K^T with Q's fragments in registers (qa[kk] for k-step kk,
 // the natural m16n8k16 layout) or, at D = 256, from the warp's 16 rows of
-// Q in shared memory (Qw) by ldmatrix, and K's from ldmatrix.
-template <int D>
+// Q in shared memory (Qw) by ldmatrix, and K's from ldmatrix.  L is the
+// bf16 Layout; D its DK.
+template <class L>
 __device__ __forceinline__ void qk_tile_bf16(float (*s)[4],
                                              const uint32_t (*qa)[4],
                                              const __nv_bfloat16* Qw,
                                              const __nv_bfloat16* Ks,
                                              int lane,
                                              unsigned long long live) {
-  using L = Layout<__nv_bfloat16, D>;
-  constexpr int KS = L::KS;
+  constexpr int D = L::DK, KS = L::KS;
   const __nv_bfloat16* row = Ks + (lane & 7) * KS;
   if constexpr (D >= 32) {
 #pragma unroll
@@ -448,15 +460,16 @@ __device__ __forceinline__ void qk_tile_bf16(float (*s)[4],
 
 // bf16: o += P V with P rounded to bf16 (the accumulator fragments of two
 // key n-tiles are the A fragment of one k-step) and V's fragments from
-// ldmatrix.trans; output n-tile nt is columns half*DO + 8nt..+7.
-template <int D, int DO>
+// ldmatrix.trans; output n-tile nt is columns half*DO + 8nt..+7.  L is
+// the bf16 Layout.
+template <class L, int DO>
 __device__ __forceinline__ void pv_tile_bf16(float (*o)[4],
                                              const float (*p)[4],
                                              const __nv_bfloat16* Vs,
                                              int lane,
                                              unsigned long long live,
                                              int half) {
-  constexpr int VS = Layout<__nv_bfloat16, D>::VS;
+  constexpr int VS = L::VS;
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
     if (!((live >> (16 * kk)) & 0xffffull)) continue;   // P is 0 there
@@ -485,19 +498,22 @@ __device__ __forceinline__ void pv_tile_bf16(float (*o)[4],
 // (kernels/flash_attention.py::prefill_plan and prefill_row).  Warp w owns
 // rows 16rb..16rb+15 of row block rb = w / WPR and the output columns
 // half*DO.. (half = w % WPR); its lane (g = lane / 4, t = lane % 4) holds
-// rows 16rb + g and 16rb + g + 8 of every fragment.
-template <typename TQ, typename TKV, int D>
+// rows 16rb + g and 16rb + g + 8 of every fragment.  D is q's and K's head
+// dim, DV V's and the output's (DV <= D).
+template <typename TQ, typename TKV, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                const TKV* __restrict__ v, const int* __restrict__ q_pos,
                const int* __restrict__ kv_pos, TQ* __restrict__ out, int S,
                int T_, int H, int K, int G, int BQ, int causal, int window,
                float scale) {
+  static_assert(DV <= D, "V's head dim is at most q's and K's");
   using C = typename Path<TQ, TKV>::T;         // the products' type
-  using L = Layout<C, D>;
-  using SM = Smem<C, D>;
+  using L = Layout<C, D, DV>;
+  using SM = Smem<C, D, DV>;
   constexpr bool kF32 = sizeof(C) == 4;
-  constexpr int WPR = Geom<D>::WPR, DO = Geom<D>::DO, ROWS = Geom<D>::ROWS;
+  constexpr int WPR = Geom<DV>::WPR, DO = Geom<DV>::DO;
+  constexpr int ROWS = Geom<DV>::ROWS;
   constexpr int NO = DO / 8;                   // output n-tiles
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int w_hi[kWarps];
@@ -637,27 +653,28 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     C* Ks = reinterpret_cast<C*>(base);
     C* Vs = Ks + SM::k_elems;
     int* Ps = reinterpret_cast<int*>(Vs + SM::v_elems);
-    constexpr int CPR = D * sizeof(TKV) / 16;  // 16-byte chunks a row
+    constexpr int CPR = D * sizeof(TKV) / 16;  // 16-byte chunks a K row
+    constexpr int CPV = DV * sizeof(TKV) / 16;  // and a V row (<= CPR)
     constexpr int EPC = 16 / sizeof(TKV);      // elements a chunk
     const int t0 = tile * kBN;
     for (int idx = tid; idx < kBN * CPR; idx += kThreads) {
       const int r = idx / CPR, c = idx % CPR;
       const int key = t0 + r;
       const bool ok = key < T_;
-      const long long off =
-          ok ? ((static_cast<long long>(b) * T_ + key) * K + kvh) * D +
-                   c * EPC
-             : 0;
+      const long long row = (static_cast<long long>(b) * T_ + key) * K + kvh;
+      const long long off = ok ? row * D + c * EPC : 0;
+      const long long voff = ok ? row * DV + c * EPC : 0;
+      const bool has_v = CPV == CPR || c < CPV;  // chunk c of a V row
       if constexpr (std::is_same<C, TKV>::value) {
         cp_async16(Ks + r * L::KS + c * EPC, k + off, ok);
         int vc = c;
-        if constexpr (kF32) vc = c ^ vswz<D>(r);
-        cp_async16(Vs + r * L::VS + vc * EPC, v + off, ok);
+        if constexpr (kF32) vc = c ^ vswz<DV>(r);
+        if (has_v) cp_async16(Vs + r * L::VS + vc * EPC, v + voff, ok);
       } else {
         uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
         if (ok) {
           kr = __ldg(reinterpret_cast<const uint4*>(k + off));
-          vr = __ldg(reinterpret_cast<const uint4*>(v + off));
+          if (has_v) vr = __ldg(reinterpret_cast<const uint4*>(v + voff));
         }
         alignas(16) float kf[8];
         alignas(16) float vf[8];
@@ -667,9 +684,10 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         for (int hh = 0; hh < 2; ++hh) {
           *reinterpret_cast<float4*>(Ks + r * L::KS + 8 * c + 4 * hh) =
               *reinterpret_cast<const float4*>(kf + 4 * hh);
-          *reinterpret_cast<float4*>(
-              Vs + r * L::VS + 4 * ((2 * c + hh) ^ vswz<D>(r))) =
-              *reinterpret_cast<const float4*>(vf + 4 * hh);
+          if (has_v)
+            *reinterpret_cast<float4*>(
+                Vs + r * L::VS + 4 * ((2 * c + hh) ^ vswz<DV>(r))) =
+                *reinterpret_cast<const float4*>(vf + 4 * hh);
         }
       }
     }
@@ -730,10 +748,10 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
       if constexpr (kF32)
-        qk_tile<D>(s, reinterpret_cast<const float*>(Qs) + rb * 16 * L::QS,
+        qk_tile<L>(s, reinterpret_cast<const float*>(Qs) + rb * 16 * L::QS,
                    reinterpret_cast<const float*>(Ks), g, t, live);
       else
-        qk_tile_bf16<D>(s, qa,
+        qk_tile_bf16<L>(s, qa,
                         reinterpret_cast<const __nv_bfloat16*>(Qs) +
                             rb * 16 * L::QS,
                         reinterpret_cast<const __nv_bfloat16*>(Ks), lane,
@@ -805,10 +823,10 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         }
       }
       if constexpr (kF32)
-        pv_tile<D, DO>(o, s, reinterpret_cast<const float*>(Vs), g, t, live,
-                       half);
+        pv_tile<DV, DO>(o, s, reinterpret_cast<const float*>(Vs), g, t, live,
+                        half);
       else
-        pv_tile_bf16<D, DO>(o, s,
+        pv_tile_bf16<L, DO>(o, s,
                             reinterpret_cast<const __nv_bfloat16*>(Vs), lane,
                             live, half);
     }
@@ -827,7 +845,7 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     if (!row_ok[i]) continue;
     const float den = fmaxf(l[i], 1e-30f);
     TQ* orow = out + ((static_cast<long long>(b) * S + row_s[i]) * H +
-                      row_h[i]) * D + half * DO;
+                      row_h[i]) * DV + half * DO;
     if constexpr (kF32) {
       // lane t holds columns (DO/4)t.. : o[n][2i] at (DO/8)*2t + n, then
       // o[n][2i + 1] at (DO/8)*(2t + 1) + n
@@ -848,18 +866,18 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
 // A launch laid out by prefill_plan: -1 when its rows or stages are not
 // this instantiation's.
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, int DV>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
            const int* kv_pos, void* out, int B, int S, int T_, int H, int K,
            int causal, int window, float scale, int rows, int stages, int BQ,
            int n_qblocks, cudaStream_t stream) {
   using C = typename Path<TQ, TKV>::T;
-  if (rows != Geom<D>::ROWS || stages != Layout<C, D>::STAGES ||
+  if (rows != Geom<DV>::ROWS || stages != Layout<C, D, DV>::STAGES ||
       BQ * (H / K) > rows)
     return -1;
-  const size_t smem = Smem<C, D>::bytes((T_ + kBN - 1) / kBN);
+  const size_t smem = Smem<C, D, DV>::bytes((T_ + kBN - 1) / kBN);
   dim3 grid(n_qblocks, K, B);
-  prefill_kernel<TQ, TKV, D><<<grid, kThreads, smem, stream>>>(
+  prefill_kernel<TQ, TKV, D, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), q_pos, kv_pos, static_cast<TQ*>(out), S,
       T_, H, K, H / K, BQ, causal, window, scale);
@@ -886,19 +904,20 @@ int flash_attention_prepare() {
                                device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaFuncAttributes attr;
-#define OPT_IN(TQ, TKV, DD)                                                 \
+#define OPT_IN(TQ, TKV, DD, DV)                                             \
   if (cudaError_t err = cudaFuncGetAttributes(                              \
-          &attr, pf::prefill_kernel<TQ, TKV, DD>))                          \
+          &attr, pf::prefill_kernel<TQ, TKV, DD, DV>))                      \
     return static_cast<int>(err);                                           \
   if (cudaError_t err = cudaFuncSetAttribute(                               \
-          pf::prefill_kernel<TQ, TKV, DD>,                                  \
+          pf::prefill_kernel<TQ, TKV, DD, DV>,                              \
           cudaFuncAttributeMaxDynamicSharedMemorySize,                      \
           max_smem - static_cast<int>(attr.sharedSizeBytes)))               \
     return static_cast<int>(err);
 #define OPT_IN_D(DD)                                                        \
-  OPT_IN(float, float, DD) OPT_IN(__nv_bfloat16, __nv_bfloat16, DD)         \
-  OPT_IN(__nv_bfloat16, float, DD) OPT_IN(float, __nv_bfloat16, DD)
+  OPT_IN(float, float, DD, DD) OPT_IN(__nv_bfloat16, __nv_bfloat16, DD, DD) \
+  OPT_IN(__nv_bfloat16, float, DD, DD) OPT_IN(float, __nv_bfloat16, DD, DD)
   OPT_IN_D(16) OPT_IN_D(32) OPT_IN_D(64) OPT_IN_D(128) OPT_IN_D(256)
+  OPT_IN(float, float, 192, 128) OPT_IN(__nv_bfloat16, __nv_bfloat16, 192, 128)
 #undef OPT_IN_D
 #undef OPT_IN
   return 0;
@@ -906,15 +925,17 @@ int flash_attention_prepare() {
 
 // S > 1, laid out by prefill_plan: `rows` (query, head) rows a CTA and
 // `stages` tiles in flight must be the instantiation's (128 and 2 up to
-// head dim 128; 64 at 256, with one stage on the f32 path), `keys` keys a
-// tile 64; BQ queries a CTA with BQ*G <= rows, n_qblocks*BQ >= S.  q/k/v
-// start on 16-byte boundaries.  dtype_q, dtype_kv: 0 = float32,
-// 1 = bfloat16.  Returns a cudaError_t (0 = launched; an invalid-value
+// head dim 128; 64 at 256, with one stage on the f32 path; 128 at Dk 192 /
+// Dv 128, one stage on the f32 path), `keys` keys a tile 64; BQ queries a
+// CTA with BQ*G <= rows, n_qblocks*BQ >= S.  D is q's and k's head dim, Dv
+// v's and out's: D = Dv in 16/32/64/128/256, or 192 / 128 with q and k/v
+// both f32 or both bf16.  q/k/v start on 16-byte boundaries.  dtype_q,
+// dtype_kv: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched; an invalid-value
 // error when T needs more shared memory than the device has); -1 for a
 // shape or plan this kernel does not take.
 int flash_prefill_launch(const void* q, const void* k, const void* v,
                          const int* q_pos, const int* kv_pos, void* out,
-                         int B, int S, int T_, int H, int K, int D,
+                         int B, int S, int T_, int H, int K, int D, int Dv,
                          int causal, int window, float scale, int dtype_q,
                          int dtype_kv, int rows, int keys, int stages, int BQ,
                          int n_qblocks, void* stream) {
@@ -923,21 +944,23 @@ int flash_prefill_launch(const void* q, const void* k, const void* v,
       static_cast<long long>(n_qblocks) * BQ < S || T_ < 1)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PREFILL(TQ, TKV, CQ, CKV, DD)                                       \
-  if (D == DD && dtype_q == CQ && dtype_kv == CKV)                          \
-    return pf::launch<TQ, TKV, DD>(q, k, v, q_pos, kv_pos, out, B, S, T_,   \
-                                   H, K, causal, window, scale, rows,       \
-                                   stages, BQ, n_qblocks, s);
+#define PREFILL(TQ, TKV, CQ, CKV, DD, DV)                                   \
+  if (D == DD && Dv == DV && dtype_q == CQ && dtype_kv == CKV)              \
+    return pf::launch<TQ, TKV, DD, DV>(q, k, v, q_pos, kv_pos, out, B, S,   \
+                                       T_, H, K, causal, window, scale,     \
+                                       rows, stages, BQ, n_qblocks, s);
 #define PREFILL_D(DD)                                                       \
-  PREFILL(float, float, 0, 0, DD)                                           \
-  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, DD)                           \
-  PREFILL(__nv_bfloat16, float, 1, 0, DD)                                   \
-  PREFILL(float, __nv_bfloat16, 0, 1, DD)
+  PREFILL(float, float, 0, 0, DD, DD)                                       \
+  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, DD, DD)                       \
+  PREFILL(__nv_bfloat16, float, 1, 0, DD, DD)                               \
+  PREFILL(float, __nv_bfloat16, 0, 1, DD, DD)
   PREFILL_D(16)
   PREFILL_D(32)
   PREFILL_D(64)
   PREFILL_D(128)
   PREFILL_D(256)
+  PREFILL(float, float, 0, 0, 192, 128)
+  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, 192, 128)
 #undef PREFILL_D
 #undef PREFILL
   return -1;

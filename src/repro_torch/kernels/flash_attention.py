@@ -21,11 +21,14 @@ takes the reference's causal and sliding-window masks (``window > 0``, the
 ``attn_local`` layers), head dims 16, 32, 64, 128 and 256, and q in another
 float dtype than k/v (bf16 weights over an f32 cache): the kernels read each
 in its own dtype and promote as the reference does, so nothing is cast
-here.  It raises ``NotImplementedError`` on Dv != Dk (MLA) and
-``ValueError`` on another head_dim, on k and v of different dtypes and on
-groups of more than 64 heads: ROADMAP Queue 2 lists them under K3.  int8
-K/V, whose scales the reference passes here, has no entry yet.  CPU
-tensors never reach it:
+here.  On the prefill route it also takes Dk 192 / Dv 128 (MLA's expanded
+K and V), with q and k/v both f32 or both bf16.  It raises
+``NotImplementedError`` on Dv != Dk in decode (S = 1: no path launches it,
+MLA decodes through its absorbed einsums) and ``ValueError`` on another
+pair of head dims, on k and v of different dtypes, on mixed dtypes at
+Dv != Dk and on groups of more than 64 heads: ROADMAP Queue 2 lists them
+under K3.  int8 K/V, whose scales the reference passes here, has no entry
+yet.  CPU tensors never reach it:
 :mod:`repro_torch.kernels.ops` routes them to the plain chunked twin.
 
 :func:`flash_attention` is the reference kernel's own signature: q
@@ -53,6 +56,7 @@ DECODE_CTAS_PER_SM = 4      # the grid aims at this many CTAs an SM
 SPLIT_ALIGN = 16            # a split's length is a multiple of this
 MAX_SPLITS = 512            # the most splits the kernel's combine takes
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the head dims both kernels take
+MLA_DIMS = (192, 128)       # (Dk, Dv) the prefill kernel also takes
 # the prefill kernel's layout (csrc/flash_attention.cu, namespace pf)
 PREFILL_ROWS = 128          # (query, head) rows a CTA: 8 warps of 16
 PREFILL_KEYS = 64           # keys a K/V tile
@@ -67,7 +71,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library("flash_attention")
         lib.flash_prefill_launch.argtypes = (
-            [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_I] * 7 + [_P])
+            [_P] * 6 + [_I] * 9 + [ctypes.c_float] + [_I] * 7 + [_P])
         lib.flash_attention_prepare.argtypes = []
         for fn in (lib.flash_prefill_launch, lib.flash_attention_prepare):
             fn.restype = ctypes.c_int
@@ -126,23 +130,23 @@ class PrefillPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def prefill_plan(B: int, S: int, H: int, K: int, head_dim: int,
-                 f32: bool) -> PrefillPlan:
-    """The prefill kernel's layout for q (B,S,H,D) over K kv heads: a CTA
+                 f32: bool, v_dim: int) -> PrefillPlan:
+    """The prefill kernel's layout for q (B,S,H,Dk) over K kv heads, Dk =
+    ``head_dim`` and Dv = ``v_dim``: a CTA
     holds ``bq = rows // G`` queries of all G = H / K heads of one kv head
     (:func:`prefill_row`), and walks the keys in tiles of PREFILL_KEYS
     through a ring of ``stages``; the grid is one CTA per (query block, kv
-    head, batch row).  ``rows`` is PREFILL_ROWS up to head dim WIDE_D and
-    half that above it, where two warps share each 16-row block; there the
-    f32 path (``f32``: q or K/V is f32) has one stage, since its Q and one
-    K/V tile fill the CTA's shared memory."""
-    wide = head_dim > WIDE_D
-    rows = PREFILL_ROWS // 2 if wide else PREFILL_ROWS
+    head, batch row).  ``rows`` is PREFILL_ROWS up to Dv = WIDE_D and half
+    that above it, where two warps share each 16-row block.  Above Dk =
+    WIDE_D the f32 path (``f32``: q or K/V is f32) has one stage, since its
+    Q and one K/V tile fill the CTA's shared memory."""
+    rows = PREFILL_ROWS // 2 if v_dim > WIDE_D else PREFILL_ROWS
     G = H // K
     if G < 1 or H % K or G > rows:
         raise ValueError(f"{H} heads over {K} kv heads: groups of 1 to "
                          f"{rows} heads only")
     bq = rows // G
-    stages = 1 if wide and f32 else PREFILL_STAGES
+    stages = 1 if head_dim > WIDE_D and f32 else PREFILL_STAGES
     return PrefillPlan(rows, PREFILL_KEYS, stages, bq, (-(-S // bq), K, B))
 
 
@@ -190,10 +194,11 @@ def _workspace(device: torch.device, stream: int, n_part: int,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                       causal: bool = True, window: int = 0) -> torch.Tensor:
-    """K3 on the card.  q: (B,S,H,D), k/v: (B,T,K,D), q_pos (B,S) and
-    kv_pos (B,T) int32; key t is valid for query s iff kv_pos <= q_pos
-    (causal) and kv_pos > q_pos - window (window > 0).  q and k/v may
-    differ in dtype, k and v may not.  Returns (B,S,H,D) in q's dtype."""
+    """K3 on the card.  q: (B,S,H,Dk), k: (B,T,K,Dk), v: (B,T,K,Dv),
+    q_pos (B,S) and kv_pos (B,T) int32; key t is valid for query s iff
+    kv_pos <= q_pos (causal) and kv_pos > q_pos - window (window > 0).  q
+    and k/v may differ in dtype where Dk = Dv, k and v may not.  Returns
+    (B,S,H,Dv) in q's dtype."""
     for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
                     ("kv_pos", kv_pos)):
         if not t.is_cuda:
@@ -203,26 +208,34 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"float32 or bfloat16 (got {q.dtype}, {k.dtype}, "
                          f"{v.dtype})")
     B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
-    if v.shape[-1] != D:
-        raise NotImplementedError("Dv != Dk (MLA) arrives with its slice")
-    if (tuple(k.shape) != (B, T, K, D) or tuple(v.shape) != (B, T, K, D)
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if (tuple(k.shape) != (B, T, K, D) or tuple(v.shape) != (B, T, K, Dv)
             or H % K or tuple(q_pos.shape) != (B, S)
             or tuple(kv_pos.shape) != (B, T)):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} q_pos {tuple(q_pos.shape)} "
                          f"kv_pos {tuple(kv_pos.shape)} do not fit "
-                         f"(B,S,H,D) / (B,T,K,D) with H % K == 0")
-    if D not in HEAD_DIMS or H // K > 64:
-        raise ValueError(f"head_dim {D} / group {H // K}: the kernel takes "
-                         f"head_dim 16, 32, 64, 128 or 256 and groups of at "
-                         f"most 64")
+                         f"(B,S,H,Dk) / (B,T,K,Dk) / (B,T,K,Dv) with "
+                         f"H % K == 0")
+    if H // K > 64 or ((D, Dv) != MLA_DIMS and
+                       (D != Dv or D not in HEAD_DIMS)):
+        raise ValueError(f"head_dim {D} / {Dv} / group {H // K}: the kernel "
+                         f"takes head_dim 16, 32, 64, 128 or 256 for q, k "
+                         f"and v, or Dk 192 / Dv 128 in prefill, and groups "
+                         f"of at most 64")
+    if D != Dv and S == 1:
+        raise NotImplementedError(
+            f"Dv != Dk ({D} / {Dv}) in decode (S = 1) is not ported: ROADMAP "
+            f"Queue 2 K3c (MLA decodes through its absorbed einsums)")
+    if D != Dv and q.dtype != k.dtype:
+        raise ValueError(f"Dk {D} / Dv {Dv} takes q and k/v of one dtype "
+                         f"(got {q.dtype} and {k.dtype})")
     q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
                else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
+    out = q.new_empty((B, S, H, Dv))
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     n_sm = _device(q.device.index)
     if S == 1:
@@ -237,14 +250,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             D ** -0.5, _DTYPES[q.dtype], _DTYPES[k.dtype], gc, n_split,
             split_len, stream)
     else:
-        plan = prefill_plan(B, S, H, K, D, torch.float32 in (q.dtype,
-                                                            k.dtype))
+        plan = prefill_plan(B, S, H, K, D,
+                            torch.float32 in (q.dtype, k.dtype), Dv)
         err = _lib().flash_prefill_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, int(causal),
-            int(window), D ** -0.5, _DTYPES[q.dtype], _DTYPES[k.dtype],
-            plan.rows, plan.keys, plan.stages, plan.bq, plan.grid[0],
-            stream)
+            kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, Dv,
+            int(causal), int(window), D ** -0.5, _DTYPES[q.dtype],
+            _DTYPES[k.dtype], plan.rows, plan.keys, plan.stages, plan.bq,
+            plan.grid[0], stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     chunked_attention.launches += 1

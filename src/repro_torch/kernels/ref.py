@@ -240,15 +240,15 @@ def prefill_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tiles of ``keys`` keys, scores and P.V through :func:`_tc_dot` (3xTF32
     with ``split``, one TF32 pass without), masks from kv_pos, the online
     softmax in f32 per tile, -1e30 for a masked score, out = acc /
-    max(l, 1e-30).  q: (B,S,H,D), k/v: (B,T,K,D) float32."""
+    max(l, 1e-30).  q: (B,S,H,Dk), k: (B,T,K,Dk), v: (B,T,K,Dv) float32."""
     B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // K
     qr = q.reshape(B, S, K, G, D).float() * D ** -0.5
     qp = q_pos[:, None, None, :, None]
     m = torch.full((B, K, G, S), NEG_INF, dtype=torch.float32)
     l = torch.zeros((B, K, G, S), dtype=torch.float32)
-    acc = torch.zeros((B, K, G, S, D), dtype=torch.float32)
+    acc = torch.zeros((B, K, G, S, Dv), dtype=torch.float32)
     for t0 in range(0, T, keys):
         sl = slice(t0, min(T, t0 + keys))
         s = _tc_dot(qr, k[:, sl].float(), "bskgd,btkd->bkgst", split)
@@ -268,7 +268,7 @@ def prefill_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                               "bkgst,btkd->bkgsd", split)
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dv).to(q.dtype)
 
 
 F32_BAR, BF16_CAP = 3e-5, 2e-2      # K3's bars against chunked_attention_ref

@@ -18,6 +18,9 @@ Quickstart::
   # sliding-window layers (ring caches): prompts and decode past the window
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch gemma3-27b --reduced --max-new 24
+  # MoE layers (olmoe), MLA over MoE (deepseek-v2)
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch olmoe-1b-7b --reduced --requests 4 --resumes 6
 
 This module drives no engine loop of its own: every submit, suspend and
 resume is a :class:`repro_torch.sched.Scheduler` decision.  Admission

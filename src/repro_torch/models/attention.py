@@ -1,11 +1,14 @@
-# Port of src/repro/models/attention.py:18-220 in torch: _cache_write,
-# chunked_attention and the GQA block, full and sliding-window.  Not ported
-# yet: MLA, int8 KV, cross attention and M-RoPE (ROADMAP Queue 1 item 13).
-"""GQA attention with a chunked online-softmax core.
+# Port of src/repro/models/attention.py:18-334 in torch: _cache_write,
+# chunked_attention, the GQA block, full and sliding-window, and the MLA
+# block (DeepSeek-V2).  Not ported yet: int8 KV, cross attention and M-RoPE
+# (ROADMAP Queue 1 item 13).
+"""GQA and MLA attention with a chunked online-softmax core.
 
 :func:`chunked_attention` is the contract the serving model runs; on the
 card it launches the attention kernel (K3), on the CPU it runs the plain
-chunked twin (``kernels/ops.py`` decides by the tensor's device).
+chunked twin (``kernels/ops.py`` decides by the tensor's device).  MLA's
+expanded path (prefill) runs it at Dk = qk_nope + qk_rope, Dv = v_dim; its
+decode runs the reference's absorbed einsums over the compressed cache.
 """
 from __future__ import annotations
 
@@ -15,7 +18,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+
+NEG_INF = -1e30
 
 
 def _cache_write(buf: torch.Tensor, val: torch.Tensor, idx: torch.Tensor,
@@ -107,4 +112,104 @@ def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
                                 window=window, block=block)
         new = kv_cache
     y = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
+    return y, new
+
+
+# ---------------------------------------------------------------------------
+# MLA (Multi-head Latent Attention, DeepSeek-V2) with compressed decode cache.
+# ---------------------------------------------------------------------------
+
+def init_mla_params(gen: torch.Generator, d_model: int, n_heads: int,
+                    q_lora: int, kv_lora: int, qk_nope: int, qk_rope: int,
+                    v_dim: int, reps: int = 1, dtype=torch.float32,
+                    device=None) -> Dict:
+    """Stacked (reps, ...) MLA weights on ``device`` (default: cuda,
+    raising without a GPU); the two latent norms stay f32, as the
+    reference's."""
+    device = resolve_device(device)
+
+    def w(shape):
+        return dense_init(gen, (reps,) + shape, dtype=dtype, device=device)
+
+    return {
+        "q_a": w((d_model, q_lora)),
+        "q_norm": torch.zeros((reps, q_lora), device=device),
+        "q_b": w((q_lora, n_heads * (qk_nope + qk_rope))),
+        "kv_a": w((d_model, kv_lora + qk_rope)),
+        "kv_norm": torch.zeros((reps, kv_lora), device=device),
+        "kv_b": w((kv_lora, n_heads * (qk_nope + v_dim))),
+        "wo": w((n_heads * v_dim, d_model)),
+    }
+
+
+def _mla_qkr(params: Dict, x: torch.Tensor, positions: torch.Tensor,
+             n_heads: int, qk_nope: int, qk_rope: int, kv_lora: int,
+             rope_theta: float):
+    """(q_nope (B,S,H,nope), roped q_rope (B,S,H,rope), the normed latent
+    c_kv (B,S,kv_lora), the roped shared key k_rope (B,S,rope))."""
+    B, S, _ = x.shape
+    cq = rms_norm(x @ params["q_a"], params["q_norm"])
+    q = (cq @ params["q_b"]).reshape(B, S, n_heads, qk_nope + qk_rope)
+    q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+    ckv = x @ params["kv_a"]
+    c_kv = rms_norm(ckv[..., :kv_lora], params["kv_norm"])
+    k_rope = apply_rope(ckv[..., kv_lora:][:, :, None, :], positions,
+                        rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
+              n_heads: int, q_lora: int, kv_lora: int, qk_nope: int,
+              qk_rope: int, v_dim: int, rope_theta: float = 1e4,
+              block: int = 512,
+              kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]] = None,
+              cache_index: Optional[torch.Tensor] = None,
+              rows: Optional[torch.Tensor] = None,
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Without ``kv_cache`` (prefill, train): K and V expanded per head, K
+    ``[k_nope, k_rope broadcast over heads]`` (qk_nope + qk_rope wide), V
+    v_dim wide, causal through :func:`chunked_attention`; returns ``(y,
+    (c_kv, k_rope))``, the compressed entries a prefill writes into its
+    cache.  With ``kv_cache=(cc, cr, kv_pos)`` (B,T,kv_lora), (B,T,rope):
+    one decode token per row, its latent, shared key and position written
+    IN PLACE at ``cache_index`` for the batch rows in ``rows``, and the
+    *absorbed* attention over the compressed cache in the reference's order
+    of dtypes (the cache cast to q's, scores to f32 for the softmax, the
+    weights back to q's); returns ``(y, kv_cache)``.  positions: (B, S)."""
+    B, S, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(
+        params, x, positions, n_heads, qk_nope, qk_rope, kv_lora, rope_theta)
+    w_kv = params["kv_b"].reshape(kv_lora, n_heads, qk_nope + v_dim)
+    w_uk, w_uv = w_kv[..., :qk_nope], w_kv[..., qk_nope:]
+
+    if kv_cache is None:
+        kv = torch.einsum("btc,chd->bthd", c_kv, w_kv)
+        k_nope, v = kv[..., :qk_nope], kv[..., qk_nope:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, n_heads, qk_rope)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = chunked_attention(q, k, v, positions, positions, causal=True,
+                                block=block)
+        new = (c_kv, k_rope)
+    else:
+        cc, cr, cpos = kv_cache
+        _cache_write(cc, c_kv, cache_index, rows)
+        _cache_write(cr, k_rope, cache_index, rows)
+        _cache_write(cpos, positions.to(cpos.dtype), cache_index, rows)
+        scale = (qk_nope + qk_rope) ** -0.5
+        q_c = torch.einsum("bshd,chd->bshc", q_nope, w_uk)
+        ccq = cc.to(q_c.dtype)
+        s_nope = torch.einsum("bshc,btc->bhst", q_c, ccq)
+        s_rope = torch.einsum("bshd,btd->bhst", q_rope, cr.to(q_rope.dtype))
+        s = (s_nope + s_rope) * scale
+        valid = cpos[:, None, None, :] <= positions[:, None, :, None]
+        s = torch.where(valid, s.float(), torch.full((), NEG_INF,
+                                                     device=x.device))
+        p = torch.softmax(s, dim=-1).to(q_c.dtype)
+        ctx = torch.einsum("bhst,btc->bshc", p, ccq)
+        out = torch.einsum("bshc,chd->bshd", ctx, w_uv)
+        new = kv_cache
+    y = out.reshape(B, S, n_heads * v_dim) @ params["wo"]
     return y, new

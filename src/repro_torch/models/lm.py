@@ -1,25 +1,29 @@
-# Port of src/repro/models/lm.py:42-177 and :331-496 in torch, for stacks of
-# attn_full and attn_local (sliding-window, ring-buffer) mixers with dense
-# MLPs: tinyllama-1.1b and gemma3-27b.
+# Port of src/repro/models/lm.py:42-177, :199-311 and :331-496 in torch, for
+# stacks of attn_full, attn_local (sliding-window, ring-buffer) and MLA
+# mixers with dense or MoE MLPs: tinyllama-1.1b, gemma3-27b, gemma-7b,
+# qwen1.5-110b, olmoe-1b-7b and deepseek-v2-236b.
 """LM assembly: stages of a repeating layer group with stacked parameters.
 
 Params and caches keep the reference's nested-dict layout and stacked
 ``(reps, ...)`` leaves — ``params["stage0"]["b0"]["mixer"]["wq"]`` is
-(reps, d_model, H*D), ``cache["stage0"]["b0"]["k"]`` is (reps, B, L, K, D) —
+(reps, d_model, H*D), ``cache["stage0"]["b0"]["k"]`` is (reps, B, L, K, D),
+an MLA layer's ``cc``/``cr`` (reps, B, L, kv_lora) and (reps, B, L, rope) —
 so a snapshot's page bytes and a parameter tree converted from the reference
 (``repro_torch.weights``) line up key for key.  The reference's ``lax.scan``
 over reps is a Python loop over views of the stacked tensors.
 
 Caches are updated IN PLACE (the reference's donated buffers): prefill writes
-its tokens' K/V, decode writes one token per ACTIVE row only, so inactive
-rows stay bit-exact without the reference's select over every cache leaf.
+its tokens' K/V (an MLA layer's latent and shared key), decode writes one
+token per ACTIVE row only, so inactive rows stay bit-exact without the
+reference's select over every cache leaf.
 An ``attn_local`` layer keeps a ring of ``min(max_len, window)`` slots, token
 t in slot ``t % L``, as the reference does (its ``lm.py:135-137``,
 ``:201-204``, ``:227-235``).
 
-``attn_full`` and ``attn_local`` mixers with ``dense`` MLPs are ported; MLA,
-mamba, rwkv, MoE, enc-dec and M-RoPE raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 13).
+``attn_full`` and ``attn_local`` mixers with ``dense`` MLPs, ``attn_full``
+with ``moe`` (olmoe) and ``mla`` with ``moe`` (deepseek-v2) are ported;
+mamba, rwkv, enc-dec, M-RoPE and int8 KV raise ``NotImplementedError``
+(ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -32,12 +36,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import (embed, init_embed, init_mlp, init_rms,
                                        mlp, rms_norm, unembed)
 
 LayerSpec = Tuple[str, str]     # (mixer_kind, mlp_kind)
 POS_SENTINEL = 2**30
-PORTED = (("attn_full", "dense"), ("attn_local", "dense"))
+PORTED = (("attn_full", "dense"), ("attn_local", "dense"),
+          ("attn_full", "moe"), ("mla", "moe"))
 
 
 def stages_of(cfg: ModelConfig) -> List[Tuple[int, Tuple[LayerSpec, ...]]]:
@@ -63,9 +69,9 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: layer kinds {bad or ''}"
             f"{' enc-dec' if cfg.encdec else ''}"
             f"{' m-rope' if cfg.mrope else ''} are not ported yet (the port "
-            f"runs attn_full and attn_local with dense MLPs); MLA, mamba, "
-            f"rwkv, MoE, enc-dec and M-RoPE arrive with the other model "
-            f"families' slice (ROADMAP Queue 1 item 13)")
+            f"runs attn_full and attn_local with dense MLPs, attn_full and "
+            f"MLA with MoE); mamba, rwkv, enc-dec, M-RoPE and int8 KV arrive "
+            f"in a later slice (ROADMAP Queue 1 item 13)")
 
 
 def cache_len(cfg: ModelConfig, mixer_kind: str, max_len: int) -> int:
@@ -95,14 +101,28 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     }
     for i, (reps, group) in enumerate(stages_of(cfg)):
         stage = {}
-        for j, _ in enumerate(group):
+        for j, (mixer_kind, mlp_kind) in enumerate(group):
+            if mixer_kind == "mla":
+                mixer = A.init_mla_params(
+                    g, cfg.d_model, cfg.n_heads, cfg.q_lora_rank,
+                    cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                    cfg.v_head_dim, reps, dtype, dev)
+            else:
+                mixer = A.init_gqa_params(g, cfg.d_model, cfg.n_heads,
+                                          cfg.n_kv_heads, cfg.head_dim,
+                                          cfg.qkv_bias, reps, dtype, dev)
+            if mlp_kind == "moe":
+                ffn = MOE.init_moe_params(g, cfg.d_model, cfg.n_experts,
+                                          cfg.moe_d_ff,
+                                          cfg.n_shared_experts, reps, dtype,
+                                          dev)
+            else:
+                ffn = init_mlp(g, cfg.d_model, cfg.d_ff, reps, dtype, dev)
             stage[f"b{j}"] = {
                 "ln1": torch.zeros((reps, cfg.d_model), device=dev),
-                "mixer": A.init_gqa_params(g, cfg.d_model, cfg.n_heads,
-                                           cfg.n_kv_heads, cfg.head_dim,
-                                           cfg.qkv_bias, reps, dtype, dev),
+                "mixer": mixer,
                 "ln2": torch.zeros((reps, cfg.d_model), device=dev),
-                "mlp": init_mlp(g, cfg.d_model, cfg.d_ff, reps, dtype, dev),
+                "mlp": ffn,
             }
         params[f"stage{i}"] = stage
     if not cfg.tie_embeddings:
@@ -114,7 +134,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> Dict:
     """Zeroed K/V and sentinel positions: leaves (reps, batch, L, ...),
-    with L from :func:`cache_len` (a ring for sliding-window layers).
+    with L from :func:`cache_len` (a ring for sliding-window layers); an
+    MLA layer holds its compressed cache, ``cc`` (kv_lora wide) and ``cr``
+    (qk_rope wide), instead of K/V.
     The K/V dtype is float32 or bfloat16: an int8 cache needs the
     reference's per-token scales, which arrive with int8 KV (ROADMAP Queue 1
     item 13, with K3d), and any other dtype would truncate the floats that
@@ -131,12 +153,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         stage = {}
         for j, (mixer_kind, _) in enumerate(group):
             L = cache_len(cfg, mixer_kind, max_len)
-            shape = (reps, batch, L, cfg.n_kv_heads, cfg.head_dim)
-            stage[f"b{j}"] = {
-                "k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev),
-                "pos": torch.full((reps, batch, L), POS_SENTINEL,
-                                  dtype=torch.int32, device=dev)}
+            if mixer_kind == "mla":
+                shapes = {"cc": (reps, batch, L, cfg.kv_lora_rank),
+                          "cr": (reps, batch, L, cfg.qk_rope_dim)}
+            else:
+                kv = (reps, batch, L, cfg.n_kv_heads, cfg.head_dim)
+                shapes = {"k": kv, "v": kv}
+            c = {name: torch.zeros(shape, dtype=dtype, device=dev)
+                 for name, shape in shapes.items()}
+            c["pos"] = torch.full((reps, batch, L), POS_SENTINEL,
+                                  dtype=torch.int32, device=dev)
+            stage[f"b{j}"] = c
         cache[f"stage{i}"] = stage
     return cache
 
@@ -145,9 +172,11 @@ def reset_slot(cache: Dict, slot: int) -> None:
     """Return cache row ``slot`` to its init values, IN PLACE."""
     for st in cache.values():
         for c in st.values():
-            c["k"][:, slot].zero_()
-            c["v"][:, slot].zero_()
-            c["pos"][:, slot].fill_(POS_SENTINEL)
+            for name, t in c.items():
+                if name == "pos":
+                    t[:, slot].fill_(POS_SENTINEL)
+                else:
+                    t[:, slot].zero_()
 
 
 # ---------------------------------------------------------------------------
@@ -163,49 +192,80 @@ def _layer(tree: Dict, r: int) -> Dict:
 def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
          positions: torch.Tensor, mode: str, cache: Optional[Dict],
          slot: int, cache_index: Optional[torch.Tensor],
-         rows: Optional[torch.Tensor]) -> torch.Tensor:
+         rows: Optional[torch.Tensor]
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The stack over ``x``; returns (x, the MoE layers' summed aux loss,
+    None where no layer is MoE or in decode, which has no use for it)."""
     B, Sq, _ = x.shape
     ring_index: Dict[int, torch.Tensor] = {}    # cache length -> write slots
+    aux = None
     for i, (reps, group) in enumerate(stages_of(cfg)):
         for r in range(reps):
-            for j, (mixer_kind, _) in enumerate(group):
+            for j, (mixer_kind, mlp_kind) in enumerate(group):
                 p = _layer(params[f"stage{i}"][f"b{j}"], r)
                 c = (None if cache is None else
                      {k: t[r] for k, t in cache[f"stage{i}"][f"b{j}"].items()})
                 h = rms_norm(x, p["ln1"], cfg.norm_eps)
                 kv, idx = None, None
                 if c is not None and mode == "decode":
-                    kv = (c["k"], c["v"], c["pos"])
-                    L = c["k"].shape[1]
+                    L = c["pos"].shape[1]
                     if L not in ring_index:     # token t lives in slot t % L
                         ring_index[L] = cache_index % L
                     idx = ring_index[L]
-                y, new = A.gqa_block(
-                    p["mixer"], h, positions, n_heads=cfg.n_heads,
-                    n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                    rope_theta=cfg.rope_theta,
-                    window=cfg.window if mixer_kind == "attn_local" else 0,
-                    block=cfg.attn_block, kv_cache=kv, cache_index=idx,
-                    rows=rows)
+                if mixer_kind == "mla":
+                    if idx is not None:
+                        kv = (c["cc"], c["cr"], c["pos"])
+                    y, new = A.mla_block(
+                        p["mixer"], h, positions, n_heads=cfg.n_heads,
+                        q_lora=cfg.q_lora_rank, kv_lora=cfg.kv_lora_rank,
+                        qk_nope=cfg.qk_nope_dim, qk_rope=cfg.qk_rope_dim,
+                        v_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
+                        block=cfg.attn_block, kv_cache=kv, cache_index=idx,
+                        rows=rows)
+                    written = ("cc", "cr")
+                else:
+                    if idx is not None:
+                        kv = (c["k"], c["v"], c["pos"])
+                    y, new = A.gqa_block(
+                        p["mixer"], h, positions, n_heads=cfg.n_heads,
+                        n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                        rope_theta=cfg.rope_theta,
+                        window=cfg.window if mixer_kind == "attn_local" else 0,
+                        block=cfg.attn_block, kv_cache=kv, cache_index=idx,
+                        rows=rows)
+                    written = ("k", "v")
                 if c is not None and mode == "prefill":
-                    _prefill_write(c, slot, new[0], new[1], positions)
+                    _prefill_write(c, slot, dict(zip(written, new),
+                                                 pos=positions))
                 x = x + y
-                x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                            cfg.activation)
-    return x
+                h = rms_norm(x, p["ln2"], cfg.norm_eps)
+                if mlp_kind == "moe":
+                    y, aux_l = MOE.moe_block(
+                        p["mlp"], h, top_k=cfg.top_k,
+                        capacity_factor=cfg.capacity_factor,
+                        activation=cfg.activation,
+                        aux_loss=mode != "decode")
+                    if aux_l is not None:
+                        aux = aux_l if aux is None else aux + aux_l
+                else:
+                    y = mlp(p["mlp"], h, cfg.activation)
+                x = x + y
+    return x, aux
 
 
-def _prefill_write(c: Dict, slot: int, k: torch.Tensor, v: torch.Tensor,
-                   positions: torch.Tensor) -> None:
-    """Write a prefill's K/V and positions into cache rows ``slot:slot+B``
-    IN PLACE.  A ring of L < Sq slots keeps the last L tokens, rolled by
-    ``(Sq - L) % L`` so that token t lands in slot ``t % L`` and later
-    decodes (slot = position % L) overwrite the oldest entry first."""
-    B, Sq = positions.shape
-    L = c["k"].shape[1]
+def _prefill_write(c: Dict, slot: int, leaves: Dict[str, torch.Tensor]
+                   ) -> None:
+    """Write a prefill's cache entries (``leaves``: K/V, or an MLA
+    layer's latent and shared key, and ``pos``, each (B, Sq, ...)) into
+    cache rows ``slot:slot+B`` IN PLACE.  A ring of L < Sq slots keeps the
+    last L tokens, rolled by ``(Sq - L) % L`` so that token t lands in slot
+    ``t % L`` and later decodes (slot = position % L) overwrite the oldest
+    entry first."""
+    B, Sq = leaves["pos"].shape
+    L = c["pos"].shape[1]
     take = min(Sq, L)
     roll = (Sq - take) % L
-    for name, t in (("k", k), ("v", v), ("pos", positions)):
+    for name, t in leaves.items():
         tail = t[:, Sq - take:]
         c[name][slot:slot + B, :take] = (torch.roll(tail, roll, dims=1)
                                          if roll else tail)
@@ -220,17 +280,21 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None, mode: str = "train",
-            slot: int = 0) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (logits, cache).  ``mode="prefill"`` writes the tokens' K/V
-    and positions into cache rows ``slot:slot+B`` IN PLACE.  (The
-    reference also returns an auxiliary loss, which only MoE layers make.)"""
+            slot: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """Returns (logits, aux_loss, cache), as the reference's: the aux loss
+    sums the MoE layers' load-balance losses (a 0 scalar without MoE).
+    ``mode="prefill"`` writes the tokens' cache entries and positions into
+    cache rows ``slot:slot+B`` IN PLACE."""
     B, Sq = tokens.shape
     if positions is None:
         positions = torch.arange(Sq, dtype=torch.int32,
                                  device=tokens.device).expand(B, Sq)
     x = embed(params["embed"], tokens) * math.sqrt(cfg.d_model)
-    x = _run(cfg, params, x, positions, mode, cache, slot, None, None)
-    return _logits(cfg, params, x), cache
+    x, aux = _run(cfg, params, x, positions, mode, cache, slot, None, None)
+    if aux is None:
+        aux = torch.zeros((), device=x.device)
+    return _logits(cfg, params, x), aux, cache
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -238,9 +302,11 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             slot: int = 0) -> Tuple[torch.Tensor, Dict]:
     """Prefill cache rows ``slot:slot+B`` IN PLACE.  Bucketed serving
     passes right-padded tokens with sentinel (2**30) positions for the
-    pads, which keeps them causally invisible forever."""
-    return forward(cfg, params, tokens, positions=positions, cache=cache,
-                   mode="prefill", slot=slot)
+    pads, which keeps them causally invisible forever (an MoE layer routes
+    the pads as the reference's does: they take capacity)."""
+    logits, _, cache = forward(cfg, params, tokens, positions=positions,
+                               cache=cache, mode="prefill", slot=slot)
+    return logits, cache
 
 
 def decode_step_batched(cfg: ModelConfig, params: Dict, cache: Dict,
@@ -257,13 +323,25 @@ def decode_step_batched(cfg: ModelConfig, params: Dict, cache: Dict,
     rows are left bit-exact."""
     from repro_torch import to_device
 
-    dev = tokens.device
     act = np.asarray(active, dtype=bool)
-    rows = to_device(np.flatnonzero(act), dev, torch.long)
+    logits = decode_logits(cfg, params, cache, tokens, pos, act)
+    nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    mask = to_device(act, tokens.device)
+    return torch.where(mask, nxt, torch.full_like(nxt, -1)), cache
+
+
+def decode_logits(cfg: ModelConfig, params: Dict, cache: Dict,
+                  tokens: torch.Tensor, pos: torch.Tensor,
+                  active: Sequence[bool]) -> torch.Tensor:
+    """The logits (B, 1, V) of one decode step of
+    :func:`decode_step_batched`, which writes the active rows' cache
+    entries IN PLACE as it does."""
+    from repro_torch import to_device
+
+    dev = tokens.device
+    rows = to_device(np.flatnonzero(np.asarray(active, dtype=bool)), dev,
+                     torch.long)
     pos = pos.to(device=dev, dtype=torch.int32)
     x = embed(params["embed"], tokens[:, None]) * math.sqrt(cfg.d_model)
-    x = _run(cfg, params, x, pos[:, None], "decode", cache, 0, pos, rows)
-    logits = _logits(cfg, params, x)
-    nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-    mask = to_device(act, dev)
-    return torch.where(mask, nxt, torch.full_like(nxt, -1)), cache
+    x, _ = _run(cfg, params, x, pos[:, None], "decode", cache, 0, pos, rows)
+    return _logits(cfg, params, x)

@@ -10,7 +10,8 @@ out-of-range page tables, tables longer than the page gather's persistent
 grid, other head dims (256 included), group sizes and dtypes (q over k/v
 of another dtype included), sequence lengths that are not multiples of the
 kernels' tiles or splits, the decode kernel's dispatch
-rule, and the Engine on the card against the Engine on the CPU.
+rule, and the Engine on the card against the Engine on the CPU (the dense,
+sliding-window, MoE and MLA families).
 """
 import numpy as np
 import pytest
@@ -289,8 +290,15 @@ def test_attention_still_raises_outside_its_shapes(dev):
     with pytest.raises(ValueError, match="head_dim 512"):
         ops.chunked_attention(q, q, q, pos, pos, window=2)
     q = torch.zeros((1, 4, 2, 64), device=dev)
-    with pytest.raises(NotImplementedError, match="Dv != Dk"):
+    with pytest.raises(ValueError, match="head_dim 64 / 32"):
         ops.chunked_attention(q, q, q[..., :32].contiguous(), pos, pos)
+    q = torch.zeros((1, 4, 2, 192), device=dev)
+    v = torch.zeros((1, 4, 2, 128), device=dev)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.chunked_attention(q.bfloat16(), q, v, pos, pos)
+    one = pos[:, :1]
+    with pytest.raises(NotImplementedError, match="Queue 2 K3c"):
+        ops.chunked_attention(q[:, :1], q, v, one, pos)
 
 
 def test_gemma3_engine_on_card_matches_cpu(dev):
@@ -348,6 +356,51 @@ def test_engine_on_card_matches_cpu(dev):
         out.append(([r.generated for r in reqs], dict(e.stats),
                     e.sessions.policy.tags.cpu().tolist(),
                     e.verify_failure_count(), int(e.verify_store())))
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_moe_and_mla_engine_on_card_matches_cpu(dev, arch):
+    """Reduced olmoe (MoE) and deepseek-v2 (MLA + MoE, at its full head
+    dims, so that its prefill runs K3 at Dk 192 / Dv 128) through a suspend
+    wave and a resume wave, on the card against the CPU: the MoE dispatch
+    and combine, the absorbed MLA decode and K3 as the models call them."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = get_reduced(arch)
+    if cfg.attn_kind == "mla":
+        cfg = dataclasses.replace(cfg, qk_nope_dim=128, qk_rope_dim=64,
+                                  v_head_dim=128)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 19, 40)]
+    out = []
+    for d in ("cpu", dev):
+        e = Engine(cfg, params, slots=3, max_len=96, n_sessions=8, device=d)
+        reqs = [Request(i, p, 10 + 3 * i) for i, p in enumerate(prompts)]
+        ops.reset_launch_counts()
+        for r in reqs:
+            e.submit(r)
+        for _ in range(4):
+            e.step()
+        e.suspend_many([0, 2])
+        while e.active:
+            e.step()
+        e.resume_many([0, 2], [12, 12])
+        while e.active:
+            e.step()
+        n = ops.launch_counts()
+        out.append(([r.generated for r in reqs], dict(e.stats),
+                    e.session_pos, e.session_tok,
+                    e.sessions.policy.tags.cpu().tolist(),
+                    e.verify_failure_count(), int(e.verify_store())))
+    assert n["flash_attention_prefill"] > 0
+    assert (n["flash_attention_decode"] > 0) == (cfg.attn_kind != "mla")
     assert out[0] == out[1]
 
 
@@ -626,3 +679,38 @@ def test_mixed_k_and_v_raise(dev, S):
     with pytest.raises(ValueError, match="k/v share"):
         ops.chunked_attention(q, k, k.bfloat16(), pos, kv_pos)
 
+
+
+@pytest.mark.parametrize("B,S,T,H,K,window,dt", [
+    (1, 1024, 1024, 128, 128, 0, F32),    # deepseek-v2's bucket 1024
+    (1, 1024, 1024, 128, 128, 0, BF16),
+    (3, 200, 200, 16, 16, 0, F32),        # ragged ends, S % 64 != 0
+    (3, 200, 200, 16, 16, 0, BF16),
+    (2, 16, 16, 8, 8, 0, F32),            # the 16-row bucket
+    (2, 16, 16, 8, 8, 0, BF16),
+    (2, 90, 150, 8, 8, 0, F32),           # T > S, T % 64 != 0
+    (2, 90, 150, 8, 8, 0, BF16),
+    (2, 77, 77, 8, 2, 20, F32),           # G = 4 and a window
+    (2, 77, 77, 8, 2, 20, BF16),
+])
+def test_mla_prefill_matches_plain(dev, B, S, T, H, K, window, dt):
+    """The prefill kernel at Dk 192 / Dv 128 (MLA's expanded K and V)
+    against the plain chunked attention: ragged prompt ends padded at
+    2**30, batch row 0 with no valid key (exactly 0), S and T off the
+    tiles, f32 and bf16; the output (B,S,H,128) in q's dtype, one prefill
+    launch a call, two calls giving the same bits."""
+    q, k, v, qp, kp = _prefill_case(dev, B, S, T, H, K, 192, dt,
+                                    seed=S + T + H + 192, empty_row=B > 1)
+    v = v[..., 64:].contiguous()
+    fn = ops.KERNELS["flash_attention"]
+    n, n_pre, n_dec = fn.launches, fn.prefill, fn.decode
+    out = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    again = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.prefill, fn.decode) == (n + 2, n_pre + 2, n_dec)
+    assert out.dtype == dt and out.shape == (B, S, H, 128)
+    assert torch.equal(_bytes(out), _bytes(again))
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
+    _assert_within_bar(out, want, q, k, v, qp, kp, window=window)
+    if B > 1:
+        assert not out[0].float().any()

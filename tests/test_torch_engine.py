@@ -157,6 +157,7 @@ def _constructors():
     from repro_torch.models import attention as A
     from repro_torch.models import layers as L
     from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
     from repro_torch.movement.paging import PageSpec
     from repro_torch.serve.paged_store import make_session_store
     from repro_torch.weights import params_from_jax
@@ -177,6 +178,10 @@ def _constructors():
         "villa_init": lambda **kw: villa_init(VillaConfig(), **kw),
         "init_gqa_params": lambda **kw: A.init_gqa_params(
             gen, 8, 2, 1, 4, qkv_bias=True, **kw),
+        "init_mla_params": lambda **kw: A.init_mla_params(
+            gen, 8, 2, 6, 4, 4, 2, 4, **kw),
+        "init_moe_params": lambda **kw: MOE.init_moe_params(
+            gen, 8, 4, 6, 1, **kw),
         "init_mlp": lambda **kw: L.init_mlp(gen, 8, 16, **kw),
         "init_embed": lambda **kw: L.init_embed(gen, 10, 8, **kw),
         "dense_init": lambda **kw: L.dense_init(gen, (8, 4), **kw),
@@ -188,7 +193,7 @@ def _constructors():
 @pytest.mark.parametrize("name", [
     "init_lm", "init_cache", "Engine", "params_from_jax", "make_session_store",
     "villa_init", "init_gqa_params", "init_mlp", "init_embed", "dense_init",
-    "init_rms", "rope_freqs"])
+    "init_rms", "rope_freqs", "init_mla_params", "init_moe_params"])
 def test_constructors_need_a_device_without_a_gpu(name, monkeypatch):
     """Every public constructor runs on cuda by default: without a GPU and
     without ``device`` it raises; with ``device="cpu"`` all its tensors are

@@ -68,3 +68,16 @@ def test_launcher_needs_a_gpu_or_device_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         p_main(["--arch", "tinyllama-1.1b", "--reduced", "--requests", "1"])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_moe_and_mla_launchers_agree(arch):
+    """Reduced olmoe (attn_full + MoE) and deepseek-v2 (MLA + MoE) through
+    both launchers: bucketed prefills, resume waves, the summary equal in
+    every key but wall-clock speed."""
+    argv = ["--arch", arch, "--reduced", "--requests", "4", "--resumes", "6"]
+    want = r_main(argv)
+    got = p_main(argv + ["--device", "cpu"])
+    assert got["jobs_completed"] > 0 and got["resumes"] > 0
+    assert ({k: v for k, v in got.items() if k not in WALL_CLOCK}
+            == {k: v for k, v in want.items() if k not in WALL_CLOCK})

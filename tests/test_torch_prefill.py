@@ -37,7 +37,7 @@ PATH_SHAPES = ([(s, 32, 4) for s in (16, 32, 64, 128, 256, 512)]  # tinyllama
 def _coverage(B, S, H, K, head_dim=128, f32=True):
     """How many CTA rows compute each (batch, query, head): the grid of
     ``prefill_plan`` walked through ``prefill_row``."""
-    plan = FA.prefill_plan(B, S, H, K, head_dim, f32)
+    plan = FA.prefill_plan(B, S, H, K, head_dim, f32, head_dim)
     G = H // K
     nq, nk, nb = plan.grid
     assert (nk, nb) == (K, B) and plan.bq * G <= plan.rows
@@ -113,8 +113,8 @@ def test_prefill_plan_covers_gemma_7b_buckets(S):
 
 def test_prefill_plan_refuses_groups_past_its_rows():
     with pytest.raises(ValueError, match="groups of 1 to 64"):
-        FA.prefill_plan(1, 8, 128, 1, 256, True)
-    assert FA.prefill_plan(1, 8, 128, 1, 128, True).bq == 1
+        FA.prefill_plan(1, 8, 128, 1, 256, True, 256)
+    assert FA.prefill_plan(1, 8, 128, 1, 128, True, 128).bq == 1
 
 
 def _inputs(seed, B, S, T, H, K, D, ends):
