@@ -17,12 +17,18 @@ nvcc (sm_90a), then:
                 prefill with window 1024 and without, decode over 1024-slot
                 rings whose positions have wrapped and over the 2048-slot
                 global cache, these also with bf16 q over f32 K/V; at
+                jamba's attention layer (32/8 heads), bf16 q over f32 K/V
+                in decode and an all-bf16 500-token prefill; at
                 gemma-7b's head dim 256: decode over its cache and prefill
                 of a long and a short bucket in f32 and bf16; at
                 deepseek-v2's MLA prefill, Dk 192 / Dv 128 over 128 heads,
                 buckets 1024 and 64 in bf16 and f32; at olmoe's, a
                 1024-bucket prefill and a ragged decode of 8 rows; every
-                decode shape through the split-KV kernel), the tile copy
+                decode shape through the split-KV kernel; and the decode
+                kernel over int8 K/V with per-token, per-head scales, K3d,
+                at tinyllama's, gemma3's ring and global and jamba's
+                attention shapes, beside SDPA over K/V dequantised outside
+                its timed window), the tile copy
                 also on odd shapes, dtypes and sizes, and times kernel, plain
                 version and one library call for the same function;
   3. serving  — full-width tinyllama-1.1b (random weights from a seed)
@@ -85,7 +91,22 @@ nvcc (sm_90a), then:
                 layers (65.7 GB; fewer, at least 4, if the card's free
                 memory says so): the Engine with one suspend and one resume
                 wave; K3 runs its prefill at Dk 192 / Dv 128 and never
-                decodes (MLA decodes through its absorbed einsums).
+                decodes (MLA decodes through its absorbed einsums);
+  12. int8 KV — full-width tinyllama-1.1b (f32) decodes 4 rows token by
+                token through ``lm.decode_step`` for 256 teacher-forced
+                steps from an empty cache, over an int8 cache (K3d, 22 x
+                256 launches) and over an f32 one: each within 0.05 of the
+                port's ``forward``, relative to its largest logit;
+  13. rwkv6-7b — full width and depth (32 layers, f32, 30.1 GB): the
+                Engine (4 slots, exact-length prompts of 16-500, a suspend
+                and a resume wave of 34.6 MB state snapshots) and the
+                Scheduler, as in phase 7; no K3;
+  14. jamba   — jamba-v0.1-52b at full width with bf16 weights over the
+                Engine's f32 cache, cut to 16 of its 32 layers (two periods
+                of 7 mamba + 1 attention layer, 8 MoE layers of 16 experts
+                top-2; 52.1 GB): the Engine with one suspend and one resume
+                wave; K3's prefill at exact lengths and its decode equal
+                the stats.
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -149,6 +170,20 @@ O_SCHED_LENS = (100, 600)
 DS_LAYERS, DS_MIN_LAYERS, DS_RESERVE = 8, 4, 8e9
 DS_SLOTS, DS_MAX_LEN, DS_SESSIONS = 4, 1024, 8
 DS_PROMPTS, DS_MAX_NEW, DS_FIRST = (24, 150, 400, 800), 24, 12
+# phase 2's K3d rows and phase 12: tinyllama-1.1b at full width and depth
+# (f32), I8_B rows decoded token by token for I8_STEPS teacher-forced steps
+# from an empty cache, over an int8 cache and over an f32 one
+I8_B, I8_STEPS = 4, 256
+# phase 13: rwkv6-7b at full width and depth (32 layers, f32: 7.53 B
+# parameters, 30.1 GB); its state is 34.6 MB a session, whatever the length
+R_SLOTS, R_MAX_LEN, R_SESSIONS = 4, 1024, 8
+R_PROMPTS, R_MAX_NEW, R_FIRST = (16, 120, 300, 500), 24, 12
+R_SCHED_LENS = (100, 400)
+# phase 14: jamba-v0.1-52b at full width, bf16 weights, cut to 16 of its 32
+# layers (two 8-layer periods: 7 mamba + 1 attention, MoE every other
+# layer; 26.05 B parameters, 52.1 GB)
+J_LAYERS, J_SLOTS, J_MAX_LEN, J_SESSIONS = 16, 4, 1024, 8
+J_PROMPTS, J_MAX_NEW, J_FIRST = (16, 120, 300, 500), 24, 12
 
 
 class SmokeFailure(RuntimeError):
@@ -396,6 +431,7 @@ def main() -> int:
         wide_and_mixed_rows(dev, gen, flush, tag)
     rows["flash_attention_mla"], rows["flash_attention_moe"] = \
         mla_and_moe_rows(dev, gen, flush, tag)
+    rows["flash_attention_int8"] = int8_rows(dev, gen, flush, tag)
 
     # K4 at the tile_copy path's shape: one K leaf of the serving cache
     leaf = torch.randn((cfg.n_layers, SLOTS, MAX_LEN, K, D), device=dev,
@@ -558,12 +594,21 @@ def main() -> int:
             counts[name] += n
     wall(5)
 
-    # ---- phases 6-11: gemma3-27b (14 layers, f32), gemma-7b (f32),
+    # ---- phases 6-14: gemma3-27b (14 layers, f32), gemma-7b (f32),
     # gemma3-27b (62 layers, bf16 weights), qwen1.5-110b (bf16 weights),
-    # olmoe-1b-7b (f32), deepseek-v2-236b (bf16 weights) ------------------
+    # olmoe-1b-7b (f32), deepseek-v2-236b (bf16 weights); tinyllama's int8
+    # decode_step (12); rwkv6-7b (f32) and jamba-v0.1-52b (bf16 weights) --
     del params
     torch.cuda.empty_cache()
     paths = {}
+
+    def add(run, entry):
+        for name in ("villa_scatter", "villa_gather", "rbm_copy"):
+            counts[name] += run[name]
+        k3 = paths.setdefault(entry, {"prefill": 0, "decode": 0})
+        k3["prefill"] += run["flash_attention_prefill"]
+        k3["decode"] += run["flash_attention_decode"]
+
     for phase, (entry, fn) in enumerate(
             (("flash_attention_window", gemma3_phase),
              ("flash_attention_d256", gemma7b_phase),
@@ -571,12 +616,22 @@ def main() -> int:
              ("flash_attention_mixed", qwen_phase),
              ("flash_attention_moe", olmoe_phase),
              ("flash_attention_mla", deepseek_phase)), start=6):
-        run = fn(tag)
-        for name in ("villa_scatter", "villa_gather", "rbm_copy"):
-            counts[name] += run[name]
-        k3 = paths.setdefault(entry, {"prefill": 0, "decode": 0})
-        k3["prefill"] += run["flash_attention_prefill"]
-        k3["decode"] += run["flash_attention_decode"]
+        add(fn(tag), entry)
+        wall(phase)
+    # the int8 run's K3 launches are K3d's; the forward it is held to and
+    # the f32-cache run launch tinyllama's prefill and decode rows
+    i8 = int8_decode_phase(tag)
+    add(i8["int8"], "flash_attention_int8")
+    for run in (i8["forward"], i8["float32"]):
+        for route in ("prefill", "decode"):
+            counts[f"flash_attention_{route}"] += \
+                run[f"flash_attention_{route}"]
+    wall(12)
+    # rwkv6-7b launches no K3 (its K1/K2 count); jamba's attention layers
+    # run the bf16-weight routes: bf16 prefill, bf16 q over the f32 cache
+    for phase, (entry, fn) in ((13, ("flash_attention_mixed", rwkv_phase)),
+                               (14, ("flash_attention_mixed", jamba_phase))):
+        add(fn(tag), entry)
         wall(phase)
     routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
                                   "decode": counts["flash_attention_decode"]},
@@ -596,6 +651,7 @@ def main() -> int:
         "flash_attention_mixed": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_moe": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_mla": "src/repro/kernels/flash_attention.py:81",
+        "flash_attention_int8": "src/repro/kernels/flash_attention.py:81",
         "rbm_copy": "src/repro/kernels/rbm_copy.py:27"}
     csrc = "src/repro_torch/kernels/csrc/"
     decode_src = csrc + "flash_decode.cu"
@@ -608,24 +664,27 @@ def main() -> int:
                "flash_attention_mixed": decode_src,
                "flash_attention_moe": decode_src,
                "flash_attention_mla": csrc + "flash_attention.cu",
+               "flash_attention_int8": decode_src,
                "rbm_copy": csrc + "rbm_copy.cu"}
     # flash_attention counts K3's decode kernel on the tinyllama paths
     # (phases 3 and 5), flash_attention_prefill its prefill kernel there;
     # flash_attention_window both on gemma3's 14-layer f32 path (phase 6),
     # flash_attention_d256 both on gemma-7b's (phase 7), and
-    # flash_attention_mixed both on the bf16-weight paths (phases 8, 9:
-    # bf16 prefill, bf16 q over the f32 cache in decode), by route beside,
-    # with the dtypes each route ran there; flash_attention_moe both on
-    # olmoe's path (phase 10), flash_attention_mla the prefill at Dk 192 /
-    # Dv 128 on deepseek-v2's (phase 11, which decodes without K3); a
-    # row's source is its headline route's (the prefill kernel is
-    # csrc/flash_attention.cu)
+    # flash_attention_mixed both on the bf16-weight paths (phases 8, 9 and
+    # 14: bf16 prefill, bf16 q over the f32 cache in decode), by route
+    # beside, with the dtypes each route ran there; flash_attention_moe
+    # both on olmoe's path (phase 10), flash_attention_mla the prefill at
+    # Dk 192 / Dv 128 on deepseek-v2's (phase 11, which decodes without
+    # K3), flash_attention_int8 the decode kernel over int8 K/V (K3d) on
+    # the int8 decode_step path (phase 12); tinyllama's f32 decode_step run
+    # (phase 12) counts under flash_attention; a row's source is its
+    # headline route's (the prefill kernel is csrc/flash_attention.cu)
     kernels = []
     for name in ("villa_scatter", "villa_gather", "flash_attention",
                  "flash_attention_prefill", "flash_attention_window",
                  "flash_attention_d256", "flash_attention_mixed",
                  "flash_attention_moe", "flash_attention_mla",
-                 "rbm_copy"):
+                 "flash_attention_int8", "rbm_copy"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],
@@ -643,10 +702,14 @@ def main() -> int:
             kernels[-1]["launches_by_route"] = routes[name]
         if name == "flash_attention_mixed":
             kernels[-1]["route_dtypes"] = {
-                "prefill": "q bfloat16, k/v bfloat16 (shapes: "
-                           "prefill_local_bf16)",
+                "prefill": f"q bfloat16, k/v bfloat16 (shapes: "
+                           f"prefill_local_bf16, "
+                           f"jamba_prefill_{max(J_PROMPTS)}_bf16)",
                 "decode": "q bfloat16, k/v float32 (shapes: decode_ring, "
-                          "decode_global, qwen_decode)"}
+                          "decode_global, qwen_decode, jamba_decode)"}
+        if name == "flash_attention_int8":
+            kernels[-1]["route_dtypes"] = {
+                "decode": "q float32, k/v int8 with float32 scales"}
         print(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
@@ -713,14 +776,16 @@ def attention_err(label, got, q, k, v, qp, kp, window=0):
 
 
 def attention_bound(q, k, q_pos, kv_pos, window, peak=F32_FLOP_PER_S,
-                    passes=1, dv=None):
+                    passes=1, dv=None, scale_bytes=0):
     """(ms, "bytes" or "operations") of the least time the card could take
     for this attention: q read and the output written once (in q's dtype),
     positions read once, the K/V rows that some query of their batch row
-    attends read once (in k's dtype); 2*H*(Dk + Dv) FLOP per valid (query,
-    key) pair (4*H*D where V's head dim ``dv`` is q's and K's), at the f32
-    peak (or, for the prefill kernel's own bound, ``passes`` products of
-    each at a tensor-core peak: 3 TF32 ones for f32, one bf16)."""
+    attends read once (in k's dtype, with ``scale_bytes`` of scales a kv
+    head for an int8 row: its K and V scales, 8); 2*H*(Dk + Dv) FLOP per
+    valid (query, key) pair (4*H*D where V's head dim ``dv`` is q's and
+    K's), at the f32 peak (or, for the prefill kernel's own bound,
+    ``passes`` products of each at a tensor-core peak: 3 TF32 ones for
+    f32, one bf16)."""
     qp, kp = q_pos.cpu().numpy(), kv_pos.cpu().numpy()
     valid = kp[:, None, :] <= qp[:, :, None]
     if window > 0:
@@ -728,8 +793,9 @@ def attention_bound(q, k, q_pos, kv_pos, window, peak=F32_FLOP_PER_S,
     B, S, H, D = q.shape
     K = k.shape[2]
     dv = D if dv is None else dv
+    rows = int(valid.any(1).sum())
     nbytes = (q.element_size() * B * S * H * (D + dv)
-              + k.element_size() * int(valid.any(1).sum()) * K * (D + dv)
+              + (k.element_size() * (D + dv) + scale_bytes) * rows * K
               + 4 * (qp.size + kp.size))
     flops = 2 * H * (D + dv) * int(valid.sum()) * passes
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
@@ -1005,8 +1071,11 @@ def wide_and_mixed_rows(dev, gen, flush, tag):
     K/V (bf16 weights over the Engine's f32 cache) in decode over wrapped
     1024-slot rings and the 2048-slot global cache, and in the 1500-token
     prefill under window 1024; the prefill those paths launch, all bf16,
-    at that length; and at qwen1.5-110b's (64 q / 8 kv heads, head group
-    8), bf16 q over its f32 Q_MAX_LEN cache.  Returns the ``kernels``
+    at that length; at qwen1.5-110b's (64 q / 8 kv heads, head group
+    8), bf16 q over its f32 Q_MAX_LEN cache; and at jamba's attention
+    layer (32 q / 8 kv heads, head group 4, phase 14), bf16 q over its f32
+    J_MAX_LEN cache and the all-bf16 prefill of its longest prompt at
+    exact length.  Returns the ``kernels``
     entries (headline rows: the head-dim-256 decode and the mixed ring
     decode), every row in ``shapes``."""
     import numpy as np
@@ -1079,6 +1148,21 @@ def wide_and_mixed_rows(dev, gen, flush, tag):
         *case(len(ends), 1, qw.n_heads, qw.n_kv_heads, qw.head_dim,
               ends[:, None].astype(np.int32), kp_np, bf16, f32), 0, flush,
         tag)
+    jb = get_config("jamba-v0.1-52b")
+    H, K, D = jb.n_heads, jb.n_kv_heads, jb.head_dim
+    ends = np.array(J_PROMPTS) + J_MAX_NEW - 1
+    kp_np = np.full((len(ends), J_MAX_LEN), 2**30, np.int32)
+    for b, n in enumerate(ends):
+        kp_np[b, :n + 1] = np.arange(n + 1)
+    mixed["jamba_decode"] = attention_row(
+        "jamba mixed decode",
+        *case(len(ends), 1, H, K, D, ends[:, None].astype(np.int32), kp_np,
+              bf16, f32), 0, flush, tag)
+    P = max(J_PROMPTS)                  # state layers prefill at exact length
+    pre = np.arange(P, dtype=np.int32)[None]
+    mixed[f"jamba_prefill_{P}_bf16"] = attention_row(
+        f"jamba bf16 prefill {P}", *case(1, P, H, K, D, pre, pre, bf16, bf16),
+        0, flush, tag)
     out = []
     for head, rows in ((wide["decode"], wide), (mixed["decode_ring"], mixed)):
         row = dict(head)
@@ -1447,6 +1531,100 @@ def mla_and_moe_rows(dev, gen, flush, tag):
     return out
 
 
+def int8_rows(dev, gen, flush, tag) -> dict:
+    """Phase 2's K3d rows: the decode kernel over int8 K/V with per-token,
+    per-head f32 scales, quantised from random K/V by the model's own
+    quantiser, at the shapes the int8 decode paths give it: tinyllama
+    (I8_B rows, T 1024, 32/4 heads, D 64; ragged ends), gemma3's ring
+    (window 1024, 1024 slots whose positions have wrapped) and global
+    layer (T 2048), and jamba's attention layer (32/8 heads, D 128, T
+    1024).  Each held within 3e-5 of its plain version on the same inputs
+    and timed beside it and beside SDPA, which takes no int8 K/V with
+    scales: its K/V are dequantised outside its timed window.  Bounds
+    count the int8 K/V, their scales (8 bytes a row and kv head), q, the
+    output and the positions.  Returns the ``kernels`` entry: tinyllama's
+    numbers (the int8 decode_step phase launches it), every shape's in
+    ``shapes``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import quantise
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    g3 = get_config("gemma3-27b")
+    W = g3.window
+    ends = np.array(G_PROMPTS) + G_MAX_NEW - 1
+    ring = np.full((len(ends), W), 2**30, np.int32)
+    glob = np.full((len(ends), G_MAX_LEN), 2**30, np.int32)
+    for b, n in enumerate(ends):
+        t = np.arange(max(0, n - W + 1), n + 1)
+        ring[b, t % W] = t
+        glob[b, :n + 1] = np.arange(n + 1)
+    rng = np.random.default_rng(SEED + 12)
+    ragged = rng.integers(MAX_LEN // 8, MAX_LEN, I8_B)
+    lin = np.full((I8_B, MAX_LEN), 2**30, np.int32)
+    for b, n in enumerate(ragged):
+        lin[b, :n] = np.arange(n)
+    tl, jb = get_config("tinyllama-1.1b"), get_config("jamba-v0.1-52b")
+    shapes = {  # name: (heads, kv heads, D, q positions, kv positions, window)
+        "tinyllama": (tl.n_heads, tl.n_kv_heads, tl.head_dim,
+                      ragged - 1, lin, 0),
+        "gemma3_ring": (g3.n_heads, g3.n_kv_heads, g3.head_dim, ends, ring,
+                        W),
+        "gemma3_global": (g3.n_heads, g3.n_kv_heads, g3.head_dim, ends,
+                          glob, 0),
+        "jamba": (jb.n_heads, jb.n_kv_heads, jb.head_dim, ragged - 1, lin,
+                  0)}
+    out = {}
+    for name, (H, K, D, qp_np, kp_np, window) in shapes.items():
+        B, T = kp_np.shape
+        qp = torch.from_numpy(qp_np[:, None].astype(np.int32)).to(dev)
+        kp = torch.from_numpy(kp_np).to(dev)
+        q = torch.randn((B, 1, H, D), device=dev, generator=gen)
+        (k8, ks), (v8, vs) = (quantise(torch.randn(
+            (B, T, K, D), device=dev, generator=gen)) for _ in range(2))
+        args = (q, k8, v8, qp, kp)
+        kw = dict(window=window, k_scale=ks, v_scale=vs)
+        got = ops.chunked_attention(*args, **kw)
+        want = ref.chunked_attention_ref(*args, **kw)
+        err = float((got - want).abs().max())
+        check(err <= 3e-5, f"int8 decode {name}: error {err} > 3e-5")
+        kf, vf = k8.float() * ks[..., None], v8.float() * vs[..., None]
+        mask = kp[:, None, None, :] <= qp[:, None, :, None]
+        if window > 0:
+            mask &= kp[:, None, None, :] > qp[:, None, :, None] - window
+        qt, kt, vt = q.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
+        bound, by = attention_bound(q, k8, qp, kp, window, scale_bytes=8)
+        gc, groups, n_split, split_len = FA.decode_plan(B, K, H // K, T, 1,
+                                                        n_sm, D)
+        r = out[name] = dict(
+            **kernel_times(lambda: ops.chunked_attention(*args, **kw),
+                           lambda: ref.chunked_attention_ref(*args, **kw),
+                           lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                        enable_gqa=True), flush),
+            bound_ms=bound, bound_by=by, max_abs_err=err,
+            dtypes="q float32, k/v int8 with f32 scales",
+            library_operands="SDPA over K/V dequantised to float32 outside "
+                             "its timed window (no PyTorch call takes int8 "
+                             "K/V with scales)",
+            plan=f"head group {gc}, {n_split} splits of {split_len} slots, "
+                 f"{n_split * groups * K * B} CTAs")
+        print(f"attention int8 decode {name} (B={B} T={T} {H}/{K} heads "
+              f"D={D} window {window}; {r['plan']}): max_abs_err {err:.3g}; "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"(dequantised K/V) {r['library_ms']:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}); device time: kernel "
+              f"{r['device_ms']:.4f} ms, SDPA {r['library_device_ms']:.4f} "
+              f"ms [{tag}]")
+    row = {k: v for k, v in out["tinyllama"].items() if k != "plan"}
+    row["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
+    row["shapes"] = out
+    return row
+
+
 def repeat_decode(label, cfg, params, prompts, slots, max_len) -> None:
     """One decode batch run twice, each from its own copy of the same cache
     (prefilled with ``prompts``, one a slot, the last slot idle): the
@@ -1545,6 +1723,165 @@ def deepseek_phase(tag) -> dict:
     return counts
 
 
+def int8_decode_phase(tag) -> dict:
+    """Phase 12: full-width tinyllama-1.1b (f32) decodes I8_B rows token by
+    token for I8_STEPS teacher-forced steps through ``lm.decode_step``
+    from an empty cache, once over an int8 cache (K3d: every layer's
+    attention runs the decode kernel over int8 K/V with their scales) and
+    once over an f32 one, each against the port's ``forward`` over the
+    same tokens: the relative error of the logits must stay below 0.05,
+    the reference's bar (its tests/test_int8_kv.py).  The int8 run must
+    launch K3d layers x steps times and nothing else.  Returns the launch
+    counts of the forward, the int8 run and the f32 run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    cfg = get_config("tinyllama-1.1b")
+    params = model_params(cfg, torch.float32, "tinyllama-1.1b (int8 KV)",
+                          "full depth: the f32 weights fit")
+    toks = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
+        0, cfg.vocab_size, (I8_B, I8_STEPS)).astype(np.int32)).to(dev)
+    ops.reset_launch_counts()
+    full, _, _ = lm.forward(cfg, params, toks)
+    torch.cuda.synchronize()
+    out = {"forward": ops.launch_counts()}
+    top = float(full.abs().max())
+    greedy = {}
+    for dt in (torch.int8, torch.float32):
+        name = str(dt).removeprefix("torch.")
+        cache = lm.init_cache(cfg, I8_B, I8_STEPS, dtype=dt, device=dev)
+        logits = torch.empty_like(full)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in range(I8_STEPS):
+            lg, _ = lm.decode_step(cfg, params, cache, toks[:, t:t + 1], t)
+            logits[:, t] = lg[:, 0]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = out[name] = ops.launch_counts()
+        err = float((logits - full).abs().max()) / (top + 1e-9)
+        greedy[name] = logits.argmax(-1)
+        check(bool(torch.isfinite(logits).all()) and err < 0.05,
+              f"int8 phase: decode over the {name} cache is {err:.4g} from "
+              f"forward (relative), the bar is 0.05")
+        due = cfg.n_layers * I8_STEPS
+        want = {"flash_attention": due, "flash_attention_decode": due}
+        if dt == torch.int8:
+            want["flash_attention_decode_int8"] = due
+        check_counts(counts, want, f"the {name} decode_step run")
+        if dt == torch.int8:
+            hold_int8_cache(cfg, cache, dev, tag)
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in _leaves(cache))
+        print(f"int8 phase, {name} cache ({cache_bytes / 1e6:.1f} MB at "
+              f"{I8_B} rows x {I8_STEPS} slots): {I8_STEPS} decode_step "
+              f"calls, {secs / I8_STEPS * 1e3:.3f} ms a step; logits "
+              f"{err:.4g} from forward relative to its largest "
+              f"({top:.3f}); launches {json.dumps(counts)} [{tag}]")
+        del cache
+    agree = float((greedy["int8"] == greedy["float32"]).float().mean())
+    print(f"int8 phase: greedy tokens of the int8 and f32 caches agree at "
+          f"{agree:.4f} of {I8_B * I8_STEPS} positions")
+    del params, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_int8_cache(cfg, cache, dev, tag) -> None:
+    """K3d against its plain version at phase 12's own shapes and split
+    plan (I8_B rows, T I8_STEPS, uniform positions): the last layer's int8
+    K/V, scales and positions as the run left them, and as they stood
+    after step I8_STEPS // 2 (decode writes slot t at step t, so the later
+    slots held code 0, scale 0 and position 2**30 then), each under a q
+    drawn at the path's (B, 1, H, D); within 3e-5.  Run after the path's
+    launches were read, so they do not count."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    c = next(b for st in cache.values() for b in st.values()
+             if "k_scale" in b)
+    last = {name: t[-1] for name, t in c.items()}      # (B, L, ...) leaves
+    gen = torch.Generator(device=dev).manual_seed(SEED + 120)
+    q = torch.randn((I8_B, 1, cfg.n_heads, cfg.head_dim), device=dev,
+                    generator=gen)
+    for n in (I8_STEPS // 2 + 1, I8_STEPS):
+        keep = torch.arange(I8_STEPS, device=dev) < n
+        k8, v8 = (torch.where(keep[None, :, None, None], last[x], 0)
+                  for x in ("k", "v"))
+        ks, vs = (torch.where(keep[None, :, None], last[x], 0.0)
+                  for x in ("k_scale", "v_scale"))
+        kp = torch.where(keep[None], last["pos"], 2**30)
+        qp = torch.full((I8_B, 1), n - 1, dtype=torch.int32, device=dev)
+        kw = dict(k_scale=ks, v_scale=vs)
+        got = ops.chunked_attention(q, k8, v8, qp, kp, **kw)
+        err = float((got - ref.chunked_attention_ref(q, k8, v8, qp, kp,
+                                                     **kw)).abs().max())
+        check(k8.dtype == torch.int8 and err <= 3e-5,
+              f"int8 phase: K3d over the path's cache after step {n - 1} "
+              f"is {err} from its plain version, the bar is 3e-5")
+        print(f"int8 phase: K3d over layer {cfg.n_layers - 1}'s int8 cache "
+              f"after step {n - 1} (T {I8_STEPS}, {n} slots written): "
+              f"max_abs_err {err:.3g} [{tag}]")
+
+
+def rwkv_phase(tag) -> dict:
+    """Phase 13: rwkv6-7b at full width and depth (32 rwkv layers, f32)
+    through the Engine (4 slots, exact-length prompts of 16-500, a suspend
+    and a resume wave of the 34.6 MB state snapshots) and the Scheduler;
+    it launches no K3."""
+    import torch
+    from repro_torch import sched
+    from repro_torch.configs import get_config
+
+    cfg = get_config("rwkv6-7b")
+    params = model_params(cfg, torch.float32, "rwkv6-7b",
+                          "full depth: the f32 weights fit")
+    wl = sched.WorkloadConfig(n_fresh=6, n_followups=12, arrival="bursty",
+                              prompt_lens=R_SCHED_LENS, new_tokens=(8, 16))
+    counts = serve_phase("rwkv6-7b", cfg, params,
+                         _prompts(cfg, R_PROMPTS, SEED + 13), tag,
+                         slots=R_SLOTS, max_len=R_MAX_LEN,
+                         n_sessions=R_SESSIONS, max_new=R_MAX_NEW,
+                         first=R_FIRST, sched_wl=wl)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def jamba_phase(tag) -> dict:
+    """Phase 14: jamba-v0.1-52b at full width with bf16 weights over the
+    Engine's f32 cache, cut to J_LAYERS of its 32 layers (two periods of 7
+    mamba layers and 1 attention layer, MoE every other layer, 16 experts
+    top-2): the Engine with one suspend and one resume wave.  Its
+    attention layers run K3: bf16 prefill at each prompt's exact length,
+    decode of bf16 q over the f32 cache."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, param_count
+
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=J_LAYERS)
+    params = model_params(
+        cfg, torch.bfloat16, "jamba-v0.1-52b bf16",
+        f"{J_LAYERS} of {full.n_layers} layers: all {full.n_layers} in "
+        f"bf16 are {2 * param_count(full) / 1e9:.0f} GB, past the card's "
+        f"80 GB; {J_LAYERS} are two whole periods of the 8-layer pattern")
+    counts = serve_phase("jamba", cfg, params,
+                         _prompts(cfg, J_PROMPTS, SEED + 14), tag,
+                         slots=J_SLOTS, max_len=J_MAX_LEN,
+                         n_sessions=J_SESSIONS, max_new=J_MAX_NEW,
+                         first=J_FIRST)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def kernel_name(mangled: str) -> str:
     """The kernel part of a mangled entry name, its namespaces dropped:
     ``prefill_kernelIfLi128E`` is ``pf::prefill_kernel<float, 128>``,
@@ -1567,17 +1904,20 @@ def bit_equal(a, b) -> bool:
 
 
 def serving_launches(cfg, st) -> dict:
-    """The launches a serving run's stats call for.  K3 runs once a layer
-    per prefill (its prefill kernel: every prompt is longer than one token)
-    and, in an attention layer, per decode dispatch (its decode kernel; an
-    MLA layer decodes through its absorbed einsums, without K3); a suspend
+    """The launches a serving run's stats call for.  K3 runs once an
+    attention layer per prefill (its prefill kernel: every prompt is longer
+    than one token) and, in a GQA layer, per decode dispatch (its decode
+    kernel; an MLA layer decodes through its absorbed einsums, without K3;
+    a mamba or rwkv layer runs no K3); a suspend
     writes the slow row and its fast copy (two K1), a resume reads the slow
     row and the fast slot (two K2) and may insert into the fast tier (K1),
     a demotion clones a row (one K2, one K1); K4 is not on the serving
     path.  Kernels due no launch are left out (``check_counts`` holds them
     to 0)."""
-    n_dec = sum(kind != "mla" for kind in cfg.layer_kinds())
-    prefill = cfg.n_layers * st["prefills"]
+    kinds = cfg.layer_kinds()
+    n_pre = sum(kind in ("attn_full", "attn_local", "mla") for kind in kinds)
+    n_dec = sum(kind in ("attn_full", "attn_local") for kind in kinds)
+    prefill = n_pre * st["prefills"]
     decode = n_dec * st["decode_dispatches"]
     due = {"flash_attention": prefill + decode,
            "flash_attention_prefill": prefill,

@@ -30,14 +30,48 @@
 // No float atomics: whichever CTA combines, it adds in the same order, and
 // the result is the same from run to run.
 //
+// An int8 cache (K3d) comes with one f32 scale a (token, kv head) for K and
+// one for V, (B,T,K) each.  A lane loads 4 int8 values (4 bytes) where it
+// loads 4 f32 values of an f32 cache, so the lanes, rows and head groups
+// are laid out as for f32; each value is widened and multiplied by its
+// row's scale as it is loaded (the reference's int8 * scale, then the f32
+// product), and no dequantised copy is written.
+//
 // Later work: cp.async double buffering of the K/V rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace {
+
+// A lane's load of one key or value row chunk: 16 bytes of f32 or bf16
+// (Vec16), or 4 int8 values, widened to f32
+template <typename T> struct KvLoad {
+  using Raw = uint4;
+  static constexpr int N = Vec16<T>::N;
+  static __device__ __forceinline__ Raw load(const T* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void widen(const Raw& r, float* f) {
+    Vec16<T>::widen(r, f);
+  }
+};
+template <> struct KvLoad<int8_t> {
+  using Raw = unsigned int;
+  static constexpr int N = 4;
+  static __device__ __forceinline__ Raw load(const int8_t* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  static __device__ __forceinline__ void widen(const Raw& r, float* f) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = static_cast<float>(static_cast<int8_t>((r >> (8 * i)) & 0xffu));
+  }
+};
 
 // ---- split-KV decode ----------------------------------------------------
 
@@ -50,16 +84,23 @@ constexpr int kMaxSplits = 512;  // splits a combine weighs at once
 // group of at most GC), slots [split * split_len, +split_len) of the cache.
 // Writes that range's f32 (max, sum, accumulator) for each of its heads to
 // part: m at [row], l at [BH*NS + row], acc at [2*BH*NS + row*D], with row =
-// (b*H + h)*NS + split.  q and out are TQ, K and V TKV.
+// (b*H + h)*NS + split.  q and out are TQ, K and V TKV; an int8 TKV comes
+// with k_scale/v_scale (B,T,K) f32, which are null otherwise.
 template <typename TQ, typename TKV, int D, int GC>
 __global__ void __launch_bounds__(kDecThreads)
 decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                    const TKV* __restrict__ v, const int* __restrict__ q_pos,
+                    const TKV* __restrict__ v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ q_pos,
                     const int* __restrict__ kv_pos, TQ* __restrict__ out,
                     float* part, int* counters, int T_, int H, int K, int G,
                     int NS, int split_len, int causal, int window,
                     float scale) {
-  constexpr int VEC = Vec16<TKV>::N;
+  using Load = KvLoad<TKV>;
+  using Raw = typename Load::Raw;
+  constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
+  constexpr int VEC = Load::N;
   constexpr int LPK = D / VEC < 32 ? D / VEC : 32;  // lanes holding a key row
   constexpr int CH = D / (VEC * LPK);        // 16-byte chunks a lane of a row
   constexpr int F = CH * VEC;                // floats of a head a lane holds
@@ -125,20 +166,27 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     any_live = true;
 
     for (int c = warp * KPC; c < n; c += kDecWarps * KPC) {
-      uint4 kr[U][CH], vr[U][CH];
+      Raw kr[U][CH], vr[U][CH];
+      float ks[U], vs[U];                    // the rows' scales (int8)
       bool ok[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {          // every load before any use
         const int i = c + u * KPW + sub;
         ok[u] = i < n && ok_s[i];
+        ks[u] = vs[u] = 0.f;
+        if (kInt8 && ok[u]) {
+          const long long r = (kv_row + s0 + i) * K + kvh;
+          ks[u] = __ldg(k_scale + r);
+          vs[u] = __ldg(v_scale + r);
+        }
 #pragma unroll
         for (int ch = 0; ch < CH; ++ch) {
-          kr[u][ch] = vr[u][ch] = make_uint4(0u, 0u, 0u, 0u);
+          kr[u][ch] = vr[u][ch] = Raw{};
           if (ok[u]) {
             const long long off = ((kv_row + s0 + i) * K + kvh) * D +
                                   (ch * LPK + dl) * VEC;
-            kr[u][ch] = __ldg(reinterpret_cast<const uint4*>(k + off));
-            vr[u][ch] = __ldg(reinterpret_cast<const uint4*>(v + off));
+            kr[u][ch] = Load::load(k + off);
+            vr[u][ch] = Load::load(v + off);
           }
         }
       }
@@ -148,7 +196,11 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         float kf[F];
 #pragma unroll
         for (int ch = 0; ch < CH; ++ch)
-          Vec16<TKV>::widen(kr[u][ch], kf + ch * VEC);
+          Load::widen(kr[u][ch], kf + ch * VEC);
+        if (kInt8) {
+#pragma unroll
+          for (int e = 0; e < F; ++e) kf[e] *= ks[u];
+        }
 #pragma unroll
         for (int g = 0; g < GC; ++g) {
           float d = 0.f;
@@ -184,7 +236,11 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         float vf[F];
 #pragma unroll
         for (int ch = 0; ch < CH; ++ch)
-          Vec16<TKV>::widen(vr[u][ch], vf + ch * VEC);
+          Load::widen(vr[u][ch], vf + ch * VEC);
+        if (kInt8) {
+#pragma unroll
+          for (int e = 0; e < F; ++e) vf[e] *= vs[u];
+        }
 #pragma unroll
         for (int g = 0; g < GC; ++g) {
           const float p = ok[u] ? expf(s[u][g] - m[g]) : 0.f;
@@ -308,6 +364,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
 template <typename TQ, typename TKV, int D, int GC>
 int launch_decode(const void* q, const void* k, const void* v,
+                  const float* k_scale, const float* v_scale,
                   const int* q_pos, const int* kv_pos, void* out, float* part,
                   int* counters, int B, int T_, int H, int K, int causal,
                   int window, float scale, int NS, int split_len,
@@ -316,8 +373,9 @@ int launch_decode(const void* q, const void* k, const void* v,
   dim3 grid(NS, K * ((G + GC - 1) / GC), B);
   decode_split_kernel<TQ, TKV, D, GC><<<grid, kDecThreads, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), q_pos, kv_pos, static_cast<TQ*>(out), part,
-      counters, T_, H, K, G, NS, split_len, causal, window, scale);
+      static_cast<const TKV*>(v), k_scale, v_scale, q_pos, kv_pos,
+      static_cast<TQ*>(out), part, counters, T_, H, K, G, NS, split_len,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -331,10 +389,14 @@ extern "C" {
 // head_group GC is 2, 4 or 8, with GC times the floats a lane holds of a
 // head (4 for an f32 cache up to head dim 128, else 8) at most 32;
 // n_split <= 512 and n_split*split_len >= T, as decode_plan chooses them.
-// K and V start on 16-byte boundaries.  dtype_q, dtype_kv: 0 = float32,
-// 1 = bfloat16.  Returns a cudaError_t (0 = launched); -1 for a shape this
-// kernel does not take.
+// K and V start on 16-byte boundaries.  dtype_q: 0 = float32, 1 =
+// bfloat16; dtype_kv: those, or 2 = int8, which takes k_scale and v_scale
+// ((B,T,K) f32; null for a float cache) and is instantiated for the
+// (q dtype, D, head group) triples the int8 decode paths launch only.
+// Returns a cudaError_t (0 = launched); -1 for a shape this kernel does not
+// take.
 int flash_decode_launch(const void* q, const void* k, const void* v,
+                        const float* k_scale, const float* v_scale,
                         const int* q_pos, const int* kv_pos, void* out,
                         float* part, int* counters, int B, int T_, int H,
                         int K, int D,
@@ -349,9 +411,10 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DECODE(TQ, TKV, DD, GG)                                             \
   if (D == DD && head_group == GG)                                          \
-    return launch_decode<TQ, TKV, DD, GG>(q, k, v, q_pos, kv_pos, out,      \
-                                          part, counters, B, T_, H, K,      \
-                                          causal, window, scale, n_split,   \
+    return launch_decode<TQ, TKV, DD, GG>(q, k, v, k_scale, v_scale,      \
+                                          q_pos, kv_pos, out, part,         \
+                                          counters, B, T_, H, K, causal,    \
+                                          window, scale, n_split,           \
                                           split_len, s);
   // an f32 cache: 4 floats a lane a head up to D = 128, 8 at 256; a bf16
   // cache: 8
@@ -368,12 +431,19 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
   DECODE(TQ, __nv_bfloat16, 64, 2) DECODE(TQ, __nv_bfloat16, 64, 4)         \
   DECODE(TQ, __nv_bfloat16, 128, 2) DECODE(TQ, __nv_bfloat16, 128, 4)       \
   DECODE(TQ, __nv_bfloat16, 256, 2) DECODE(TQ, __nv_bfloat16, 256, 4)
+  // an int8 cache (4 values a lane, laid out as f32): tinyllama (D 64,
+  // group 8), gemma3's ring and global layers (D 128, group 2) and jamba's
+  // attention layers (D 128, group 4), f32 q
+  if (dtype_kv == 2 && (k_scale == nullptr || v_scale == nullptr)) return -1;
   if (dtype_kv == 0) {
     if (dtype_q == 0) { DECODE_F32(float) }
     else { DECODE_F32(__nv_bfloat16) }
-  } else {
+  } else if (dtype_kv == 1) {
     if (dtype_q == 0) { DECODE_BF16(float) }
     else { DECODE_BF16(__nv_bfloat16) }
+  } else if (dtype_kv == 2 && dtype_q == 0) {
+    DECODE(float, int8_t, 64, 8) DECODE(float, int8_t, 128, 2)
+    DECODE(float, int8_t, 128, 4)
   }
 #undef DECODE_BF16
 #undef DECODE_F32

@@ -27,8 +27,15 @@ K and V), with q and k/v both f32 or both bf16.  It raises
 MLA decodes through its absorbed einsums) and ``ValueError`` on another
 pair of head dims, on k and v of different dtypes, on mixed dtypes at
 Dv != Dk and on groups of more than 64 heads: ROADMAP Queue 2 lists them
-under K3.  int8 K/V, whose scales the reference passes here, has no entry
-yet.  CPU tensors never reach it:
+under K3.  int8 K/V come with the reference's per-token, per-head f32
+scales, ``k_scale``/``v_scale`` (B,T,K), on the decode route (K3d): the
+decode kernel dequantises each key and value as it loads them, for the (q
+dtype, head dim, head group) triples of :data:`INT8_DECODE`, the ones the
+int8 decode paths launch, and counts them in
+``chunked_attention.decode_int8`` too.  int8 at S > 1 raises
+``NotImplementedError`` (K3d's prefill: the reference cannot prefill an
+int8 cache, so no path reaches it), another triple ``ValueError``.  CPU
+tensors never reach it:
 :mod:`repro_torch.kernels.ops` routes them to the plain chunked twin.
 
 :func:`flash_attention` is the reference kernel's own signature: q
@@ -40,17 +47,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.scales import check_scales
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LIB = None
 _DECODE_LIB = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_DTYPES = {**_DTYPES, torch.int8: 2}
+# (q dtype, head dim, head group) of the int8 decode instantiations
+# (csrc/flash_decode.cu): tinyllama, gemma3's ring and global layers and
+# jamba's attention layers, f32 q
+INT8_DECODE = ((torch.float32, 64, 8), (torch.float32, 128, 2),
+               (torch.float32, 128, 4))
 # the split-KV decode kernel's layout (csrc/flash_decode.cu)
 DECODE_CTAS_PER_SM = 4      # the grid aims at this many CTAs an SM
 SPLIT_ALIGN = 16            # a split's length is a multiple of this
@@ -85,7 +99,7 @@ def _decode_lib() -> ctypes.CDLL:
     if _DECODE_LIB is None:
         lib = _build.library("flash_decode")
         lib.flash_decode_launch.argtypes = (
-            [_P] * 8 + [_I] * 7 + [ctypes.c_float] + [_I] * 5 + [_P])
+            [_P] * 10 + [_I] * 7 + [ctypes.c_float] + [_I] * 5 + [_P])
         lib.flash_decode_launch.restype = ctypes.c_int
         _DECODE_LIB = lib
     return _DECODE_LIB
@@ -99,9 +113,11 @@ def decode_plan(B: int, K: int, G: int, T: int, itemsize: int, n_sm: int,
     cache slots of ``itemsize``-byte elements (the cache's: q may be
     another dtype) and ``head_dim`` on ``n_sm`` SMs.
 
-    A lane holds ``max(16 // itemsize, head_dim // 32)`` floats of a head's
-    q and accumulator: one 16-byte K/V chunk of a row, or two at head dim
-    256 in f32, where the 32 lanes of a warp share one row.  A CTA holds
+    A lane holds ``max(vec, head_dim // 32)`` floats of a head's q and
+    accumulator, ``vec`` the values of one load: a 16-byte K/V chunk of a
+    row (``16 // itemsize``), or 4 int8 values (4 bytes) for an int8
+    cache; two loads at head dim 256 in f32, where the 32 lanes of a warp
+    share one row.  A CTA holds
     ``head_group`` query heads (2, 4 or 8: the smallest power of two >= G,
     at most 32 floats of q and of accumulator a lane, so 8 in f32 up to head
     dim 128, else 4), so a kv head needs ``n_groups`` CTAs.  The slots
@@ -110,7 +126,8 @@ def decode_plan(B: int, K: int, G: int, T: int, itemsize: int, n_sm: int,
     reaches DECODE_CTAS_PER_SM CTAs an SM where T allows, at most
     MAX_SPLITS; n_split = ceil(T / split_len), so no split is empty and
     there is at least one."""
-    cap = 32 // max(16 // itemsize, head_dim // 32)
+    vec = 4 if itemsize == 1 else 16 // itemsize
+    cap = 32 // max(vec, head_dim // 32)
     head_group = min(cap, max(2, 1 << max(0, G - 1).bit_length()))
     n_groups = -(-G // head_group)
     want = min(MAX_SPLITS,
@@ -193,20 +210,26 @@ def _workspace(device: torch.device, stream: int, n_part: int,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
-                      causal: bool = True, window: int = 0) -> torch.Tensor:
+                      causal: bool = True, window: int = 0,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3 on the card.  q: (B,S,H,Dk), k: (B,T,K,Dk), v: (B,T,K,Dv),
     q_pos (B,S) and kv_pos (B,T) int32; key t is valid for query s iff
     kv_pos <= q_pos (causal) and kv_pos > q_pos - window (window > 0).  q
-    and k/v may differ in dtype where Dk = Dv, k and v may not.  Returns
+    and k/v may differ in dtype where Dk = Dv, k and v may not.  int8 k/v
+    take ``k_scale``/``v_scale`` (B,T,K) f32 (K3d, decode only).  Returns
     (B,S,H,Dv) in q's dtype."""
     for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
-                    ("kv_pos", kv_pos)):
-        if not t.is_cuda:
+                    ("kv_pos", kv_pos), ("k_scale", k_scale),
+                    ("v_scale", v_scale)):
+        if t is not None and not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
-    if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
+    if (q.dtype not in _DTYPES or k.dtype not in _KV_DTYPES
+            or v.dtype != k.dtype):
         raise ValueError(f"q must be float32 or bfloat16 and k/v share "
-                         f"float32 or bfloat16 (got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype})")
+                         f"float32, bfloat16 or int8 (got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype})")
+    check_scales(k, k_scale, v_scale)
     B, S, H, D = q.shape
     T, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
     if (tuple(k.shape) != (B, T, K, D) or tuple(v.shape) != (B, T, K, Dv)
@@ -230,24 +253,40 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D != Dv and q.dtype != k.dtype:
         raise ValueError(f"Dk {D} / Dv {Dv} takes q and k/v of one dtype "
                          f"(got {q.dtype} and {k.dtype})")
-    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-               else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
-    q_pos = q_pos.to(torch.int32).contiguous()
-    kv_pos = kv_pos.to(torch.int32).contiguous()
-    out = q.new_empty((B, S, H, Dv))
-    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    int8 = k.dtype == torch.int8
+    if int8 and S != 1:
+        raise NotImplementedError(
+            f"int8 K/V at S = {S} is not ported: ROADMAP Queue 2 K3d "
+            f"(prefill; the reference cannot prefill an int8 cache)")
     n_sm = _device(q.device.index)
     if S == 1:
         gc, groups, n_split, split_len = decode_plan(
             B, K, H // K, T, k.element_size(), n_sm, D)
+        if int8 and (q.dtype, D, gc) not in INT8_DECODE:
+            raise ValueError(
+                f"int8 K/V decode at q {q.dtype}, head_dim {D}, head group "
+                f"{gc} (G {H // K}) is not instantiated: the kernel takes "
+                f"{INT8_DECODE} (ROADMAP Queue 2 K3d)")
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    if int8:
+        k_scale = k_scale.to(torch.float32).contiguous()
+        v_scale = v_scale.to(torch.float32).contiguous()
+    q_pos = q_pos.to(torch.int32).contiguous()
+    kv_pos = kv_pos.to(torch.int32).contiguous()
+    out = q.new_empty((B, S, H, Dv))
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    if S == 1:
         part, tickets = _workspace(q.device, stream,
                                    B * H * n_split * (D + 2), B * K * groups)
         err = _decode_lib().flash_decode_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if int8 else None,
+            v_scale.data_ptr() if int8 else None, q_pos.data_ptr(),
             kv_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
             tickets.data_ptr(), B, T, H, K, D, int(causal), int(window),
-            D ** -0.5, _DTYPES[q.dtype], _DTYPES[k.dtype], gc, n_split,
+            D ** -0.5, _DTYPES[q.dtype], _KV_DTYPES[k.dtype], gc, n_split,
             split_len, stream)
     else:
         plan = prefill_plan(B, S, H, K, D,
@@ -263,6 +302,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunked_attention.launches += 1
     if S == 1:
         chunked_attention.decode += 1
+        chunked_attention.decode_int8 += int8
     else:
         chunked_attention.prefill += 1
     return out
@@ -271,6 +311,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 chunked_attention.launches = 0
 chunked_attention.prefill = 0
 chunked_attention.decode = 0
+chunked_attention.decode_int8 = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

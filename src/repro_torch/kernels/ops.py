@@ -27,7 +27,10 @@ KERNELS = {"villa_scatter": RC.villa_scatter,
 # K3's launches by route: the tensor-core prefill kernel and the split-KV
 # decode kernel, whose sum is ``flash_attention``
 ROUTES = {"flash_attention_prefill": (FA.chunked_attention, "prefill"),
-          "flash_attention_decode": (FA.chunked_attention, "decode")}
+          "flash_attention_decode": (FA.chunked_attention, "decode"),
+          # of the decode route, the launches over an int8 cache (K3d)
+          "flash_attention_decode_int8": (FA.chunked_attention,
+                                          "decode_int8")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -67,14 +70,18 @@ def rbm_copy(x: torch.Tensor, *, tile_rows: int = 256,
 
 
 def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
-                      window: int = 0, block: int = 512) -> torch.Tensor:
+                      window: int = 0, block: int = 512, k_scale=None,
+                      v_scale=None) -> torch.Tensor:
     """Attention in the serving layout (K3); ``block`` is the plain
-    version's KV chunk (the kernel tiles on its own)."""
+    version's KV chunk (the kernel tiles on its own).  int8 K/V take their
+    (B,T,K) f32 ``k_scale``/``v_scale``."""
     if q.is_cuda:
         return FA.chunked_attention(q, k, v, q_pos, kv_pos, causal=causal,
-                                    window=window)
+                                    window=window, k_scale=k_scale,
+                                    v_scale=v_scale)
     return ref.chunked_attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
-                                     window=window, block=block)
+                                     window=window, block=block,
+                                     k_scale=k_scale, v_scale=v_scale)
 
 
 flash_attention = FA.flash_attention

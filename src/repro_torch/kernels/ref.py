@@ -9,6 +9,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.scales import check_scales
+
 NEG_INF = -1e30
 POS_SENTINEL = 2**30
 
@@ -82,13 +84,28 @@ def villa_scatter_ref(pages: torch.Tensor, table: torch.Tensor,
     return pages
 
 
+def _dequant(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """K or V as f32: an int8 cache's values times their (B,T,K) scales
+    (the reference's ``x.astype(f32) * scale[..., None]``), else widened."""
+    if scale is None:
+        return x.float()
+    return x.float() * scale[..., None]
+
+
 def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                           causal: bool = True, window: int = 0,
-                          block: int = 512) -> torch.Tensor:
+                          block: int = 512,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """q: (B,S,H,Dk), k: (B,T,K,Dk), v: (B,T,K,Dv); H = K*G.  KV blocks are
     scanned with f32 running (max, sum, acc), exactly as the reference's
-    jnp body; invalid cache slots carry kv_pos > any real position."""
+    jnp body; invalid cache slots carry kv_pos > any real position.  int8
+    K/V come with (B,T,K) f32 ``k_scale``/``v_scale`` and are dequantised
+    block by block (the reference's ``attention.py:81-97``: padded keys
+    get scale 0 and position 2**30)."""
+    check_scales(k, k_scale, v_scale)
     B, S, H, Dk = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -101,6 +118,9 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=POS_SENTINEL)
+        if k_scale is not None:
+            k_scale = torch.nn.functional.pad(k_scale, (0, 0, 0, pad))
+            v_scale = torch.nn.functional.pad(v_scale, (0, 0, 0, pad))
     # the reference scales q in its own dtype, then casts to f32
     qr = (q.reshape(B, S, K, G, Dk) * scale).float()
     m = torch.full((B, K, G, S), NEG_INF, dtype=torch.float32, device=q.device)
@@ -109,7 +129,9 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qp = q_pos[:, None, None, :, None]
     for j in range(nb):
         sl = slice(j * block, (j + 1) * block)
-        kj, vj, pj = k[:, sl].float(), v[:, sl].float(), kv_pos[:, sl]
+        kj = _dequant(k[:, sl], None if k_scale is None else k_scale[:, sl])
+        vj = _dequant(v[:, sl], None if v_scale is None else v_scale[:, sl])
+        pj = kv_pos[:, sl]
         s = torch.einsum("bskgd,btkd->bkgst", qr, kj)
         valid = torch.ones((B, 1, 1, S, block), dtype=torch.bool,
                            device=q.device)
@@ -134,13 +156,18 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def split_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                      n_split: int, split_len: int, causal: bool = True,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """The split-KV decode kernel's algorithm (S = 1) in plain PyTorch, for
     the tests: each split of ``split_len`` slots keeps f32 (max, sum,
     accumulator) over its valid keys, -1e30 and 0 when it has none; then the
     splits are combined in split order, m = max m_i, l = sum l_i
     exp(m_i - m), the accumulator likewise over the splits with l_i > 0,
-    out = acc / max(l, 1e-30).  q: (B,1,H,D), k/v: (B,T,K,D)."""
+    out = acc / max(l, 1e-30).  q: (B,1,H,D), k/v: (B,T,K,D); int8 K/V
+    with (B,T,K) f32 scales are dequantised as each key is read."""
+    check_scales(k, k_scale, v_scale)
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     if S != 1 or n_split * split_len < T:
@@ -153,7 +180,9 @@ def split_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for i in range(n_split):
         sl = slice(i * split_len, min(T, (i + 1) * split_len))
         kp = kv_pos[:, sl][:, None, None, :]
-        s = torch.einsum("bkgd,btkd->bkgt", qr, k[:, sl].float())
+        ks = None if k_scale is None else k_scale[:, sl]
+        vs = None if v_scale is None else v_scale[:, sl]
+        s = torch.einsum("bkgd,btkd->bkgt", qr, _dequant(k[:, sl], ks))
         valid = torch.ones_like(s, dtype=torch.bool)
         if causal:
             valid = valid & (kp <= qp)
@@ -167,7 +196,8 @@ def split_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.where(valid, torch.exp(s - m[..., None]),
                         torch.zeros_like(s))
         parts.append((m, p.sum(-1),
-                      torch.einsum("bkgt,btkd->bkgd", p, v[:, sl].float())))
+                      torch.einsum("bkgt,btkd->bkgd", p,
+                                   _dequant(v[:, sl], vs))))
     m = parts[0][0]
     for mi, _, _ in parts[1:]:
         m = torch.maximum(m, mi)

@@ -21,6 +21,9 @@ Quickstart::
   # MoE layers (olmoe), MLA over MoE (deepseek-v2)
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch olmoe-1b-7b --reduced --requests 4 --resumes 6
+  # recurrent layers: mamba + attention + MoE (jamba), RWKV-6 (rwkv6)
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch rwkv6-7b --reduced --requests 4 --resumes 6
 
 This module drives no engine loop of its own: every submit, suspend and
 resume is a :class:`repro_torch.sched.Scheduler` decision.  Admission

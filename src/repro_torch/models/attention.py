@@ -1,7 +1,7 @@
 # Port of src/repro/models/attention.py:18-334 in torch: _cache_write,
 # chunked_attention, the GQA block, full and sliding-window, and the MLA
-# block (DeepSeek-V2).  Not ported yet: int8 KV, cross attention and M-RoPE
-# (ROADMAP Queue 1 item 13).
+# block (DeepSeek-V2), each with its int8 KV cache.  Not ported yet: cross
+# attention and M-RoPE (ROADMAP Queue 1 item 13).
 """GQA and MLA attention with a chunked online-softmax core.
 
 :func:`chunked_attention` is the contract the serving model runs; on the
@@ -9,6 +9,12 @@ card it launches the attention kernel (K3), on the CPU it runs the plain
 chunked twin (``kernels/ops.py`` decides by the tensor's device).  MLA's
 expanded path (prefill) runs it at Dk = qk_nope + qk_rope, Dv = v_dim; its
 decode runs the reference's absorbed einsums over the compressed cache.
+
+An int8 cache quantises on write (:func:`quantise`: per token and kv head,
+or per token for MLA's latent and shared key) and keeps the f32 scales in
+cache leaves of their own; GQA decode hands them to K3, which dequantises
+as it loads, and MLA's absorbed einsums multiply them into the scores and
+the weights, as the reference does.
 """
 from __future__ import annotations
 
@@ -37,17 +43,33 @@ def _cache_write(buf: torch.Tensor, val: torch.Tensor, idx: torch.Tensor,
     return buf
 
 
+def quantise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(int8 values, scale)`` of ``x`` over its last dim, as the
+    reference's ``attention.py:198-203``: scale ``max(|x|.max(-1), 1e-6) /
+    127`` and values ``clip(round(x / scale), -127, 127)``, both in x's
+    dtype before the cast (torch's round, like jnp's, rounds half to
+    even)."""
+    s = torch.clamp(x.abs().amax(-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(x / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
-                      causal: bool = True, window: int = 0, block: int = 512
+                      causal: bool = True, window: int = 0, block: int = 512,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """q: (B,S,H,Dk), k: (B,T,K,Dk), v: (B,T,K,Dv); H = K*G.
 
     Online softmax over KV blocks with f32 running (max, sum, acc); invalid
     cache slots carry ``kv_pos`` > any real position (2**30) and are
-    causally masked; a row with no valid key gives 0."""
+    causally masked; a row with no valid key gives 0.  int8 K/V come with
+    their (B,T,K) f32 ``k_scale``/``v_scale``."""
+    scales = ({} if k_scale is None
+              else dict(k_scale=k_scale, v_scale=v_scale))
     return ops.chunked_attention(q, k, v, q_pos, kv_pos, causal=causal,
-                                 window=window, block=block)
+                                 window=window, block=block, **scales)
 
 
 def init_gqa_params(gen: torch.Generator, d_model: int, n_heads: int,
@@ -80,6 +102,7 @@ def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
                                        torch.Tensor]] = None,
               cache_index: Optional[torch.Tensor] = None,
               rows: Optional[torch.Tensor] = None,
+              kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention; ``window > 0`` masks keys older than
     ``position - window + 1`` (sliding window).  Without ``kv_cache``:
@@ -88,7 +111,10 @@ def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
     ring buffer): one decode token per row; the new K/V and position are
     written IN PLACE at ``cache_index`` (the ring slot, which the caller
     computes) for the batch rows in ``rows``, and attention runs over the
-    cache; returns ``(y, kv_cache)``.  positions: (B, S) int32."""
+    cache; returns ``(y, kv_cache)``.  An int8 cache comes with
+    ``kv_scales=(k_scale, v_scale)`` (B,T,K) f32: K/V are quantised on
+    write (:func:`quantise`) and their scales written at the same slot.
+    positions: (B, S) int32."""
     B, S, _ = x.shape
     q = x @ params["wq"]
     k = x @ params["wk"]
@@ -105,11 +131,18 @@ def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
         new = (k, v)
     else:
         ck, cv, cpos = kv_cache
+        ks = vs = None
+        if ck.dtype == torch.int8:
+            ks, vs = kv_scales
+            (k, k_s), (v, v_s) = quantise(k), quantise(v)
+            _cache_write(ks, k_s, cache_index, rows)
+            _cache_write(vs, v_s, cache_index, rows)
         _cache_write(ck, k, cache_index, rows)
         _cache_write(cv, v, cache_index, rows)
         _cache_write(cpos, positions.to(cpos.dtype), cache_index, rows)
         out = chunked_attention(q, ck, cv, positions, cpos, causal=True,
-                                window=window, block=block)
+                                window=window, block=block, k_scale=ks,
+                                v_scale=vs)
         new = kv_cache
     y = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
     return y, new
@@ -167,6 +200,7 @@ def mla_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
                                        torch.Tensor]] = None,
               cache_index: Optional[torch.Tensor] = None,
               rows: Optional[torch.Tensor] = None,
+              kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Without ``kv_cache`` (prefill, train): K and V expanded per head, K
     ``[k_nope, k_rope broadcast over heads]`` (qk_nope + qk_rope wide), V
@@ -177,7 +211,11 @@ def mla_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
     IN PLACE at ``cache_index`` for the batch rows in ``rows``, and the
     *absorbed* attention over the compressed cache in the reference's order
     of dtypes (the cache cast to q's, scores to f32 for the softmax, the
-    weights back to q's); returns ``(y, kv_cache)``.  positions: (B, S)."""
+    weights back to q's); returns ``(y, kv_cache)``.  An int8 cache comes
+    with ``kv_scales=(cc_scale, cr_scale)`` (B,T) f32: the latent and the
+    shared key are quantised per token on write, and the scales multiply
+    the nope and rope scores and the weights over the latent (the
+    reference's ``attention.py:293-330``).  positions: (B, S)."""
     B, S, _ = x.shape
     q_nope, q_rope, c_kv, k_rope = _mla_qkr(
         params, x, positions, n_heads, qk_nope, qk_rope, kv_lora, rope_theta)
@@ -195,6 +233,12 @@ def mla_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
         new = (c_kv, k_rope)
     else:
         cc, cr, cpos = kv_cache
+        cs = rs = None
+        if cc.dtype == torch.int8:
+            cs, rs = kv_scales
+            (c_kv, c_s), (k_rope, r_s) = quantise(c_kv), quantise(k_rope)
+            _cache_write(cs, c_s, cache_index, rows)
+            _cache_write(rs, r_s, cache_index, rows)
         _cache_write(cc, c_kv, cache_index, rows)
         _cache_write(cr, k_rope, cache_index, rows)
         _cache_write(cpos, positions.to(cpos.dtype), cache_index, rows)
@@ -203,12 +247,17 @@ def mla_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
         ccq = cc.to(q_c.dtype)
         s_nope = torch.einsum("bshc,btc->bhst", q_c, ccq)
         s_rope = torch.einsum("bshd,btd->bhst", q_rope, cr.to(q_rope.dtype))
+        if cs is not None:                  # undo the per-token quantisation
+            s_nope = s_nope * cs[:, None, None, :]
+            s_rope = s_rope * rs[:, None, None, :]
         s = (s_nope + s_rope) * scale
         valid = cpos[:, None, None, :] <= positions[:, None, :, None]
         s = torch.where(valid, s.float(), torch.full((), NEG_INF,
                                                      device=x.device))
-        p = torch.softmax(s, dim=-1).to(q_c.dtype)
-        ctx = torch.einsum("bhst,btc->bshc", p, ccq)
+        p = torch.softmax(s, dim=-1)
+        if cs is not None:
+            p = p * cs[:, None, None, :]
+        ctx = torch.einsum("bhst,btc->bshc", p.to(q_c.dtype), ccq)
         out = torch.einsum("bshc,chd->bshd", ctx, w_uv)
         new = kv_cache
     y = out.reshape(B, S, n_heads * v_dim) @ params["wo"]

@@ -1,29 +1,38 @@
-# Port of src/repro/models/lm.py:42-177, :199-311 and :331-496 in torch, for
-# stacks of attn_full, attn_local (sliding-window, ring-buffer) and MLA
-# mixers with dense or MoE MLPs: tinyllama-1.1b, gemma3-27b, gemma-7b,
-# qwen1.5-110b, olmoe-1b-7b and deepseek-v2-236b.
+# Port of src/repro/models/lm.py:42-177, :184-325 and :331-496 in torch,
+# for stacks of attn_full, attn_local (sliding-window, ring-buffer), MLA,
+# mamba and rwkv mixers with dense, MoE or rwkv channel-mix MLPs, over f32,
+# bf16 or int8 (quantised, with per-token scales) KV caches:
+# tinyllama-1.1b, gemma3-27b, gemma-7b, qwen1.5-110b, olmoe-1b-7b,
+# deepseek-v2-236b, jamba-v0.1-52b and rwkv6-7b.
 """LM assembly: stages of a repeating layer group with stacked parameters.
 
 Params and caches keep the reference's nested-dict layout and stacked
 ``(reps, ...)`` leaves — ``params["stage0"]["b0"]["mixer"]["wq"]`` is
 (reps, d_model, H*D), ``cache["stage0"]["b0"]["k"]`` is (reps, B, L, K, D),
-an MLA layer's ``cc``/``cr`` (reps, B, L, kv_lora) and (reps, B, L, rope) —
-so a snapshot's page bytes and a parameter tree converted from the reference
-(``repro_torch.weights``) line up key for key.  The reference's ``lax.scan``
-over reps is a Python loop over views of the stacked tensors.
+an MLA layer's ``cc``/``cr`` (reps, B, L, kv_lora) and (reps, B, L, rope),
+a mamba layer's ``conv``/``ssm`` and an rwkv layer's ``att_shift``,
+``ffn_shift`` and ``wkv`` its recurrent state — so a snapshot's page bytes
+and a parameter tree converted from the reference (``repro_torch.weights``)
+line up key for key.  The reference's ``lax.scan`` over reps is a Python
+loop over views of the stacked tensors.
 
 Caches are updated IN PLACE (the reference's donated buffers): prefill writes
-its tokens' K/V (an MLA layer's latent and shared key), decode writes one
-token per ACTIVE row only, so inactive rows stay bit-exact without the
-reference's select over every cache leaf.
+its tokens' K/V (an MLA layer's latent and shared key, a recurrent layer's
+final state), decode writes one token (or one state) per ACTIVE row only,
+so inactive rows stay bit-exact without the reference's select over every
+cache leaf.
 An ``attn_local`` layer keeps a ring of ``min(max_len, window)`` slots, token
 t in slot ``t % L``, as the reference does (its ``lm.py:135-137``,
 ``:201-204``, ``:227-235``).
 
-``attn_full`` and ``attn_local`` mixers with ``dense`` MLPs, ``attn_full``
-with ``moe`` (olmoe) and ``mla`` with ``moe`` (deepseek-v2) are ported;
-mamba, rwkv, enc-dec, M-RoPE and int8 KV raise ``NotImplementedError``
-(ROADMAP Queue 1 item 13).
+An int8 cache (``init_cache(dtype=torch.int8)``) holds quantised K/V (or
+MLA latents) and their f32 scales; as in the reference, only decode reaches
+it (:func:`decode_step`, :func:`decode_step_batched`), and a prefill into
+it raises.  The state leaves ``ssm`` and ``wkv`` are f32 in every cache;
+``conv`` and the shifts take the cache's dtype.
+
+Every layer kind of the decoder-only configs is ported; enc-dec and M-RoPE
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -37,13 +46,21 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (embed, init_embed, init_mlp, init_rms,
                                        mlp, rms_norm, unembed)
 
 LayerSpec = Tuple[str, str]     # (mixer_kind, mlp_kind)
 POS_SENTINEL = 2**30
 PORTED = (("attn_full", "dense"), ("attn_local", "dense"),
-          ("attn_full", "moe"), ("mla", "moe"))
+          ("attn_full", "moe"), ("mla", "moe"), ("mla", "dense"),
+          ("mamba", "dense"), ("mamba", "moe"), ("rwkv", "rwkv_cm"))
+RECURRENT = ("mamba", "rwkv")
+# a layer's cache leaves that hold a recurrent state, not tokens; of them
+# ssm and wkv stay f32 in a cache of any dtype
+STATE_LEAVES = ("conv", "ssm", "att_shift", "ffn_shift", "wkv")
+F32_STATE = ("ssm", "wkv")
 
 
 def stages_of(cfg: ModelConfig) -> List[Tuple[int, Tuple[LayerSpec, ...]]]:
@@ -69,9 +86,10 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: layer kinds {bad or ''}"
             f"{' enc-dec' if cfg.encdec else ''}"
             f"{' m-rope' if cfg.mrope else ''} are not ported yet (the port "
-            f"runs attn_full and attn_local with dense MLPs, attn_full and "
-            f"MLA with MoE); mamba, rwkv, enc-dec, M-RoPE and int8 KV arrive "
-            f"in a later slice (ROADMAP Queue 1 item 13)")
+            f"runs attn_full and attn_local with dense MLPs, attn_full with "
+            f"MoE, MLA and mamba with dense or MoE MLPs, and rwkv with its "
+            f"channel mix); enc-dec cross attention and M-RoPE arrive in a "
+            f"later slice (ROADMAP Queue 1 item 13)")
 
 
 def cache_len(cfg: ModelConfig, mixer_kind: str, max_len: int) -> int:
@@ -107,23 +125,29 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
                     g, cfg.d_model, cfg.n_heads, cfg.q_lora_rank,
                     cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
                     cfg.v_head_dim, reps, dtype, dev)
+            elif mixer_kind == "mamba":
+                mixer = SSM.init_mamba_params(g, cfg.d_model, cfg.d_state,
+                                              cfg.d_conv, cfg.expand, reps,
+                                              dtype, dev)
+            elif mixer_kind == "rwkv":
+                mixer = R.init_rwkv_params(g, cfg.d_model, cfg.d_ff, reps,
+                                           dtype, dev)
             else:
                 mixer = A.init_gqa_params(g, cfg.d_model, cfg.n_heads,
                                           cfg.n_kv_heads, cfg.head_dim,
                                           cfg.qkv_bias, reps, dtype, dev)
+            block = {"ln1": torch.zeros((reps, cfg.d_model), device=dev),
+                     "mixer": mixer,
+                     "ln2": torch.zeros((reps, cfg.d_model), device=dev)}
             if mlp_kind == "moe":
-                ffn = MOE.init_moe_params(g, cfg.d_model, cfg.n_experts,
-                                          cfg.moe_d_ff,
-                                          cfg.n_shared_experts, reps, dtype,
-                                          dev)
-            else:
-                ffn = init_mlp(g, cfg.d_model, cfg.d_ff, reps, dtype, dev)
-            stage[f"b{j}"] = {
-                "ln1": torch.zeros((reps, cfg.d_model), device=dev),
-                "mixer": mixer,
-                "ln2": torch.zeros((reps, cfg.d_model), device=dev),
-                "mlp": ffn,
-            }
+                block["mlp"] = MOE.init_moe_params(
+                    g, cfg.d_model, cfg.n_experts, cfg.moe_d_ff,
+                    cfg.n_shared_experts, reps, dtype, dev)
+            elif mlp_kind == "dense":
+                block["mlp"] = init_mlp(g, cfg.d_model, cfg.d_ff, reps,
+                                        dtype, dev)
+            # rwkv_cm: the channel-mix params live in the mixer
+            stage[f"b{j}"] = block
         params[f"stage{i}"] = stage
     if not cfg.tie_embeddings:
         params["head"] = init_embed(g, cfg.vocab_size, cfg.d_model, dtype,
@@ -136,33 +160,53 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed K/V and sentinel positions: leaves (reps, batch, L, ...),
     with L from :func:`cache_len` (a ring for sliding-window layers); an
     MLA layer holds its compressed cache, ``cc`` (kv_lora wide) and ``cr``
-    (qk_rope wide), instead of K/V.
-    The K/V dtype is float32 or bfloat16: an int8 cache needs the
-    reference's per-token scales, which arrive with int8 KV (ROADMAP Queue 1
-    item 13, with K3d), and any other dtype would truncate the floats that
-    prefill and decode write into it."""
+    (qk_rope wide), instead of K/V; a mamba layer its ``conv`` history and
+    f32 ``ssm`` state, an rwkv layer its ``att_shift``/``ffn_shift`` tokens
+    and f32 ``wkv`` state.  ``dtype`` is float32, bfloat16 or int8: an int8
+    cache adds the reference's f32 scale leaves, ``k_scale``/``v_scale``
+    (reps, batch, L, K), or ``cc_scale``/``cr_scale`` (reps, batch, L) for
+    MLA (its ``lm.py:141-152``).  Any other dtype raises: it would truncate
+    the floats that prefill and decode write into it."""
     check_supported(cfg)
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise NotImplementedError(
-            f"a {dtype} KV cache is not ported: the cache holds float32 or "
-            f"bfloat16; int8 KV with its scales arrives with ROADMAP Queue 1 "
-            f"item 13 (int8 KV, with K3d)")
+            f"a {dtype} KV cache is not ported: the cache holds float32, "
+            f"bfloat16 or int8 with per-token scales, as the reference's "
+            f"serving paths (ROADMAP Queue 1 item 13)")
     dev = resolve_device(device)
     cache: Dict[str, Any] = {}
     for i, (reps, group) in enumerate(stages_of(cfg)):
         stage = {}
         for j, (mixer_kind, _) in enumerate(group):
             L = cache_len(cfg, mixer_kind, max_len)
+            d_inner = cfg.expand * cfg.d_model
+            scale_shape = (reps, batch, L)        # MLA: one scale a token
             if mixer_kind == "mla":
                 shapes = {"cc": (reps, batch, L, cfg.kv_lora_rank),
                           "cr": (reps, batch, L, cfg.qk_rope_dim)}
+            elif mixer_kind == "mamba":
+                shapes = {"conv": (reps, batch, cfg.d_conv - 1, d_inner),
+                          "ssm": (reps, batch, d_inner, cfg.d_state)}
+            elif mixer_kind == "rwkv":
+                heads = cfg.d_model // R.HEAD_DIM
+                shapes = {"att_shift": (reps, batch, cfg.d_model),
+                          "ffn_shift": (reps, batch, cfg.d_model),
+                          "wkv": (reps, batch, heads, R.HEAD_DIM,
+                                  R.HEAD_DIM)}
             else:
                 kv = (reps, batch, L, cfg.n_kv_heads, cfg.head_dim)
                 shapes = {"k": kv, "v": kv}
-            c = {name: torch.zeros(shape, dtype=dtype, device=dev)
-                 for name, shape in shapes.items()}
-            c["pos"] = torch.full((reps, batch, L), POS_SENTINEL,
-                                  dtype=torch.int32, device=dev)
+                scale_shape = kv[:-1]             # one a token and kv head
+            c = {name: torch.zeros(shape, device=dev, dtype=(
+                torch.float32 if name in F32_STATE else dtype))
+                for name, shape in shapes.items()}
+            if mixer_kind not in RECURRENT:       # a cache of tokens
+                c["pos"] = torch.full((reps, batch, L), POS_SENTINEL,
+                                      dtype=torch.int32, device=dev)
+                if dtype == torch.int8:
+                    for name in shapes:
+                        c[f"{name}_scale"] = torch.zeros(
+                            scale_shape, dtype=torch.float32, device=dev)
             stage[f"b{j}"] = c
         cache[f"stage{i}"] = stage
     return cache
@@ -196,7 +240,6 @@ def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The stack over ``x``; returns (x, the MoE layers' summed aux loss,
     None where no layer is MoE or in decode, which has no use for it)."""
-    B, Sq, _ = x.shape
     ring_index: Dict[int, torch.Tensor] = {}    # cache length -> write slots
     aux = None
     for i, (reps, group) in enumerate(stages_of(cfg)):
@@ -206,37 +249,27 @@ def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                 c = (None if cache is None else
                      {k: t[r] for k, t in cache[f"stage{i}"][f"b{j}"].items()})
                 h = rms_norm(x, p["ln1"], cfg.norm_eps)
-                kv, idx = None, None
-                if c is not None and mode == "decode":
-                    L = c["pos"].shape[1]
-                    if L not in ring_index:     # token t lives in slot t % L
-                        ring_index[L] = cache_index % L
-                    idx = ring_index[L]
-                if mixer_kind == "mla":
-                    if idx is not None:
-                        kv = (c["cc"], c["cr"], c["pos"])
-                    y, new = A.mla_block(
-                        p["mixer"], h, positions, n_heads=cfg.n_heads,
-                        q_lora=cfg.q_lora_rank, kv_lora=cfg.kv_lora_rank,
-                        qk_nope=cfg.qk_nope_dim, qk_rope=cfg.qk_rope_dim,
-                        v_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
-                        block=cfg.attn_block, kv_cache=kv, cache_index=idx,
-                        rows=rows)
-                    written = ("cc", "cr")
+                st = None if c is None else _state_rows(c, mode, slot,
+                                                        x.shape[0])
+                updates: Dict[str, torch.Tensor] = {}
+                if mixer_kind == "mamba":
+                    y, new = SSM.mamba_block(
+                        p["mixer"], h, d_state=cfg.d_state,
+                        d_conv=cfg.d_conv, expand=cfg.expand,
+                        state=None if st is None else SSM.MambaState(
+                            st["conv"], st["ssm"]))
+                    if new is not None:
+                        updates.update(conv=new.conv, ssm=new.ssm)
+                elif mixer_kind == "rwkv":
+                    y, new = R.rwkv_time_mix(
+                        p["mixer"], h, state=None if st is None else
+                        R.RWKVState(st["att_shift"], st["ffn_shift"],
+                                    st["wkv"]))
+                    if new is not None:
+                        updates.update(att_shift=new[0], wkv=new[1])
                 else:
-                    if idx is not None:
-                        kv = (c["k"], c["v"], c["pos"])
-                    y, new = A.gqa_block(
-                        p["mixer"], h, positions, n_heads=cfg.n_heads,
-                        n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                        rope_theta=cfg.rope_theta,
-                        window=cfg.window if mixer_kind == "attn_local" else 0,
-                        block=cfg.attn_block, kv_cache=kv, cache_index=idx,
-                        rows=rows)
-                    written = ("k", "v")
-                if c is not None and mode == "prefill":
-                    _prefill_write(c, slot, dict(zip(written, new),
-                                                 pos=positions))
+                    y = _attention(cfg, mixer_kind, p, c, h, positions,
+                                   mode, slot, cache_index, rows, ring_index)
                 x = x + y
                 h = rms_norm(x, p["ln2"], cfg.norm_eps)
                 if mlp_kind == "moe":
@@ -247,10 +280,90 @@ def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                         aux_loss=mode != "decode")
                     if aux_l is not None:
                         aux = aux_l if aux is None else aux + aux_l
+                elif mlp_kind == "rwkv_cm":
+                    y, shift = R.rwkv_channel_mix(
+                        p["mixer"], h, state=None if st is None else
+                        R.RWKVState(None, st["ffn_shift"], None))
+                    if shift is not None:
+                        updates["ffn_shift"] = shift
                 else:
                     y = mlp(p["mlp"], h, cfg.activation)
                 x = x + y
+                if updates:
+                    _state_write(c, updates, mode, slot, rows)
     return x, aux
+
+
+def _attention(cfg: ModelConfig, mixer_kind: str, p: Dict,
+               c: Optional[Dict], h: torch.Tensor, positions: torch.Tensor,
+               mode: str, slot: int, cache_index: Optional[torch.Tensor],
+               rows: Optional[torch.Tensor],
+               ring_index: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """One attention layer (GQA, full or windowed, or MLA) of
+    :func:`_run`: in decode over its cache (int8 with its scales), in
+    prefill writing its tokens' entries into cache rows ``slot:``."""
+    kv, idx, scales = None, None, None
+    if c is not None and mode == "decode":
+        L = c["pos"].shape[1]
+        if L not in ring_index:                 # token t lives in slot t % L
+            ring_index[L] = cache_index % L
+        idx = ring_index[L]
+    if mixer_kind == "mla":
+        if idx is not None:
+            kv = (c["cc"], c["cr"], c["pos"])
+            if "cc_scale" in c:
+                scales = (c["cc_scale"], c["cr_scale"])
+        y, new = A.mla_block(
+            p["mixer"], h, positions, n_heads=cfg.n_heads,
+            q_lora=cfg.q_lora_rank, kv_lora=cfg.kv_lora_rank,
+            qk_nope=cfg.qk_nope_dim, qk_rope=cfg.qk_rope_dim,
+            v_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
+            block=cfg.attn_block, kv_cache=kv, cache_index=idx, rows=rows,
+            kv_scales=scales)
+        written = ("cc", "cr")
+    else:
+        if idx is not None:
+            kv = (c["k"], c["v"], c["pos"])
+            if "k_scale" in c:
+                scales = (c["k_scale"], c["v_scale"])
+        y, new = A.gqa_block(
+            p["mixer"], h, positions, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta,
+            window=cfg.window if mixer_kind == "attn_local" else 0,
+            block=cfg.attn_block, kv_cache=kv, cache_index=idx, rows=rows,
+            kv_scales=scales)
+        written = ("k", "v")
+    if c is not None and mode == "prefill":
+        _prefill_write(c, slot, dict(zip(written, new), pos=positions))
+    return y
+
+
+def _state_rows(c: Dict, mode: str, slot: int, B: int
+                ) -> Optional[Dict[str, torch.Tensor]]:
+    """A recurrent layer's state leaves as this call reads them: rows
+    ``slot:slot+B`` in prefill, every row in decode; None for a layer
+    without any."""
+    st = {k: t for k, t in c.items() if k in STATE_LEAVES}
+    if not st:
+        return None
+    if mode == "prefill":
+        return {k: t[slot:slot + B] for k, t in st.items()}
+    return st
+
+
+def _state_write(c: Dict, updates: Dict[str, torch.Tensor], mode: str,
+                 slot: int, rows: Optional[torch.Tensor]) -> None:
+    """Write a recurrent layer's new state IN PLACE, in each leaf's dtype:
+    rows ``slot:slot+B`` in prefill; in decode the ACTIVE rows only, so an
+    inactive row keeps its bits (the reference selects the old leaves for
+    it, its ``lm.py:478-481``)."""
+    for name, val in updates.items():
+        buf = c[name]
+        if mode == "prefill":
+            buf[slot:slot + val.shape[0]] = val
+        else:
+            buf.index_put_((rows,), val[rows].to(buf.dtype))
 
 
 def _prefill_write(c: Dict, slot: int, leaves: Dict[str, torch.Tensor]
@@ -284,8 +397,18 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Returns (logits, aux_loss, cache), as the reference's: the aux loss
     sums the MoE layers' load-balance losses (a 0 scalar without MoE).
-    ``mode="prefill"`` writes the tokens' cache entries and positions into
-    cache rows ``slot:slot+B`` IN PLACE."""
+    ``mode="prefill"`` writes the tokens' cache entries and positions (a
+    recurrent layer's final state) into cache rows ``slot:slot+B`` IN
+    PLACE; into an int8 cache it raises ``TypeError``, as the reference's
+    prefill does (its ``lm.py:231-235`` writes float K/V into the int8
+    buffer): only decode quantises."""
+    if mode == "prefill" and any(t.dtype == torch.int8
+                                 for st in cache.values()
+                                 for c in st.values() for t in c.values()):
+        raise TypeError(
+            "prefill into an int8 cache: the reference cannot prefill one "
+            "(it writes float K/V into the int8 buffer); an int8 cache is "
+            "filled token by token through decode_step")
     B, Sq = tokens.shape
     if positions is None:
         positions = torch.arange(Sq, dtype=torch.int32,
@@ -307,6 +430,30 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     logits, _, cache = forward(cfg, params, tokens, positions=positions,
                                cache=cache, mode="prefill", slot=slot)
     return logits, cache
+
+
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
+                tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, Dict]:
+    """One decode step at a uniform position, the reference's
+    ``lm.decode_step`` (its ``lm.py:423-445``).  tokens: (B, 1); pos: the
+    scalar position of every row (an int or a 0-d tensor).  Every row's
+    cache entry is written IN PLACE, at slot ``pos % L`` of each layer's L
+    slots; an int8 cache quantises on write.  Returns (logits (B, 1, V),
+    cache)."""
+    from repro_torch import to_device
+
+    B, Sq = tokens.shape
+    if Sq != 1:
+        raise ValueError(f"decode_step takes tokens (B, 1) (got {Sq} a row)")
+    dev = tokens.device
+    pos = (pos.to(device=dev, dtype=torch.int32)
+           if isinstance(pos, torch.Tensor)
+           else to_device(int(pos), dev, torch.int32)).reshape(())
+    idx = pos.expand(B)
+    rows = torch.arange(B, device=dev)
+    x = embed(params["embed"], tokens) * math.sqrt(cfg.d_model)
+    x, _ = _run(cfg, params, x, idx[:, None], "decode", cache, 0, idx, rows)
+    return _logits(cfg, params, x), cache
 
 
 def decode_step_batched(cfg: ModelConfig, params: Dict, cache: Dict,

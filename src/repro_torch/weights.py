@@ -5,7 +5,10 @@ torch cannot reproduce, so parity runs hand the reference's parameter tree
 across as numpy arrays (``jax.tree.map(np.asarray, params)``, done by the
 caller — this module imports neither jax nor the reference).  The port keeps
 the same nested keys and the same stacked ``(reps, ...)`` layout, so the
-conversion is leaf for leaf.
+conversion is leaf for leaf, each leaf in its own dtype: under bf16 weights
+the leaves the reference keeps in f32 (norms, MoE routers, mamba's
+``A_log``/``D``/``dt_bias``, rwkv's ``mu_*``/``w0``/``u``/``ln_x``) stay
+f32.
 """
 from __future__ import annotations
 

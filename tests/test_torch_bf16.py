@@ -3,8 +3,9 @@ needed.
 
 - F2: ``params_from_jax`` carries the reference's bf16 leaves across bit for
   bit (numpy's bf16 comes from ``ml_dtypes``, which torch cannot read).
-- F1: ``lm.init_cache`` takes float32 and bfloat16 caches only; an int8
-  cache needs the reference's scales (int8 KV, ROADMAP Queue 1 item 13).
+- F1: ``lm.init_cache`` takes float32, bfloat16 and int8 caches only (the
+  int8 one with the reference's scale leaves, whose layout is pinned
+  here; its values are tests/test_torch_int8.py's).
 - The attention twin with q and k/v of different dtypes (bf16 q over an f32
   cache, and f32 q over a bf16 cache) against the reference's
   ``chunked_attention``, which promotes inside the kernel region, and its
@@ -91,14 +92,36 @@ def test_params_from_jax_keeps_special_bf16_values():
         got.view(torch.int16).numpy().view(np.uint16), _u16(special))
 
 
-# ---- F1: a cache holds float32 or bfloat16 --------------------------------
+# ---- F1: a cache holds float32, bfloat16 or int8 with its scales ----------
 
-@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.float16,
-                                   torch.int32])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float16, torch.int32])
 def test_init_cache_refuses_other_dtypes(dtype):
     cfg = get_reduced("tinyllama-1.1b")
     with pytest.raises(NotImplementedError, match="item 13"):
         P_lm.init_cache(cfg, 2, 16, dtype=dtype, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "deepseek-v2-236b"])
+def test_init_cache_int8_leaves_match_reference(arch):
+    """An int8 cache has the reference's leaves: int8 K/V (or MLA latent
+    and shared key), f32 scales per token and kv head (per token for MLA)
+    and int32 positions, in its shapes and values."""
+    cfg = get_reduced(arch)
+    cache = P_lm.init_cache(cfg, 2, 24, dtype=torch.int8, device="cpu")
+    want = R_lm.init_cache(cfg, 2, max_len=24, dtype=jnp.int8)
+    assert sorted(cache) == sorted(want)
+    n_scales = 0
+    for st in want:
+        assert sorted(cache[st]) == sorted(want[st])
+        for b in want[st]:
+            assert sorted(cache[st][b]) == sorted(want[st][b])
+            for name, r in want[st][b].items():
+                p = cache[st][b][name]
+                assert tuple(p.shape) == r.shape
+                assert str(p.dtype) == f"torch.{r.dtype}"
+                np.testing.assert_array_equal(p.numpy(), np.asarray(r))
+                n_scales += name.endswith("_scale")
+    assert n_scales > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

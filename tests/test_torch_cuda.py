@@ -10,8 +10,10 @@ out-of-range page tables, tables longer than the page gather's persistent
 grid, other head dims (256 included), group sizes and dtypes (q over k/v
 of another dtype included), sequence lengths that are not multiples of the
 kernels' tiles or splits, the decode kernel's dispatch
-rule, and the Engine on the card against the Engine on the CPU (the dense,
-sliding-window, MoE and MLA families).
+rule, int8 K/V with their scales on the decode route (K3d) at every
+instantiated head dim and group, and the Engine on the card against the
+Engine on the CPU (the dense, sliding-window, MoE, MLA and recurrent
+families).
 """
 import numpy as np
 import pytest
@@ -404,6 +406,46 @@ def test_moe_and_mla_engine_on_card_matches_cpu(dev, arch):
     assert out[0] == out[1]
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-7b"])
+def test_recurrent_engine_on_card_matches_cpu(dev, arch):
+    """Reduced jamba (mamba + attention + MoE) and rwkv6 through exact-
+    length prefills, a suspend wave and a resume wave, on the card against
+    the CPU: the scans' step loops, the state pages and (jamba) K3 as the
+    model calls it; rwkv6 launches no K3."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = get_reduced(arch)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (1, 19, 40)]
+    out = []
+    for d in ("cpu", dev):
+        e = Engine(cfg, params, slots=3, max_len=96, n_sessions=8, device=d)
+        reqs = [Request(i, p, 10 + 3 * i) for i, p in enumerate(prompts)]
+        ops.reset_launch_counts()
+        for r in reqs:
+            e.submit(r)
+        for _ in range(4):
+            e.step()
+        e.suspend_many([0, 2])
+        while e.active:
+            e.step()
+        e.resume_many([0, 2], [12, 12])
+        while e.active:
+            e.step()
+        n = ops.launch_counts()
+        out.append(([r.generated for r in reqs], dict(e.stats),
+                    e.session_pos, e.session_tok,
+                    e.verify_failure_count(), int(e.verify_store())))
+    attn = "attn_full" in cfg.layer_kinds()
+    assert (n["flash_attention"] > 0) == attn
+    assert n["villa_scatter"] > 0 and n["villa_gather"] > 0
+    assert out[0] == out[1]
+
+
 @pytest.mark.parametrize("shape,dt", [
     ((1000, 333), torch.float32), ((7, 129, 65), torch.bfloat16),
     ((4096,), torch.int32), ((256, 128), torch.int8), ((13,), torch.uint8),
@@ -714,3 +756,141 @@ def test_mla_prefill_matches_plain(dev, B, S, T, H, K, window, dt):
     _assert_within_bar(out, want, q, k, v, qp, kp, window=window)
     if B > 1:
         assert not out[0].float().any()
+
+
+# ---- K3d: int8 K/V with per-token, per-head scales, decode route ---------
+
+def _int8_case(dev, B, T, H, K, D, window, ring, seed, zero_scale=False):
+    """A decode case over an int8 cache: the values quantised from random
+    K/V by the model's quantiser, so codes and scales are the serving
+    path's; ``zero_scale`` zeroes one valid key's and value's scales."""
+    from repro_torch.models.attention import quantise
+
+    q, k, v, qp, kp = _decode_case(dev, B, T, H, K, D, torch.float32,
+                                   window, ring, seed)
+    (k8, ks), (v8, vs) = quantise(k), quantise(v)
+    if zero_scale:
+        b = B - 1
+        t = int((kp[b] < 2**30).nonzero()[0])
+        ks[b, t], vs[b, t] = 0.0, 0.0
+    return q, k8, v8, ks, vs, qp, kp
+
+
+@pytest.mark.parametrize("B,T,H,K,D,window,ring,zero", [
+    (4, 1024, 32, 4, 64, 0, False, False),     # tinyllama (D 64, G 8)
+    (4, 1024, 32, 16, 128, 1024, True, False),  # gemma3's ring, wrapped
+    (4, 2048, 32, 16, 128, 0, False, False),   # gemma3's global layer
+    (4, 1024, 32, 8, 128, 0, False, False),    # jamba's attention (G 4)
+    (3, 1000, 32, 4, 64, 0, False, True),      # T % 16 != 0, a zero scale
+    (2, 9, 32, 16, 128, 0, False, False),      # T < one split
+    (3, 333, 32, 8, 128, 50, False, True),     # a window, ragged T
+    (2, 500, 32, 16, 128, 100, True, False),   # a ring past its window
+])
+def test_int8_decode_matches_plain(dev, B, T, H, K, D, window, ring, zero):
+    """The split-KV kernel over int8 K/V against the plain chunked
+    attention and the split twin with the same scales, within 3e-5; a
+    row with no valid key (its slots at 2**30) gives exactly 0, two runs
+    give the same bits, and a call counts one decode launch and one int8
+    decode launch."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k8, v8, ks, vs, qp, kp = _int8_case(dev, B, T, H, K, D, window, ring,
+                                           seed=B * T + H + D, zero_scale=zero)
+    fn = ops.KERNELS["flash_attention"]
+    n = (fn.launches, fn.decode, fn.decode_int8, fn.prefill)
+    out = ops.chunked_attention(q, k8, v8, qp, kp, window=window,
+                                k_scale=ks, v_scale=vs)
+    again = ops.chunked_attention(q, k8, v8, qp, kp, window=window,
+                                  k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.decode, fn.decode_int8, fn.prefill) == (
+        n[0] + 2, n[1] + 2, n[2] + 2, n[3])
+    assert torch.equal(_bytes(out), _bytes(again))
+    assert not out[0].any()
+    want = ref.chunked_attention_ref(q, k8, v8, qp, kp, window=window,
+                                     k_scale=ks, v_scale=vs)
+    assert float((out - want).abs().max()) < 3e-5
+    _, _, ns, sl = FA.decode_plan(B, K, H // K, T, 1, torch.cuda.
+                                  get_device_properties(dev).
+                                  multi_processor_count, D)
+    twin = ref.split_decode_ref(q, k8, v8, qp, kp, n_split=ns, split_len=sl,
+                                window=window, k_scale=ks, v_scale=vs)
+    assert float((out - twin).abs().max()) < 3e-5
+
+
+@pytest.mark.parametrize("D,G", [(64, 8), (128, 2), (128, 4)])
+def test_int8_decode_takes_each_instantiation(dev, D, G):
+    """Every instantiated (head dim, head group): K/V views off 16-byte
+    boundaries (copied by the wrapper) and positions that are not slot
+    order give the plain version's result."""
+    from repro_torch.kernels import flash_attention as FA
+
+    K, B, T = 2, 2, 130
+    q, k8, v8, ks, vs, qp, kp = _int8_case(dev, B, T, G * K, K, D, 0, True,
+                                           seed=D + G)
+    assert (torch.float32, D, FA.decode_plan(B, K, G, T, 1, 132, D)[0]) in \
+        FA.INT8_DECODE
+    flat = torch.zeros(k8.numel() + 3, dtype=torch.int8, device=dev)
+    off = flat[3:].view(k8.shape)
+    off.copy_(k8)
+    assert off.data_ptr() % 16
+    out = ops.chunked_attention(q, off, v8, qp, kp, k_scale=ks, v_scale=vs)
+    want = ref.chunked_attention_ref(q, k8, v8, qp, kp, k_scale=ks,
+                                     v_scale=vs)
+    assert float((out - want).abs().max()) < 3e-5
+
+
+def test_int8_attention_raises_outside_its_instantiations(dev):
+    q = torch.zeros((1, 1, 8, 64), device=dev)
+    k8 = torch.zeros((1, 16, 2, 64), dtype=torch.int8, device=dev)
+    s = torch.ones((1, 16, 2), device=dev)
+    one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    pos = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="Queue 2 K3d"):     # G 4 at D 64
+        ops.chunked_attention(q, k8, k8, one, pos, k_scale=s, v_scale=s)
+    with pytest.raises(ValueError, match="Queue 2 K3d"):     # bf16 q
+        ops.chunked_attention(q[:, :, :4].bfloat16(), k8[:, :, :1],
+                              k8[:, :, :1], one, pos, k_scale=s[..., :1],
+                              v_scale=s[..., :1])
+    q8 = torch.zeros((1, 16, 16, 64), device=dev)
+    with pytest.raises(NotImplementedError, match="K3d"):    # prefill
+        ops.chunked_attention(q8, k8, k8, pos, pos, k_scale=s, v_scale=s)
+    with pytest.raises(ValueError, match="k_scale"):         # no scales
+        ops.chunked_attention(q[:, :, :4], k8[:, :, :1], k8[:, :, :1], one,
+                              pos)
+
+
+def test_int8_decode_step_on_card_matches_cpu(dev):
+    """A reduced tinyllama at head dim 64 and G 8 (an instantiated
+    triple), 20 decode_step calls over an int8 cache on the card and on
+    the CPU: int8 codes equal but where the two devices' f32 roundings
+    straddle a half step, scales and logits within 1e-4, and 20 x layers
+    int8 decode launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import _tree_to
+
+    cfg = dataclasses.replace(get_reduced("tinyllama-1.1b"), n_heads=8,
+                              n_kv_heads=1, head_dim=64)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32))
+    out = {}
+    fn = ops.KERNELS["flash_attention"]
+    n = fn.decode_int8
+    for d in ("cpu", dev):
+        p = _tree_to(params, d)
+        cache = lm.init_cache(cfg, 2, 24, dtype=torch.int8, device=d)
+        logits = [lm.decode_step(cfg, p, cache, toks[:, t:t + 1].to(d),
+                                 t)[0].cpu() for t in range(20)]
+        out[str(d)] = (torch.cat(logits, 1), {k: t.cpu() for k, t in
+                                              cache["stage0"]["b0"].items()})
+    assert fn.decode_int8 - n == 20 * cfg.n_layers
+    (lc, cc), (lg, cg) = out["cpu"], out[str(dev)]
+    assert float((lc - lg).abs().max()) < 1e-4
+    diff = (cc["k"].int() - cg["k"].int()).abs()
+    assert int(diff.max()) <= 1 and int(diff.sum()) <= diff.numel() // 1000
+    assert torch.equal(cc["pos"], cg["pos"])
+    assert torch.allclose(cc["k_scale"], cg["k_scale"], rtol=1e-5, atol=0)

@@ -327,7 +327,7 @@ def test_launcher_json_matches_reference(extra):
 @pytest.mark.parametrize("arch,ported", [
     ("gemma3-27b", True), ("tinyllama-1.1b", True), ("gemma-7b", True),
     ("qwen1.5-110b", True), ("deepseek-v2-236b", True),
-    ("jamba-v0.1-52b", False), ("rwkv6-7b", False), ("olmoe-1b-7b", True),
+    ("jamba-v0.1-52b", True), ("rwkv6-7b", True), ("olmoe-1b-7b", True),
     ("seamless-m4t-medium", False), ("qwen2-vl-72b", False)])
 def test_check_supported_takes_local_attention_only(arch, ported):
     cfg = p_reduced(arch)

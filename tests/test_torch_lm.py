@@ -112,4 +112,4 @@ def test_prefill_and_ragged_decode_match(models):
 def test_other_layer_kinds_raise():
     from repro_torch.configs import get_reduced as p_reduced
     with pytest.raises(NotImplementedError, match="later|slice"):
-        P_lm.init_cache(p_reduced("jamba-v0.1-52b"), 1, 8, device="cpu")
+        P_lm.init_cache(p_reduced("seamless-m4t-medium"), 1, 8, device="cpu")
