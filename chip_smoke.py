@@ -28,7 +28,12 @@ nvcc (sm_90a), then:
                 kernel over int8 K/V with per-token, per-head scales, K3d,
                 at tinyllama's, gemma3's ring and global and jamba's
                 attention shapes, beside SDPA over K/V dequantised outside
-                its timed window), the tile copy
+                its timed window; at seamless-m4t's, the non-causal
+                encoder over 4096 frames, cross attention (queries at
+                2**29, frames at 0 or at 2**30 where masked) in prefill
+                and decode, and the decoder's self-attention decode at
+                G 1; at qwen2-vl's, an exact-length bf16 prefill whose
+                temporal ids repeat over an image), the tile copy
                 also on odd shapes, dtypes and sizes, and times kernel, plain
                 version and one library call for the same function;
   3. serving  — full-width tinyllama-1.1b (random weights from a seed)
@@ -106,7 +111,22 @@ nvcc (sm_90a), then:
                 of 7 mamba + 1 attention layer, 8 MoE layers of 16 experts
                 top-2; 52.1 GB): the Engine with one suspend and one resume
                 wave; K3's prefill at exact lengths and its decode equal
-                the stats.
+                the stats;
+  15. seamless — seamless-m4t-medium at full width and depth (12 encoder
+                and 12 decoder layers, f32, 3.9 GB) through its enc-dec
+                path: ``lm.prefill`` of 4 prompts with 4096 random frame
+                embeddings each, then 256 teacher-forced ``lm.decode_step``
+                calls over the cached cross K/V, every logit within 1e-4
+                of the cacheless ``lm.forward`` (relative to its largest),
+                K3 launching 36 times a prefill and 24 a step;
+  16. qwen2-vl — qwen2-vl-72b at full width with bf16 weights over the
+                Engine's f32 cache, at least 32 of its 80 layers (as many
+                as leave 10 GB of the card free): M-RoPE through the
+                Engine (exact-length prompts, one suspend and one resume
+                wave) and the Scheduler, as in phase 13, and an image
+                prompt's ``lm.prefill`` at 3-part position ids, whose
+                cache positions must be the temporal ids and whose logits
+                must equal the cacheless ``lm.forward``'s.
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -184,6 +204,22 @@ R_SCHED_LENS = (100, 400)
 # layer; 26.05 B parameters, 52.1 GB)
 J_LAYERS, J_SLOTS, J_MAX_LEN, J_SESSIONS = 16, 4, 1024, 8
 J_PROMPTS, J_MAX_NEW, J_FIRST = (16, 120, 300, 500), 24, 12
+# phase 15: seamless-m4t-medium at full width and depth (12 encoder and 12
+# decoder layers, 16/16 heads of 64, f32: 0.978 B parameters, 3.9 GB):
+# S_B rows of S_FRAMES random frame embeddings (std 0.02) and an S_PROMPT-
+# token prompt each, prefilled into an S_MAX_LEN cache, then S_STEPS
+# teacher-forced decode steps
+S_B, S_FRAMES, S_PROMPT, S_MAX_LEN, S_STEPS = 4, 4096, 16, 512, 256
+# phase 16: qwen2-vl-72b at full width, bf16 weights over the Engine's f32
+# cache: 1.76 GB a layer, 4.98 GB of embedding and head; at least V_LAYERS
+# of its 80 layers (61.2 GB), more while V_RESERVE of the card stays free
+V_LAYERS, V_RESERVE = 32, 10e9
+V_SLOTS, V_MAX_LEN, V_SESSIONS = 4, 1024, 8
+V_PROMPTS, V_MAX_NEW, V_FIRST = (16, 120, 300, 500), 24, 12
+V_SCHED_LENS = (100, 400)
+# phase 2's row (e) and phase 16's image prefill: V_IMG_LEN tokens, a text
+# prefix, one V_IMG_GRID x V_IMG_GRID image, text after it
+V_IMG_LEN, V_IMG_PREFIX, V_IMG_GRID = 500, 100, 16
 
 
 class SmokeFailure(RuntimeError):
@@ -432,6 +468,8 @@ def main() -> int:
     rows["flash_attention_mla"], rows["flash_attention_moe"] = \
         mla_and_moe_rows(dev, gen, flush, tag)
     rows["flash_attention_int8"] = int8_rows(dev, gen, flush, tag)
+    rows["flash_attention_encdec"], rows["flash_attention_mrope"] = \
+        encdec_and_mrope_rows(dev, gen, flush, tag)
 
     # K4 at the tile_copy path's shape: one K leaf of the serving cache
     leaf = torch.randn((cfg.n_layers, SLOTS, MAX_LEN, K, D), device=dev,
@@ -633,6 +671,14 @@ def main() -> int:
                                (14, ("flash_attention_mixed", jamba_phase))):
         add(fn(tag), entry)
         wall(phase)
+    # seamless's enc-dec path: the forward it is held to, then the
+    # prefill and the decode steps; qwen2-vl's Engine, Scheduler and image
+    # prefill
+    for run in seamless_phase(tag).values():
+        add(run, "flash_attention_encdec")
+    wall(15)
+    add(qwen2vl_phase(tag), "flash_attention_mrope")
+    wall(16)
     routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
                                   "decode": counts["flash_attention_decode"]},
               **paths}
@@ -652,6 +698,8 @@ def main() -> int:
         "flash_attention_moe": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_mla": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_int8": "src/repro/kernels/flash_attention.py:81",
+        "flash_attention_encdec": "src/repro/kernels/flash_attention.py:81",
+        "flash_attention_mrope": "src/repro/kernels/flash_attention.py:81",
         "rbm_copy": "src/repro/kernels/rbm_copy.py:27"}
     csrc = "src/repro_torch/kernels/csrc/"
     decode_src = csrc + "flash_decode.cu"
@@ -665,6 +713,8 @@ def main() -> int:
                "flash_attention_moe": decode_src,
                "flash_attention_mla": csrc + "flash_attention.cu",
                "flash_attention_int8": decode_src,
+               "flash_attention_encdec": decode_src,
+               "flash_attention_mrope": csrc + "flash_attention.cu",
                "rbm_copy": csrc + "rbm_copy.cu"}
     # flash_attention counts K3's decode kernel on the tinyllama paths
     # (phases 3 and 5), flash_attention_prefill its prefill kernel there;
@@ -677,14 +727,18 @@ def main() -> int:
     # Dk 192 / Dv 128 on deepseek-v2's (phase 11, which decodes without
     # K3), flash_attention_int8 the decode kernel over int8 K/V (K3d) on
     # the int8 decode_step path (phase 12); tinyllama's f32 decode_step run
-    # (phase 12) counts under flash_attention; a row's source is its
-    # headline route's (the prefill kernel is csrc/flash_attention.cu)
+    # (phase 12) counts under flash_attention; flash_attention_encdec both
+    # routes on seamless's enc-dec path (phase 15: encoder, self and cross
+    # attention), flash_attention_mrope both on qwen2-vl's (phase 16); a
+    # row's source is its headline route's (the prefill kernel is
+    # csrc/flash_attention.cu)
     kernels = []
     for name in ("villa_scatter", "villa_gather", "flash_attention",
                  "flash_attention_prefill", "flash_attention_window",
                  "flash_attention_d256", "flash_attention_mixed",
                  "flash_attention_moe", "flash_attention_mla",
-                 "flash_attention_int8", "rbm_copy"):
+                 "flash_attention_int8", "flash_attention_encdec",
+                 "flash_attention_mrope", "rbm_copy"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],
@@ -710,6 +764,18 @@ def main() -> int:
         if name == "flash_attention_int8":
             kernels[-1]["route_dtypes"] = {
                 "decode": "q float32, k/v int8 with float32 scales"}
+        if name == "flash_attention_encdec":
+            kernels[-1]["route_dtypes"] = {
+                "prefill": "q, k/v float32 (shapes: encoder, non-causal; "
+                           "cross_prefill, cross_prefill_pads)",
+                "decode": "q, k/v float32 (shapes: cross_decode, "
+                          "self_decode)"}
+        if name == "flash_attention_mrope":
+            kernels[-1]["route_dtypes"] = {
+                "prefill": "q, k/v bfloat16 (shape: "
+                           f"prefill_{V_IMG_LEN}_image_bf16)",
+                "decode": "q bfloat16, k/v float32 (the flash_attention_"
+                          "mixed row qwen_decode's shape)"}
         print(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), launches "
@@ -756,7 +822,7 @@ def enqueue_us(fn, calls=50) -> float:
     return us
 
 
-def attention_err(label, got, q, k, v, qp, kp, window=0):
+def attention_err(label, got, q, k, v, qp, kp, window=0, causal=True):
     """K3's output ``got`` against its plain version on the same inputs,
     element by element under ``ref.attention_bar`` (3e-5 where the output
     is f32; where it is bf16, 3e-5 plus two bf16 ulps of the value, plus
@@ -765,8 +831,10 @@ def attention_err(label, got, q, k, v, qp, kp, window=0):
     its bar); fails the run past the bar."""
     from repro_torch.kernels import ref
 
-    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
-    bar = ref.attention_bar(got, want, q, k, v, qp, kp, window=window)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window,
+                                     causal=causal)
+    bar = ref.attention_bar(got, want, q, k, v, qp, kp, window=window,
+                            causal=causal)
     diff = (got.float() - want.float()).abs()
     share = float((diff / bar).max())
     check(got.dtype == q.dtype and share <= 1,
@@ -776,7 +844,7 @@ def attention_err(label, got, q, k, v, qp, kp, window=0):
 
 
 def attention_bound(q, k, q_pos, kv_pos, window, peak=F32_FLOP_PER_S,
-                    passes=1, dv=None, scale_bytes=0):
+                    passes=1, dv=None, scale_bytes=0, causal=True):
     """(ms, "bytes" or "operations") of the least time the card could take
     for this attention: q read and the output written once (in q's dtype),
     positions read once, the K/V rows that some query of their batch row
@@ -785,9 +853,11 @@ def attention_bound(q, k, q_pos, kv_pos, window, peak=F32_FLOP_PER_S,
     valid (query, key) pair (4*H*D where V's head dim ``dv`` is q's and
     K's), at the f32 peak (or, for the prefill kernel's own bound,
     ``passes`` products of each at a tensor-core peak: 3 TF32 ones for
-    f32, one bf16)."""
+    f32, one bf16).  Without ``causal`` every (query, key) pair is valid."""
+    import numpy as np
     qp, kp = q_pos.cpu().numpy(), kv_pos.cpu().numpy()
-    valid = kp[:, None, :] <= qp[:, :, None]
+    valid = (kp[:, None, :] <= qp[:, :, None] if causal else
+             np.ones((kp.shape[0], qp.shape[1], kp.shape[1]), bool))
     if window > 0:
         valid &= kp[:, None, :] > qp[:, :, None] - window
     B, S, H, D = q.shape
@@ -803,15 +873,15 @@ def attention_bound(q, k, q_pos, kv_pos, window, peak=F32_FLOP_PER_S,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def tc_bound(q, k, q_pos, kv_pos, window, dv=None):
+def tc_bound(q, k, q_pos, kv_pos, window, dv=None, causal=True):
     """The prefill kernel's tensor-core bound (ms): one bf16 product when
     q and K/V are bf16, else 3xTF32 (any f32 operand takes that path)."""
     import torch
     if q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16:
         return attention_bound(q, k, q_pos, kv_pos, window,
-                               BF16_FLOP_PER_S, dv=dv)[0]
+                               BF16_FLOP_PER_S, dv=dv, causal=causal)[0]
     return attention_bound(q, k, q_pos, kv_pos, window, TF32_FLOP_PER_S,
-                           3, dv=dv)[0]
+                           3, dv=dv, causal=causal)[0]
 
 
 def prefill_rows(attn_case, flush, tag) -> dict:
@@ -1014,22 +1084,25 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
     return row
 
 
-def attention_row(label, q, k, v, qp, kp, window, flush, tag) -> dict:
+def attention_row(label, q, k, v, qp, kp, window, flush, tag,
+                  causal=True) -> dict:
     """One attention shape: the kernel held to its plain version
     (``attention_err``), then timed beside it and SDPA
-    (``enable_gqa``, boolean mask), with its bound (operations at the
+    (``enable_gqa``, boolean mask; none without ``causal``), with its
+    bound (operations at the
     bf16 peak when q and K/V are bf16, else at the f32 peak) and, for a
     prefill, its tensor-core bound.  SDPA takes one dtype: a mixed row's
     operands are promoted to f32 before its timed window."""
     import torch
     from repro_torch.kernels import ops, ref
 
-    got = ops.chunked_attention(q, k, v, qp, kp, window=window)
-    err, share = attention_err(label, got, q, k, v, qp, kp, window)
+    kw = dict(window=window, causal=causal)
+    got = ops.chunked_attention(q, k, v, qp, kp, **kw)
+    err, share = attention_err(label, got, q, k, v, qp, kp, **kw)
     mixed = q.dtype != k.dtype
     lq, lk, lv = ((x.float() if mixed else x).transpose(1, 2)
                   for x in (q, k, v))
-    mask = kp[:, None, None, :] <= qp[:, None, :, None]
+    mask = kp[:, None, None, :] <= qp[:, None, :, None] if causal else None
     if window > 0:
         mask &= kp[:, None, None, :] > qp[:, None, :, None] - window
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1039,19 +1112,20 @@ def attention_row(label, q, k, v, qp, kp, window, flush, tag) -> dict:
     dv = v.shape[-1]
     bound, by = attention_bound(q, k, qp, kp, window,
                                 BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S,
-                                dv=dv)
+                                dv=dv, causal=causal)
     r = dict(**kernel_times(
-        lambda: ops.chunked_attention(q, k, v, qp, kp, window=window),
-        lambda: ref.chunked_attention_ref(q, k, v, qp, kp, window=window),
+        lambda: ops.chunked_attention(q, k, v, qp, kp, **kw),
+        lambda: ref.chunked_attention_ref(q, k, v, qp, kp, **kw),
         lambda: sdpa(lq, lk, lv, attn_mask=mask, enable_gqa=True), flush),
         bound_ms=bound, bound_by=by, max_abs_err=err, err_share_of_bar=share,
         dtypes=f"q {str(q.dtype)[6:]}, k/v {str(k.dtype)[6:]}")
     if mixed:
         r["library_operands"] = "promoted to float32 outside its timed window"
     if q.shape[1] > 1:
-        r["tc_bound_ms"] = tc_bound(q, k, qp, kp, window, dv)
+        r["tc_bound_ms"] = tc_bound(q, k, qp, kp, window, dv, causal)
     print(f"attention {label} ({r['dtypes']}) S={q.shape[1]} T={k.shape[1]} "
-          f"B={q.shape[0]} window {window}: max_abs_err {err:.3g} "
+          f"B={q.shape[0]} window {window}"
+          f"{'' if causal else ' non-causal'}: max_abs_err {err:.3g} "
           f"({share:.3g} of its bar); kernel "
           f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
           f"{r['library_ms']:.4f} ms, bound {bound:.5f} ms ({by})"
@@ -1625,6 +1699,96 @@ def int8_rows(dev, gen, flush, tag) -> dict:
     return row
 
 
+def vl_positions(prefix, grid_h, grid_w, suffix):
+    """(3, prefix + h*w + suffix) int32 ids as Qwen2-VL numbers a text
+    prefix, one image of an h x w patch grid and a text suffix: text at
+    ids 0..prefix-1 (all three equal), patch (i, j) at temporal id
+    ``prefix``, height ``prefix + i``, width ``prefix + j``, and the text
+    after it from ``prefix + max(h, w)`` on."""
+    import numpy as np
+    ids = [np.tile(np.arange(prefix), (3, 1))]
+    i, j = np.divmod(np.arange(grid_h * grid_w), grid_w)
+    ids.append(np.stack([np.full_like(i, prefix), prefix + i, prefix + j]))
+    start = prefix + max(grid_h, grid_w)
+    ids.append(np.tile(np.arange(start, start + suffix), (3, 1)))
+    return np.concatenate(ids, 1).astype(np.int32)
+
+
+def encdec_and_mrope_rows(dev, gen, flush, tag):
+    """Phase 2 at the shapes phases 15-16 launch.  seamless-m4t-medium's
+    (16/16 heads, D 64, f32): (a) the encoder, S_B rows of S_FRAMES
+    frames, non-causal; (b) cross attention in prefill, the S_PROMPT-token
+    prompts over the frames, queries at 2**29 and frames at 0, and the
+    same with each row's last 96 frames at 2**30 (an encoder mask's
+    pads); (c) cross attention in decode, S_B rows over the frames; (d)
+    the decoder's self-attention in decode over its S_MAX_LEN cache at
+    the last step's position (G 1: the head group of 2).  qwen2-vl-72b's
+    (64/8 heads, D 128, bf16): (e) the prefill of V_IMG_LEN tokens at
+    exact length whose temporal ids repeat over a V_IMG_GRID^2 patch
+    block after a V_IMG_PREFIX-token text prefix.  Each held to
+    ``ref.attention_bar`` and timed beside its plain version and SDPA.
+    Returns the two ``kernels`` entries: enc-dec's headline the cross
+    decode (12 layers launch it every step), M-RoPE's row (e)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    def case(B, S, T, H, K, D, qp_np, kp_np, dt):
+        q = torch.randn((B, S, H, D), device=dev, generator=gen).to(dt)
+        k = torch.randn((B, T, K, D), device=dev, generator=gen).to(dt)
+        v = torch.randn((B, T, K, D), device=dev, generator=gen).to(dt)
+        return (q, k, v, torch.from_numpy(np.ascontiguousarray(qp_np)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(kp_np)).to(dev))
+
+    sm = get_config("seamless-m4t-medium")
+    H, D, B, T, f32 = sm.n_heads, sm.head_dim, S_B, S_FRAMES, torch.float32
+    frames = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    cross_q = np.full((B, S_PROMPT), 2**29, np.int32)
+    valid = np.zeros((B, T), np.int32)
+    padded = valid.copy()
+    padded[:, -96:] = 2**30
+    end = S_PROMPT + S_STEPS - 1             # the last decode step's position
+    self_kv = np.full((B, S_MAX_LEN), 2**30, np.int32)
+    self_kv[:, :end + 1] = np.arange(end + 1)
+    ed = {
+        "encoder": attention_row(
+            "seamless encoder", *case(B, T, T, H, H, D, frames, frames, f32),
+            0, flush, tag, causal=False),
+        "cross_prefill": attention_row(
+            "seamless cross prefill",
+            *case(B, S_PROMPT, T, H, H, D, cross_q, valid, f32), 0, flush,
+            tag),
+        "cross_prefill_pads": attention_row(
+            "seamless cross prefill, 96 pad frames",
+            *case(B, S_PROMPT, T, H, H, D, cross_q, padded, f32), 0, flush,
+            tag),
+        "cross_decode": attention_row(
+            "seamless cross decode",
+            *case(B, 1, T, H, H, D, cross_q[:, :1], valid, f32), 0, flush,
+            tag),
+        "self_decode": attention_row(
+            "seamless self decode (G 1)",
+            *case(B, 1, S_MAX_LEN, H, H, D, np.full((B, 1), end, np.int32),
+                  self_kv, f32), 0, flush, tag)}
+    vl = get_config("qwen2-vl-72b")
+    suffix = V_IMG_LEN - V_IMG_PREFIX - V_IMG_GRID ** 2
+    pos = vl_positions(V_IMG_PREFIX, V_IMG_GRID, V_IMG_GRID, suffix)[:1]
+    mr = {f"prefill_{V_IMG_LEN}_image_bf16": attention_row(
+        f"qwen2-vl bf16 prefill {V_IMG_LEN} (a {V_IMG_GRID}x{V_IMG_GRID} "
+        f"image's repeated temporal ids)",
+        *case(1, V_IMG_LEN, V_IMG_LEN, vl.n_heads, vl.n_kv_heads,
+              vl.head_dim, pos, pos, torch.bfloat16), 0, flush, tag)}
+    out = []
+    for head, rows in ((ed["cross_decode"], ed),
+                       (mr[f"prefill_{V_IMG_LEN}_image_bf16"], mr)):
+        row = dict(head)
+        row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values()
+                                 if r["dtypes"] == head["dtypes"])
+        row["shapes"] = rows
+        out.append(row)
+    return out
+
+
 def repeat_decode(label, cfg, params, prompts, slots, max_len) -> None:
     """One decode batch run twice, each from its own copy of the same cache
     (prefilled with ``prompts``, one a slot, the last slot idle): the
@@ -1880,6 +2044,194 @@ def jamba_phase(tag) -> dict:
     del params
     torch.cuda.empty_cache()
     return counts
+
+
+def seamless_phase(tag) -> dict:
+    """Phase 15: seamless-m4t-medium at full width and depth (f32) through
+    its enc-dec path: ``lm.init_cache(..., enc_len=S_FRAMES)``,
+    ``lm.prefill`` of S_B S_PROMPT-token prompts with their frame
+    embeddings, then S_STEPS teacher-forced ``lm.decode_step`` calls.
+    Every logit of the prefill and the steps must stay within 1e-4 of the
+    cacheless ``lm.forward`` over the whole sequence, relative to its
+    largest (the reference's own bar, its
+    tests/test_decode_consistency.py), and K3 must launch 3 x 12 times a
+    prefill (encoder, self, cross) and 2 x 12 a step.  Prints the prefill's
+    ms, its encoder's alone, ms a step and the greedy agreement.  Returns
+    the launch counts of the forward and of the prefill and steps."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    cfg = get_config("seamless-m4t-medium")
+    params = model_params(cfg, torch.float32, "seamless-m4t-medium",
+                          f"full depth ({cfg.n_enc_layers} encoder layers): "
+                          f"the f32 weights fit")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    frames = torch.randn((S_B, S_FRAMES, cfg.d_model), device=dev,
+                         generator=gen) * 0.02
+    toks = torch.from_numpy(np.random.default_rng(SEED + 15).integers(
+        0, cfg.vocab_size, (S_B, S_PROMPT + S_STEPS)).astype(np.int32)
+                            ).to(dev)
+    ops.reset_launch_counts()
+    full, _, _ = lm.forward(cfg, params, toks, enc_embeds=frames)
+    torch.cuda.synchronize()
+    out = {"forward": ops.launch_counts()}
+    top = float(full.abs().max())
+    enc_ms = []
+    for _ in range(3):                      # the encoder alone, warm
+        t0 = time.perf_counter()
+        lm._encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    cache = lm.init_cache(cfg, S_B, S_MAX_LEN, device=dev, enc_len=S_FRAMES)
+    logits = torch.empty_like(full)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg, _ = lm.prefill(cfg, params, toks[:, :S_PROMPT], cache,
+                       enc_embeds=frames)
+    logits[:, :S_PROMPT] = lg
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for t in range(S_PROMPT, S_PROMPT + S_STEPS):
+        lg, _ = lm.decode_step(cfg, params, cache, toks[:, t:t + 1], t)
+        logits[:, t] = lg[:, 0]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / S_STEPS * 1e3
+    counts = out["path"] = ops.launch_counts()
+    err = float((logits - full).abs().max()) / (top + 1e-9)
+    check(bool(torch.isfinite(logits).all()) and err < 1e-4,
+          f"seamless: prefill + decode_step logits are {err:.4g} from "
+          f"forward (relative to its largest), the bar is 1e-4")
+    n = cfg.n_layers
+    pre, dec = 3 * n, 2 * n * S_STEPS
+    check_counts(counts, {"flash_attention": pre + dec,
+                          "flash_attention_prefill": pre,
+                          "flash_attention_decode": dec},
+                 "seamless's prefill and decode_step path")
+    check_counts(out["forward"], {"flash_attention": 3 * n,
+                                  "flash_attention_prefill": 3 * n},
+                 "seamless's forward")
+    agree = float((logits.argmax(-1) == full.argmax(-1)).float().mean())
+    c = cache["stage0"]["b0"]
+    check(not c["enc_pos"].any() and bool(c["enc_k"][-1].any()),
+          "seamless: the prefill did not write every layer's cross K/V")
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    print(f"seamless: prefill of {S_B} x {S_PROMPT} tokens over {S_FRAMES} "
+          f"frames {prefill_ms:.3f} ms, its encoder alone "
+          f"{statistics.median(enc_ms):.3f} ms; {S_STEPS} decode_step calls "
+          f"{step_ms:.3f} ms a step; cache {cache_bytes / 1e9:.2f} GB; "
+          f"logits {err:.4g} from forward relative to its largest "
+          f"({top:.3f}); greedy agreement {agree:.4f} of "
+          f"{S_B * (S_PROMPT + S_STEPS)} positions; launches "
+          f"{json.dumps(counts)} [{tag}]")
+    del params, full, logits, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen2vl_layers(full) -> tuple:
+    """(layers, GB of weights, GB the card keeps free) of phase 16: the
+    most of qwen2-vl-72b's layers whose bf16 weights, with the embedding
+    and head and the Engine's cache and store (V_SLOTS live slots,
+    V_SESSIONS stored ones and the fast tier's 2, f32 K/V and positions at
+    V_MAX_LEN), leave V_RESERVE of the card free, and room besides for the
+    head's f32 draw, the largest temporary of ``init_lm``, which comes
+    last; at least V_LAYERS."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import param_count
+
+    fixed = 2 * param_count(dataclasses.replace(full, n_layers=0))
+    layer = 2 * param_count(dataclasses.replace(full, n_layers=1)) - fixed
+    draw = 4 * full.vocab_size * full.d_model
+    slot = V_MAX_LEN * (2 * full.n_kv_heads * full.head_dim + 1) * 4
+    per = layer + (V_SLOTS + V_SESSIONS + 2) * slot
+    free = torch.cuda.mem_get_info()[0]
+    n = min(full.n_layers, max(V_LAYERS, int(
+        (free - V_RESERVE - draw - fixed) // per)))
+    return n, (fixed + n * layer) / 1e9, (free - fixed - n * per) / 1e9
+
+
+def qwen2vl_phase(tag) -> dict:
+    """Phase 16: qwen2-vl-72b (M-RoPE, QKV bias, GQA 64/8, head dim 128)
+    at full width with bf16 weights over the Engine's f32 cache, cut to
+    ``qwen2vl_layers``' count: the Engine (exact-length prompts at (3, 1,
+    n) arange positions, a suspend and a resume wave) and the Scheduler
+    over a fresh Engine; then ``lm.prefill`` of an image prompt (phase 2's
+    row (e): V_IMG_LEN tokens whose temporal ids repeat over a
+    V_IMG_GRID^2 patch block) into a fresh batch-1 cache, whose positions
+    must be the temporal ids and whose logits must equal a cacheless
+    ``lm.forward`` over the same ids within 2e-2 (bf16).  Returns the
+    launch counts of its runs, summed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import sched
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    full = get_config("qwen2-vl-72b")
+    n, gb, left = qwen2vl_layers(full)
+    cfg = dataclasses.replace(full, n_layers=n)
+    params = model_params(
+        cfg, torch.bfloat16, "qwen2-vl-72b bf16",
+        f"{n} of {full.n_layers} layers ({gb:.1f} GB of weights, "
+        f"{left:.1f} GB of the card left beside the Engine's cache and "
+        f"store): all {full.n_layers} in bf16 are "
+        f"{2 * param_count(full) / 1e9:.0f} GB, past the card's 80 GB; "
+        f"every layer is alike (dense, QKV bias, M-RoPE)")
+    wl = sched.WorkloadConfig(n_fresh=6, n_followups=12, arrival="bursty",
+                              prompt_lens=V_SCHED_LENS, new_tokens=(8, 16))
+    counts = serve_phase("qwen2-vl", cfg, params,
+                         _prompts(cfg, V_PROMPTS, SEED + 16), tag,
+                         slots=V_SLOTS, max_len=V_MAX_LEN,
+                         n_sessions=V_SESSIONS, max_new=V_MAX_NEW,
+                         first=V_FIRST, sched_wl=wl)
+    suffix = V_IMG_LEN - V_IMG_PREFIX - V_IMG_GRID ** 2
+    pos = torch.from_numpy(vl_positions(V_IMG_PREFIX, V_IMG_GRID,
+                                        V_IMG_GRID, suffix)[:, None]).to(dev)
+    toks = torch.from_numpy(_prompts(cfg, [V_IMG_LEN], SEED + 160)[0]
+                            )[None].to(dev)
+    cache = lm.init_cache(cfg, 1, V_MAX_LEN, device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = lm.prefill(cfg, params, toks, cache, positions=pos)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    image = ops.launch_counts()
+    check_counts(image, {"flash_attention": n, "flash_attention_prefill": n},
+                 "qwen2-vl's image prefill")
+    want, _, _ = lm.forward(cfg, params, toks, positions=pos)
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= 2e-2,
+          f"qwen2-vl: the image prefill's logits are {err} from forward, "
+          f"the bar is 2e-2")
+    for st in cache.values():
+        for c in st.values():
+            check(torch.equal(c["pos"][:, 0, :V_IMG_LEN],
+                              pos[0].expand(c["pos"].shape[0], V_IMG_LEN)),
+                  "qwen2-vl: the image prefill's cache positions are not "
+                  "the temporal ids")
+            check(bool((c["pos"][:, 0, V_IMG_LEN:] == 2**30).all()),
+                  "qwen2-vl: the image prefill wrote past its tokens")
+    print(f"qwen2-vl image prefill: {V_IMG_LEN} tokens ({V_IMG_PREFIX} text, "
+          f"a {V_IMG_GRID}x{V_IMG_GRID} image at temporal id "
+          f"{V_IMG_PREFIX}, {suffix} text), {ms:.3f} ms; logits "
+          f"{err:.3g} from forward; cache positions the temporal ids; "
+          f"launches {json.dumps(image)} [{tag}]")
+    del params, cache, got, want
+    torch.cuda.empty_cache()
+    return {name: counts[name] + image[name] for name in counts}
 
 
 def kernel_name(mangled: str) -> str:

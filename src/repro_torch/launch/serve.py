@@ -24,6 +24,13 @@ Quickstart::
   # recurrent layers: mamba + attention + MoE (jamba), RWKV-6 (rwkv6)
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch rwkv6-7b --reduced --requests 4 --resumes 6
+  # M-RoPE (qwen2-vl): exact-length prefills at (3, 1, n) positions
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch qwen2-vl-72b --reduced --requests 4 --resumes 6
+
+An enc-dec config (seamless-m4t-medium) is refused by the Engine, as the
+reference's Engine cannot prefill one; its path is ``lm.prefill`` with
+``enc_embeds``, then ``lm.decode_step``.
 
 This module drives no engine loop of its own: every submit, suspend and
 resume is a :class:`repro_torch.sched.Scheduler` decision.  Admission

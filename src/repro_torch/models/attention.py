@@ -1,8 +1,8 @@
-# Port of src/repro/models/attention.py:18-334 in torch: _cache_write,
-# chunked_attention, the GQA block, full and sliding-window, and the MLA
-# block (DeepSeek-V2), each with its int8 KV cache.  Not ported yet: cross
-# attention and M-RoPE (ROADMAP Queue 1 item 13).
-"""GQA and MLA attention with a chunked online-softmax core.
+# Port of src/repro/models/attention.py:18-368 in torch: _cache_write,
+# chunked_attention, the GQA block, full and sliding-window, with RoPE or
+# M-RoPE, the MLA block (DeepSeek-V2), each with its int8 KV cache, and
+# the enc-dec cross attention.
+"""GQA, MLA and cross attention with a chunked online-softmax core.
 
 :func:`chunked_attention` is the contract the serving model runs; on the
 card it launches the attention kernel (K3), on the CPU it runs the plain
@@ -15,6 +15,11 @@ or per token for MLA's latent and shared key) and keeps the f32 scales in
 cache leaves of their own; GQA decode hands them to K3, which dequantises
 as it loads, and MLA's absorbed einsums multiply them into the scores and
 the weights, as the reference does.
+
+Cross attention (:func:`cross_block`, the enc-dec decoder's) runs the same
+core with positions that encode only a mask: every query at ``2**29`` and
+every encoder frame at 0, or at ``2**30`` where the encoder mask says the
+frame is not valid, so a query sees exactly the valid frames.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
+                                       rms_norm)
 
 NEG_INF = -1e30
 
@@ -97,7 +103,8 @@ def init_gqa_params(gen: torch.Generator, d_model: int, n_heads: int,
 
 def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
               n_heads: int, n_kv: int, head_dim: int,
-              rope_theta: float = 1e4, window: int = 0, block: int = 512,
+              rope_theta: float = 1e4, mrope: bool = False,
+              window: int = 0, block: int = 512,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]] = None,
               cache_index: Optional[torch.Tensor] = None,
@@ -114,19 +121,23 @@ def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
     cache; returns ``(y, kv_cache)``.  An int8 cache comes with
     ``kv_scales=(k_scale, v_scale)`` (B,T,K) f32: K/V are quantised on
     write (:func:`quantise`) and their scales written at the same slot.
-    positions: (B, S) int32."""
+    positions: (B, S) int32, or (3, B, S) under ``mrope`` (M-RoPE's
+    temporal, height and width ids), whose temporal ids ``positions[0]``
+    are the causal positions and the ones written to the cache."""
     B, S, _ = x.shape
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = apply_rope(q.reshape(B, S, n_heads, head_dim), positions, rope_theta)
-    k = apply_rope(k.reshape(B, S, n_kv, head_dim), positions, rope_theta)
+    rope = apply_mrope if mrope else apply_rope
+    q = rope(q.reshape(B, S, n_heads, head_dim), positions, rope_theta)
+    k = rope(k.reshape(B, S, n_kv, head_dim), positions, rope_theta)
     v = v.reshape(B, S, n_kv, head_dim)
+    tok_pos = positions[0] if mrope else positions
 
     if kv_cache is None:
-        out = chunked_attention(q, k, v, positions, positions, causal=True,
+        out = chunked_attention(q, k, v, tok_pos, tok_pos, causal=True,
                                 window=window, block=block)
         new = (k, v)
     else:
@@ -139,8 +150,8 @@ def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
             _cache_write(vs, v_s, cache_index, rows)
         _cache_write(ck, k, cache_index, rows)
         _cache_write(cv, v, cache_index, rows)
-        _cache_write(cpos, positions.to(cpos.dtype), cache_index, rows)
-        out = chunked_attention(q, ck, cv, positions, cpos, causal=True,
+        _cache_write(cpos, tok_pos.to(cpos.dtype), cache_index, rows)
+        out = chunked_attention(q, ck, cv, tok_pos, cpos, causal=True,
                                 window=window, block=block, k_scale=ks,
                                 v_scale=vs)
         new = kv_cache
@@ -262,3 +273,47 @@ def mla_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
         new = kv_cache
     y = out.reshape(B, S, n_heads * v_dim) @ params["wo"]
     return y, new
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (enc-dec; the seamless-m4t decoder).
+# ---------------------------------------------------------------------------
+
+def init_cross_params(gen: torch.Generator, d_model: int, n_heads: int,
+                      head_dim: int, reps: int = 1, dtype=torch.float32,
+                      device=None) -> Dict:
+    """MHA projections without bias, as the reference's (its
+    ``attention.py:341-344``)."""
+    return init_gqa_params(gen, d_model, n_heads, n_heads, head_dim,
+                           reps=reps, dtype=dtype, device=device)
+
+
+def cross_block(params: Dict, x: torch.Tensor,
+                enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                enc_mask: Optional[torch.Tensor], *, n_heads: int,
+                head_dim: int) -> torch.Tensor:
+    """The decoder's ``x`` (B, S, M) attends over the encoder's projected
+    ``enc_kv`` = (k, v), each (B, T, H, D), without RoPE: queries at
+    ``2**29``, frames at 0 where ``enc_mask`` (B, T) is true (every frame
+    without a mask) and at ``2**30`` where it is false."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
+    k, v = enc_kv
+    T = k.shape[1]
+    if enc_mask is None:
+        kv_pos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    else:
+        kv_pos = torch.where(enc_mask, 0, 2**30).to(torch.int32)
+    q_pos = torch.full((B, S), 2**29, dtype=torch.int32, device=x.device)
+    out = chunked_attention(q, k, v, q_pos, kv_pos, causal=True, block=512)
+    return out.reshape(B, S, n_heads * head_dim) @ params["wo"]
+
+
+def encode_kv(params: Dict, enc_out: torch.Tensor, n_heads: int,
+              head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross attention's (k, v), each (B, T, H, D), of the encoder's
+    output (B, T, M)."""
+    B, T, _ = enc_out.shape
+    k = (enc_out @ params["wk"]).reshape(B, T, n_heads, head_dim)
+    v = (enc_out @ params["wv"]).reshape(B, T, n_heads, head_dim)
+    return k, v

@@ -1,13 +1,16 @@
-# Port of src/repro/models/layers.py:12-123 in torch (M-RoPE, :77-102,
-# arrives with the qwen2-vl slice).
-"""Shared model building blocks: norms, embeddings, MLPs, RoPE."""
+# Port of src/repro/models/layers.py:12-123 in torch.
+"""Shared model building blocks: norms, embeddings, MLPs, RoPE and
+M-RoPE."""
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch import resolve_device
+
+BIG_LEAF = 2**32         # values of a leaf drawn one matrix at a time
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -28,12 +31,22 @@ def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
                dtype=torch.float32, device=None) -> torch.Tensor:
     """Normal(0, std) with std = fan_in**-0.5 (or ``scale``), drawn from
     ``gen`` on its own device and moved to ``device`` (default: cuda,
-    raising without a GPU)."""
+    raising without a GPU).  A stacked leaf of more than BIG_LEAF values
+    (qwen2-vl-72b's MLP matrices at 32 layers: 7.75 G) is drawn one matrix
+    at a time into its output, so that no f32 temporary of the whole leaf
+    exists; a smaller one in one draw, scaled in place."""
     device = resolve_device(device)
     fan_in = shape[-2] if len(shape) >= 2 else 1
     std = scale if scale is not None else fan_in ** -0.5
+    if len(shape) >= 3 and math.prod(shape) > BIG_LEAF:
+        out = torch.empty(tuple(shape), dtype=dtype, device=device)
+        for m in out.view(-1, *shape[-2:]):
+            m.copy_(torch.randn(tuple(shape[-2:]), generator=gen,
+                                dtype=torch.float32,
+                                device=gen.device).mul_(std))
+        return out
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device) * std
+                    device=gen.device).mul_(std)
     return w.to(device=device, dtype=dtype)
 
 
@@ -78,16 +91,43 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                             / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e4) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int32."""
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D) rotated by the f32 angles ``ang`` (B, S, D/2): the
+    first and second halves of each head are the pairs."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                        # (D/2,)
-    ang = positions[..., None].float() * freqs                    # (B, S, D/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # (D/2,)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                theta: float = 1e4, sections=(2, 1, 1)) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: each head's D/2 frequency bands are cut
+    into temporal, height and width sections (``sections`` in proportion,
+    the last taking the remainder), each rotated by its own position id.
+
+    x: (B, S, H, D); positions: (3, B, S) int32 — for text the three are
+    equal, and the angles are :func:`apply_rope`'s."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # (half,)
+    total = sum(sections)
+    bounds, acc = [], 0
+    for s in sections:
+        n = half * s // total
+        bounds.append((acc, acc + n))
+        acc += n
+    bounds[-1] = (bounds[-1][0], half)
+    ang = torch.cat([pos[..., None].float() * freqs[lo:hi]
+                     for (lo, hi), pos in zip(bounds, positions)], dim=-1)
+    return _rotate(x, ang)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 # Port of src/repro/models/lm.py:42-177, :184-325 and :331-496 in torch,
 # for stacks of attn_full, attn_local (sliding-window, ring-buffer), MLA,
-# mamba and rwkv mixers with dense, MoE or rwkv channel-mix MLPs, over f32,
-# bf16 or int8 (quantised, with per-token scales) KV caches:
-# tinyllama-1.1b, gemma3-27b, gemma-7b, qwen1.5-110b, olmoe-1b-7b,
-# deepseek-v2-236b, jamba-v0.1-52b and rwkv6-7b.
+# mamba and rwkv mixers with dense, MoE or rwkv channel-mix MLPs, with RoPE
+# or M-RoPE, decoder-only or enc-dec (a bidirectional encoder and cross
+# attention in every decoder block), over f32, bf16 or int8 (quantised,
+# with per-token scales) KV caches: every config in configs/.
 """LM assembly: stages of a repeating layer group with stacked parameters.
 
 Params and caches keep the reference's nested-dict layout and stacked
@@ -31,8 +31,14 @@ it (:func:`decode_step`, :func:`decode_step_batched`), and a prefill into
 it raises.  The state leaves ``ssm`` and ``wkv`` are f32 in every cache;
 ``conv`` and the shifts take the cache's dtype.
 
-Every layer kind of the decoder-only configs is ported; enc-dec and M-RoPE
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 13).
+An enc-dec config (seamless-m4t) runs as the reference's: ``init_cache(...,
+enc_len=T)`` adds each decoder block's ``enc_k``/``enc_v``/``enc_pos``,
+:func:`prefill` with ``enc_embeds`` (B, T, d_model) runs the encoder
+(:func:`_encode`) and writes its projected K/V into the cache, and
+:func:`decode_step` reads them from there.  Under M-RoPE (qwen2-vl)
+positions are (3, B, S) temporal/height/width ids; the temporal ids are
+the causal positions and the ones a cache holds, and decode broadcasts one
+position to all three.
 """
 from __future__ import annotations
 
@@ -48,14 +54,12 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as SSM
-from repro_torch.models.layers import (embed, init_embed, init_mlp, init_rms,
-                                       mlp, rms_norm, unembed)
+from repro_torch.models.layers import (apply_rope, embed, init_embed,
+                                       init_mlp, init_rms, mlp, rms_norm,
+                                       unembed)
 
 LayerSpec = Tuple[str, str]     # (mixer_kind, mlp_kind)
 POS_SENTINEL = 2**30
-PORTED = (("attn_full", "dense"), ("attn_local", "dense"),
-          ("attn_full", "moe"), ("mla", "moe"), ("mla", "dense"),
-          ("mamba", "dense"), ("mamba", "moe"), ("rwkv", "rwkv_cm"))
 RECURRENT = ("mamba", "rwkv")
 # a layer's cache leaves that hold a recurrent state, not tokens; of them
 # ssm and wkv stay f32 in a cache of any dtype
@@ -76,22 +80,6 @@ def stages_of(cfg: ModelConfig) -> List[Tuple[int, Tuple[LayerSpec, ...]]]:
     return [(1, tuple(kinds))]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run."""
-    bad = sorted({f"{m}+{f}" for m, f in zip(cfg.layer_kinds(),
-                                             cfg.mlp_kinds())
-                  if (m, f) not in PORTED})
-    if bad or cfg.encdec or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {bad or ''}"
-            f"{' enc-dec' if cfg.encdec else ''}"
-            f"{' m-rope' if cfg.mrope else ''} are not ported yet (the port "
-            f"runs attn_full and attn_local with dense MLPs, attn_full with "
-            f"MoE, MLA and mamba with dense or MoE MLPs, and rwkv with its "
-            f"channel mix); enc-dec cross attention and M-RoPE arrive in a "
-            f"later slice (ROADMAP Queue 1 item 13)")
-
-
 def cache_len(cfg: ModelConfig, mixer_kind: str, max_len: int) -> int:
     """Slots of a layer's K/V cache: ``max_len``, or the sliding window's
     ring of ``min(max_len, window)`` for an ``attn_local`` layer."""
@@ -109,8 +97,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     """Random params in the reference's layout, drawn from ``generator``
     (on its device) and placed on ``device`` (default: cuda, raising
     without a GPU).  The numbers differ from the reference's ``init_lm``
-    (torch and jax generators differ); the distributions are the same."""
-    check_supported(cfg)
+    (torch and jax generators differ); the distributions are the same.
+    An enc-dec config adds a ``cross`` block and ``ln_cross`` to every
+    decoder block, the ``encoder`` stage of ``n_enc_layers``
+    ``("attn_full", "dense")`` blocks and ``enc_norm``, as the reference's
+    (its ``lm.py:75-123``)."""
     dev = resolve_device(device)
     g = generator
     params: Dict[str, Any] = {
@@ -147,16 +138,32 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
                 block["mlp"] = init_mlp(g, cfg.d_model, cfg.d_ff, reps,
                                         dtype, dev)
             # rwkv_cm: the channel-mix params live in the mixer
+            if cfg.encdec:
+                block["ln_cross"] = torch.zeros((reps, cfg.d_model),
+                                                device=dev)
+                block["cross"] = A.init_cross_params(
+                    g, cfg.d_model, cfg.n_heads, cfg.head_dim, reps, dtype,
+                    dev)
             stage[f"b{j}"] = block
         params[f"stage{i}"] = stage
     if not cfg.tie_embeddings:
         params["head"] = init_embed(g, cfg.vocab_size, cfg.d_model, dtype,
                                     dev).T.contiguous()
+    if cfg.encdec:
+        reps = cfg.n_enc_layers
+        params["encoder"] = {"b0": {
+            "ln1": torch.zeros((reps, cfg.d_model), device=dev),
+            "mixer": A.init_gqa_params(g, cfg.d_model, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.head_dim,
+                                       cfg.qkv_bias, reps, dtype, dev),
+            "ln2": torch.zeros((reps, cfg.d_model), device=dev),
+            "mlp": init_mlp(g, cfg.d_model, cfg.d_ff, reps, dtype, dev)}}
+        params["enc_norm"] = init_rms(cfg.d_model, dev)
     return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.float32, device=None) -> Dict:
+               dtype=torch.float32, device=None, enc_len: int = 0) -> Dict:
     """Zeroed K/V and sentinel positions: leaves (reps, batch, L, ...),
     with L from :func:`cache_len` (a ring for sliding-window layers); an
     MLA layer holds its compressed cache, ``cc`` (kv_lora wide) and ``cr``
@@ -166,13 +173,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     cache adds the reference's f32 scale leaves, ``k_scale``/``v_scale``
     (reps, batch, L, K), or ``cc_scale``/``cr_scale`` (reps, batch, L) for
     MLA (its ``lm.py:141-152``).  Any other dtype raises: it would truncate
-    the floats that prefill and decode write into it."""
-    check_supported(cfg)
+    the floats that prefill and decode write into it.  An enc-dec config
+    adds to every block the cross attention's ``enc_k``/``enc_v`` (reps,
+    batch, enc_len, n_heads, head_dim) in the cache's dtype and
+    ``enc_pos`` (reps, batch, enc_len) at 2**30, which a prefill fills
+    (its ``lm.py:163-166``)."""
     if dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise NotImplementedError(
             f"a {dtype} KV cache is not ported: the cache holds float32, "
             f"bfloat16 or int8 with per-token scales, as the reference's "
-            f"serving paths (ROADMAP Queue 1 item 13)")
+            f"serving paths (ROADMAP Queue 3 F1)")
     dev = resolve_device(device)
     cache: Dict[str, Any] = {}
     for i, (reps, group) in enumerate(stages_of(cfg)):
@@ -207,6 +217,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                     for name in shapes:
                         c[f"{name}_scale"] = torch.zeros(
                             scale_shape, dtype=torch.float32, device=dev)
+            if cfg.encdec:
+                enc = (reps, batch, enc_len, cfg.n_heads, cfg.head_dim)
+                c["enc_k"] = torch.zeros(enc, dtype=dtype, device=dev)
+                c["enc_v"] = torch.zeros(enc, dtype=dtype, device=dev)
+                c["enc_pos"] = torch.full(enc[:3], POS_SENTINEL,
+                                          dtype=torch.int32, device=dev)
             stage[f"b{j}"] = c
         cache[f"stage{i}"] = stage
     return cache
@@ -217,7 +233,7 @@ def reset_slot(cache: Dict, slot: int) -> None:
     for st in cache.values():
         for c in st.values():
             for name, t in c.items():
-                if name == "pos":
+                if name in ("pos", "enc_pos"):
                     t[:, slot].fill_(POS_SENTINEL)
                 else:
                     t[:, slot].zero_()
@@ -236,10 +252,13 @@ def _layer(tree: Dict, r: int) -> Dict:
 def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
          positions: torch.Tensor, mode: str, cache: Optional[Dict],
          slot: int, cache_index: Optional[torch.Tensor],
-         rows: Optional[torch.Tensor]
+         rows: Optional[torch.Tensor],
+         enc_out: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The stack over ``x``; returns (x, the MoE layers' summed aux loss,
-    None where no layer is MoE or in decode, which has no use for it)."""
+    None where no layer is MoE or in decode, which has no use for it).
+    An enc-dec config's blocks attend over ``enc_out``, the encoder's
+    output, or in decode over the cache's ``enc_k``/``enc_v``."""
     ring_index: Dict[int, torch.Tensor] = {}    # cache length -> write slots
     aux = None
     for i, (reps, group) in enumerate(stages_of(cfg)):
@@ -271,6 +290,8 @@ def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                     y = _attention(cfg, mixer_kind, p, c, h, positions,
                                    mode, slot, cache_index, rows, ring_index)
                 x = x + y
+                if cfg.encdec:
+                    x = x + _cross(cfg, p, c, x, mode, slot, enc_out)
                 h = rms_norm(x, p["ln2"], cfg.norm_eps)
                 if mlp_kind == "moe":
                     y, aux_l = MOE.moe_block(
@@ -329,14 +350,40 @@ def _attention(cfg: ModelConfig, mixer_kind: str, p: Dict,
         y, new = A.gqa_block(
             p["mixer"], h, positions, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta,
+            rope_theta=cfg.rope_theta, mrope=cfg.mrope,
             window=cfg.window if mixer_kind == "attn_local" else 0,
             block=cfg.attn_block, kv_cache=kv, cache_index=idx, rows=rows,
             kv_scales=scales)
         written = ("k", "v")
     if c is not None and mode == "prefill":
-        _prefill_write(c, slot, dict(zip(written, new), pos=positions))
+        tok_pos = positions[0] if cfg.mrope else positions
+        _prefill_write(c, slot, dict(zip(written, new), pos=tok_pos))
     return y
+
+
+def _cross(cfg: ModelConfig, p: Dict, c: Optional[Dict], x: torch.Tensor,
+           mode: str, slot: int, enc_out: Optional[torch.Tensor]
+           ) -> torch.Tensor:
+    """A decoder block's cross attention (the reference's
+    ``lm.py:286-301``): over the encoder output's projected K/V, which a
+    prefill also writes into cache rows ``slot:`` (every frame valid,
+    position 0); decode reads them from the cache and never recomputes
+    them."""
+    hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+    if c is not None and mode == "decode":
+        enc_k, enc_v, enc_pos = c["enc_k"], c["enc_v"], c["enc_pos"]
+    else:
+        enc_k, enc_v = A.encode_kv(p["cross"], enc_out, cfg.n_heads,
+                                   cfg.head_dim)
+        enc_pos = torch.zeros(enc_out.shape[:2], dtype=torch.int32,
+                              device=x.device)
+        if c is not None:
+            B = x.shape[0]
+            c["enc_k"][slot:slot + B] = enc_k
+            c["enc_v"][slot:slot + B] = enc_v
+            c["enc_pos"][slot:slot + B] = enc_pos
+    return A.cross_block(p["cross"], hc, (enc_k, enc_v), enc_pos == 0,
+                         n_heads=cfg.n_heads, head_dim=cfg.head_dim)
 
 
 def _state_rows(c: Dict, mode: str, slot: int, B: int
@@ -390,10 +437,45 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
                    x, tied=cfg.tie_embeddings)
 
 
+def _default_positions(cfg: ModelConfig, B: int, Sq: int,
+                       device) -> torch.Tensor:
+    """``arange(Sq)`` for every row: (B, Sq), or (3, B, Sq) under
+    M-RoPE (the reference's ``lm.py:360-365``)."""
+    pos = torch.arange(Sq, dtype=torch.int32, device=device).expand(B, Sq)
+    return pos.expand(3, B, Sq) if cfg.mrope else pos
+
+
+def _encode(cfg: ModelConfig, params: Dict,
+            enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The bidirectional encoder over the frontend's frame embeddings
+    (B, T, d_model), the reference's ``lm.py:368-393``: RoPE at
+    ``arange(T)``, attention with ``causal=False``, no bias."""
+    B, T, _ = enc_embeds.shape
+    H, D = cfg.n_heads, cfg.head_dim
+    pos = torch.arange(T, dtype=torch.int32,
+                       device=enc_embeds.device).expand(B, T)
+    enc = params["encoder"]["b0"]
+    x = enc_embeds
+    for r in range(cfg.n_enc_layers):
+        p = _layer(enc, r)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q = (h @ p["mixer"]["wq"]).reshape(B, T, H, D)
+        k = (h @ p["mixer"]["wk"]).reshape(B, T, H, D)
+        v = (h @ p["mixer"]["wv"]).reshape(B, T, H, D)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        out = A.chunked_attention(q, k, v, pos, pos, causal=False,
+                                  block=cfg.attn_block)
+        x = x + out.reshape(B, T, -1) @ p["mixer"]["wo"]
+        x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                    cfg.activation)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None, mode: str = "train",
-            slot: int = 0
+            slot: int = 0, enc_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Returns (logits, aux_loss, cache), as the reference's: the aux loss
     sums the MoE layers' load-balance losses (a 0 scalar without MoE).
@@ -401,7 +483,22 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     recurrent layer's final state) into cache rows ``slot:slot+B`` IN
     PLACE; into an int8 cache it raises ``TypeError``, as the reference's
     prefill does (its ``lm.py:231-235`` writes float K/V into the int8
-    buffer): only decode quantises."""
+    buffer): only decode quantises.  ``positions`` default to ``arange``,
+    (3, B, S) under M-RoPE.  An enc-dec config takes ``enc_embeds`` (B,
+    T, d_model) and raises ``ValueError`` without them; a prefill also
+    writes the cross attention's K/V, and raises ``ValueError`` where T is
+    not the cache's ``enc_len`` (the reference would replace the cache's
+    leaves with ones of T frames; the port writes its caches in place)."""
+    if cfg.encdec and enc_embeds is None:
+        raise ValueError(f"{cfg.name} is enc-dec: forward and prefill take "
+                         f"enc_embeds (B, T, d_model)")
+    if cfg.encdec and mode == "prefill":
+        enc_len = cache["stage0"]["b0"]["enc_k"].shape[2]
+        if enc_embeds.shape[1] != enc_len:
+            raise ValueError(
+                f"enc_embeds hold {enc_embeds.shape[1]} frames, the cache "
+                f"enc_len={enc_len}: init_cache(..., enc_len=) must match "
+                f"the frames a prefill writes")
     if mode == "prefill" and any(t.dtype == torch.int8
                                  for st in cache.values()
                                  for c in st.values() for t in c.values()):
@@ -411,10 +508,11 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             "filled token by token through decode_step")
     B, Sq = tokens.shape
     if positions is None:
-        positions = torch.arange(Sq, dtype=torch.int32,
-                                 device=tokens.device).expand(B, Sq)
+        positions = _default_positions(cfg, B, Sq, tokens.device)
     x = embed(params["embed"], tokens) * math.sqrt(cfg.d_model)
-    x, aux = _run(cfg, params, x, positions, mode, cache, slot, None, None)
+    enc_out = _encode(cfg, params, enc_embeds) if cfg.encdec else None
+    x, aux = _run(cfg, params, x, positions, mode, cache, slot, None, None,
+                  enc_out)
     if aux is None:
         aux = torch.zeros((), device=x.device)
     return _logits(cfg, params, x), aux, cache
@@ -422,13 +520,17 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             cache: Dict, positions: Optional[torch.Tensor] = None,
-            slot: int = 0) -> Tuple[torch.Tensor, Dict]:
+            slot: int = 0, enc_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """Prefill cache rows ``slot:slot+B`` IN PLACE.  Bucketed serving
     passes right-padded tokens with sentinel (2**30) positions for the
     pads, which keeps them causally invisible forever (an MoE layer routes
-    the pads as the reference's does: they take capacity)."""
+    the pads as the reference's does: they take capacity).  An enc-dec
+    config takes the frame embeddings ``enc_embeds`` (B, enc_len,
+    d_model) and writes their cross-attention K/V too."""
     logits, _, cache = forward(cfg, params, tokens, positions=positions,
-                               cache=cache, mode="prefill", slot=slot)
+                               cache=cache, mode="prefill", slot=slot,
+                               enc_embeds=enc_embeds)
     return logits, cache
 
 
@@ -436,10 +538,11 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, Dict]:
     """One decode step at a uniform position, the reference's
     ``lm.decode_step`` (its ``lm.py:423-445``).  tokens: (B, 1); pos: the
-    scalar position of every row (an int or a 0-d tensor).  Every row's
-    cache entry is written IN PLACE, at slot ``pos % L`` of each layer's L
-    slots; an int8 cache quantises on write.  Returns (logits (B, 1, V),
-    cache)."""
+    scalar position of every row (an int or a 0-d tensor), under M-RoPE
+    all three of its ids.  Every row's cache entry is written IN PLACE, at
+    slot ``pos % L`` of each layer's L slots; an int8 cache quantises on
+    write; an enc-dec config attends over the cache's cross K/V.  Returns
+    (logits (B, 1, V), cache)."""
     from repro_torch import to_device
 
     B, Sq = tokens.shape
@@ -452,8 +555,17 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     idx = pos.expand(B)
     rows = torch.arange(B, device=dev)
     x = embed(params["embed"], tokens) * math.sqrt(cfg.d_model)
-    x, _ = _run(cfg, params, x, idx[:, None], "decode", cache, 0, idx, rows)
+    x, _ = _run(cfg, params, x, _step_positions(cfg, idx), "decode", cache,
+                0, idx, rows)
     return _logits(cfg, params, x), cache
+
+
+def _step_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """A decode step's positions from the rows' (B,) positions: (B, 1),
+    or under M-RoPE (3, B, 1), one position for all three ids (the
+    reference's ``lm.py:432``, ``:464``)."""
+    pos = pos[:, None]
+    return pos.expand(3, *pos.shape) if cfg.mrope else pos
 
 
 def decode_step_batched(cfg: ModelConfig, params: Dict, cache: Dict,
@@ -490,5 +602,6 @@ def decode_logits(cfg: ModelConfig, params: Dict, cache: Dict,
                      torch.long)
     pos = pos.to(device=dev, dtype=torch.int32)
     x = embed(params["embed"], tokens[:, None]) * math.sqrt(cfg.d_model)
-    x, _ = _run(cfg, params, x, pos[:, None], "decode", cache, 0, pos, rows)
+    x, _ = _run(cfg, params, x, _step_positions(cfg, pos), "decode", cache,
+                0, pos, rows)
     return _logits(cfg, params, x)

@@ -19,7 +19,14 @@ The serving data path stays on the device:
     paper's promotion policy with its outcomes kept on the device, so a
     suspend or resume never waits for the card.
   * prefill — lengths are bucketed (next power of two); pads carry sentinel
-    positions so they stay causally invisible forever.
+    positions so they stay causally invisible forever.  Ring caches,
+    recurrent states and M-RoPE prefill at the prompt's exact length, M-RoPE
+    at the (3, 1, n) ``arange`` positions the model defaults to.
+
+An enc-dec config is refused at construction (``NotImplementedError``): the
+reference's Engine cannot prefill one (its insert calls ``lm.prefill``
+without frame embeddings), so the enc-dec path is ``lm.prefill`` with
+``enc_embeds``, then ``lm.decode_step``.
 
 Every plan carries a ``MovementCost`` priced by the engine's
 :class:`~repro_torch.core.dram.spec.DramSpec` under the ``lisa`` vs
@@ -81,6 +88,12 @@ class Engine:
                  max_len: int = 128, n_sessions: int = 64,
                  villa: Optional[VillaConfig] = None,
                  spec: DramSpec = DDR3_1600, device=None):
+        if cfg.encdec:
+            raise NotImplementedError(
+                f"{cfg.name} is enc-dec: the Engine serves decoder-only "
+                f"configs, as the reference's, which cannot prefill one (its "
+                f"insert calls lm.prefill without enc_embeds); run "
+                f"lm.prefill(..., enc_embeds=) and lm.decode_step instead")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _tree_to(params, self.device)
@@ -161,12 +174,15 @@ class Engine:
                         true_len: int, slot: int) -> int:
         """Prefill one request straight into ``slot`` (reset to init values
         first, as the reference's whole-slot insert leaves it) and return
-        its next token — the one sync of a submit, as in the reference."""
+        its next token — the one sync of a submit, as in the reference.
+        Under M-RoPE the model's default (3, 1, n) positions take the place
+        of ``positions`` (an exact-length prompt's are ``arange(n)``), as
+        the reference's submit passes none."""
         lm.reset_slot(self.cache, slot)
         logits, _ = lm.prefill(self.cfg, self.params,
                                self._dev(tokens)[None], self.cache,
-                               positions=self._dev(positions)[None],
-                               slot=slot)
+                               positions=None if self.cfg.mrope else
+                               self._dev(positions)[None], slot=slot)
         return int(torch.argmax(logits[0, true_len - 1]))
 
     def _suspend_fn(self, slot: int, idx: int) -> None:

@@ -97,7 +97,7 @@ def test_params_from_jax_keeps_special_bf16_values():
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float16, torch.int32])
 def test_init_cache_refuses_other_dtypes(dtype):
     cfg = get_reduced("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 3 F1"):
         P_lm.init_cache(cfg, 2, 16, dtype=dtype, device="cpu")
 
 

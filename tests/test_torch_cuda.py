@@ -894,3 +894,230 @@ def test_int8_decode_step_on_card_matches_cpu(dev):
     assert int(diff.max()) <= 1 and int(diff.sum()) <= diff.numel() // 1000
     assert torch.equal(cc["pos"], cg["pos"])
     assert torch.allclose(cc["k_scale"], cg["k_scale"], rtol=1e-5, atol=0)
+
+
+# ---- the enc-dec and M-RoPE paths (K3 on their new uses) -------------------
+
+def _positions_case(dev, B, S, T, H, K, D, dt, q_pos, kv_pos, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, D), device=dev, generator=g).to(dt)
+    k = torch.randn((B, T, K, D), device=dev, generator=g).to(dt)
+    v = torch.randn((B, T, K, D), device=dev, generator=g).to(dt)
+    return (q, k, v, torch.from_numpy(np.ascontiguousarray(q_pos)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(kv_pos)).to(dev))
+
+
+@pytest.mark.parametrize("B,T,H,D,pads,dt", [
+    (2, 77, 16, 64, 0, torch.float32),      # odd T, one partial tile
+    (1, 130, 4, 16, 0, torch.float32),      # past two 64-key tiles
+    (2, 201, 16, 64, 23, torch.float32),    # 2**30 slots: visible too
+    (1, 97, 8, 128, 0, torch.bfloat16),
+])
+def test_noncausal_prefill_matches_plain(dev, B, T, H, D, pads, dt):
+    """The encoder's bidirectional attention (causal=False): every key is
+    live for every row, 2**30 slots included (the reference masks nothing
+    without causality), at T off the kernel's 64-key tiles."""
+    pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    if pads:
+        pos[:, -pads:] = 2**30
+    q, k, v, qp, kp = _positions_case(dev, B, T, T, H, H, D, dt, pos, pos,
+                                      21)
+    out = ops.chunked_attention(q, k, v, qp, kp, causal=False)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, causal=False)
+    _assert_within_bar(out, want, q, k, v, qp, kp, causal=False)
+
+
+@pytest.mark.parametrize("B,S,T,H,D,dt", [
+    (3, 16, 300, 16, 64, torch.float32),    # cross prefill, odd T
+    (4, 1, 4096, 16, 64, torch.float32),    # cross decode, seamless's T
+    (3, 1, 301, 4, 16, torch.float32),
+    (2, 7, 129, 8, 128, torch.bfloat16),
+])
+def test_cross_attention_positions_match_plain(dev, B, S, T, H, D, dt):
+    """Cross attention's positions: every query at 2**29, frames at 0 or
+    2**30 by the encoder mask.  Row 0 has every frame valid, row 1 ragged
+    pads (its last 96 frames at 2**30, and every fifth), row 2 (where
+    there is one) no valid frame at all, so its output is 0 and, in
+    decode, every split of it is empty; no NaN anywhere."""
+    kv = np.zeros((B, T), np.int32)
+    kv[1, -96:] = 2**30
+    kv[1, ::5] = 2**30
+    if B > 2:
+        kv[2] = 2**30
+    qpos = np.full((B, S), 2**29, np.int32)
+    q, k, v, qp, kp = _positions_case(dev, B, S, T, H, H, D, dt, qpos, kv,
+                                      22)
+    out = ops.chunked_attention(q, k, v, qp, kp)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp)
+    assert bool(torch.isfinite(out).all())
+    _assert_within_bar(out, want, q, k, v, qp, kp)
+    if B > 2:
+        assert not out[2].any()
+
+
+@pytest.mark.parametrize("T", [1, 17, 512, 1000])
+def test_decode_of_one_head_a_group_matches_plain(dev, T):
+    """G 1 at D 64 (seamless's MHA self-attention): decode_plan rounds the
+    group up to 2, so half of each CTA's heads are empty; every head's
+    output is its own (an empty head writing would clobber its
+    neighbour's) and finite."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, H, D = 4, 16, 64
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert FA.decode_plan(B, H, 1, T, 4, n_sm, D)[0] == 2
+    kv = np.full((B, T), 2**30, np.int32)
+    ends = [T, max(1, T // 2), 1, max(1, T - 3)]
+    for b, n in enumerate(ends):
+        kv[b, :n] = np.arange(n)
+    qpos = np.array(ends, np.int32)[:, None] - 1
+    q, k, v, qp, kp = _positions_case(dev, B, 1, T, H, H, D, torch.float32,
+                                      qpos, kv, 23)
+    out = ops.chunked_attention(q, k, v, qp, kp)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp)
+    assert bool(torch.isfinite(out).all())
+    _assert_within_bar(out, want, q, k, v, qp, kp)
+
+
+@pytest.mark.parametrize("S,lo,hi,G,D,dt", [
+    (200, 40, 140, 8, 128, torch.float32),     # repeats across tiles 0-2
+    (200, 40, 140, 8, 128, torch.bfloat16),
+    (130, 60, 70, 2, 16, torch.float32),       # straddles key 64
+    (500, 20, 276, 8, 128, torch.bfloat16),    # phase 2's 16x16 image
+])
+def test_repeated_positions_prefill_matches_plain(dev, S, lo, hi, G, D, dt):
+    """M-RoPE's causal positions are temporal ids, repeated over an image:
+    rows lo..hi-1 share one position, so each sees all the others, within
+    a 64-key tile and across tile boundaries; the text after resumes past
+    it."""
+    pos = np.arange(S, dtype=np.int32)
+    pos[lo:hi] = lo
+    pos[hi:] = lo + 1 + np.arange(S - hi)
+    pos = pos[None]
+    q, k, v, qp, kp = _positions_case(dev, 1, S, S, 2 * G, 2, D, dt, pos,
+                                      pos, 24)
+    out = ops.chunked_attention(q, k, v, qp, kp)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp)
+    _assert_within_bar(out, want, q, k, v, qp, kp)
+
+
+def test_seamless_prefill_and_decode_on_card_match_cpu(dev):
+    """Reduced seamless at head dim 64 (the full model's: G 1, so decode
+    runs the head group of 2): prefill with frame embeddings and 20
+    decode_steps on the card against the CPU, logits within 1e-4, and K3's
+    launches (layers x (encoder + self + cross) a prefill, layers x 2 a
+    step).  64 frames, two of the reduced config's 32-key blocks, as the
+    full model's 4096 are eight of its 512: at another count the CPU twin's
+    encoder also attends the zero keys that pad its last block
+    (``test_encoder_on_card_masks_block_pads_as_pallas``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import _tree_to
+
+    cfg = dataclasses.replace(get_reduced("seamless-m4t-medium"),
+                              head_dim=64)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 26)
+                                         ).astype(np.int32))
+    frames = torch.from_numpy((rng.standard_normal((3, 64, cfg.d_model))
+                               * 0.02).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        p = _tree_to(params, d)
+        cache = lm.init_cache(cfg, 3, 32, device=d, enc_len=64)
+        ops.reset_launch_counts()
+        lg, _ = lm.prefill(cfg, p, toks[:, :6].to(d), cache,
+                           enc_embeds=frames.to(d))
+        logits = [lg.cpu()]
+        for t in range(6, 26):
+            logits.append(lm.decode_step(cfg, p, cache, toks[:, t:t + 1].to(d),
+                                         t)[0].cpu())
+        out[str(d)] = torch.cat(logits, 1)
+    n = ops.launch_counts()
+    assert n["flash_attention_prefill"] == 3 * cfg.n_layers
+    assert n["flash_attention_decode"] == 2 * cfg.n_layers * 20
+    assert float((out["cpu"] - out[str(dev)]).abs().max()) < 1e-4
+
+
+def test_encoder_on_card_masks_block_pads_as_pallas(dev):
+    """The encoder's attention (causal=False) over 70 frames, which the
+    reduced config's 32-key blocks do not divide: the reference's jnp
+    twin, and so the port's CPU path, pads the last block with zero keys
+    that a non-causal row attends; the reference's Pallas kernel masks
+    them (its ``kv padding``, flash_attention.py:63), and so does K3.  The
+    card's encoder equals the CPU's where one block holds every frame,
+    and differs from it at 32-key blocks."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import _tree_to
+
+    cfg = dataclasses.replace(get_reduced("seamless-m4t-medium"),
+                              head_dim=64)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    frames = torch.from_numpy((np.random.default_rng(11).standard_normal(
+        (3, 70, cfg.d_model)) * 0.02).astype(np.float32))
+    card = lm._encode(cfg, _tree_to(params, dev), frames.to(dev)).cpu()
+    one_block = lm._encode(dataclasses.replace(cfg, attn_block=128), params,
+                           frames)
+    padded = lm._encode(cfg, params, frames)
+    assert float((card - one_block).abs().max()) < 1e-4
+    assert float((card - padded).abs().max()) > 1e-3
+
+
+def test_qwen2vl_engine_and_image_prefill_on_card_match_cpu(dev):
+    """Reduced qwen2-vl at its full attention shape (8 q / 1 kv heads of
+    128: G 8) through exact-length prefills, a suspend and a resume wave,
+    on the card against the CPU; then lm.prefill of an image prompt (a
+    temporal id repeated over 8 x 9 patches) on both, logits within 1e-4
+    and the cache's positions the temporal ids."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request, _tree_to
+
+    cfg = dataclasses.replace(get_reduced("qwen2-vl-72b"), n_heads=8,
+                              n_kv_heads=1, head_dim=128)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 19, 70)]
+    out = []
+    for d in ("cpu", dev):
+        e = Engine(cfg, params, slots=3, max_len=128, n_sessions=8, device=d)
+        reqs = [Request(i, p, 10 + 3 * i) for i, p in enumerate(prompts)]
+        for r in reqs:
+            e.submit(r)
+        for _ in range(4):
+            e.step()
+        e.suspend_many([0, 2])
+        while e.active:
+            e.step()
+        e.resume_many([0, 2], [12, 12])
+        while e.active:
+            e.step()
+        out.append(([r.generated for r in reqs], dict(e.stats),
+                    e.session_pos, e.session_tok,
+                    e.verify_failure_count(), int(e.verify_store())))
+    assert out[0] == out[1]
+    i, j = np.divmod(np.arange(72), 9)
+    pos = np.concatenate([np.tile(np.arange(6), (3, 1)),
+                          np.stack([np.full(72, 6), 6 + i, 6 + j]),
+                          np.tile(np.arange(15, 25), (3, 1))], 1)
+    pos = torch.from_numpy(pos.astype(np.int32))[:, None]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 88)
+                                         ).astype(np.int32))
+    got = {}
+    for d in ("cpu", dev):
+        cache = lm.init_cache(cfg, 1, 128, device=d)
+        lg, _ = lm.prefill(cfg, _tree_to(params, d), toks.to(d), cache,
+                           positions=pos.to(d))
+        assert torch.equal(cache["stage0"]["b0"]["pos"][:, 0, :88].cpu(),
+                           pos[0].expand(cfg.n_layers, 88))
+        got[str(d)] = lg.cpu()
+    assert float((got["cpu"] - got[str(dev)]).abs().max()) < 1e-4

@@ -110,6 +110,14 @@ def test_prefill_and_ragged_decode_match(models):
 
 
 def test_other_layer_kinds_raise():
+    """Every layer kind is ported; what still raises is an enc-dec prefill
+    whose frame count is not the cache's enc_len (the port writes its
+    caches in place, where the reference would replace the leaves)."""
     from repro_torch.configs import get_reduced as p_reduced
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        P_lm.init_cache(p_reduced("seamless-m4t-medium"), 1, 8, device="cpu")
+    cfg = p_reduced("seamless-m4t-medium")
+    params = P_lm.init_lm(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    cache = P_lm.init_cache(cfg, 1, 8, device="cpu")        # enc_len 0
+    with pytest.raises(ValueError, match="enc_len"):
+        P_lm.prefill(cfg, params, torch.zeros((1, 4), dtype=torch.long),
+                     cache, enc_embeds=torch.zeros((1, 5, cfg.d_model)))
