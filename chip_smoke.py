@@ -126,7 +126,18 @@ nvcc (sm_90a), then:
                 wave) and the Scheduler, as in phase 13, and an image
                 prompt's ``lm.prefill`` at 3-part position ids, whose
                 cache positions must be the temporal ids and whose logits
-                must equal the cacheless ``lm.forward``'s.
+                must equal the cacheless ``lm.forward``'s;
+  17. fleet   — full-width tinyllama-1.1b (f32, one 4.4 GB copy of the
+                weights) as ``serve.cluster.Cluster`` replicas on the card:
+                a migration wave of three routes (K2 out of one replica's
+                pool, K1 into another's) with tokens equal to an
+                uninterrupted fleet's and rows bit-equal to their sources;
+                the launcher with --replicas 4 (migrating) and
+                --no-migrate; chaos at --fault-rate 0.25 twice (equal
+                ledgers) and --no-recovery; route faults between K2 and
+                K1 with retries; a snapshot restore after a replica
+                failure decoding the uninterrupted run's tokens, and a
+                ClusterScheduler run surviving one.
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -220,6 +231,23 @@ V_SCHED_LENS = (100, 400)
 # phase 2's row (e) and phase 16's image prefill: V_IMG_LEN tokens, a text
 # prefix, one V_IMG_GRID x V_IMG_GRID image, text after it
 V_IMG_LEN, V_IMG_PREFIX, V_IMG_GRID = 500, 100, 16
+# phase 17: tinyllama-1.1b at full width and depth (f32, 4.4 GB) as a fleet
+# of F_REPLICAS replicas on one card sharing one copy of the weights,
+# F_SLOTS slots a replica at max_len SERVE_LEN (45,056 B of K/V a token: an
+# 11.5 MB snapshot); prompt i is admitted on replica i // 2, and the wave
+# F_MOVES runs three routes: 0->2 (two sessions, 2 hops), 1->3 (2 hops)
+# and 3->0 (1 hop)
+F_REPLICAS, F_SLOTS, F_SESSIONS = 4, 2, 16
+F_PROMPTS = (16, 40, 64, 90, 120, 150, 180, 200)
+F_MAX_NEW, F_FIRST = 24, 8
+F_BOUNCES = 8                    # waves of the route-fault check in (d)
+F_MOVES = ((0, 2), (1, 2), (2, 3), (7, 0))
+F_CLUSTER_ARGV = ("--arch", "tinyllama-1.1b", "--replicas", "4", "--slots",
+                  "1", "--requests", "8", "--followups", "16", "--bursty",
+                  "--mean-gap-ns", "700", "--seed", "2")
+F_CHAOS_ARGV = ("--arch", "tinyllama-1.1b", "--replicas", "2", "--slots",
+                "2", "--requests", "4", "--followups", "6", "--fault-rate",
+                "0.25", "--fault-seed", "7")
 
 
 class SmokeFailure(RuntimeError):
@@ -679,6 +707,11 @@ def main() -> int:
     wall(15)
     add(qwen2vl_phase(tag), "flash_attention_mrope")
     wall(16)
+    # tinyllama's fleet: its K3 launches count on tinyllama's rows, its K1
+    # and K2 launches (the migration routes' included) on theirs
+    for name, n in fleet_phase(tag).items():
+        counts[name] += n
+    wall(17)
     routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
                                   "decode": counts["flash_attention_decode"]},
               **paths}
@@ -2253,6 +2286,336 @@ def bit_equal(a, b) -> bool:
     return (a.shape == b.shape and a.dtype == b.dtype
             and torch.equal(a.reshape(-1).view(torch.uint8),
                             b.reshape(-1).view(torch.uint8)))
+
+
+def fleet_phase(tag) -> dict:
+    """Phase 17: tinyllama-1.1b at full width as a fleet of F_REPLICAS
+    replicas on one card (``repro_torch.serve.cluster.Cluster``).
+
+    (a) migration: prompts F_PROMPTS, two a replica, decode F_FIRST steps,
+        suspend all, migrate the wave F_MOVES (then back to the sources and
+        out again, each wave timed), resume every session on its replica
+        and decode to F_MAX_NEW: tokens must equal an uninterrupted
+        fleet's, each moved row and checksum row must be bit-equal to the
+        source row captured before the move (the source row unchanged),
+        and every replica must hold replica 0's parameter tensors;
+    (b) launches over (a): K1 and K2 each what the fleet's serving stats
+        call for plus one a route wave (``migration_waves`` +
+        ``migration_retries`` + ``fork_materializations``), K3 what the
+        stats call for, K4 none;
+    (c) the launcher with F_CLUSTER_ARGV and again with ``--no-migrate``:
+        every job completes, sessions migrate in the first run and not in
+        the second, the launches add up as in (b);
+    (d) chaos: the launcher with F_CHAOS_ARGV twice and once with
+        ``--no-recovery``: every job completes, the ledger's identities
+        hold, the two runs' ledgers are equal, the audit arm neither
+        recovers nor retries; then one session migrated F_BOUNCES times
+        between two replicas at a movement-fault rate of 0.6, faults
+        landing between K2 and K1: every clean wave's row bit-equal to its
+        source, no source row written, one K2 and one K1 a wave and retry;
+    (e) recovery: a session snapshotted, its replica failed, restored on
+        the other and decoded on must give the uninterrupted run's tokens
+        with its restored row and checksums bit-equal to the snapshot's
+        and verifying at resume; and a ClusterScheduler run with a replica
+        failure at tick 25 and snapshots every 8 ticks completes every job,
+        recovers sessions, and no resume or scrub fails its checksums.
+
+    Returns the launch counts of (a), (c) and (d)'s route-fault waves,
+    summed."""
+    import numpy as np
+    import torch
+    from repro_torch import sched
+    from repro_torch.configs import get_config
+    from repro_torch.faults import (FaultInjector, FaultSpec,
+                                    restore_session, snapshot_sessions)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.cluster import Cluster
+    from repro_torch.serve.engine import Request
+
+    dev = torch.device("cuda")
+    cfg = get_config("tinyllama-1.1b")
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    prompts = _prompts(cfg, F_PROMPTS, SEED + 17)
+    kw = dict(n_replicas=F_REPLICAS, slots=F_SLOTS, max_len=SERVE_LEN,
+              n_sessions=F_SESSIONS, device=dev)
+
+    def admit(cl, max_new):
+        reqs = [Request(uid, p, max_new) for uid, p in enumerate(prompts)]
+        for r in reqs:
+            cl.submit(r, replica=r.uid // F_SLOTS)
+        return reqs
+
+    # the uninterrupted fleet, at the same geometry (the same batch shapes)
+    solo = Cluster(cfg, params, **kw)
+    solo_reqs = admit(solo, F_MAX_NEW)
+    while solo.active:
+        solo.step()
+    del solo
+
+    # ---- (a) migration, (b) its launches --------------------------------
+    ops.reset_launch_counts()
+    cl = Cluster(cfg, params, **kw)
+    want_ptrs = [t.data_ptr() for t in _leaves(params)]
+    for eng in cl.replicas:
+        check([t.data_ptr() for t in _leaves(eng.params)] == want_ptrs,
+              f"fleet: replica {eng.replica_id} holds its own weights")
+    reqs = admit(cl, F_MAX_NEW)
+    for _ in range(F_FIRST):
+        cl.step()
+    cl.suspend_many(sorted(cl.active))
+    rows = {}
+    for uid, _ in F_MOVES:
+        eng = cl.replicas[cl.residence[uid]]
+        r = eng.forks.resolve(uid)
+        rows[uid] = (eng, r, eng.sessions.slow[r].clone(),
+                     eng.session_sums[r].clone())
+
+    def wave(moves):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cl.migrate_many(list(moves))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # the wave, then back to the sources and out again: the first wave
+    # is a process's first migration (its buffers' first allocations),
+    # the third one a warm one; every row is checked after the first
+    mig_s = [wave(F_MOVES)]
+    for uid, dst in F_MOVES:
+        s_eng, s_row, pages, sums = rows[uid]
+        d_eng = cl.replicas[dst]
+        d_row = d_eng.forks.resolve(uid)
+        check(cl.residence[uid] == dst and uid not in s_eng.session_pos,
+              f"fleet: uid {uid} did not move to replica {dst}")
+        check(torch.equal(d_eng.sessions.slow[d_row], pages)
+              and torch.equal(d_eng.session_sums[d_row], sums),
+              f"fleet: uid {uid}'s row or checksums differ from the "
+              f"source's after the move")
+        check(torch.equal(s_eng.sessions.slow[s_row], pages),
+              f"fleet: the move changed uid {uid}'s source row")
+    mig_s.append(wave([(uid, uid // F_SLOTS) for uid, _ in F_MOVES]))
+    mig_s.append(wave(F_MOVES))
+    extra = {uid: F_MAX_NEW - len(r.generated) + 1
+             for uid, r in enumerate(reqs)}
+    resumed, pending = {}, sorted(extra)
+    while pending:
+        free, batch = cl.free_by_replica(), []
+        for uid in pending:
+            if free[cl.residence[uid]]:
+                free[cl.residence[uid]] -= 1
+                batch.append(uid)
+        for uid, g in zip(batch, cl.resume_many(batch,
+                                                [extra[u] for u in batch])):
+            resumed[uid] = cl.active[g]
+        pending = [u for u in pending if u not in batch]
+        while cl.active:
+            cl.step()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for r, s in zip(reqs, solo_reqs):
+        check(r.generated + resumed[r.uid].generated[1:] == s.generated,
+              f"fleet: uid {r.uid}'s tokens differ from the uninterrupted "
+              f"fleet's")
+    check(cl.verify_failure_count() == 0 and cl.scrub() == 0,
+          "fleet: a resume or the scrub failed its checksums")
+    cs, st = cl.cluster_stats, cl.stats
+    n_routes = len({(u // F_SLOTS, d) for u, d in F_MOVES})
+    check(cs["migrations"] == 3 * len(F_MOVES)
+          and cs["migration_waves"] == 3 * n_routes
+          and cs["migrated_bytes"] == 3 * len(F_MOVES) * cl.snapshot_bytes,
+          f"fleet: migration stats {cs}")
+    check_counts(counts, fleet_launches(cfg, st), "the fleet's migration")
+    hops = [cl.topo.hops(u // F_SLOTS, d) for u, d in F_MOVES]
+    nbytes = len(F_MOVES) * cl.snapshot_bytes
+    print(f"fleet: {F_REPLICAS} replicas x {F_SLOTS} slots, one copy of "
+          f"the weights; a wave of {len(F_MOVES)} sessions over {n_routes} "
+          f"routes (hops {hops}), {nbytes / 1e6:.1f} MB, there, back and "
+          f"there again in "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in mig_s)} ms "
+          f"({nbytes / mig_s[-1] / 1e9:.2f} GB/s warm, host clock); tokens "
+          f"equal the uninterrupted fleet's; rows and checksums bit-equal "
+          f"to the sources; launches {json.dumps(counts)} [{tag}]")
+    del cl
+    total = dict(counts)
+
+    # ---- (c) the launcher, migration on and off -------------------------
+    runs = {}
+    for arm, extra_argv in (("migrate", []), ("no-migrate",
+                                              ["--no-migrate"])):
+        ops.reset_launch_counts()
+        out, s = serve.run(list(F_CLUSTER_ARGV) + extra_argv)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        check(out["jobs_completed"] == 24
+              and all(j.state == "done" for j in s.jobs()),
+              f"fleet launcher ({arm}): not every job completed")
+        check(s.eng.verify_failure_count() == 0,
+              f"fleet launcher ({arm}): a resume failed its checksums")
+        check_counts(got, fleet_launches(cfg, s.eng.stats),
+                     f"the fleet launcher ({arm})")
+        for name, n in got.items():
+            total[name] += n
+        runs[arm] = out
+        mig = out["migration"]
+        print(f"fleet launcher ({arm}): {out['jobs_completed']} jobs, "
+              f"{out['seconds']} s, {out['tokens_per_s']} tok/s, "
+              f"{mig['sessions_migrated']} sessions migrated, "
+              f"{out['migrated_bytes'] / 1e9:.3f} GB in "
+              f"{s.eng.cluster_stats['migration_waves']} waves, p99 "
+              f"{out['p99_latency_ns']} ns (virtual clock) [{tag}]")
+    check(runs["migrate"]["migration"]["sessions_migrated"] > 0,
+          "fleet launcher: no session migrated")
+    check(runs["no-migrate"]["migration"]["sessions_migrated"] == 0
+          and runs["no-migrate"]["migrations"] == 0,
+          "fleet launcher: --no-migrate migrated")
+
+    # ---- (d) chaos -------------------------------------------------------
+    ledgers = []
+    for arm, extra_argv in (("chaos", []), ("chaos replay", []),
+                            ("no-recovery", ["--no-recovery"])):
+        out, s = serve.run(list(F_CHAOS_ARGV) + extra_argv)
+        led = out["fault_ledger"]
+        check(out["jobs_completed"] == 10
+              and all(j.state == "done" for j in s.jobs()),
+              f"{arm}: not every job completed")
+        check(led["new_corrupt"] == led["detected"] + led["recovered"]
+              + led["destroyed"] + led["at_rest_corrupt"]
+              and out["verify_failed"] == led["detected"]
+              and out["at_rest_corrupt"] == led["at_rest_corrupt"],
+              f"{arm}: the ledger's identities fail: {out}")
+        if arm == "no-recovery":
+            check(led["recovered"] == led["retries"] == 0,
+                  f"{arm}: recovered or retried: {led}")
+        else:
+            ledgers.append(led)
+        print(f"{arm}: {out['jobs_completed']} jobs, ledger "
+              f"{json.dumps(led)}, verify_failed {out['verify_failed']}, "
+              f"retries {s.eng.cluster_stats['migration_retries']}, "
+              f"{out['seconds']} s [{tag}]")
+    check(ledgers[0] == ledgers[1], "chaos: the replay's ledger differs")
+    # the launcher's chaos draws hit stored sessions; this corrupts the
+    # route itself, between K2 and K1: a session bounced between two
+    # replicas under a heavy movement-fault rate, each clean wave's row
+    # bit-equal to the source row and the source row never written
+    inj = FaultInjector(FaultSpec(rate=0.6, seed=3, max_retries=8))
+    cl = Cluster(cfg, params, n_replicas=2, slots=2, max_len=SERVE_LEN,
+                 n_sessions=8, faults=inj, device=dev)
+    cl.submit(Request(3, prompts[7], 4), replica=0)
+    while cl.active:
+        cl.step()
+    ops.reset_launch_counts()
+    src, n_events = 0, 0
+    for _ in range(F_BOUNCES):
+        s_eng, d_eng = cl.replicas[src], cl.replicas[1 - src]
+        s_row = s_eng.forks.resolve(3)
+        pages = s_eng.sessions.slow[s_row].clone()
+        cl.migrate(3, 1 - src)
+        check(torch.equal(s_eng.sessions.slow[s_row], pages),
+              "route faults: a corrupted wave wrote its source row")
+        for ev in cl.drain_fault_events():
+            n_events += 1
+            if ev["corrupt_uid"] is None:
+                check(torch.equal(d_eng.sessions.slow[
+                    d_eng.forks.resolve(3)], pages),
+                      "route faults: a clean wave's row differs from its "
+                      "source")
+            else:
+                inj.consume_corrupt(3, "detected")
+        src = 1 - src
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    waves = (cl.cluster_stats["migration_waves"]
+             + cl.cluster_stats["migration_retries"])
+    check_counts(got, {"villa_gather": waves, "villa_scatter": waves},
+                 "the faulted routes")
+    led = inj.summary()
+    check(led["movement_fired"] >= 1 and led["retries"] >= 1
+          and n_events == led["retry_fixed"] + led["new_corrupt"]
+          + led["merged"],
+          f"route faults: the ledger {led} over {n_events} events")
+    for name, n in got.items():
+        total[name] += n
+    print(f"route faults: {F_BOUNCES} waves of one session, "
+          f"{led['retries']} retries, ledger {json.dumps(led)}; launches "
+          f"{json.dumps(got)} [{tag}]")
+    del cl
+
+    # ---- (e) recovery ----------------------------------------------------
+    rkw = dict(n_replicas=2, slots=2, max_len=SERVE_LEN, n_sessions=8,
+               device=dev)
+    prompt = prompts[5]
+    straight = Request(7, prompt, 32)
+    clean = Cluster(cfg, params, **rkw)
+    clean.submit(straight, replica=1)
+    while clean.active:
+        clean.step()
+    del clean
+    cl = Cluster(cfg, params, faults=FaultInjector(FaultSpec(seed=1)), **rkw)
+    req = Request(7, prompt, 4)
+    cl.submit(req, replica=0)
+    while cl.active:
+        cl.step()
+    snaps, snap_cost = snapshot_sessions(cl)
+    cl.fail_replica(0)
+    check(7 not in cl.session_pos, "recovery: the session outlived its "
+                                   "replica")
+    rec_cost = restore_session(cl, snaps[7], 1)
+    eng = cl.replicas[1]
+    row = eng.forks.resolve(7)
+    check(torch.equal(eng.sessions.slow[row].cpu(),
+                      torch.from_numpy(snaps[7].pages))
+          and np.array_equal(eng.session_sums[row].cpu().numpy(),
+                             snaps[7].sums.astype(np.int64)),
+          "recovery: the restored row differs from the snapshot")
+    g = cl.resume(7, extra_new=32 - len(req.generated) + 1)
+    r2 = cl.active[g]
+    while cl.active:
+        cl.step()
+    check(req.generated + r2.generated[1:] == straight.generated,
+          "recovery: the restored session's tokens differ from the "
+          "uninterrupted run's")
+    check(cl.verify_failure_count() == 0,
+          "recovery: the restored session failed its checksums")
+    del cl
+    wl = sched.WorkloadConfig(n_fresh=4, n_followups=6)
+    arrivals = sched.generate_workload(wl, seed=5, vocab_size=cfg.vocab_size)
+    inj = FaultInjector(FaultSpec(replica_failures=((25, 1),)))
+    cl = Cluster(cfg, params, n_replicas=2, slots=2, max_len=48,
+                 n_sessions=sched.n_sessions_for(wl), faults=inj,
+                 device=dev)
+    s = sched.ClusterScheduler(cl, arrivals=arrivals, snapshot_every=8)
+    summary = s.run()
+    f = summary["faults"]["counters"]
+    check(summary["jobs_completed"] == len(arrivals)
+          and f["replica_failures"] == 1 and f.get("recovered", 0) >= 1,
+          f"recovery: the scheduler run {summary['faults']}")
+    check(cl.verify_failure_count() == 0 and cl.scrub() == 0,
+          "recovery: a resume or the scrub failed its checksums")
+    print(f"recovery: restored session's tokens equal the uninterrupted "
+          f"run's ({len(straight.generated)}), snapshot "
+          f"{snap_cost.bytes / 1e6:.1f} MB, restore priced "
+          f"{rec_cost.ns_lisa:.1f} ns (lisa); the scheduler run with a "
+          f"replica failure at tick 25: {summary['jobs_completed']} jobs, "
+          f"faults {json.dumps(f)} [{tag}]")
+    del cl, params
+    torch.cuda.empty_cache()
+    return total
+
+
+def fleet_launches(cfg, st) -> dict:
+    """The launches a fleet's stats call for: the serving launches of
+    its replicas' engines (``serving_launches`` of the summed stats), and
+    one K2 and one K1 a route wave — a migration wave, each of its
+    retries, each cross-replica fork materialization."""
+    due = serving_launches(cfg, st)
+    waves = (st["migration_waves"] + st["migration_retries"]
+             + st["fork_materializations"])
+    for name in ("villa_gather", "villa_scatter"):
+        due[name] = due.get(name, 0) + waves
+    return {name: n for name, n in due.items() if n}
 
 
 def serving_launches(cfg, st) -> dict:

@@ -1,10 +1,8 @@
-# Port of src/repro/launch/serve.py:77-313, single replica.  Left out until
-# the cluster slice (ROADMAP Queue 1 items 11-12): --replicas above 1 and the
-# chaos flags, which the parser refuses.  The output JSON has no
+# Port of src/repro/launch/serve.py:77-313.  The output JSON has no
 # ``decode_compile_count``: the port runs eagerly and compiles nothing per
 # shape.  ``--device`` takes the place of JAX_PLATFORMS.
 """Serving launcher: the cost-aware scheduler serving synthetic traffic on
-one engine.
+one engine or a multi-replica cluster with live session migration.
 
 Quickstart::
 
@@ -15,6 +13,15 @@ Quickstart::
   # on the CPU, at the reduced width
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch tinyllama-1.1b --reduced --requests 12 --followups 24
+  # four replicas on a mesh ring: placement + cost-priced live migration
+  # (--no-migrate pins resumes to their home replica, the A/B arm)
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch tinyllama-1.1b --reduced --replicas 4 --slots 1 \
+      --requests 8 --followups 16 --bursty --mean-gap-ns 700 --seed 2
+  # chaos: seeded faults, checksummed migration with retries, snapshots
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch tinyllama-1.1b --reduced --replicas 2 --slots 2 \
+      --requests 4 --followups 6 --fault-rate 0.25 --fault-seed 7
   # sliding-window layers (ring caches): prompts and decode past the window
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch gemma3-27b --reduced --max-new 24
@@ -32,10 +39,15 @@ An enc-dec config (seamless-m4t-medium) is refused by the Engine, as the
 reference's Engine cannot prefill one; its path is ``lm.prefill`` with
 ``enc_embeds``, then ``lm.decode_step``.
 
-This module drives no engine loop of its own: every submit, suspend and
-resume is a :class:`repro_torch.sched.Scheduler` decision.  Admission
-overflow QUEUES (never EngineFull), suspend/resume traffic drains as fused
-waves, and ``--policy fifo`` is the A/B arm of the default ``cost_aware``.
+This module drives no engine loop of its own: every submit, suspend,
+resume — and with ``--replicas > 1`` every placement and migration — is a
+:class:`repro_torch.sched.Scheduler` /
+:class:`repro_torch.sched.ClusterScheduler` decision.  Admission overflow
+QUEUES (never EngineFull), suspend/resume traffic drains as fused waves
+(one per replica per wave), and migrations run as priced ``hop_chain``
+movement plans (a page gather and a page scatter per route).
+``--policy fifo`` is the A/B arm of the default ``cost_aware``
+(``cost_aware_cluster`` with ``--replicas > 1``).
 """
 from __future__ import annotations
 
@@ -49,18 +61,35 @@ import torch
 from repro_torch import movement as MV
 from repro_torch import resolve_device, sched
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.faults import FaultInjector, FaultSpec
 from repro_torch.models import lm
 from repro_torch.obs import Tracer, write_chrome_trace
+from repro_torch.serve.cluster import Cluster
 from repro_torch.serve.engine import Engine, Request
-
-CLUSTER_SLICE = ("the port's cluster and faults slice (ROADMAP Queue 1 "
-                 "items 11-12), not ported yet: this launcher serves one "
-                 "replica")
 
 QUICKSTART = """examples:
   %(prog)s --arch tinyllama-1.1b --requests 16 --followups 32 --bursty
   %(prog)s --device cpu --arch tinyllama-1.1b --reduced --requests 12 \
 --followups 24 --policy fifo
+  %(prog)s --arch tinyllama-1.1b --replicas 4 --slots 2
+  %(prog)s --arch tinyllama-1.1b --replicas 4 --no-migrate --policy fifo
+
+With --replicas N the engines sit on a mesh ring: placement scores each
+replica by free slots, VILLA fast-tier occupancy and the modeled hop cost
+from the session's residence; a resume placed off its home replica
+live-migrates the suspended pages as one fused plan per route.
+--no-migrate pins every resume to its home replica (the SLO A/B arm).
+
+Chaos: --fault-rate R injects seeded at-rest bit rot and migration-leg
+corruption at per-event probability R.  Every corruption is caught by the
+per-page checksum sidecar; with recovery on (default) the scheduler retries
+corrupted movement legs (priced, backoff on the virtual clock) and restores
+corrupt sessions from periodic snapshots; --no-recovery turns the run into
+a detection-only audit.  --fault-seed picks the chaos RNG stream; the same
+(rate, seed) replays the same faults bit-for-bit:
+
+  %(prog)s --arch tinyllama-1.1b --replicas 2 --slots 2 --fault-rate 0.25 \
+--fault-seed 7
 
 Shared-prefix forking: --fork-prefix N prefills one N-token system prompt
 ONCE, then admits every fresh session as a zero-copy FORK of that template
@@ -76,8 +105,9 @@ session.  The prefix must leave room for the decode budget: --fork-prefix +
 def run(argv=None):
     """Parse ``argv``, serve the workload and print the output JSON.
     Returns ``(out, scheduler)``: the JSON as a dict and the
-    :class:`repro_torch.sched.Scheduler` that ran it (its ``eng`` is the
-    Engine), for callers that check the run beyond its JSON."""
+    :class:`repro_torch.sched.Scheduler` (or ``ClusterScheduler``) that ran
+    it (its ``eng`` is the Engine or the Cluster), for callers that check
+    the run beyond its JSON."""
     p = argparse.ArgumentParser(
         epilog=QUICKSTART,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -87,28 +117,40 @@ def run(argv=None):
                    help="torch device to serve on (default: cuda; the CPU "
                         "only with --device cpu)")
     p.add_argument("--replicas", type=int, default=1,
-                   help="engine replicas (1; more need the cluster slice)")
+                   help="engine replicas on the mesh ring (default 1; >1 "
+                        "enables placement + live session migration)")
     p.add_argument("--no-migrate", action="store_true",
-                   help="cluster only (refused)")
-    p.add_argument("--slots", type=int, default=4, help="decode slots")
+                   help="pin resumes to their home replica (A/B arm; only "
+                        "meaningful with --replicas > 1)")
+    p.add_argument("--slots", type=int, default=4,
+                   help="decode slots PER replica")
     p.add_argument("--max-len", type=int, default=96)
     p.add_argument("--requests", type=int, default=8,
                    help="fresh sessions (may exceed the slot count: "
                         "overflow queues)")
     p.add_argument("--followups", "--resumes", type=int, default=16,
                    dest="followups", help="follow-up (resume) arrivals")
-    p.add_argument("--policy", default="cost_aware",
-                   choices=sched.policies(), help="scheduling policy")
+    p.add_argument("--policy", default=None, choices=sched.policies(),
+                   help="scheduling policy (default: cost_aware, or "
+                        "cost_aware_cluster with --replicas > 1)")
     p.add_argument("--mean-gap-ns", type=float, default=2000.0)
     p.add_argument("--bursty", action="store_true")
     p.add_argument("--zipf-s", type=float, default=1.3)
     p.add_argument("--max-new", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
-    for flag in ("--fault-rate", "--fault-seed", "--snapshot-every"):
-        p.add_argument(flag, default=None, help="chaos, cluster only "
-                                                "(refused)")
+    p.add_argument("--fault-rate", type=float, default=0.0,
+                   help="seeded chaos: per-event probability of injecting "
+                        "a fault (at-rest bit rot, migration-leg "
+                        "corruption); 0 disables injection (default)")
+    p.add_argument("--fault-seed", type=int, default=None,
+                   help="chaos RNG stream (default: --seed); the same "
+                        "(rate, seed) pair replays identical faults")
     p.add_argument("--no-recovery", action="store_true",
-                   help="chaos, cluster only (refused)")
+                   help="detection-only chaos: count checksum detections "
+                        "but never retry or restore (audit arm)")
+    p.add_argument("--snapshot-every", type=int, default=4,
+                   help="ticks between session-snapshot refreshes backing "
+                        "chaos recovery (0 disables snapshots)")
     p.add_argument("--fork-prefix", type=int, default=None, metavar="N",
                    help="serve every fresh session as a zero-copy fork of "
                         "ONE N-token shared system prompt (prefilled once; "
@@ -121,28 +163,33 @@ def run(argv=None):
     p.add_argument("--trace-out", default=None, metavar="PATH",
                    help="record the run's virtual-clock span trace and "
                         "write it as Chrome trace_events JSON (open in "
-                        "Perfetto)")
+                        "Perfetto); composes with every chaos/fork flag — "
+                        "fault incidents, retries, snapshots, forks and "
+                        "CoW breaks all appear as spans")
     args = p.parse_args(argv)
 
     wl_prompt_lens = (6, 8, 10, 12)
     if args.replicas < 1:
         p.error(f"--replicas must be >= 1 (got {args.replicas})")
-    if args.replicas > 1:
-        p.error(f"--replicas {args.replicas} needs {CLUSTER_SLICE}")
-    refused = [f for f, on in (("--no-migrate", args.no_migrate),
-                               ("--fault-rate", args.fault_rate is not None),
-                               ("--fault-seed", args.fault_seed is not None),
-                               ("--no-recovery", args.no_recovery),
-                               ("--snapshot-every",
-                                args.snapshot_every is not None)) if on]
-    if refused:
-        p.error(f"{', '.join(refused)} need {CLUSTER_SLICE}")
     if args.max_new < 1:
         p.error(f"--max-new must be >= 1 (got {args.max_new})")
     if args.max_len < max(wl_prompt_lens) + args.max_new:
         p.error(f"--max-len {args.max_len} cannot hold the synthetic "
                 f"workload: prompts run up to {max(wl_prompt_lens)} tokens "
                 f"plus --max-new {args.max_new} decode positions")
+    if not 0.0 <= args.fault_rate <= 1.0:
+        p.error(f"--fault-rate must be a probability in [0, 1] "
+                f"(got {args.fault_rate})")
+    if args.snapshot_every < 0:
+        p.error(f"--snapshot-every must be >= 0 (got {args.snapshot_every})")
+    if args.fault_rate > 0 and args.replicas < 2:
+        p.error("--fault-rate needs --replicas >= 2: chaos injection "
+                "targets the cluster scheduler (migration legs, replica "
+                "storage)")
+    if (args.no_recovery or args.fault_seed is not None) \
+            and args.fault_rate == 0:
+        p.error("--no-recovery / --fault-seed are chaos flags: set "
+                "--fault-rate > 0 to enable injection first")
     if args.no_fork and args.fork_prefix is None:
         p.error("--no-fork is the A/B arm of --fork-prefix: set "
                 "--fork-prefix N to define the shared prefix first")
@@ -162,6 +209,8 @@ def run(argv=None):
                     f"to {max(wl_prompt_lens)} tokens): --max-len "
                     f"{args.max_len} is too small for --fork-prefix "
                     f"{args.fork_prefix} + --max-new {args.max_new}")
+    policy = args.policy or ("cost_aware_cluster" if args.replicas > 1
+                             else "cost_aware")
     device = resolve_device(args.device)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -200,38 +249,65 @@ def run(argv=None):
             arrivals = [a._replace(kind="resume", prompt=None)
                         if a.kind == "fresh" else a for a in arrivals]
 
-    engine = Engine(cfg, params, slots=args.slots, max_len=args.max_len,
-                    n_sessions=n_sessions, device=device)
+    injector = None
+    if args.fault_rate > 0:
+        injector = FaultInjector(FaultSpec(
+            rate=args.fault_rate,
+            seed=args.seed if args.fault_seed is None else args.fault_seed,
+            recover=not args.no_recovery))
     tracer = Tracer() if args.trace_out else None
     if tracer is not None:
         MV.set_tracer(tracer)       # host-side plan executes -> exec marks
     try:
-        s = sched.Scheduler(engine, policy=args.policy, arrivals=arrivals,
-                            tracer=tracer)
+        if args.replicas > 1:
+            eng = Cluster(cfg, params, n_replicas=args.replicas,
+                          slots=args.slots, max_len=args.max_len,
+                          n_sessions=n_sessions, faults=injector,
+                          device=device)
+            s = sched.ClusterScheduler(eng, policy=policy,
+                                       arrivals=arrivals,
+                                       migrate=not args.no_migrate,
+                                       snapshot_every=(args.snapshot_every
+                                                       if injector else 0),
+                                       tracer=tracer)
+        else:
+            eng = Engine(cfg, params, slots=args.slots,
+                         max_len=args.max_len, n_sessions=n_sessions,
+                         device=device)
+            s = sched.Scheduler(eng, policy=policy, arrivals=arrivals,
+                                tracer=tracer)
         if fork_template_uid is not None:
             # prefill the shared prefix ONCE (max_new=1 auto-suspends at the
             # prefill token) and alias every workload session off its
-            # snapshot — zero device launches for the whole fan-out
+            # snapshot — zero device launches for the whole fan-out (a
+            # cluster fork off replica 0 onto replica 0 is an alias too)
             uids = sorted(fork_seeds)
-            engine.submit(Request(uid=fork_template_uid, prompt=prefix,
-                                  max_new=1))
-            engine.fork_many(fork_template_uid, uids,
-                             seed_tokens=[fork_seeds[u] for u in uids])
+            if args.replicas > 1:
+                eng.submit(Request(uid=fork_template_uid, prompt=prefix,
+                                   max_new=1), replica=0)
+                for uid in uids:
+                    eng.fork(fork_template_uid, uid,
+                             seed_token=fork_seeds[uid])
+            else:
+                eng.submit(Request(uid=fork_template_uid, prompt=prefix,
+                                   max_new=1))
+                eng.fork_many(fork_template_uid, uids,
+                              seed_tokens=[fork_seeds[u] for u in uids])
         t0 = time.time()
         summary = s.run()
         dt = time.time() - t0
     finally:
         if tracer is not None:
             MV.set_tracer(None)     # don't leak into later runs in-process
-    eng_stats = engine.stats
+    eng_stats = eng.stats
 
     out = {
-        "policy": args.policy,
+        "policy": policy,
         "replicas": args.replicas,
         **summary,
         **{k: eng_stats[k] for k in ("decoded_tokens", "suspends", "resumes",
                                      "decode_dispatches", "host_transfers")},
-        "villa_hit_rate": round(engine.hit_rate(), 3),
+        "villa_hit_rate": round(eng.hit_rate(), 3),
         "ticks": s.tick_count,
         "tokens_per_s": round(eng_stats["decoded_tokens"] / max(dt, 1e-9),
                               1),
@@ -247,6 +323,13 @@ def run(argv=None):
             "demotions": eng_stats["demotions"],
             "evictions": eng_stats["evictions"],
         }
+    if args.replicas > 1:
+        out["migrations"] = eng_stats["migrations"]
+        out["migrated_bytes"] = eng_stats["migrated_bytes"]
+    if injector is not None:
+        out["fault_ledger"] = injector.summary()
+        out["verify_failed"] = eng.verify_failure_count()
+        out["at_rest_corrupt"] = int(eng.scrub())
     if tracer is not None:
         write_chrome_trace(tracer, args.trace_out)
         roll = tracer.rollup()

@@ -11,7 +11,9 @@ adapter from a typed leg to the device work:
   tile_copy                  ->  the CUDA tile copy kernel K4
                                  (a new tensor; the source is not aliased)
   host_stage                 ->  device <-> host copies across the channel
-  hop_chain                  ->  NotImplementedError until its slice
+  hop_chain                  ->  the identity in ``local_fabric`` mode (the
+                                 single-process replica fleet); a mesh's
+                                 ppermute chain is ROADMAP item 16
 
 The VILLA tier legs (``tier_read`` / ``tier_write``) are registered by
 :mod:`repro_torch.core.lisa.villa_cache`, which owns the caching policy.
@@ -102,9 +104,18 @@ def _tile_copy(leg: TileCopyLeg, env: Env) -> Env:
 
 @register_backend("hop_chain")
 def _hop_chain(leg: Leg, env: Env) -> Env:
+    if env.get("local_fabric"):
+        # Single-process replica fleet (serve/cluster.py): the replica pools
+        # share one address space, so the payload the gather leg staged is
+        # already reachable by the scatter leg — the hop chain contributes
+        # the PRICED mesh route (the plan's cost is the ICI hop model) and
+        # is an identity on the bytes here.
+        return dict(env)
     raise NotImplementedError(
-        "hop_chain legs (mesh ppermute chains / the cluster's local fabric) "
-        "arrive with the cluster and multi-device slices")
+        "hop_chain legs over a device mesh (rbm_hop shifts / lisa_copy "
+        "chains between leg.src and leg.dst) are ROADMAP item 16, the "
+        "multi-device slice; the single-process fleet passes "
+        "local_fabric=True")
 
 
 @register_backend("page_alias")
@@ -120,7 +131,11 @@ def _host_stage(leg: Leg, env: Env) -> Env:
     env = dict(env)
     leaves = env["data"]
     if leg.to_host:
-        env["data"] = [None if t is None else t.detach().cpu().numpy()
+        # tensors come back as numpy arrays; plain Python / numpy scalar
+        # leaves (a checkpoint's step counters) pass through numpy
+        env["data"] = [None if t is None else
+                       t.detach().cpu().numpy()
+                       if isinstance(t, torch.Tensor) else np.asarray(t)
                        for t in leaves]
     else:
         env["data"] = [None if a is None else

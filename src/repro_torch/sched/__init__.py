@@ -1,6 +1,5 @@
-# Port of src/repro/sched/__init__.py: the single-replica scheduler.
-# ClusterScheduler and ClusterWave arrive with the cluster slice; the
-# policies (cost_aware_cluster included) and workload tools are all here.
+# Port of src/repro/sched/__init__.py: a copy of the reference module (no JAX), pinned equal
+# to it by tests/test_torch_copies.py.
 """Cost-aware continuous-batching scheduler: the controller layer that turns
 the serving engine into a traffic-serving system.
 
@@ -13,13 +12,25 @@ Public surface::
     s = sched.Scheduler(engine, policy="cost_aware", arrivals=arrivals)
     summary = s.run()          # per-class p50/p99, SLO attainment, movement
 
+Multi-replica serving drives a :class:`~repro_torch.serve.cluster.Cluster`
+through :class:`ClusterScheduler` — same tick loop, plus placement as a
+third decision axis and cost-priced live session migration::
+
+    cluster = Cluster(cfg, params, n_replicas=4, slots=2)
+    s = sched.ClusterScheduler(cluster, arrivals=arrivals)  # migrate=True
+
 Modules:
   queue      — admission queue: priority classes, deadlines, aging
   policy     — fifo / lru / cost_aware / cost_aware_cluster policies
                (registry; admit, victim AND place orderings)
-  scheduler  — the tick loop: fused waves, decode-overlapped wave prep
+  scheduler  — the tick loops: fused waves, decode-overlapped wave prep,
+               cluster placement + migration lanes
   workload   — synthetic traffic (Poisson/bursty, Zipf re-use, think time)
-  metrics    — per-class latency, SLO attainment, MovementCost accounting
+  metrics    — per-class latency, SLO attainment, MovementCost accounting,
+               per-replica utilization + migration split
+
+See DESIGN.md Sec. 9 (scheduler) and Sec. 10 (cluster) for the paper
+mapping.
 """
 from repro_torch.sched.metrics import Decision, JobRecord, Metrics
 from repro_torch.sched.policy import (
@@ -37,7 +48,8 @@ from repro_torch.sched.policy import (
     register_policy,
 )
 from repro_torch.sched.queue import AdmissionQueue, QueueEntry
-from repro_torch.sched.scheduler import Job, SchedConfig, Scheduler, Wave
+from repro_torch.sched.scheduler import (Job, SchedConfig, Scheduler, Wave,
+                                   ClusterScheduler, ClusterWave)
 from repro_torch.sched.workload import (
     Arrival,
     WorkloadConfig,
@@ -53,6 +65,7 @@ __all__ = [
     "AdmitCand", "VictimCand", "PlaceCand", "SchedContext",
     "register_policy", "get_policy", "policies",
     "Scheduler", "SchedConfig", "Job", "Wave",
+    "ClusterScheduler", "ClusterWave",
     "Arrival", "WorkloadConfig", "generate_workload", "n_sessions_for",
     "skewed_residence_burst",
     "Metrics", "JobRecord", "Decision",

@@ -1,2 +1,3 @@
-"""Serving: the continuous-batching engine and its paged session store
-(ports of src/repro/serve/engine.py and paged_store.py)."""
+"""Serving: the continuous-batching engine, its paged session store and the
+replica fleet (ports of src/repro/serve/engine.py, paged_store.py and
+cluster.py)."""

@@ -1,8 +1,7 @@
-# Port of src/repro/serve/engine.py:64-881 in torch.  Not ported yet:
-# adopt_jits / compile_counts (no jit to share or count), step_unbatched (an
-# A/B-only path), and the cluster-facing session_meta / adopt_session /
-# adopt_alias / drop_session / degrade_fast, which arrive with the cluster
-# slice.
+# Port of src/repro/serve/engine.py:64-881 in torch.  Without a
+# counterpart: adopt_jits / compile_counts (no jit to share or count; a
+# fleet's engines share one copy of the weights instead) and step_unbatched
+# (an A/B-only path).
 """Continuous-batching decode engine with LISA-VILLA session caching.
 
 The serving data path stays on the device:
@@ -33,7 +32,10 @@ Every plan carries a ``MovementCost`` priced by the engine's
 ``memcpy`` mechanisms, and each suspend/resume charges its plan's cost.
 
 Device: the engine runs on ``cuda`` unless ``device="cpu"`` is passed; it
-raises without a GPU otherwise.  Parameters are moved to the device.
+raises without a GPU otherwise.  Parameters are moved to the device with
+``.to``, which returns a tensor already there as it is: the replicas of a
+fleet (``serve/cluster.py``) built from one parameter tree on the device
+share one copy of the weights.
 """
 from __future__ import annotations
 
@@ -87,7 +89,8 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_len: int = 128, n_sessions: int = 64,
                  villa: Optional[VillaConfig] = None,
-                 spec: DramSpec = DDR3_1600, device=None):
+                 spec: DramSpec = DDR3_1600, replica_id: int = 0,
+                 device=None):
         if cfg.encdec:
             raise NotImplementedError(
                 f"{cfg.name} is enc-dec: the Engine serves decoder-only "
@@ -101,6 +104,10 @@ class Engine:
         self.slots = slots
         self.max_len = max_len
         self.n_sessions = n_sessions
+        # which replica of a serving fleet this engine is (0 for standalone
+        # use); the cluster layer (serve/cluster.py) keys session residence
+        # and migration routes on it
+        self.replica_id = replica_id
         self.active: Dict[int, Request] = {}        # slot -> request
         self.pos = np.zeros(slots, np.int32)
 
@@ -133,6 +140,7 @@ class Engine:
             device=self.device)
         self.verify_failed = torch.zeros((), dtype=torch.int32,
                                          device=self.device)
+        self.fast_degraded = False
 
         _layout = MV.Layout.pages(self.page_spec)
         self.plan_suspend = MV.plan(MV.Transfer(
@@ -162,7 +170,8 @@ class Engine:
     def attach_tracer(self, tracer, lane: Optional[int] = None) -> None:
         """Attach a :class:`repro_torch.obs.Tracer`; session lifecycle
         events (fork / demotion / eviction) become instants on ``lane``
-        (default 0, the single-engine scheduler's lane)."""
+        (the scheduler's replica lane convention: ``1 + replica_id``; the
+        single-engine scheduler passes nothing and events share lane 0)."""
         self.tracer = tracer
         self.trace_lane = lane if lane is not None else 0
 
@@ -387,6 +396,72 @@ class Engine:
                 del self.store_uid[phys]
         self.store_uid[idx] = uid
 
+    def _release_row(self, uid: int) -> Optional[int]:
+        """Drop ``uid``'s alias claim; returns the physical row iff it was
+        the last alias (now reclaimable), else None.  Ownership of a still-
+        shared row passes to a surviving alias."""
+        phys = self.forks.resolve(uid)
+        freed = self.forks.release(uid)
+        if freed is not None:
+            self.store_uid.pop(freed, None)
+        elif self.store_uid.get(phys) == uid:
+            self.store_uid[phys] = self.forks.aliases(phys)[0]
+        return freed
+
+    # ---- session residence metadata (migration support) -------------------
+    def session_meta(self, uid: int) -> tuple:
+        """(next position, last emitted token) of a suspended session —
+        the host-side bookkeeping a migration must carry along with the
+        snapshot pages."""
+        if uid not in self.session_pos:
+            raise UnknownSession(f"uid {uid} has no suspended session on "
+                                 f"replica {self.replica_id}")
+        return self.session_pos[uid], self.session_tok[uid]
+
+    def adopt_session(self, uid: int, pos: int, tok: int) -> int:
+        """Register an inbound migrated session and return the store index
+        its pages must be scattered into (an EXCLUSIVE row — an inbound
+        snapshot is materialized bytes, not an alias).  Collisions evict or
+        demote explicitly, exactly like a local suspend."""
+        if uid in self.forks:
+            self._release_row(uid)      # stale claim: re-adoption replaces
+        idx = self._claim_row(uid)
+        self.forks.bind(uid, idx)
+        self.store_uid[idx] = uid
+        self.session_pos[uid] = int(pos)
+        self.session_tok[uid] = int(tok)
+        return idx
+
+    def adopt_alias(self, uid: int, pos: int, tok: int,
+                    owner_uid: int) -> int:
+        """Register a session as an ALIAS of an already-resident owner
+        (snapshot restore of a forked family: the owner's row was restored
+        ONCE; each alias re-attaches by bookkeeping alone — zero device
+        work, one repair heals every alias).  Returns the shared row."""
+        if uid in self.forks:
+            self._release_row(uid)
+        phys = self.forks.fork_child(owner_uid, uid)
+        self.session_pos[uid] = int(pos)
+        self.session_tok[uid] = int(tok)
+        return phys
+
+    def drop_session(self, uid: int) -> int:
+        """Forget a suspended session (its pages migrated away); returns
+        the PHYSICAL row the snapshot occupied — for a forked alias that is
+        the shared row, which survives for the other aliases.  The bytes in
+        the pool are left as-is; an exclusive row is dead until a new
+        session claims it."""
+        pos = self.session_pos.pop(uid, None)
+        if pos is None:
+            raise UnknownSession(f"uid {uid} has no suspended session on "
+                                 f"replica {self.replica_id}")
+        self.session_tok.pop(uid, None)
+        if uid not in self.forks:
+            return uid % self.n_sessions      # pre-fork legacy bookkeeping
+        idx = self.forks.resolve(uid)
+        self._release_row(uid)
+        return idx
+
     def _suspend_bookkeep(self, slot: int) -> int:
         """Pop the request off ``slot`` and record its session state."""
         req = self.active.pop(slot)
@@ -575,7 +650,10 @@ class Engine:
 
     def fast_resident_uids(self) -> frozenset:
         """uids whose snapshots are resident in the VILLA fast tier (one
-        small device->host read of the policy tags)."""
+        small device->host read of the policy tags).  A degraded fast tier
+        reports empty — every movement is priced at slow-tier cost."""
+        if self.fast_degraded:
+            return frozenset()
         tags = self.sessions.policy.tags.cpu().tolist()
         out = set()
         for t in tags:
@@ -592,6 +670,17 @@ class Engine:
         return float(VC.hit_rate(self.sessions))
 
     # ---- chaos surface ----------------------------------------------------
+    def degrade_fast(self) -> None:
+        """Take the VILLA fast tier offline for pricing purposes: tags are
+        dropped (nothing to write back — the store is write-through, so the
+        slow tier is already current) and :meth:`fast_resident_uids`
+        reports empty from now on, rerouting every scheduler cost estimate
+        to slow-tier prices.  Data-path correctness is untouched."""
+        self.fast_degraded = True
+        st = self.sessions
+        self.sessions = st._replace(policy=st.policy._replace(
+            tags=torch.full_like(st.policy.tags, -1)))
+
     def corrupt_stored(self, idx: int, page: int, byte: int,
                        xor: int) -> None:
         """Chaos hook: XOR one byte of suspended snapshot ``idx`` at rest —

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs import get_reduced
 from repro.kernels import ops as R_ops
 from repro.models import attention as RA

@@ -11,6 +11,7 @@ import sys
 import numpy as np
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro import configs as R_cfg
 from repro import movement as R_MV
 from repro import sched as R_sched
@@ -44,10 +45,11 @@ COPIES = ["configs/__init__.py", "configs/base.py",
           "configs/qwen2_vl_72b.py", "configs/rwkv6_7b.py",
           "configs/seamless_m4t_medium.py", "configs/tinyllama_11b.py",
           "core/dram/bank.py", "core/dram/spec.py", "core/lisa/topology.py",
-          "fork/__init__.py", "fork/table.py", "movement/plan.py",
+          "faults/spec.py", "fork/__init__.py", "fork/table.py",
+          "movement/plan.py",
           "obs/__init__.py", "obs/export.py", "obs/tracer.py",
-          "sched/metrics.py", "sched/policy.py", "sched/queue.py",
-          "sched/workload.py"]
+          "sched/__init__.py", "sched/metrics.py", "sched/policy.py",
+          "sched/queue.py", "sched/workload.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)

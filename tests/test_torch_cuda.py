@@ -1121,3 +1121,91 @@ def test_qwen2vl_engine_and_image_prefill_on_card_match_cpu(dev):
                            pos[0].expand(cfg.n_layers, 88))
         got[str(d)] = lg.cpu()
     assert float((got["cpu"] - got[str(dev)]).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_migration_route_from_one_pool_into_another(dev, k):
+    """The migration route on the card: K2 gathers k sessions' pages out of
+    one pool (the last page of the pool among them) and K1 scatters them
+    into ANOTHER pool, one entry of its table -1 (skipped), bit-exact
+    against the plain versions; through the fault-
+    wrapped plan a flip_byte lands in one byte of the destination and the
+    source pool keeps every byte."""
+    from repro_torch import movement as MV
+    from repro_torch.core.lisa.topology import MeshTopology
+    from repro_torch.faults import inject as FI
+
+    g = torch.Generator(device=dev).manual_seed(20 + k)
+    spp = 5                                      # pages a session
+    src = torch.randint(0, 256, (7 * spp, 8, 128), dtype=torch.uint8,
+                        device=dev, generator=g)
+    dst = torch.randint(0, 256, (4 * spp, 8, 128), dtype=torch.uint8,
+                        device=dev, generator=g)
+    rows_src, rows_dst = [6, 0, 3][:k], [3, 1, 0][:k]
+    st = torch.cat([r * spp + torch.arange(spp, dtype=torch.int32)
+                    for r in rows_src])
+    dt = torch.cat([r * spp + torch.arange(spp, dtype=torch.int32)
+                    for r in rows_dst])
+    assert int(st.max()) == src.shape[0] - 1    # the pool's last page
+    dt[1] = -1                                   # a skipped landing
+    got = ops.villa_scatter(dst.clone(), dt, ops.villa_gather(src, st))
+    want = ref.villa_scatter_ref(dst.cpu(), dt, ref.villa_gather_ref(
+        src.cpu(), st))
+    assert torch.equal(got.cpu(), want)
+    src_before = src.clone()
+    plan = MV.plan(MV.Transfer(MV.Tier("slow", index=0, axis="replica"),
+                               MV.Tier("slow", index=2, axis="replica"),
+                               MV.Layout.raw_pages(k * spp, 8, 128,
+                                                   np.uint8)),
+                   topo=MeshTopology(4))
+    FI.install_fault_backends()
+    try:
+        landed = dst.clone()
+        fault = np.asarray([FI.FAULT_CODES["flip_byte"], 4096 * k - 1,
+                            0x81], np.int32)
+        MV.execute(plan, src_pool=src, src_table=st, dst_pool=landed,
+                   dst_table=dt, local_fabric=True, fault=fault)
+    finally:
+        FI.uninstall_fault_backends()
+    torch.cuda.synchronize()
+    assert torch.equal(src, src_before)
+    assert int((landed.cpu() != want).sum()) == 1
+
+
+def test_cluster_on_card_matches_cpu(dev):
+    """The reduced tinyllama fleet on the card against the fleet on the
+    CPU: a migration wave of two routes, a cross-replica fork, resumes on
+    the destinations, tokens, stats and residence equal; one K2 and one
+    K1 per route on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.cluster import Cluster
+    from repro_torch.serve.engine import Request
+
+    cfg = get_reduced("tinyllama-1.1b")
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 11, 17, 9)]
+    out = []
+    for d in ("cpu", dev):
+        cl = Cluster(cfg, params, n_replicas=4, slots=2, max_len=64,
+                     n_sessions=8, device=d)
+        reqs = [Request(i, p, 4) for i, p in enumerate(prompts)]
+        for r in reqs:
+            cl.submit(r, replica=r.uid // 2)
+        while cl.active:
+            cl.step()
+        ops.reset_launch_counts()
+        cl.migrate_many([(0, 2), (1, 2), (2, 3)])
+        cl.fork(3, 9, replica=0, seed_token=5)
+        counts = ops.launch_counts()
+        slots = cl.resume_many([0, 1, 2, 9], 5)
+        resumed = [cl.active[s] for s in slots]
+        while cl.active:
+            cl.step()
+        out.append(([r.generated for r in reqs + resumed], cl.stats,
+                    cl.residence, cl.verify_failure_count(), cl.scrub()))
+        if d != "cpu":
+            assert counts["villa_gather"] == counts["villa_scatter"] == 3
+    assert out[0] == out[1]

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs import get_config, get_reduced
 from repro.launch.serve import main as r_main
 from repro.models import lm as R_lm

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs import get_reduced
 from repro.models import attention as R_att
 from repro.models import lm as R_lm

@@ -1,5 +1,5 @@
 """``python -m repro_torch.launch.serve`` against ``repro.launch.serve`` on
-the single-replica argvs of the verify recipe.  The two packages draw
+the argvs of the verify recipe, one replica and a cluster's.  The two packages draw
 different random weights from the same seed, but the scheduler's clock and
 decisions depend on token counts only, so the output JSON must be equal in
 every key except wall-clock speed (``tokens_per_s``, ``seconds``) and the
@@ -13,6 +13,7 @@ import json
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.launch.serve import main as r_main
 from repro_torch import movement as P_MV
 from repro_torch.launch.serve import main as p_main
@@ -24,7 +25,9 @@ WALL_CLOCK = ("tokens_per_s", "seconds", "decode_compile_count")
     ["--requests", "4", "--resumes", "6"],
     ["--requests", "8", "--followups", "12", "--fork-prefix", "24"],
     ["--requests", "6", "--followups", "10", "--bursty", "--trace-out"],
-], ids=["resumes", "fork", "trace"])
+    ["--replicas", "2", "--slots", "2", "--requests", "4", "--followups",
+     "6", "--fault-rate", "0.25", "--fault-seed", "7", "--trace-out"],
+], ids=["resumes", "fork", "trace", "cluster-chaos-trace"])
 def test_launcher_json_matches_reference(argv, tmp_path):
     base = ["--arch", "tinyllama-1.1b", "--reduced"] + argv
     traced = argv[-1] == "--trace-out"
@@ -54,14 +57,34 @@ def test_launcher_json_matches_reference(argv, tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--replicas", "2"], ["--fault-rate", "0.1"], ["--fault-seed", "3"],
     ["--no-recovery"], ["--snapshot-every", "2"], ["--no-migrate"],
-])
-def test_cluster_flags_name_the_cluster_slice(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        p_main(["--device", "cpu", "--arch", "tinyllama-1.1b", "--reduced"]
-               + flags)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flags[0] in err and "cluster and faults slice" in err
+    ["--replicas", "2", "--fork-prefix", "24"],
+], ids=["replicas", "fault-rate", "fault-seed", "no-recovery",
+        "snapshot-every", "no-migrate", "replicas-fork"])
+def test_cluster_flags_match_the_reference(flags, capsys):
+    """The cluster and chaos flags as the reference takes them: where it
+    serves, the port's JSON equals its JSON but for wall-clock speed;
+    where it refuses (a chaos flag without ``--fault-rate``, or
+    ``--fault-rate`` on one replica), the port refuses with the same exit
+    code and message."""
+    argv = ["--arch", "tinyllama-1.1b", "--reduced", "--requests", "4",
+            "--followups", "6"] + flags
+    runs = []
+    for main, extra in ((r_main, []), (p_main, ["--device", "cpu"])):
+        try:
+            runs.append(main(argv + extra))
+        except SystemExit as exc:
+            err = capsys.readouterr().err.strip().splitlines()[-1]
+            runs.append((exc.code, err.split("error: ", 1)[1]))
+    want, got = runs
+    if isinstance(want, tuple):
+        assert want[0] == 2 and got == want
+        assert flags[0] in want[1] or "--fault-rate" in want[1]
+        return
+    assert ({k: v for k, v in got.items() if k not in WALL_CLOCK}
+            == {k: v for k, v in want.items() if k not in WALL_CLOCK})
+    assert got["replicas"] == (2 if "--replicas" in flags else 1)
+    if "--fork-prefix" in flags:
+        assert got["fork"]["prefills"] == 1 and got["fork"]["forks"] == 4
 
 
 def test_launcher_needs_a_gpu_or_device_cpu(monkeypatch):

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 import _torch_families as FAM
 from repro.configs import get_reduced
 from repro.models import attention as RA

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro import sched as R
 from repro.configs import get_reduced
 from repro.launch.serve import main as r_main

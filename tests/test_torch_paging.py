@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.kernels import ops as R_ops
 from repro.movement import paging as RP
 from repro_torch.kernels import ops as P_ops

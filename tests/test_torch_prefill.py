@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.models import attention as RA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref as P_ref

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro import movement as R_MV
 from repro.kernels import ops as R_ops
 from repro_torch import movement as P_MV

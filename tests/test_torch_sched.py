@@ -11,6 +11,7 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro import sched as R
 from repro.configs import get_reduced
 from repro.models import lm as R_lm

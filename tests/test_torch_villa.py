@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro.core.dram import villa as RV
 from repro.core.lisa import villa_cache as RC
 from repro_torch.core.dram import villa as PV
