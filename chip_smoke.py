@@ -33,9 +33,13 @@ nvcc (sm_90a), then:
                 2**29, frames at 0 or at 2**30 where masked) in prefill
                 and decode, and the decoder's self-attention decode at
                 G 1; at qwen2-vl's, an exact-length bf16 prefill whose
-                temporal ids repeat over an image), the tile copy
-                also on odd shapes, dtypes and sizes, and times kernel, plain
-                version and one library call for the same function;
+                temporal ids repeat over an image; at training's, B 8 x
+                S 512 at tinyllama's heads in f32 under autograd (K3e:
+                the forward within 3e-5, dq/dk/dv equal to the plain
+                twin's), timed forward plus backward beside SDPA's), the
+                tile copy also on odd shapes, dtypes and sizes, and times
+                kernel, plain version and one library call for the same
+                function;
   3. serving  — full-width tinyllama-1.1b (random weights from a seed)
                 through ``Engine``: 8 requests, 32 decode steps, a suspend
                 wave of 4 sessions, one resume wave, decode to completion;
@@ -138,6 +142,22 @@ nvcc (sm_90a), then:
                 K1 with retries; a snapshot restore after a replica
                 failure decoding the uninterrupted run's tokens, and a
                 ClusterScheduler run surviving one.
+  18. DRAM    — the paper's evaluation through the port's DRAM modules
+                on the card, each part also on the CPU: Table 1 through
+                ``execute_copy`` on a full-geometry DDR3_1600 bank (rows
+                bit-equal, costs the spec's), bench_fig3_fig4's grid of 6
+                configs x 50 workloads x 4096 requests as 300 lanes of one
+                ``simulate_grid``, and the demo's 16,384-request trace:
+                VILLA hits and accesses equal to the CPU's, floats within
+                1e-6, the paper's orderings;
+  19. training — reduced tinyllama with tests/test_train_loop.py's recipe
+                (40 steps, the loss falls, the first 10 losses those of the
+                CPU port), then full-width tinyllama-1.1b in f32 through
+                ``python -m repro_torch.launch.train`` for 20 steps of 8 x
+                512 tokens, and a run checkpointed at step 10 and resumed
+                whose params end bit-equal to the uninterrupted run's; K3's
+                prefill launches layers x forward passes (K3e), its
+                backward none.
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -248,6 +268,34 @@ F_CLUSTER_ARGV = ("--arch", "tinyllama-1.1b", "--replicas", "4", "--slots",
 F_CHAOS_ARGV = ("--arch", "tinyllama-1.1b", "--replicas", "2", "--slots",
                 "2", "--requests", "4", "--followups", "6", "--fault-rate",
                 "0.25", "--fault-seed", "7")
+# phase 18: the paper's DRAM evaluation on the card, as the reference's
+# benchmarks/run.py runs it: bench_fig3_fig4's grid of DRAM_CONFIGS x 50
+# workloads (5 copy probabilities x 5 Zipf exponents x 2 seeds) of
+# DRAM_GRID_REQUESTS requests, and the demo's trace
+# (repro_torch.examples.lisa_dram_demo: 16,384 requests, six configs)
+DRAM_GRID_REQUESTS = 4096
+DRAM_COPY_PROBS = (0.002, 0.005, 0.01, 0.02, 0.04)
+DRAM_ZIPFS = (1.0, 1.2, 1.4, 1.6, 1.8)
+DRAM_SEEDS = (1, 2)
+DRAM_FLOAT_BAR = 1e-6            # the card's floats against the CPU's, rtol
+# Table 1's rows -> (mechanism, src_sa, src_row, dst_sa, dst_row), as
+# bench_table1 runs them
+DRAM_COPIES = {"memcpy": ("memcpy", 0, 1, 7, 2),
+               "RC-InterSA": ("rc_intersa", 0, 1, 7, 2),
+               "RC-Bank": ("rc_bank", 0, 1, 7, 2),
+               "RC-IntraSA": ("rc_intrasa", 0, 1, 0, 2),
+               "LISA-RISC-1": ("lisa", 0, 1, 1, 2),
+               "LISA-RISC-7": ("lisa", 0, 1, 7, 2),
+               "LISA-RISC-15": ("lisa", 0, 1, 15, 2)}
+# phase 2's flash_attention_train row and phase 19 (b): tinyllama-1.1b at
+# full width and depth in f32 trained on T_BATCH x T_SEQ tokens a step for
+# T_STEPS steps through the launcher, checkpointed at T_CKPT and resumed
+T_BATCH, T_SEQ, T_STEPS, T_CKPT = 8, 512, 20, 10
+T_LR = 3e-4        # at this width the launcher's default 3e-3 raises the loss
+# phase 19 (a): tests/test_train_loop.py's recipe on reduced tinyllama
+# (lr 8e-3, warmup 2, B 4, S 64, repeat 8) for TL_STEPS steps; the first
+# TL_MATCH losses within TL_BAR of the CPU port's run
+TL_STEPS, TL_MATCH, TL_BAR = 40, 10, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -498,6 +546,7 @@ def main() -> int:
     rows["flash_attention_int8"] = int8_rows(dev, gen, flush, tag)
     rows["flash_attention_encdec"], rows["flash_attention_mrope"] = \
         encdec_and_mrope_rows(dev, gen, flush, tag)
+    rows["flash_attention_train"] = train_attention_row(dev, gen, flush, tag)
 
     # K4 at the tile_copy path's shape: one K leaf of the serving cache
     leaf = torch.randn((cfg.n_layers, SLOTS, MAX_LEN, K, D), device=dev,
@@ -712,9 +761,16 @@ def main() -> int:
     for name, n in fleet_phase(tag).items():
         counts[name] += n
     wall(17)
+    # the DRAM evaluation runs no kernel of ours (the reference's is jnp,
+    # with no pallas_call); training launches K3's prefill under autograd
+    dram_phase(tag)
+    wall(18)
+    train = train_phase(tag)
+    counts["flash_attention_train"] = train["prefill"] + train["decode"]
+    wall(19)
     routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
                                   "decode": counts["flash_attention_decode"]},
-              **paths}
+              **paths, "flash_attention_train": train}
     for entry, k3 in paths.items():
         counts[entry] = k3["prefill"] + k3["decode"]
     # K3 on tinyllama's paths by route: the decode row, then the prefill row
@@ -733,6 +789,7 @@ def main() -> int:
         "flash_attention_int8": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_encdec": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_mrope": "src/repro/kernels/flash_attention.py:81",
+        "flash_attention_train": "src/repro/kernels/flash_attention.py:81",
         "rbm_copy": "src/repro/kernels/rbm_copy.py:27"}
     csrc = "src/repro_torch/kernels/csrc/"
     decode_src = csrc + "flash_decode.cu"
@@ -748,6 +805,7 @@ def main() -> int:
                "flash_attention_int8": decode_src,
                "flash_attention_encdec": decode_src,
                "flash_attention_mrope": csrc + "flash_attention.cu",
+               "flash_attention_train": csrc + "flash_attention.cu",
                "rbm_copy": csrc + "rbm_copy.cu"}
     # flash_attention counts K3's decode kernel on the tinyllama paths
     # (phases 3 and 5), flash_attention_prefill its prefill kernel there;
@@ -762,8 +820,10 @@ def main() -> int:
     # the int8 decode_step path (phase 12); tinyllama's f32 decode_step run
     # (phase 12) counts under flash_attention; flash_attention_encdec both
     # routes on seamless's enc-dec path (phase 15: encoder, self and cross
-    # attention), flash_attention_mrope both on qwen2-vl's (phase 16); a
-    # row's source is its headline route's (the prefill kernel is
+    # attention), flash_attention_mrope both on qwen2-vl's (phase 16),
+    # flash_attention_train the prefill kernel under autograd (K3e) on the
+    # training path (phase 19; its backward launches no K3); a row's
+    # source is its headline route's (the prefill kernel is
     # csrc/flash_attention.cu)
     kernels = []
     for name in ("villa_scatter", "villa_gather", "flash_attention",
@@ -771,7 +831,8 @@ def main() -> int:
                  "flash_attention_d256", "flash_attention_mixed",
                  "flash_attention_moe", "flash_attention_mla",
                  "flash_attention_int8", "flash_attention_encdec",
-                 "flash_attention_mrope", "rbm_copy"):
+                 "flash_attention_mrope", "flash_attention_train",
+                 "rbm_copy"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],
@@ -783,7 +844,10 @@ def main() -> int:
         kernels[-1].update({key: r[key] for key in
                             ("device_ms", "library_device_ms", "enqueue_us",
                              "library_enqueue_us", "tc_bound_ms", "dtypes",
-                             "library_operands", "shapes")
+                             "library_operands", "shapes", "timed",
+                             "forward_ms", "forward_device_ms",
+                             "forward_bound_ms", "forward_tc_bound_ms",
+                             "grads_bit_equal")
                             if key in r})
         if name in routes:
             kernels[-1]["launches_by_route"] = routes[name]
@@ -2265,6 +2329,418 @@ def qwen2vl_phase(tag) -> dict:
     del params, cache, got, want
     torch.cuda.empty_cache()
     return {name: counts[name] + image[name] for name in counts}
+
+
+def train_attention_row(dev, gen, flush, tag) -> dict:
+    """Phase 2's K3e row at the training shape of phase 19 (b): f32, B
+    T_BATCH x S T_SEQ, tinyllama's 32 q / 4 kv heads, head dim 64, causal.
+    Under grad the forward is the prefill kernel (within 3e-5 of the plain
+    twin) and dq/dk/dv must equal the plain twin's autograd gradients for
+    the same upstream gradient (the backward recomputes that twin).  Times
+    forward plus backward through K3e against the plain twin's and SDPA's
+    (``is_causal``); the bound is that work's: q, k, v and the upstream
+    gradient read, the output and dq/dk/dv written, and 14*H*D FLOP a
+    valid (query, key) pair (4 forward; 10 backward: the scores again,
+    dV, dP, dQ and dK) at the f32 peak.  Beside it the forward alone
+    (the same kernel without grad) with its f32 and tensor-core bounds,
+    worked out as the prefill rows'."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    B, S, H, K, D = T_BATCH, T_SEQ, 32, 4, 64
+    q = torch.randn((B, S, H, D), device=dev, generator=gen)
+    k = torch.randn((B, S, K, D), device=dev, generator=gen)
+    v = torch.randn((B, S, K, D), device=dev, generator=gen)
+    up = torch.randn((B, S, H, D), device=dev, generator=gen)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    pos = pos.contiguous()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    twins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.chunked_attention(*leaves, pos, pos)
+    want = ref.chunked_attention_ref(*twins, pos, pos)
+    err = float((out - want).abs().max())
+    check(err <= 3e-5 and out.grad_fn is not None
+          and type(out.grad_fn).__name__ == "TrainAttentionBackward",
+          f"K3e forward: error {err} (bar 3e-5) or no K3e grad_fn "
+          f"({type(out.grad_fn).__name__})")
+    got = torch.autograd.grad(out, leaves, up)
+    exp = torch.autograd.grad(want, twins, up)
+    same = all(torch.equal(a, b) for a, b in zip(got, exp))
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(got, exp))
+    check(same, f"K3e gradients differ from the plain twin's: {grad_err}")
+    del out, want, got, exp
+
+    def k3e():
+        o = ops.chunked_attention(*leaves, pos, pos)
+        return torch.autograd.grad(o, leaves, up)
+
+    def plain():
+        o = ref.chunked_attention_ref(*twins, pos, pos)
+        return torch.autograd.grad(o, twins, up)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = [t.detach().transpose(1, 2).contiguous().requires_grad_()
+           for t in (q, k, v)]
+    up_t = up.transpose(1, 2).contiguous()
+
+    def library():
+        o = sdpa(*lib, is_causal=True, enable_gqa=True)
+        return torch.autograd.grad(o, lib, up_t)
+
+    r = kernel_times(k3e, plain, library, flush)
+    with torch.no_grad():
+        fwd = lambda: ops.chunked_attention(q, k, v, pos, pos)  # noqa: E731
+        r["forward_ms"] = timed(fwd, flush=flush)
+        r["forward_device_ms"] = timed(fwd, flush=flush, device=True)
+    r["forward_bound_ms"], fwd_by = attention_bound(q, k, pos, pos, 0)
+    r["forward_tc_bound_ms"] = tc_bound(q, k, pos, pos, 0)
+    pairs = B * S * (S + 1) // 2
+    nbytes = 4 * (3 * B * S * H * D + 3 * B * S * K * D * 2
+                  + 2 * pos.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 14 * H * D * pairs / F32_FLOP_PER_S
+    r.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             max_abs_err=err, grads_bit_equal=same,
+             timed="forward + backward (dq, dk, dv); library: SDPA "
+                   "is_causal forward + backward")
+    print(f"attention train (K3e) B {B} S {S} 32/4 heads D 64 f32: forward "
+          f"+ backward {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
+          f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+          f"(device {r['library_device_ms']:.4f}), bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}); forward alone "
+          f"{r['forward_ms']:.4f} ms (device {r['forward_device_ms']:.4f}),"
+          f" bound {r['forward_bound_ms']:.4f} ms ({fwd_by}), tensor-core "
+          f"bound {r['forward_tc_bound_ms']:.4f} ms; forward error {err:.3g}"
+          f", gradients bit-equal to the plain twin's [{tag}]")
+    del leaves, twins, lib
+    torch.cuda.empty_cache()
+    return r
+
+
+def dram_phase(tag) -> dict:
+    """Phase 18: the paper's DRAM evaluation through the port on the card,
+    each part also on the CPU in this process, the two held together.
+
+    (a) Table 1 through ``substrate.execute_copy`` on a full-geometry
+        DDR3_1600 bank (16 subarrays x 64 rows x 8 KiB, random from a
+        seed): each destination row bit-equal to its source, latency and
+        energy the spec's ``table1()``, the input bank unchanged, and the
+        card's resulting state bit-equal to the CPU's;
+    (b) bench_fig3_fig4's grid: DRAM_CONFIGS' six configs x 50 workloads
+        of DRAM_GRID_REQUESTS requests, as 300 lanes of one
+        ``controller.simulate_grid``; its wall seconds and requests a
+        second;
+    (c) the demo's 16,384-request trace under its six configs.
+    For (b) and (c): VILLA hits and accesses equal to the CPU's, the
+    floats within DRAM_FLOAT_BAR (rtol; it prints whether they are
+    bit-equal), and the orderings tests/test_dram_controller.py asserts.
+    Returns the numbers it printed."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dram import substrate as S
+    from repro_torch.core.dram.controller import (MechanismConfig,
+                                                  simulate_grid,
+                                                  weighted_speedup)
+    from repro_torch.core.dram.spec import DDR3_1600
+    from repro_torch.core.dram.traces import (Trace, TraceConfig,
+                                              generate_batch)
+    from repro_torch.examples import lisa_dram_demo as demo
+
+    dev = torch.device("cuda")
+    fields = ("cells", "row_buffer", "rb_valid", "open_row")
+    spec = DDR3_1600
+    bank = S.make_bank(spec, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    cpu_bank = S.BankState(*(getattr(bank, f).cpu() for f in fields))
+    keep = bank.cells.clone()
+    out = {"table1": {}}
+    for mech, (lat, ene) in spec.table1().items():
+        name, ssa, srow, dsa, drow = DRAM_COPIES[mech]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = S.execute_copy(bank, name, ssa, srow, dsa, drow, spec=spec)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) * 1e6
+        cres = S.execute_copy(cpu_bank, name, ssa, srow, dsa, drow,
+                              spec=spec)
+        check(torch.equal(res.state.cells[dsa, drow], bank.cells[ssa, srow])
+              and res.latency_ns == lat and res.energy_uj == ene,
+              f"Table 1 {mech}: the row or the cost differs "
+              f"({res.latency_ns} ns, {res.energy_uj} uJ; want {lat}, {ene})")
+        check(all(torch.equal(getattr(res.state, f).cpu(),
+                              getattr(cres.state, f)) for f in fields),
+              f"Table 1 {mech}: the card's bank state differs from the CPU's")
+        out["table1"][mech] = {"latency_ns": lat, "energy_uJ": ene,
+                               "us": us}
+        print(f"table1 {mech}: {lat} ns, {ene} uJ, the copy "
+              f"{us:.1f} us on the host clock [{tag}]")
+    check(torch.equal(bank.cells, keep), "a copy changed its input bank")
+    del bank, cpu_bank, keep, res, cres
+
+    def held(label, grid, cgrid):
+        for key in ("villa_hits", "villa_accesses"):
+            check(torch.equal(grid[key].cpu(), cgrid[key]),
+                  f"{label}: {key} differ between the card and the CPU")
+        exact = {}
+        for key in ("core_stall", "energy_uJ", "avg_latency_ns",
+                    "villa_hit_rate"):
+            a, b = grid[key].cpu().double(), cgrid[key].double()
+            rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+            check(rel <= DRAM_FLOAT_BAR,
+                  f"{label}: {key} {rel:.3g} from the CPU's (bar "
+                  f"{DRAM_FLOAT_BAR})")
+            exact[key] = ("bit-equal" if torch.equal(grid[key].cpu(),
+                                                     cgrid[key])
+                          else f"rel {rel:.3g}")
+        return exact
+
+    # (b) the fig3/fig4 grid
+    cells = [(cp, z, sd) for cp in DRAM_COPY_PROBS for z in DRAM_ZIPFS
+             for sd in DRAM_SEEDS]
+    tcfg = TraceConfig(n_requests=DRAM_GRID_REQUESTS)
+    traces = generate_batch([torch.Generator().manual_seed(sd)
+                             for _, _, sd in cells],
+                            [cp for cp, _, _ in cells],
+                            [z for _, z, _ in cells], tcfg, device=dev)
+    names = ["base", "lisa", "villa", "comb", "rc_villa", "lip"]
+    mcfgs = [MechanismConfig("memcpy"), MechanismConfig("lisa"),
+             MechanismConfig("lisa", use_villa=True),
+             MechanismConfig("lisa", use_villa=True, use_lip=True),
+             MechanismConfig("memcpy", use_villa=True,
+                             villa_copy_mech="rc_intersa"),
+             MechanismConfig("memcpy", use_lip=True)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = simulate_grid(traces, tcfg, mcfgs)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cgrid = simulate_grid(Trace(*(x.cpu() for x in traces)), tcfg, mcfgs)
+    cpu_s = time.perf_counter() - t0
+    exact = held("the fig3/fig4 grid", grid, cgrid)
+    lanes = len(mcfgs) * len(cells)
+    g = {k: v.cpu().numpy() for k, v in grid.items()}
+    ws = {n: np.asarray(weighted_speedup(torch.from_numpy(
+        g["core_stall"][0]), torch.from_numpy(g["core_stall"][i])))
+        for i, n in enumerate(names)}
+    gm = lambda xs: float(np.exp(np.mean(np.log(np.maximum(xs, 1e-9)))))  # noqa: E731
+    gms = {n: gm(w) for n, w in ws.items()}
+    hit = float(np.mean(g["villa_hit_rate"][2]))
+    en_red = float(np.mean(1 - g["energy_uJ"][3] / g["energy_uJ"][0]))
+    check(gms["lisa"] > 1.0 and gms["villa"] > gms["lisa"]
+          and gms["comb"] > gms["villa"] and 1.0 < gms["lip"] < 1.5
+          and gms["rc_villa"] < 1.0 and en_red > 0.3,
+          f"the fig3/fig4 grid breaks the paper's orderings: {gms}, "
+          f"energy reduction {en_red}")
+    for j, (cp, z, _) in enumerate(cells):
+        if (cp, z) in ((0.002, 1.0), (0.02, 1.6)):
+            check(ws["lisa"][j] > 1.0 and ws["comb"][j] > 0.95 * ws["lisa"][j],
+                  f"workload {cells[j]}: lisa {ws['lisa'][j]}, combined "
+                  f"{ws['comb'][j]} (test_workload_sweep_orderings_hold)")
+    rps = lanes * DRAM_GRID_REQUESTS / card_s
+    out["grid"] = {"lanes": lanes, "card_s": card_s, "cpu_s": cpu_s,
+                   "requests_per_s": rps, "cpu_requests_per_s":
+                   lanes * DRAM_GRID_REQUESTS / cpu_s, "exact": exact,
+                   "hit_rate": hit, "energy_reduction": en_red,
+                   "ws_geomean": gms}
+    print(f"fig3/fig4 grid: {len(mcfgs)} configs x {len(cells)} workloads x "
+          f"{DRAM_GRID_REQUESTS} requests = {lanes} lanes: card {card_s:.3f} "
+          f"s wall ({rps:.0f} requests/s), CPU {cpu_s:.3f} s; against the "
+          f"CPU: hits and accesses equal, {json.dumps(exact)} [{tag}]")
+    print(f"fig3 villa hit rate {hit:.3f} (paper 0.15-0.8); villa over risc "
+          f"+{(gms['villa'] / gms['lisa'] - 1) * 100:.1f}% (paper +16.5%); "
+          f"rc_villa {(gms['rc_villa'] - 1) * 100:.1f}% (paper -52.3%); "
+          f"fig4 risc +{(gms['lisa'] - 1) * 100:.1f}% (paper +59.6%), lip "
+          f"over risc+villa +{(gms['comb'] / gms['villa'] - 1) * 100:.1f}% "
+          f"(paper +8.8%), lip alone +{(gms['lip'] - 1) * 100:.1f}% (paper "
+          f"+10.3%), combined +{(gms['comb'] - 1) * 100:.1f}% (paper "
+          f"+94.8%), energy -{en_red * 100:.1f}% (paper -49%)")
+    del traces, grid, cgrid
+
+    # (c) the demo's trace under its six configs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grid = demo.system_eval(dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, cgrid = demo.system_eval("cpu")
+    cpu_s = time.perf_counter() - t0
+    exact = held("the demo's trace", grid, cgrid)
+    stall = grid["core_stall"].cpu()[:, 0]
+    ws = [float(weighted_speedup(stall[0], stall[i]))
+          for i in range(len(demo.CONFIGS))]
+    e = grid["energy_uJ"].cpu()[:, 0]
+    red = 1 - float(e[4]) / float(e[0])
+    hit = float(grid["villa_hit_rate"][3, 0])
+    check(ws[2] > ws[1] > ws[0] == 1.0 and ws[3] > ws[2] and ws[4] > ws[3]
+          and ws[5] < 1.0 and red > 0.3 and hit > 0.3,
+          f"the demo's trace breaks the paper's orderings: WS {ws}, energy "
+          f"reduction {red}, hit rate {hit}")
+    out["demo"] = {"card_s": card_s, "cpu_s": cpu_s, "ws": ws,
+                   "energy_reduction": red, "hit_rate": hit, "exact": exact}
+    print(f"demo trace ({demo.N_REQUESTS} requests x {len(demo.CONFIGS)} "
+          f"configs): card {card_s:.3f} s wall, CPU {cpu_s:.3f} s; WS "
+          f"{[round(w, 4) for w in ws]}, combined energy -{red * 100:.1f}%, "
+          f"villa hit rate {hit:.3f}; against the CPU: hits and accesses "
+          f"equal, {json.dumps(exact)} [{tag}]")
+    return out
+
+
+def train_phase(tag) -> dict:
+    """Phase 19: training on the card.
+
+    (a) reduced tinyllama with tests/test_train_loop.py's recipe for
+        TL_STEPS steps from params drawn on the CPU: the ce of the last 4
+        steps at least 0.15 below the first 4's, and the first TL_MATCH
+        losses within TL_BAR of the CPU port's run from the same params
+        and batches;
+    (b) full-width tinyllama-1.1b in f32 through ``launch.train.run`` for
+        T_STEPS steps of T_BATCH x T_SEQ tokens: every loss and grad norm
+        finite; then the same run checkpointed at step T_CKPT (the process
+        "crashes" right after that save) and resumed from it: the resumed
+        run's params bit-equal to the uninterrupted run's and its losses
+        (``last_loss`` among them) equal;
+    (c) K3's launches in each run: its prefill kernel layers x forward
+        passes (the backward launches none), no decode, no K1/K2/K4.
+    Returns K3's launches by route over (a) and (b)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import manager
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptConfig, tree_leaves, tree_map
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cuda")
+    total = {"prefill": 0, "decode": 0}
+
+    def counted(n_layers, passes, path):
+        counts = ops.launch_counts()
+        n = n_layers * passes
+        check_counts(counts, {"flash_attention": n,
+                              "flash_attention_prefill": n}, path)
+        total["prefill"] += counts["flash_attention_prefill"]
+        total["decode"] += counts["flash_attention_decode"]
+
+    # (a)
+    cfg = get_reduced("tinyllama-1.1b")
+    pcfg = TS.ParallelConfig(fsdp=False)
+    step = TS.make_train_step(cfg, pcfg, OptConfig(
+        lr=8e-3, warmup_steps=2, total_steps=TL_STEPS))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+                      repeat_len=8)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(SEED),
+                        device="cpu")
+    st = TS.state_from_params(params, pcfg)
+    cpu_losses = []
+    for i in range(TL_MATCH):
+        st, m = step(st, batch_at(dcfg, i, device="cpu"))
+        cpu_losses.append(float(m["loss"]))
+    st = TS.state_from_params(tree_map(lambda p: p.to(dev), params), pcfg)
+    ops.reset_launch_counts()
+    losses, ces = [], []
+    for i in range(TL_STEPS):
+        st, m = step(st, batch_at(dcfg, i, device=dev))
+        losses.append(float(m["loss"]))
+        ces.append(float(m["ce"]))
+    counted(cfg.n_layers, TL_STEPS, "reduced training")
+    diff = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+    drop = statistics.mean(ces[:4]) - statistics.mean(ces[-4:])
+    check(drop >= 0.15, f"reduced training: ce fell {drop} over {TL_STEPS} "
+                        f"steps (test_train_loop's bar 0.15)")
+    check(diff <= TL_BAR, f"reduced training: losses {diff} from the CPU "
+                          f"port's (bar {TL_BAR})")
+    print(f"train (a) reduced tinyllama: ce {ces[0]:.4f} -> {ces[-1]:.4f} "
+          f"over {TL_STEPS} steps (the last 4 {drop:.4f} below the first "
+          f"4), first {TL_MATCH} losses within {diff:.3g} of the CPU "
+          f"port's [{tag}]")
+    del st, params
+
+    # (b) full width, uninterrupted; then checkpointed, crashed, resumed
+    full = get_config("tinyllama-1.1b")
+    argv = ["--arch", "tinyllama-1.1b", "--steps", str(T_STEPS), "--lr",
+            str(T_LR), "--batch", str(T_BATCH), "--seq", str(T_SEQ),
+            "--seed", str(SEED), "--log-every", "5"]
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res_a, st_a, hist_a = launch_train.run(argv)
+    run_s = time.perf_counter() - t0
+    counted(full.n_layers, T_STEPS, "the full-width training run")
+    check(all(math.isfinite(x) for x in hist_a["losses"]
+              + hist_a["grad_norms"]),
+          f"full-width training: a loss or grad norm is not finite "
+          f"{hist_a}")
+    n_params = sum(p.numel() for p in tree_leaves(st_a.params))
+    params_a = st_a.params
+    del st_a
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(hist_a["step_s"][1:]) * 1e3
+    tok_s = T_BATCH * T_SEQ / step_ms * 1e3
+    print(f"train (b) full-width tinyllama-1.1b f32 ({n_params} params), "
+          f"{T_BATCH} x {T_SEQ} tokens a step: {T_STEPS} steps, loss "
+          f"{res_a['first_loss']:.4f} -> {res_a['last_loss']:.4f}; "
+          f"{step_ms:.1f} ms a step (median of steps 2-{T_STEPS}; the "
+          f"first {hist_a['step_s'][0] * 1e3:.1f}), {tok_s:.0f} tokens/s, "
+          f"the run {run_s:.1f} s wall; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{tag}]")
+
+    class Crash(Exception):
+        pass
+
+    real_save = manager.save
+
+    def save_then_crash(tree, ckpt_dir, step, keep_last=3):
+        real_save(tree, ckpt_dir, step, keep_last)
+        raise Crash(step)
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        manager.save = save_then_crash
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            launch_train.run(argv + ["--ckpt-dir", ckdir, "--ckpt-every",
+                                     str(T_CKPT)])
+            check(False, "the checkpointed run did not stop at its save")
+        except Crash:
+            pass
+        crash_s = time.perf_counter() - t0
+        manager.save = real_save
+        counted(full.n_layers, T_CKPT, "the checkpointed run")
+        check(manager.latest_step(ckdir) == T_CKPT,
+              f"no checkpoint at step {T_CKPT}: {manager.all_steps(ckdir)}")
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res_c, st_c, hist_c = launch_train.run(argv + ["--ckpt-dir", ckdir])
+        resume_s = time.perf_counter() - t0
+        counted(full.n_layers, T_STEPS - T_CKPT, "the resumed run")
+    finally:
+        manager.save = real_save
+        shutil.rmtree(ckdir, ignore_errors=True)
+    same = all(bit_equal(a, b) for a, b in zip(tree_leaves(params_a),
+                                               tree_leaves(st_c.params)))
+    check(same and res_c["last_loss"] == res_a["last_loss"]
+          and hist_c["losses"] == hist_a["losses"][T_CKPT:],
+          f"the resumed run differs from the uninterrupted one: params "
+          f"bit-equal {same}, losses {hist_c['losses']} against "
+          f"{hist_a['losses'][T_CKPT:]}")
+    print(f"train (b) resume: a run checkpointed at step {T_CKPT} (saved, "
+          f"then stopped: {crash_s:.1f} s wall) and resumed ({resume_s:.1f} "
+          f"s wall, the restore included) ends with params bit-equal to the "
+          f"uninterrupted run's and last_loss {res_c['last_loss']!r}; K3 "
+          f"prefill {full.n_layers} x {T_STEPS} launches uninterrupted, "
+          f"none in the backward [{tag}]")
+    del params_a, st_c
+    torch.cuda.empty_cache()
+    return total
 
 
 def kernel_name(mangled: str) -> str:

@@ -42,6 +42,10 @@ tensors never reach it:
 (B,H,S,D), k/v (B,K,T,D), q rows at the tail of the kv sequence
 (``q_pos = i + T - S``).  It builds those positions and goes through the
 same dispatch, so on the card it runs the same kernels.
+
+:func:`train_attention` (K3e) is the prefill kernel under autograd, for
+the training forward: ``kernels/ops.py`` takes it where grad is enabled
+and q, k or v requires grad.
 """
 from __future__ import annotations
 
@@ -312,6 +316,57 @@ chunked_attention.launches = 0
 chunked_attention.prefill = 0
 chunked_attention.decode = 0
 chunked_attention.decode_int8 = 0
+
+
+class TrainAttention(torch.autograd.Function):
+    """K3e: K3's prefill kernel under autograd, the reference's
+    ``kernels/ops.py::_flash_vjp`` (:20-44).  The forward launches the
+    kernel through :func:`chunked_attention` (counted on its prefill
+    route) and saves the caller's q, k, v and positions; the backward
+    recomputes the plain chunked twin (``ref.chunked_attention_ref``, the
+    reference's ``_flash_bwd`` recomputes its jnp oracle) under autograd
+    and returns its gradients for q, k and v.  It launches no K3: a
+    dedicated backward kernel is ROADMAP Queue 2's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, block):
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos)
+        ctx.mask = (causal, window, block)
+        return chunked_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                 window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels import ref
+
+        q, k, v, q_pos, kv_pos = ctx.saved_tensors
+        causal, window, block = ctx.mask
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = ref.chunked_attention_ref(*leaves, q_pos, kv_pos,
+                                            causal=causal, window=window,
+                                            block=block)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None, None, None)
+
+
+def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    block: int = 512) -> torch.Tensor:
+    """K3 where q, k or v requires grad (K3e), on CUDA tensors; ``block``
+    is the backward's plain KV chunk.  Decode (S = 1) and int8 K/V raise
+    ``NotImplementedError``: no path trains through them."""
+    if q.shape[1] == 1:
+        raise NotImplementedError(
+            "attention under autograd at S = 1 (decode) is not ported: "
+            "K3e runs the prefill kernel, and no path trains a decode step")
+    if k.dtype == torch.int8:
+        raise NotImplementedError(
+            "attention under autograd over int8 K/V is not ported: int8 "
+            "K/V are a decode cache's, which no path trains")
+    return TrainAttention.apply(q, k, v, q_pos, kv_pos, causal, window,
+                                block)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -74,7 +74,13 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                       v_scale=None) -> torch.Tensor:
     """Attention in the serving layout (K3); ``block`` is the plain
     version's KV chunk (the kernel tiles on its own).  int8 K/V take their
-    (B,T,K) f32 ``k_scale``/``v_scale``."""
+    (B,T,K) f32 ``k_scale``/``v_scale``.  On the card, where grad is
+    enabled and q, k or v requires it (training), K3e: the kernel's
+    forward with a recomputed plain backward."""
+    if q.is_cuda and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return FA.train_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                  window=window, block=block)
     if q.is_cuda:
         return FA.chunked_attention(q, k, v, q_pos, kv_pos, causal=causal,
                                     window=window, k_scale=k_scale,

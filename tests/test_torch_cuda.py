@@ -1209,3 +1209,83 @@ def test_cluster_on_card_matches_cpu(dev):
         if d != "cpu":
             assert counts["villa_gather"] == counts["villa_scatter"] == 3
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("B,S,H,K,D,window", [
+    (2, 77, 8, 8, 64, 0),        # odd S, G 1
+    (1, 130, 32, 4, 64, 0),      # G 8 (tinyllama's heads), S off the tiles
+    (2, 100, 16, 2, 128, 24),    # G 8 with a window
+    (3, 33, 4, 4, 32, 5),        # G 1 with a window
+])
+def test_train_attention_grads_match_plain(dev, B, S, H, K, D, window):
+    """K3e: under grad the forward is K3's prefill kernel (one prefill
+    launch, the output within the bar of the plain twin), and dq/dk/dv
+    equal the plain twin's autograd gradients for the same upstream
+    gradient (the backward recomputes that twin: it launches no K3)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((B, S, H, D), device=dev, generator=g)
+    k = torch.randn((B, S, K, D), device=dev, generator=g)
+    v = torch.randn((B, S, K, D), device=dev, generator=g)
+    pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+    up = torch.randn((B, S, H, D), device=dev, generator=g)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    twins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (ops.FA.chunked_attention.prefill,
+              ops.FA.chunked_attention.decode)
+    out = ops.chunked_attention(*leaves, pos, pos, window=window)
+    assert out.grad_fn is not None
+    assert ops.FA.chunked_attention.prefill == before[0] + 1
+    want = ref.chunked_attention_ref(*twins, pos, pos, window=window)
+    _assert_within_bar(out.detach(), want.detach(), q, k, v, pos, pos,
+                       window=window)
+    got = torch.autograd.grad(out, leaves, up)
+    exp = torch.autograd.grad(want, twins, up)
+    assert (ops.FA.chunked_attention.prefill,
+            ops.FA.chunked_attention.decode) == (before[0] + 1, before[1])
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+
+
+def test_train_attention_refuses_decode_and_int8(dev):
+    q = torch.randn((1, 1, 8, 64), device=dev, requires_grad=True)
+    k = torch.randn((1, 16, 1, 64), device=dev)
+    pos = torch.arange(16, device=dev, dtype=torch.int32)[None]
+    with pytest.raises(NotImplementedError, match="decode"):
+        ops.chunked_attention(q, k, k, pos[:, -1:], pos)
+    qi = torch.randn((1, 4, 8, 64), device=dev, requires_grad=True)
+    ki = torch.zeros((1, 16, 1, 64), device=dev, dtype=torch.int8)
+    sc = torch.ones((1, 16, 1), device=dev)
+    with pytest.raises(NotImplementedError, match="int8"):
+        ops.chunked_attention(qi, ki, ki, pos[:, :4], pos, k_scale=sc,
+                              v_scale=sc)
+    with torch.no_grad():                  # serving: no grad, the kernel
+        n = ops.FA.chunked_attention.launches
+        ops.chunked_attention(qi, k, k, pos[:, :4], pos)
+        assert ops.FA.chunked_attention.launches == n + 1
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """Reduced tinyllama: 3 train steps on the card (K3e in its forward)
+    from the CPU run's params and batches give the CPU run's losses within
+    1e-4 and K3 prefill launches = layers x steps."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptConfig, tree_map
+    from repro_torch.train import step as TS
+
+    cfg = get_reduced("tinyllama-1.1b")
+    pcfg = TS.ParallelConfig(fsdp=False)
+    ocfg = OptConfig(lr=8e-3, warmup_steps=2, total_steps=40)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+                      repeat_len=8)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    step = TS.make_train_step(cfg, pcfg, ocfg)
+    cpu = TS.state_from_params(params, pcfg)
+    card = TS.state_from_params(tree_map(lambda p: p.to(dev), params), pcfg)
+    n = ops.FA.chunked_attention.prefill
+    for i in range(3):
+        cpu, mc = step(cpu, batch_at(dcfg, i, device="cpu"))
+        card, mg = step(card, batch_at(dcfg, i, device=dev))
+        assert abs(float(mc["loss"]) - float(mg["loss"])) < 1e-4
+    assert ops.FA.chunked_attention.prefill == n + 3 * cfg.n_layers
