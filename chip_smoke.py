@@ -158,6 +158,23 @@ nvcc (sm_90a), then:
                 whose params end bit-equal to the uninterrupted run's; K3's
                 prefill launches layers x forward passes (K3e), its
                 backward none.
+  20. mesh    — LISA's hop chains over a ``StackedAxis`` on the card, a
+                hop one K2 launch over the stack viewed as 1 KiB rows:
+                rbm_hop, lisa_copy (both ways, ring and linear chain) and
+                lisa_broadcast over 8 FSDP shards of tinyllama-1.1b's f32
+                weights (550 MB each), bit-equal to their oracles and the
+                plain gather; the ring all-gather, reduce-scatter and
+                all-reduce over 4 x 1 GiB, bit-equal to the CPU's run;
+                the all-gather matmul at tinyllama's MLP width (1e-4);
+                the compressed all-reduce of its embedding gradient
+                (2e-2); ring attention over 8 x 2048 tokens at its heads
+                within 3e-5 of K3's prefill; GPipe, 4 stages x 2 layers at
+                D 2048 (1e-5 of the sequential run); the migration and
+                fork plans over 4 replica pools, bit-exact; K2 and K1
+                launches equal to the hops and the plans' page legs; the
+                hop rows' times beside the byte bound, the plain gather
+                and index_select; the NCCL route with two cards or more,
+                else a line saying it did not run.
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -296,6 +313,26 @@ T_LR = 3e-4        # at this width the launcher's default 3e-3 raises the loss
 # (lr 8e-3, warmup 2, B 4, S 64, repeat 8) for TL_STEPS steps; the first
 # TL_MATCH losses within TL_BAR of the CPU port's run
 TL_STEPS, TL_MATCH, TL_BAR = 40, 10, 1e-4
+# phase 20: LISA's hop chains over a StackedAxis on the card.  Hops at
+# M_HOP_N devices, a shard each of tinyllama-1.1b's f32 weights cut into
+# FSDP shards (param_count x 4 = 4,399,824,896 B / 8 = 549,978,112 B);
+# ring collectives at M_RING_N devices of M_RING_VALUES f32 (1 GiB) each;
+# the all-gather matmul at tinyllama's MLP width (x M_MM_ROWS x d_model,
+# w d_model x d_ff) and the compressed all-reduce of its embedding
+# gradient (vocab x d_model, N(0, M_GRAD_STD**2)) at M_RING_N; ring
+# attention at its heads over M_HOP_N x M_SEQ_SHARD tokens (B 1, f32);
+# GPipe at M_PIPE_STAGES stages x M_PIPE_LAYERS layers of tanh(x @ w + b)
+# at d_model, M_PIPE_MICRO microbatches of M_PIPE_ROWS rows; the migration
+# and fork plans over F_REPLICAS replica pools of phase 17's shape
+# (F_SESSIONS rows of a max_len-SERVE_LEN snapshot)
+M_HOP_N, M_RING_N, M_RING_VALUES = 8, 4, 268_435_456
+M_MM_ROWS, M_GRAD_STD, M_SEQ_SHARD = 4096, 0.01, 2048
+M_PIPE_STAGES, M_PIPE_LAYERS, M_PIPE_MICRO, M_PIPE_ROWS = 4, 2, 8, 2048
+M_PIPE_BAR, M_RING_BAR, M_MM_BAR, M_GRAD_BAR = 1e-5, 3e-5, 1e-4, 2e-2
+# (name, plan kind, src replica, dst replica, src rows, dst rows)
+M_PLANS = (("migration", "move", 0, 2, (1, 5), (0, 3)),
+           ("fork", "fork", 1, 3, (2,), (6,)))
+M_NCCL_TIMEOUT = 300             # s: the NCCL ranks, where cards allow
 
 
 class SmokeFailure(RuntimeError):
@@ -768,6 +805,16 @@ def main() -> int:
     train = train_phase(tag)
     counts["flash_attention_train"] = train["prefill"] + train["decode"]
     wall(19)
+    # the hop chains over a StackedAxis: every hop one K2 launch, the
+    # plans' page legs one K2 and one K1 each; the NCCL route where the
+    # machine has two cards or more
+    mesh = mesh_phase(tag)
+    for name, n in mesh["counts"].items():
+        counts[name] += n
+    counts["villa_gather_hop"] = mesh["hop_launches"]
+    rows["villa_gather_hop"] = mesh["row"]
+    nccl_route(tag)
+    wall(20)
     routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
                                   "decode": counts["flash_attention_decode"]},
               **paths, "flash_attention_train": train}
@@ -779,6 +826,7 @@ def main() -> int:
     replaces = {
         "villa_scatter": "src/repro/kernels/rbm_copy.py:93",
         "villa_gather": "src/repro/kernels/rbm_copy.py:58",
+        "villa_gather_hop": "src/repro/kernels/rbm_copy.py:58",
         "flash_attention": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_window": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_prefill": "src/repro/kernels/flash_attention.py:81",
@@ -795,6 +843,7 @@ def main() -> int:
     decode_src = csrc + "flash_decode.cu"
     sources = {"villa_scatter": csrc + "page_copy.cu",
                "villa_gather": csrc + "page_copy.cu",
+               "villa_gather_hop": csrc + "page_copy.cu",
                "flash_attention": decode_src,
                "flash_attention_window": decode_src,
                "flash_attention_prefill": csrc + "flash_attention.cu",
@@ -824,9 +873,12 @@ def main() -> int:
     # flash_attention_train the prefill kernel under autograd (K3e) on the
     # training path (phase 19; its backward launches no K3); a row's
     # source is its headline route's (the prefill kernel is
-    # csrc/flash_attention.cu)
+    # csrc/flash_attention.cu); villa_gather_hop counts the K2 launches of
+    # phase 20's hops (each also in villa_gather), timed at the shift of
+    # every shard of tinyllama's weights over 8 stacked devices
     kernels = []
-    for name in ("villa_scatter", "villa_gather", "flash_attention",
+    for name in ("villa_scatter", "villa_gather", "villa_gather_hop",
+                 "flash_attention",
                  "flash_attention_prefill", "flash_attention_window",
                  "flash_attention_d256", "flash_attention_mixed",
                  "flash_attention_moe", "flash_attention_mla",
@@ -3119,6 +3171,441 @@ def serving_launches(cfg, st) -> dict:
     return {name: n for name, n in due.items() if n}
 
 
+def mesh_phase(tag) -> dict:
+    """Phase 20: LISA's hop chains on the card over a ``StackedAxis``,
+    each hop one K2 launch over the stack viewed as 1 KiB rows.
+
+    (a) hops at M_HOP_N: rbm_hop both ways, lisa_copy both ways round
+        the ring and along a linear chain, lisa_broadcast to a subset and
+        to all, each bit-equal to its oracle (clone, then index), and the
+        shift bit-equal to the plain gather of its own table;
+    (b) ring collectives at M_RING_N over 1 GiB a device from numpy:
+        ring_reduce_scatter and ring_allreduce bit-equal to the CPU's
+        StackedAxis run of the same inputs, ring_allgather (on the card
+        and on the CPU) bit-equal to the concatenation; the peak memory;
+    (c) ring_allgather_matmul within M_MM_BAR of x @ w_full;
+    (d) allreduce_mean_compressed within M_GRAD_BAR of the exact mean and
+        within half its shared scale;
+    (e) ring attention, causal and not, within M_RING_BAR of K3's prefill
+        over the whole sequence (run after the counted window);
+    (f) GPipe within M_PIPE_BAR of the sequential run, on every stage;
+    (g) the migration and fork plans (page_gather -> hop_chain ->
+        page_scatter over ``axes``) landing bit-exactly as the oracle,
+        every other byte of the pools unchanged;
+    (h) launches over (a)-(g): K2 one a hop (the axes' hop counters) plus
+        one a plan's gather leg, K1 one a plan's scatter leg, no K3 or K4;
+    (i) times: the shift hop and a single-pair hop (ms, device ms, the
+        byte bound, the plain gather, index_select), the collectives, ring
+        attention beside K3, GPipe and the plans;
+    (j) the NCCL route (``nccl_route``).
+    Returns the launch counts of (h), the K2 launches of the hops among
+    them, and the K2 hop row."""
+    import numpy as np
+    import torch
+    from repro_torch import movement as MV
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.core.lisa import compression as C
+    from repro_torch.core.lisa import rbm
+    from repro_torch.core.lisa.ring_attention import ring_attention
+    from repro_torch.core.lisa.topology import MeshTopology
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import StackedAxis, hop_table
+    from repro_torch.models import lm
+    from repro_torch.movement import paging
+    from repro_torch.train.pipeline import pipeline_transformer
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cfg = get_config("tinyllama-1.1b")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    rng = np.random.default_rng(SEED + 20)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = lambda: scratch.fill_(1)         # noqa: E731  (evict L2)
+    axes = []
+
+    def axis(n, name="x"):
+        a = StackedAxis(n, device=dev, name=name)
+        axes.append(a)
+        return a
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    # ---- (a) hops at M_HOP_N over FSDP shards of tinyllama's weights ----
+    n = M_HOP_N
+    nbytes = param_count(cfg) * 4
+    x = torch.randn((n, nbytes // 4 // n), device=dev, generator=gen)
+    ax = axis(n)
+
+    def moved(src, dsts):
+        want = x.clone()
+        want[list(dsts)] = x[src]
+        return want
+
+    hops = (("rbm_hop +1", lambda: rbm.rbm_hop(x, ax, 1),
+             lambda: torch.roll(x, 1, 0)),
+            ("rbm_hop -1", lambda: rbm.rbm_hop(x, ax, -1),
+             lambda: torch.roll(x, -1, 0)),
+            ("lisa_copy 1->6 (3 hops back)",
+             lambda: rbm.lisa_copy(x, 1, 6, ax), lambda: moved(1, [6])),
+            ("lisa_copy 6->1 (3 hops on)",
+             lambda: rbm.lisa_copy(x, 6, 1, ax), lambda: moved(6, [1])),
+            ("lisa_copy 2->6 (4 hops)",
+             lambda: rbm.lisa_copy(x, 2, 6, ax), lambda: moved(2, [6])),
+            ("chain 6->1 (5 hops, no wrap)",
+             lambda: rbm.lisa_copy(x, 6, 1, ax, wraparound=False),
+             lambda: moved(6, [1])),
+            ("lisa_broadcast 3->[0,5,7]",
+             lambda: rbm.lisa_broadcast(x, 3, ax, dsts=[0, 5, 7]),
+             lambda: moved(3, [0, 5, 7])),
+            ("lisa_broadcast 3->all", lambda: rbm.lisa_broadcast(x, 3, ax),
+             lambda: moved(3, range(n))))
+    hop_s = {}
+    for label, fn, oracle in hops:
+        before = ax.hops
+        got, hop_s[label] = sync_s(fn)
+        check(torch.equal(got, oracle()),
+              f"mesh: {label} differs from its oracle")
+        hop_s[label] = (hop_s[label], ax.hops - before)
+        del got
+    shift = [(i, (i + 1) % n) for i in range(n)]
+    rows = x.view(torch.uint8).view(-1, 1024)
+    per = rows.shape[0] // n
+    table = hop_table([(d - 1) % n for d in range(n)], per, dev)
+    check(torch.equal(ax.ppermute(x, shift).view(torch.uint8).view(-1, 1024),
+                      ref.villa_gather_ref(rows, table)),
+          "mesh: the shift hop differs from the plain gather of its table")
+    print(f"mesh hops: {n} shards of {nbytes // n:,} B ({nbytes:,} B of "
+          f"tinyllama's f32 weights), as {per:,} rows of 1 KiB a shard, "
+          f"bit-equal to their oracles: " + "; ".join(
+              f"{k} {h} hops {t * 1e3:.3f} ms" for k, (t, h)
+              in hop_s.items()) + f" (host clock) [{tag}]")
+
+    # ---- (b) ring collectives at M_RING_N, 1 GiB a device -------------
+    m = M_RING_N
+    host = rng.random((m, M_RING_VALUES), dtype=np.float32)
+    ax4 = axis(m)
+    cpu = StackedAxis(m, device="cpu")
+    xc = torch.from_numpy(host)
+    xg = xc.to(dev)
+    mem0 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    coll_s = {}
+    got, coll_s["ring_allgather"] = sync_s(lambda: rbm.ring_allgather(xg,
+                                                                     ax4))
+    check(torch.equal(got, xg.reshape(1, -1).expand(m, -1)),
+          "mesh: ring_allgather differs from the concatenation")
+    del got
+    check(torch.equal(rbm.ring_allgather(xc, cpu),
+                      xc.reshape(1, -1).expand(m, -1)),
+          "mesh: the CPU's ring_allgather differs from the concatenation")
+    chunks = (xg.view(m, m, -1), xc.view(m, m, -1))
+    got, coll_s["ring_reduce_scatter"] = sync_s(
+        lambda: rbm.ring_reduce_scatter(chunks[0], ax4))
+    check(torch.equal(got.cpu(), rbm.ring_reduce_scatter(chunks[1], cpu)),
+          "mesh: ring_reduce_scatter is not bit-equal to the CPU's run")
+    check(torch.allclose(got, chunks[0].sum(0), atol=1e-5),
+          "mesh: ring_reduce_scatter is not the sum")
+    del got
+    got, coll_s["ring_allreduce"] = sync_s(lambda: rbm.ring_allreduce(xg,
+                                                                     ax4))
+    check(torch.equal(got.cpu(), rbm.ring_allreduce(xc, cpu)),
+          "mesh: ring_allreduce is not bit-equal to the CPU's run")
+    del got, chunks, xc, xg, host
+    peak_coll = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.empty_cache()
+    print(f"mesh collectives at {m} devices x {M_RING_VALUES:,} f32 (1 GiB "
+          f"each): " + ", ".join(f"{k} {t * 1e3:.3f} ms" for k, t
+                                 in coll_s.items())
+          + f" (host clock, first call); reduce-scatter and all-reduce "
+          f"bit-equal to the CPU's StackedAxis run, all-gather to the "
+          f"concatenation; peak memory {peak_coll / 2**30:.2f} GiB "
+          f"(before them {mem0 / 2**30:.2f}) [{tag}]")
+
+    # ---- (c) the all-gather matmul at tinyllama's MLP width -----------
+    d, f = cfg.d_model, cfg.d_ff
+    xm = torch.randn((m, M_MM_ROWS, d), device=dev, generator=gen)
+    w_full = torch.randn((d, f), device=dev, generator=gen) / math.sqrt(d)
+    mm, mm_s = sync_s(lambda: rbm.ring_allgather_matmul(
+        xm, w_full.view(m, d // m, f), ax4))
+    mm_err = float((mm - xm @ w_full).abs().max())
+    check(mm_err <= M_MM_BAR, f"mesh: ring_allgather_matmul is {mm_err:.3g} "
+          f"from x @ w_full (bar {M_MM_BAR})")
+    del mm
+
+    # ---- (d) the compressed all-reduce of the embedding gradient ------
+    g = torch.randn((m, cfg.vocab_size, d), device=dev,
+                    generator=gen) * M_GRAD_STD
+    (mean, err), c_s = sync_s(lambda: C.allreduce_mean_compressed(
+        g, torch.zeros_like(g), ax4))
+    scale = float(g.abs().max()) / 127.0
+    c_err = float((mean - g.mean(0)).abs().max())
+    check(c_err <= M_GRAD_BAR and c_err <= scale / 2 * (1 + 1e-5)
+          and float(err.abs().max()) <= scale / 2 * (1 + 1e-5),
+          f"mesh: the compressed mean is {c_err:.3g} from the exact one "
+          f"(bar {M_GRAD_BAR}, half its scale {scale / 2:.3g})")
+    del g, mean, err
+    print(f"mesh: ring_allgather_matmul ({m} x {M_MM_ROWS} x {d} @ {d} x "
+          f"{f}, w sharded on its input dim) {mm_err:.3g} from x @ w_full, "
+          f"{mm_s * 1e3:.3f} ms; allreduce_mean_compressed of {m} x "
+          f"{cfg.vocab_size} x {d} gradients (std {M_GRAD_STD}) "
+          f"{c_err:.3g} from the exact mean (scale {scale:.3g}), "
+          f"{c_s * 1e3:.3f} ms (host clock) [{tag}]")
+
+    # ---- (e) ring attention at tinyllama's heads ----------------------
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S = n * M_SEQ_SHARD
+    qkv = [torch.randn((1, S, h, D), device=dev, generator=gen)
+           for h in (H, K, K)]
+    shards = [t.view(1, n, M_SEQ_SHARD, t.shape[2], D).transpose(0, 1)
+              .contiguous() for t in qkv]
+    ring = {}
+    for causal in (True, False):
+        before = ax.hops
+        out, ring_s = sync_s(lambda: ring_attention(*shards, ax,
+                                                    causal=causal))
+        check(ax.hops - before == n,
+              f"mesh: ring attention made {ax.hops - before} hops")
+        ring[causal] = (out.transpose(0, 1).reshape(1, S, H, D), ring_s)
+
+    # ---- (f) GPipe ------------------------------------------------------
+    ps, pl = M_PIPE_STAGES, M_PIPE_LAYERS
+    params = {"w": torch.randn((ps, pl, d, d), device=dev,
+                               generator=gen) / math.sqrt(d),
+              "b": torch.randn((ps, pl, d), device=dev, generator=gen) * 0.1}
+    micro = torch.randn((M_PIPE_MICRO, M_PIPE_ROWS, d), device=dev,
+                        generator=gen)
+
+    def layer_fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"].unsqueeze(-2))
+
+    axp = axis(ps, "pp")
+    pipe, pipe_s = sync_s(lambda: pipeline_transformer(axp, layer_fn, pl)(
+        params, micro.expand((ps,) + micro.shape)))
+    seq = micro
+    for st in range(ps):
+        for i in range(pl):
+            seq = torch.tanh(seq @ params["w"][st, i] + params["b"][st, i])
+    pipe_err = float((pipe - seq).abs().max())
+    check(pipe_err <= M_PIPE_BAR and axp.hops == ps + M_PIPE_MICRO - 1,
+          f"mesh: GPipe is {pipe_err:.3g} from the sequential run (bar "
+          f"{M_PIPE_BAR}) over {axp.hops} hops")
+    del pipe, seq, params, micro
+
+    # ---- (g) the migration and fork plans over replica pools -----------
+    spec = paging.PageSpec.for_cache(lm.init_cache(cfg, 1, SERVE_LEN,
+                                                   device=dev))
+    pools = torch.randint(0, 256, (F_REPLICAS, F_SESSIONS * spec.n_pages,
+                                   spec.page_rows, spec.page_lanes),
+                          dtype=torch.uint8, device=dev, generator=gen)
+    want = pools.clone()
+    axr = axis(F_REPLICAS, "replica")
+    plan_s, legs = {}, {"page_gather": 0, "page_scatter": 0}
+    for name, kind, src, dst, src_rows, dst_rows in M_PLANS:
+        st = torch.cat([paging.row_page_table(spec, r) for r in src_rows])
+        dt = torch.cat([paging.row_page_table(spec, r) for r in dst_rows])
+        plan = MV.plan(MV.Transfer(
+            MV.Tier("slow", index=src, axis="replica"),
+            MV.Tier("slow", index=dst, axis="replica"),
+            MV.Layout.raw_pages(len(st), spec.page_rows, spec.page_lanes,
+                                np.uint8), kind=kind),
+            topo=MeshTopology(F_REPLICAS))
+        check([l.kind for l in plan.legs] == ["page_gather", "hop_chain",
+                                              "page_scatter"],
+              f"mesh: the {name} plan's legs {plan.describe()}")
+        before = axr.hops
+        _, plan_s[name] = sync_s(lambda: MV.execute(
+            plan, src_pool=pools, src_table=st, dst_pool=pools,
+            dst_table=dt, axes={"replica": axr}))
+        check(axr.hops - before == plan.legs[1].hops,
+              f"mesh: the {name} plan's chain is not its priced route")
+        for leg in plan.legs:
+            legs[leg.kind] = legs.get(leg.kind, 0) + 1
+        want[dst, dt.long()] = want[src, st.long()]
+        check(torch.equal(pools, want), f"mesh: the {name} plan did not "
+              f"land bit-exactly, or wrote another pool")
+    moved_mb = {name: len(sr) * spec.total_bytes / 1e6
+                for name, _, _, _, sr, _ in M_PLANS}
+    del want
+
+    # ---- (h) launches over (a)-(g) --------------------------------------
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    hop_launches = sum(a.hops for a in axes)
+    check_counts(counts, {"villa_gather": hop_launches + legs["page_gather"],
+                          "villa_scatter": legs["page_scatter"]},
+                 "the mesh phase")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"mesh: GPipe {ps} stages x {pl} layers at D {d}, "
+          f"{M_PIPE_MICRO} x {M_PIPE_ROWS} rows, {pipe_err:.3g} from the "
+          f"sequential run, {pipe_s * 1e3:.3f} ms; plans over {F_REPLICAS} "
+          f"pools of {F_SESSIONS} x {spec.n_pages} pages: " + ", ".join(
+              f"{k} {moved_mb[k]:.1f} MB in {t * 1e3:.3f} ms"
+              for k, t in plan_s.items()) + f" (host clock), bit-exact; "
+          f"launches {json.dumps(counts)} ({hop_launches} K2 hops); peak "
+          f"memory since (c) {peak / 2**30:.2f} GiB [{tag}]")
+    del pools
+
+    # ---- (e) against K3, after the counted window -----------------------
+    pos = torch.arange(S, dtype=torch.int32, device=dev).view(1, S)
+    for causal, (out, ring_s) in ring.items():
+        k3 = ops.chunked_attention(*qkv, pos, pos, causal=causal)
+        r_err = float((out - k3).abs().max())
+        check(r_err <= M_RING_BAR, f"mesh: ring attention (causal "
+              f"{causal}) is {r_err:.3g} from K3 (bar {M_RING_BAR})")
+        ring_dev = timed(lambda: ring_attention(*shards, ax, causal=causal),
+                         reps=3, device=True)
+        k3_dev = timed(lambda: ops.chunked_attention(*qkv, pos, pos,
+                                                     causal=causal),
+                       reps=5, device=True)
+        print(f"mesh: ring attention over {n} x {M_SEQ_SHARD} tokens "
+              f"({H}/{K} heads, D {D}, f32, causal {causal}) {r_err:.3g} "
+              f"from K3 over the whole sequence; {ring_s * 1e3:.3f} ms "
+              f"first call (host clock), device {ring_dev:.4f} ms against "
+              f"K3's {k3_dev:.4f} ms [{tag}]")
+    del ring, qkv, shards
+
+    # ---- (i) the K2 hop rows --------------------------------------------
+    idx = table.long()
+    row = dict(**kernel_times(lambda: ax.ppermute(x, shift),
+                              lambda: ref.villa_gather_ref(rows, table),
+                              lambda: rows.index_select(0, idx), flush),
+               bound_ms=2 * nbytes / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes", max_abs_err=0.0)
+    pair = hop_table([-1, -1, -1, 2] + [-1] * (n - 4), per, dev)
+    sel = torch.arange(2 * per, 3 * per, device=dev)
+    out = torch.zeros_like(rows)
+    p_row = dict(**kernel_times(lambda: ops.villa_gather(rows, pair, out),
+                                lambda: ref.villa_gather_ref(rows, pair, out),
+                                lambda: rows.index_select(0, sel), flush),
+                 bound_ms=2 * (nbytes // n) / HBM_BYTES_PER_S * 1e3)
+    for label, r, moved in (("shift (every shard moves)", row, nbytes),
+                            ("one pair (K2 alone into a zeroed stack)",
+                             p_row, nbytes // n)):
+        print(f"mesh K2 hop, {label}: {moved:,} B read and written, "
+              f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, byte "
+              f"bound {r['bound_ms']:.4f} ms (2 x bytes / 3.35 TB/s: on "
+              f"one card a hop is an HBM copy, not a link), plain gather "
+              f"{r['plain_ms']:.4f} ms, index_select {r['library_ms']:.4f} "
+              f"ms (device {r['library_device_ms']:.4f}) [{tag}]")
+    del x, rows, out
+    torch.cuda.empty_cache()
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s [{tag}]")
+    return {"counts": counts, "hop_launches": hop_launches, "row": row}
+
+
+def group_check(axis) -> None:
+    """The hops, collectives and plans of phase 20 at a cut size on a
+    ``GroupAxis`` rank: each rank's shard of every result equal to the
+    same function's on a CPU ``StackedAxis`` over all ranks' inputs (drawn
+    from one seed on every rank).  Raises on a difference."""
+    import numpy as np
+    import torch
+    from repro_torch import movement as MV
+    from repro_torch.core.lisa import rbm
+    from repro_torch.core.lisa.topology import MeshTopology
+    from repro_torch.launch.mesh import StackedAxis
+
+    n, r = axis.size, axis.rank
+    cpu = StackedAxis(n, device="cpu", name=axis.name)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    x = torch.randn((n, 1 << 18), generator=gen)
+    odd = torch.randint(0, 256, (n, 1001), dtype=torch.uint8, generator=gen)
+    pools = torch.randint(0, 256, (n, 64, 8, 128), dtype=torch.uint8,
+                          generator=gen)
+    dst = min(2, n - 1)
+    plan = MV.plan(MV.Transfer(MV.Tier("slow", index=0, axis=axis.name),
+                               MV.Tier("slow", index=dst, axis=axis.name),
+                               MV.Layout.raw_pages(3, 8, 128, np.uint8)),
+                   topo=MeshTopology(n))
+
+    def migrate(a, p):
+        MV.execute(plan, src_pool=p, src_table=[1, 4, 63], dst_pool=p,
+                   dst_table=[0, 2, 5], axes={axis.name: a})
+        return p
+
+    cases = {"hop +1": (lambda a, t: rbm.rbm_hop(t, a, 1), x),
+             "hop -1 (1001 B shards)": (lambda a, t: rbm.rbm_hop(t, a, -1),
+                                        odd),
+             "lisa_copy": (lambda a, t: rbm.lisa_copy(t, 0, n - 1, a), x),
+             "chain": (lambda a, t: rbm.lisa_copy(t, n - 1, 0, a,
+                                                  wraparound=False), x),
+             "lisa_broadcast": (lambda a, t: rbm.lisa_broadcast(t, 0, a), x),
+             "ring_allgather": (lambda a, t: rbm.ring_allgather(t, a), x),
+             "ring_reduce_scatter": (lambda a, t: rbm.ring_reduce_scatter(
+                 t.view(t.shape[0], n, -1), a), x),
+             "ring_allreduce": (lambda a, t: rbm.ring_allreduce(t, a), x),
+             "migration plan": (migrate, pools)}
+    for name, (fn, t) in cases.items():
+        want = fn(cpu, t.clone())[r:r + 1]
+        got = fn(axis, t[r:r + 1].clone().to(axis.device))
+        check(torch.equal(got.cpu(), want),
+              f"rank {r}: {name} differs from the StackedAxis run")
+
+
+def nccl_route(tag) -> None:
+    """Phase 20's NCCL route: with two or more cards, min(count, 8) ranks
+    (``python chip_smoke.py --nccl-rank``, torchrun's env) each run
+    ``group_check`` over NCCL; with one card, a line that says it did not
+    run and why."""
+    import os
+    import socket
+    import torch
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"mesh NCCL route: not run: torch.cuda.device_count() is "
+              f"{count}, and NCCL takes one card a rank; phase 20's hop "
+              f"chains ran over a StackedAxis on this card only, so the "
+              f"NCCL route stays unverified on a card [{tag}]")
+        return
+    ranks = min(count, 8)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--nccl-rank"],
+        env={**os.environ, "RANK": str(r),
+             "WORLD_SIZE": str(ranks), "LOCAL_RANK": str(r),
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(ranks)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=M_NCCL_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"NCCL rank {r} failed:\n{logs[r][-3000:]}")
+    print(f"mesh NCCL route: {ranks} ranks over NCCL, hops, collectives "
+          f"and the migration plan equal to the StackedAxis run [{tag}]")
+
+
+def nccl_rank_main() -> int:
+    """One rank of ``nccl_route``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import GroupAxis
+    axis = GroupAxis.from_env(name="x")
+    try:
+        group_check(axis)
+    finally:
+        dist.destroy_process_group()
+    print(f"rank {axis.rank} ok")
+    return 0
+
+
 def check_counts(counts, due, path) -> None:
     """Each kernel launched exactly as often as ``due`` says (never, for a
     kernel ``due`` leaves out), and each kernel ``due`` names at least
@@ -3255,4 +3742,5 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(nccl_rank_main() if sys.argv[1:] == ["--nccl-rank"]
+             else main())

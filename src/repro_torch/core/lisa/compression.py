@@ -1,7 +1,6 @@
-# Port of src/repro/core/lisa/compression.py:17-28 and :47-48 in torch
-# (compress, decompress, init_error): the single-device part.
-# ``allreduce_mean_compressed`` (:30-44) needs a process group: ROADMAP
-# item 16.
+# Port of src/repro/core/lisa/compression.py:17-48 in torch: compress,
+# decompress and init_error on one device, and allreduce_mean_compressed
+# (:30-44) over a mesh axis object (repro_torch/launch/mesh.py).
 """Error-feedback int8 gradient compression for the data-parallel axis.
 
 A 1000+-node requirement: gradient all-reduce bandwidth.  Per-tensor absmax
@@ -30,6 +29,24 @@ def compress(g: torch.Tensor, err: torch.Tensor
 
 def decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def allreduce_mean_compressed(g: torch.Tensor, err: torch.Tensor, axis
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DP gradient mean with int8 payload + error feedback over ``axis``.
+
+    ``g``/``err``: (local, ...) with the axis's local devices on dim 0.
+    The int32 sum is exact for <= 2^23 devices; the shared scale is the max
+    across the axis (``pmax``) so all devices dequantize identically.
+    """
+    target = g.to(torch.float32) + err
+    local_max = target.abs().reshape(target.shape[0], -1).amax(1)
+    scale = torch.clamp(axis.pmax(local_max), min=1e-12) / 127.0
+    scale = scale.view((-1,) + (1,) * (target.dim() - 1))
+    q = torch.clamp(torch.round(target / scale), -127, 127).to(torch.int8)
+    new_err = target - q.to(torch.float32) * scale
+    total = axis.psum(q.to(torch.int32))
+    return (total.to(torch.float32) * scale / axis.size).to(g.dtype), new_err
 
 
 def init_error(params) -> dict:

@@ -1,0 +1,301 @@
+# Port of src/repro/launch/mesh.py:29-36 (make_local_mesh) in torch: the
+# axis objects that take the place of a named mesh axis.  The production
+# mesh (make_production_mesh, :9-26) is ROADMAP item 16's last part.
+"""Mesh axes for the LISA hop substrate: a process group, or a stack.
+
+The reference runs its hop chains inside ``shard_map`` over a named mesh
+axis.  The port names the axis by an object, and every function of
+:mod:`repro_torch.core.lisa.rbm` takes tensors whose dim 0 is the LOCAL
+devices of the axis (``n_local`` of them), so each is written once for
+both kinds:
+
+  GroupAxis    one rank a device of a ``torch.distributed`` group
+               (``n_local = 1``): a hop is ``dist.batch_isend_irecv``
+               between the ranks of its pairs, ``psum``/``pmax`` are
+               ``dist.all_reduce``; gloo on the CPU, NCCL on
+               ``cuda:LOCAL_RANK``.
+  StackedAxis  one process holds all n shards stacked on dim 0, the
+               counterpart of the reference's forced-host-device mesh
+               (``tests/_multidev.py``): on the card a hop is ONE launch of
+               the page gather K2 over the stack viewed as rows, whose
+               table maps each destination's rows to its source's (rows of
+               a device that receives nothing stay zero); on the CPU the
+               same table runs through the plain gather.
+
+``ppermute`` has ``jax.lax.ppermute``'s semantics: ``out[dst] = x[src]``
+for each pair, zeros where a device receives nothing.  Each axis counts
+its hops and its reductions in plain integers (``hops``, ``reductions``;
+``reset_counts()`` zeroes them).
+A tensor on another device than the axis's raises: no axis moves a tensor
+to another device behind the caller's back.
+"""
+from __future__ import annotations
+
+import os
+from typing import Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import resolve_device, to_device
+from repro_torch.kernels import ops
+
+# the largest row a StackedAxis views a shard as: K2 runs one warp a row
+# and was tuned on 1 KiB pages (csrc/page_copy.cu), so a 550 MB shard is
+# 537k rows, never one page
+HOP_ROW_BYTES = 1024
+_ALIGN = 16                        # K2's row size and alignment (_check_pool)
+
+Pairs = Sequence[Tuple[int, int]]
+
+
+def _check_pairs(pairs: Pairs, n: int) -> Tuple[Tuple[int, int], ...]:
+    """``pairs`` as a tuple, raising as ``jax.lax.ppermute`` does on an
+    index outside ``[0, n)`` or a source or destination named twice."""
+    pairs = tuple((int(s), int(d)) for s, d in pairs)
+    srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+    if any(not 0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute pairs {pairs} outside an axis of {n}")
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute pairs {pairs} name a source or a "
+                         f"destination twice")
+    return pairs
+
+
+def _axis_device(device) -> torch.device:
+    """The device an axis lives on, with its index (``cuda`` is the
+    current card's), so that it compares equal to its tensors' device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class _Done:
+    """A hop whose result is already queued (a StackedAxis hop)."""
+
+    def __init__(self, out: torch.Tensor):
+        self._out = out
+
+    def wait(self) -> torch.Tensor:
+        return self._out
+
+
+class _Axis:
+    """What both axes share: the counters and the device check."""
+
+    size: int
+    n_local: int
+    positions: Tuple[int, ...]     # this process's devices on the axis (host)
+    device: torch.device
+    name: str
+
+    def reset_counts(self) -> None:
+        """Set the hop and reduction counters to 0."""
+        self.hops = 0
+        self.reductions = 0
+
+    def index(self) -> torch.Tensor:
+        """``(n_local,)`` int64: this process's device positions (copied
+        to the device once, without waiting for it)."""
+        if self._index is None:
+            self._index = to_device(list(self.positions), self.device,
+                                    torch.int64)
+        return self._index
+
+    def mask(self, positions) -> torch.Tensor:
+        """``(n_local,)`` bool: which local devices are in ``positions``."""
+        wanted = set(positions)
+        return to_device([p in wanted for p in self.positions], self.device,
+                         torch.bool)
+
+    def check(self, x: torch.Tensor) -> None:
+        if x.device != self.device:
+            raise ValueError(f"axis {self.name!r} lives on {self.device}; "
+                             f"got a tensor on {x.device}")
+        if x.dim() < 1 or x.shape[0] != self.n_local:
+            raise ValueError(f"axis {self.name!r} takes tensors with a "
+                             f"leading dim of {self.n_local} local devices; "
+                             f"got {tuple(x.shape)}")
+
+    def ppermute(self, x: torch.Tensor, pairs: Pairs) -> torch.Tensor:
+        """``out[dst] = x[src]`` for each pair; zeros elsewhere."""
+        return self.ppermute_start(x, pairs).wait()
+
+
+class StackedAxis(_Axis):
+    """An axis of ``n`` devices held by one process, stacked on dim 0."""
+
+    def __init__(self, n: int, device=None, name: str = "x"):
+        if n < 1:
+            raise ValueError(f"an axis needs at least one device (got {n})")
+        self.size = self.n_local = n
+        self.positions = tuple(range(n))
+        self.device = _axis_device(device)
+        self.name = name
+        self._index = None
+        self.reset_counts()
+
+    def ppermute_start(self, x: torch.Tensor, pairs: Pairs) -> _Done:
+        self.check(x)
+        pairs = _check_pairs(pairs, self.size)
+        self.hops += 1
+        return _Done(stacked_hop(x, pairs))
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        self.check(x)
+        self.reductions += 1
+        return x.sum(0, keepdim=True).expand(x.shape).contiguous()
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        self.check(x)
+        self.reductions += 1
+        return x.amax(0, keepdim=True).expand(x.shape).contiguous()
+
+
+def hop_rows(nbytes: int) -> int:
+    """The row size a shard of ``nbytes`` is viewed as: the largest power
+    of two that divides it, up to HOP_ROW_BYTES (0 when it is not a
+    multiple of 16 and has to be padded)."""
+    if nbytes % _ALIGN:
+        return 0
+    return min(nbytes & -nbytes, HOP_ROW_BYTES)
+
+
+def hop_table(src_of: Sequence[int], rows: int,
+              device: torch.device) -> torch.Tensor:
+    """The K2 table of one hop over ``len(src_of)`` shards of ``rows``
+    rows: destination ``d``'s rows read source ``src_of[d]``'s, in order;
+    ``-1`` (keep ``out``'s zero) where ``src_of[d]`` is -1.  Built on
+    ``device`` from a few host ints, so it costs no host copy of its
+    n x rows entries."""
+    src = to_device(list(src_of), device, torch.int32)
+    r = torch.arange(rows, dtype=torch.int32, device=device)
+    table = torch.where(src[:, None] >= 0, src[:, None] * rows + r, -1)
+    return table.reshape(-1)
+
+
+def stacked_hop(x: torch.Tensor, pairs: Tuple[Tuple[int, int], ...]
+                ) -> torch.Tensor:
+    """One hop over a stack: one page gather (K2 on the card) of the
+    stack's rows.  A shard whose bytes are no multiple of 16, or a stack
+    that is not 16-byte aligned, is first copied into staging rows padded
+    to 16 bytes, and goes through the same gather."""
+    n = x.shape[0]
+    src_of = [-1] * n
+    for s, d in pairs:
+        src_of[d] = s
+    x = x.contiguous()
+    shard = x[0].numel() * x.element_size()
+    if shard == 0:
+        return torch.zeros_like(x)
+    row = hop_rows(shard)
+    staged = not row or x.data_ptr() % _ALIGN
+    if staged:
+        padded = -(-shard // _ALIGN) * _ALIGN
+        row = hop_rows(padded)
+        data = torch.zeros((n, padded), dtype=torch.uint8, device=x.device)
+        data[:, :shard] = x.reshape(n, -1).view(torch.uint8)
+    else:
+        data = x.reshape(n, -1).view(torch.uint8)
+    per = data.shape[1] // row
+    rows = data.view(n * per, row)
+    # every device receives in a full permutation; only then may the
+    # output start uninitialised
+    out = None if -1 not in src_of else torch.zeros_like(rows)
+    got = ops.villa_gather(rows, hop_table(src_of, per, x.device), out)
+    got = got.view(n, -1)
+    if staged:
+        got = got[:, :shard].contiguous()
+    return got.view(x.dtype).view(x.shape)
+
+
+class GroupAxis(_Axis):
+    """An axis whose devices are the ranks of a process group, one each."""
+
+    def __init__(self, group=None, device=None, name: str = "x"):
+        self.group = dist.group.WORLD if group is None else group
+        dev = resolve_device(device)
+        backend = dist.get_backend(self.group)
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        if backend != want:
+            raise ValueError(f"a GroupAxis on {dev} needs a {want} group "
+                             f"(got {backend})")
+        self.device = _axis_device(dev)
+        self.size = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        self.n_local = 1
+        self.positions = (self.rank,)
+        self.name = name
+        self._index = None
+        self.reset_counts()
+
+    @classmethod
+    def from_env(cls, device=None, name: str = "x") -> "GroupAxis":
+        """The world group of a process started by ``torchrun`` (its
+        ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+        ``MASTER_PORT``), initialised here unless it already is: NCCL on
+        ``cuda:LOCAL_RANK`` by default, gloo with ``device="cpu"``."""
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", local)
+            torch.cuda.set_device(dev)
+        if not dist.is_initialized():
+            addr = os.environ["MASTER_ADDR"]
+            port = os.environ["MASTER_PORT"]
+            dist.init_process_group(
+                "nccl" if dev.type == "cuda" else "gloo",
+                init_method=f"tcp://{addr}:{port}", rank=rank,
+                world_size=world, **({"device_id": dev}
+                                     if dev.type == "cuda" else {}))
+        return cls(None, dev, name)
+
+    def ppermute_start(self, x: torch.Tensor, pairs: Pairs):
+        """Post this rank's sends and receives of one hop and return a
+        handle whose ``wait()`` gives the result: only the ranks of a pair
+        talk, and a rank that receives nothing gets zeros at once."""
+        self.check(x)
+        pairs = _check_pairs(pairs, self.size)
+        self.hops += 1
+        x = x.contiguous()
+        out = torch.zeros_like(x)
+        p2p = []
+        for s, d in pairs:
+            if s == d == self.rank:
+                out.copy_(x)
+            elif s == self.rank:
+                p2p.append(dist.P2POp(dist.isend, x, dist.get_global_rank(
+                    self.group, d), self.group))
+            elif d == self.rank:
+                p2p.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(
+                    self.group, s), self.group))
+        return _Posted(dist.batch_isend_irecv(p2p) if p2p else [], out, x)
+
+    def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        self.check(x)
+        self.reductions += 1
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=op, group=self.group)
+        return out
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self._all_reduce(x, dist.ReduceOp.SUM)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return self._all_reduce(x, dist.ReduceOp.MAX)
+
+
+class _Posted:
+    """A GroupAxis hop in flight; ``wait()`` ends it.  Holds the sent
+    tensor until then, so its storage outlives the send."""
+
+    def __init__(self, works, out: torch.Tensor, sent: torch.Tensor):
+        self._works, self._out, self._sent = works, out, sent
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        self._works, self._sent = [], None
+        return self._out

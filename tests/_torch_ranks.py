@@ -1,0 +1,240 @@
+"""The port's multi-device jobs, run over a StackedAxis in the test
+process and over a GroupAxis on gloo ranks spawned here.
+
+A job is ``job(axis, local, shared) -> {name: tensor}``: ``local`` holds
+the inputs with the axis's local devices on dim 0 (all n of them on a
+StackedAxis, the rank's one on a GroupAxis), ``shared`` the inputs every
+device sees whole (page tables), and every output carries the local
+devices on dim 0.  ``run_gloo`` starts one process a rank
+(``python _torch_ranks.py JOB RANK N PORT DIR``, gloo over
+``tcp://127.0.0.1:PORT``, the env torchrun would set), each loading the
+inputs from DIR and writing its outputs there, and stacks the ranks'
+outputs on dim 0, so both runs give the same shapes.
+
+Imports torch, numpy and the port only: a rank never imports jax.
+"""
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+SRC = HERE.parent / "src"
+
+
+# ---------------------------------------------------------------------------
+# the jobs
+# ---------------------------------------------------------------------------
+
+def rbm_cases(n: int) -> dict:
+    """Each case of the rbm job at axis size n: name -> (function of
+    ``rbm``, its arguments before the axis, its keywords, the input key).
+    The reference's run reads the same table (its ``axis`` keyword is the
+    port's ``dim``), and its outputs carry the same names."""
+    wrap = {8: [(2, 6), (6, 2), (0, 7), (7, 1)],
+            4: [(0, 2), (3, 1), (0, 3), (3, 0), (1, 1)]}[n]
+    line = {8: [(1, 6), (6, 1), (7, 0)], 4: [(0, 3), (3, 0)]}[n]
+    src, dsts = {8: (3, [0, 5, 7]), 4: (1, [3])}[n]
+    cases = {"hop_+1": ("rbm_hop", [], {"step": 1}, "x"),
+             "hop_-1": ("rbm_hop", [], {"step": -1}, "x")}
+    for s, d in wrap:
+        cases[f"copy_{s}_{d}"] = ("lisa_copy", [s, d], {}, "x")
+    for s, d in line:
+        cases[f"chain_{s}_{d}"] = ("lisa_copy", [s, d],
+                                   {"wraparound": False}, "x")
+    cases["bcast_some"] = ("lisa_broadcast", [src], {"dsts": dsts}, "x")
+    cases["bcast_all"] = ("lisa_broadcast", [src], {}, "x")
+    cases["allgather_0"] = ("ring_allgather", [], {}, "x")
+    cases["allgather_1"] = ("ring_allgather", [], {"dim": 1}, "x")
+    cases["reduce_scatter"] = ("ring_reduce_scatter", [], {}, "rs")
+    cases["allreduce"] = ("ring_allreduce", [], {}, "ar")
+    return cases
+
+
+def rbm_job(axis, local, shared):
+    from repro_torch.core.lisa import compression as C
+    from repro_torch.core.lisa import rbm
+    out = {}
+    for name, (fn, pre, kw, key) in rbm_cases(axis.size).items():
+        out[name] = getattr(rbm, fn)(local[key], *pre, axis, **kw)
+    out["matmul"] = rbm.ring_allgather_matmul(local["mx"], local["mw"], axis)
+    mean, err = C.allreduce_mean_compressed(local["g"],
+                                            torch.zeros_like(local["g"]),
+                                            axis)
+    out["compressed_mean"], out["compressed_err"] = mean, err
+    # a ring_scan makes n hops and nothing else: no reduction, and the
+    # axis has no all-gather of its own to call
+    axis.reset_counts()
+    rbm.ring_scan(local["x"], axis, lambda acc, buf, src: acc + buf,
+                  torch.zeros_like(local["x"]))
+    out["scan_counts"] = torch.tensor([[axis.hops, axis.reductions]]
+                                      * axis.n_local)
+    return out
+
+
+def ring_attention_job(axis, local, shared):
+    from repro_torch.core.lisa.ring_attention import ring_attention
+    out = {}
+    for causal in (True, False):
+        axis.reset_counts()
+        out[f"causal_{causal}"] = ring_attention(
+            local["q"], local["k"], local["v"], axis, causal=causal)
+        out[f"counts_{causal}"] = torch.tensor(
+            [[axis.hops, axis.reductions]] * axis.n_local)
+    return out
+
+
+def pipeline_job(axis, local, shared):
+    from repro_torch.train.pipeline import pipeline_transformer
+
+    def layer_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"].unsqueeze(-2))
+
+    run = pipeline_transformer(axis, layer_fn, int(shared["l_per"]))
+    axis.reset_counts()
+    got = run({"w": local["w"], "b": local["b"]}, local["micro"])
+    n = axis.size
+    return {"out": got,
+            "counts": torch.tensor([[axis.hops, axis.reductions]]
+                                   * axis.n_local),
+            "slots": torch.tensor([[n + local["micro"].shape[1] - 1]]
+                                  * axis.n_local)}
+
+
+def mesh_movement_job(axis, local, shared):
+    """The reference's migration (0 -> 2) and cross-replica fork (1 -> 3)
+    plans over the axis, each into its own copy of the pools."""
+    from repro_torch import movement as MV
+    from repro_torch.core.lisa.topology import MeshTopology
+    out = {}
+    for name, kind, src, dst in (("migration", "move", 0, 2),
+                                 ("fork", "fork", 1, 3)):
+        st, dt = shared[f"{name}_src"], shared[f"{name}_dst"]
+        plan = MV.plan(MV.Transfer(
+            MV.Tier("slow", index=src, axis=axis.name),
+            MV.Tier("slow", index=dst, axis=axis.name),
+            MV.Layout.raw_pages(len(st), 8, 128, np.uint8), kind=kind),
+            topo=MeshTopology(axis.size))
+        pool = local["pool"].clone()
+        axis.reset_counts()
+        env = MV.execute(plan, src_pool=pool, src_table=st, dst_pool=pool,
+                         dst_table=dt, axes={axis.name: axis})
+        out[name] = env["dst_pool"]
+        out[f"{name}_hops"] = torch.tensor([[axis.hops]] * axis.n_local)
+    return out
+
+
+def raises_job(axis, local, shared):
+    """The loud errors of a gloo group: a CUDA axis on it, and a tensor on
+    another device than the axis's."""
+    from repro_torch.launch.mesh import GroupAxis
+    got = []
+    try:
+        GroupAxis(axis.group, device="cuda")
+    except ValueError as e:
+        got.append("nccl" in str(e))
+    try:
+        axis.ppermute(torch.zeros((1, 4), device="meta"), [(0, 1)])
+    except ValueError as e:
+        got.append("lives on cpu" in str(e))
+    return {"raised": torch.tensor([got])}
+
+
+JOBS = {"rbm": rbm_job, "ring_attention": ring_attention_job,
+        "pipeline": pipeline_job, "mesh_movement": mesh_movement_job,
+        "raises": raises_job}
+
+
+# ---------------------------------------------------------------------------
+# the two runs
+# ---------------------------------------------------------------------------
+
+def _tensors(arrays: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in arrays.items()}
+
+
+def run_stacked(job: str, n: int, local: dict, shared: dict) -> dict:
+    """``job`` over ``StackedAxis(n, device="cpu")``, as numpy arrays."""
+    from repro_torch.launch.mesh import StackedAxis
+    axis = StackedAxis(n, device="cpu", name="x")
+    got = JOBS[job](axis, _tensors(local), shared)
+    return {k: v.numpy() for k, v in got.items()}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_gloo(jobs, n: int, local: dict, shared: dict, tmp: Path,
+             timeout: int = 240) -> dict:
+    """Each of ``jobs`` on n gloo ranks, one process a rank started
+    together: {job: {name: the ranks' outputs stacked on dim 0}}."""
+    tmp = Path(tmp)
+    np.savez(tmp / "local.npz", **local)
+    np.savez(tmp / "shared.npz", **shared)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC), str(HERE), os.environ.get("PYTHONPATH", "")]),
+        "OMP_NUM_THREADS": "1"}
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "_torch_ranks.py"), ",".join(jobs),
+         str(r), str(n), str(port), str(tmp)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} failed:\n{logs[r][-4000:]}"
+    outs = {}
+    for job in jobs:
+        ranks = [np.load(tmp / f"{job}_rank{r}.npz") for r in range(n)]
+        outs[job] = {k: np.concatenate([z[k] for z in ranks])
+                     for k in ranks[0].files}
+    return outs
+
+
+def _rank_main(jobs: str, rank: int, n: int, port: int, tmp: str) -> None:
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import GroupAxis
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    axis = GroupAxis.from_env(device="cpu", name="x")
+    try:
+        with np.load(Path(tmp) / "local.npz") as z:
+            local = {k: z[k][rank:rank + 1] for k in z.files}
+        with np.load(Path(tmp) / "shared.npz") as z:
+            shared = {k: z[k] for k in z.files}
+        for job in jobs.split(","):
+            got = JOBS[job](axis, _tensors(local), shared)
+            np.savez(Path(tmp) / f"{job}_rank{rank}.npz",
+                     **{k: v.numpy() for k, v in got.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    try:
+        _rank_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
+                   int(sys.argv[4]), sys.argv[5])
+    except BaseException:
+        traceback.print_exc()
+        raise

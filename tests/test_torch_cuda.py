@@ -1289,3 +1289,75 @@ def test_train_step_on_card_matches_cpu(dev):
         card, mg = step(card, batch_at(dcfg, i, device=dev))
         assert abs(float(mc["loss"]) - float(mg["loss"])) < 1e-4
     assert ops.FA.chunked_attention.prefill == n + 3 * cfg.n_layers
+
+
+@pytest.mark.parametrize("shape,dt,pairs", [
+    ((8, 5), torch.uint8, [(i, (i + 1) % 8) for i in range(8)]),  # 5 B
+    ((4, 3, 3), torch.float32, [(0, 2), (3, 1)]),      # 36 B: padded row
+    ((1, 1000), torch.float32, [(0, 0)]),              # n = 1
+    ((4, 64, 32), torch.bfloat16, [(2, 2), (0, 1)]),   # src == dst
+    ((8, 4096), torch.int32, [(7, 0)]),                # rows of 1 KiB
+])
+def test_stacked_hop_matches_plain_gather(dev, shape, dt, pairs):
+    """A StackedAxis hop on the card is one K2 launch, bit-equal to the
+    same hop on the CPU (the plain gather of the same table): shards whose
+    bytes are no multiple of 16 go through a padded staging row, n = 1 and
+    a device sending to itself included; a device receiving nothing gets
+    zeros."""
+    from repro_torch.launch.mesh import StackedAxis
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(shape, device=dev, generator=g).mul(50).to(dt)
+    card, cpu = StackedAxis(shape[0], device=dev), StackedAxis(shape[0],
+                                                                device="cpu")
+    n = ops.RC.villa_gather.launches
+    got = card.ppermute(x, pairs)
+    torch.cuda.synchronize()
+    assert ops.RC.villa_gather.launches == n + 1
+    want = cpu.ppermute(x.cpu(), pairs)
+    assert got.dtype == dt and got.shape == x.shape
+    assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+    # the view of a stack off a 16-byte boundary is staged as well
+    off = torch.randn((shape[0] * x[0].numel() + 1,), device=dev,
+                      generator=g).to(dt)[1:].view(shape)
+    assert torch.equal(card.ppermute(off, pairs).cpu().view(torch.uint8),
+                       cpu.ppermute(off.cpu(), pairs).view(torch.uint8))
+
+
+def test_rbm_and_plans_on_card_match_cpu(dev):
+    """lisa_copy, lisa_broadcast and the ring collectives over a
+    StackedAxis on the card equal the CPU's run bit for bit, and the
+    migration plan's pools land as the numpy oracle with one K2 launch a
+    hop plus the gather's and one K1."""
+    from repro_torch import movement as MV
+    from repro_torch.core.lisa import rbm
+    from repro_torch.core.lisa.topology import MeshTopology
+    from repro_torch.launch.mesh import StackedAxis
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = torch.randn((8, 3, 129), device=dev, generator=g)
+    card, cpu = StackedAxis(8, device=dev), StackedAxis(8, device="cpu")
+    for fn in (lambda a, t: rbm.lisa_copy(t, 1, 6, a),
+               lambda a, t: rbm.lisa_copy(t, 6, 1, a, wraparound=False),
+               lambda a, t: rbm.lisa_broadcast(t, 3, a, dsts=[0, 5, 7]),
+               lambda a, t: rbm.ring_allgather(t, a, dim=1),
+               lambda a, t: rbm.ring_allreduce(t, a),
+               lambda a, t: rbm.ring_reduce_scatter(
+                   t[:, :, :128].reshape(8, 8, 48), a)):
+        assert torch.equal(fn(card, x).cpu(), fn(cpu, x.cpu()))
+    ax = StackedAxis(4, device=dev, name="replica")
+    pool = torch.randint(0, 256, (4, 16, 8, 128), dtype=torch.uint8,
+                         device=dev, generator=g)
+    st, dt = [1, 4, 15], [0, 2, 5]
+    want = pool.cpu().numpy().copy()
+    want[2][dt] = want[0][st]
+    plan = MV.plan(MV.Transfer(MV.Tier("slow", index=0, axis="replica"),
+                               MV.Tier("slow", index=2, axis="replica"),
+                               MV.Layout.raw_pages(3, 8, 128, np.uint8)),
+                   topo=MeshTopology(4))
+    ops.reset_launch_counts()
+    MV.execute(plan, src_pool=pool, src_table=st, dst_pool=pool,
+               dst_table=dt, axes={"replica": ax})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert np.array_equal(pool.cpu().numpy(), want)
+    assert (counts["villa_gather"], counts["villa_scatter"]) == \
+        (1 + plan.legs[1].hops, 1)
