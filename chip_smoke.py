@@ -175,6 +175,22 @@ nvcc (sm_90a), then:
                 hop rows' times beside the byte bound, the plain gather
                 and index_select; the NCCL route with two cards or more,
                 else a line saying it did not run.
+  21. sharded training — full-width tinyllama-1.1b in f32 (phase 19's
+                seed, batch and OptConfig) trained MT_STEPS steps on a
+                stacked 2 x 2 mesh (fsdp, tensor_parallel) and a 4 x 1 one
+                through ``make_train_step(cfg, mesh, ...)``: step 1's loss
+                and grad norm within rel 1e-5 of phase 19's, its params as
+                tests/test_torch_train.py's _same_update against one
+                single-device step, every loss within rel 1e-4; the 2 x 2
+                state saved at step MT_SAVE and restored onto 4 x 1 (slices
+                bit-equal to the saved arrays', the next steps within rel
+                1e-5 of the uninterrupted run's); the launcher on a reduced
+                2 x 2 mesh resumed bit-exactly there and onto 4 x 1; the
+                elastic example; K2 launches == the axes' hops ==
+                ``mesh_step_counts`` a step, K3 prefill == layers x device
+                forwards; ms a step, the collectives' device ms beside
+                their byte bound, peak memory; the NCCL route with two
+                cards or more, else a line saying it did not run.
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -333,6 +349,18 @@ M_PIPE_BAR, M_RING_BAR, M_MM_BAR, M_GRAD_BAR = 1e-5, 3e-5, 1e-4, 2e-2
 M_PLANS = (("migration", "move", 0, 2, (1, 5), (0, 3)),
            ("fork", "fork", 1, 3, (2,), (6,)))
 M_NCCL_TIMEOUT = 300             # s: the NCCL ranks, where cards allow
+# phase 21: phase 19 (b)'s full-width tinyllama training (T_BATCH x T_SEQ,
+# T_LR, T_STEPS' schedule) for MT_STEPS steps on each stacked mesh of
+# MT_MESHES, the first saved at step MT_SAVE and restored onto the second;
+# the launcher on reduced tinyllama at MT_ARGV's recipe (that of
+# tests/test_train_loop.py, at 8 rows so that 4 data devices split them),
+# checkpointed at MT_LAUNCH_CKPT
+MT_MESHES, MT_STEPS, MT_SAVE = ((2, 2), (4, 1)), 5, 3
+MT_STEP_BAR, MT_LOSS_BAR = 1e-5, 1e-4
+MT_ARGV = ("--arch", "tinyllama-1.1b", "--reduced", "--steps", "12",
+           "--batch", "8", "--seq", "64", "--lr", "8e-3", "--log-every",
+           "6")
+MT_LAUNCH_CKPT = 6
 
 
 class SmokeFailure(RuntimeError):
@@ -802,8 +830,7 @@ def main() -> int:
     # with no pallas_call); training launches K3's prefill under autograd
     dram_phase(tag)
     wall(18)
-    train = train_phase(tag)
-    counts["flash_attention_train"] = train["prefill"] + train["decode"]
+    train, train_hist = train_phase(tag)
     wall(19)
     # the hop chains over a StackedAxis: every hop one K2 launch, the
     # plans' page legs one K2 and one K1 each; the NCCL route where the
@@ -815,6 +842,14 @@ def main() -> int:
     rows["villa_gather_hop"] = mesh["row"]
     nccl_route(tag)
     wall(20)
+    # sharded training over stacked meshes: its hops are K2 launches, its
+    # device forwards K3's prefill under autograd (K3e's row)
+    sharded = mesh_train_phase(tag, train_hist)
+    counts["villa_gather"] += sharded["villa_gather"]
+    counts["villa_gather_hop"] += sharded["villa_gather"]
+    train["prefill"] += sharded["flash_attention_prefill"]
+    counts["flash_attention_train"] = train["prefill"] + train["decode"]
+    wall(21)
     routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
                                   "decode": counts["flash_attention_decode"]},
               **paths, "flash_attention_train": train}
@@ -874,8 +909,9 @@ def main() -> int:
     # training path (phase 19; its backward launches no K3); a row's
     # source is its headline route's (the prefill kernel is
     # csrc/flash_attention.cu); villa_gather_hop counts the K2 launches of
-    # phase 20's hops (each also in villa_gather), timed at the shift of
-    # every shard of tinyllama's weights over 8 stacked devices
+    # phase 20's and phase 21's hops (each also in villa_gather), timed at
+    # the shift of every shard of tinyllama's weights over 8 stacked
+    # devices
     kernels = []
     for name in ("villa_scatter", "villa_gather", "villa_gather_hop",
                  "flash_attention",
@@ -2640,7 +2676,7 @@ def dram_phase(tag) -> dict:
     return out
 
 
-def train_phase(tag) -> dict:
+def train_phase(tag) -> tuple:
     """Phase 19: training on the card.
 
     (a) reduced tinyllama with tests/test_train_loop.py's recipe for
@@ -2656,7 +2692,8 @@ def train_phase(tag) -> dict:
         (``last_loss`` among them) equal;
     (c) K3's launches in each run: its prefill kernel layers x forward
         passes (the backward launches none), no decode, no K1/K2/K4.
-    Returns K3's launches by route over (a) and (b)."""
+    Returns K3's launches by route over (a) and (b), and (b)'s
+    uninterrupted run's history (``launch.train.run``'s third value)."""
     import shutil
     import tempfile
     import torch
@@ -2792,7 +2829,7 @@ def train_phase(tag) -> dict:
           f"none in the backward [{tag}]")
     del params_a, st_c
     torch.cuda.empty_cache()
-    return total
+    return total, hist_a
 
 
 def kernel_name(mangled: str) -> str:
@@ -3604,6 +3641,439 @@ def nccl_rank_main() -> int:
         dist.destroy_process_group()
     print(f"rank {axis.rank} ok")
     return 0
+
+
+def mesh_step_counts(shardings, sizes, batch_axes, grad_compress=False):
+    """{axis: (hops, reductions)} that one mesh step's rule calls for
+    (``train/step.py``): a leaf's all-gather makes n hops on each axis of n
+    devices it is split over, its gradient's reduce-scatter n - 1 more
+    where that axis splits the batch (none where it does not: each device
+    keeps its own slice); a leaf whole along a batch axis is all-reduced
+    over it (2n - 1 hops); the clip's norm reduces once on each axis a
+    leaf is split over, grad compression's scale once more, the metrics
+    once on each batch axis.  On a stacked mesh each hop is one K2
+    launch."""
+    from repro_torch.checkpoint.manager import _flatten
+    hops = {a: 0 for a in sizes}
+    red = {a: 0 for a in sizes}
+    for _, sh in _flatten(shardings):
+        split = [a for a in sh.axes() if sizes[a] > 1]
+        for a in split:
+            hops[a] += sizes[a] + (sizes[a] - 1 if a in batch_axes else 0)
+            red[a] += 2 if grad_compress else 1
+        for a in batch_axes:
+            if a not in split:
+                hops[a] += 2 * sizes[a] - 1
+    for a in batch_axes:
+        red[a] += 1
+    return {a: (hops[a], red[a]) for a in sizes}
+
+
+def hop_bytes(like, shardings, sizes, batch_axes) -> tuple:
+    """Bytes the hops of one mesh step move, (the all-gathers', the
+    gradient reductions'), for the params shaped as ``like``: every hop
+    carries the whole stack, ``n_local`` devices' current slices; a
+    reduce-scatter's hops carry one chunk a device, an all-reduce's 2n - 1
+    hops one padded chunk each."""
+    import math
+    from repro_torch.checkpoint.manager import _flatten
+    gather = reduce = 0
+    for (_, x), (_, sh) in zip(_flatten(like), _flatten(shardings)):
+        n_local = sh.mesh.n_local
+        split = [a for a in sh.axes() if sizes[a] > 1]
+        cur = x.numel() * x.element_size() // math.prod(
+            sizes[a] for a in split)
+        shard = cur
+        for _, names in sh.dims():          # _gather's order
+            for a in reversed(names):
+                if sizes[a] > 1:
+                    gather += sizes[a] * n_local * cur
+                    cur *= sizes[a]
+        for _, names in reversed(sh.dims()):    # _grad_to_shards' order
+            for a in names:
+                if sizes[a] > 1:
+                    cur //= sizes[a]
+                    if a in batch_axes:
+                        reduce += (sizes[a] - 1) * n_local * cur
+        for a in batch_axes:
+            if a not in split:
+                chunk = -(-shard // x.element_size() // sizes[a]) \
+                    * x.element_size()
+                reduce += (2 * sizes[a] - 1) * n_local * chunk
+    return gather, reduce
+
+
+def mesh_train_phase(tag, single_hist) -> dict:
+    """Phase 21: sharded training on stacked meshes of the card.
+
+    (a) full-width tinyllama-1.1b in f32 from phase 19's seed, batch and
+        OptConfig, MT_STEPS steps on each mesh of MT_MESHES (fsdp,
+        tensor_parallel): step 1's loss and grad norm within MT_STEP_BAR
+        (relative) of phase 19's uninterrupted run (``single_hist``), its
+        params within 1e-5 of one single-device step's where the gradient
+        is above 1e-6 and within lr everywhere, every loss within
+        MT_LOSS_BAR of phase 19's;
+    (b) the first mesh's state saved at step MT_SAVE (its full arrays,
+        gathered over the rings) and restored onto the second: every
+        restored slice bit-equal to the saved array's, and the restored
+        run's next steps within MT_STEP_BAR of the uninterrupted run's;
+    (c) ``launch.train`` on reduced tinyllama (MT_ARGV) on --data 2
+        --model 2: stopped after its step-MT_LAUNCH_CKPT save and resumed
+        on the same mesh (params and losses equal the uninterrupted
+        run's) and onto --data 4 --model 1 (losses within MT_STEP_BAR);
+        the elastic example (``repro_torch.examples.elastic_rescale``);
+    (d) every step of (a) and (b): the axes' hops and reductions equal
+        ``mesh_step_counts``, K2 launches equal the hops, K3's prefill
+        route layers x local devices (K3e: one forward a device), nothing
+        else;
+    (e) ms a step on the host clock (median of steps 2-MT_STEPS), the
+        device ms of one step's all-gathers and of its gradient
+        reductions beside their byte bound, the peak memory of each run,
+        one step of the last mesh profiled by op, the phase's seconds;
+    (f) the NCCL route (``mesh_train_nccl``).
+    Returns the K2 and K3-prefill launches of (d)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import manager
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.examples import elastic_rescale
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import shardings as SH
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config("tinyllama-1.1b")
+    ocfg = OptConfig(lr=T_LR, warmup_steps=max(T_STEPS // 10, 1),
+                     total_steps=T_STEPS)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=T_SEQ,
+                      global_batch=T_BATCH, seed=SEED)
+    pcfg = TS.ParallelConfig(fsdp=True)
+    like = specs.state_specs(cfg, pcfg, torch.float32)
+    batches = [batch_at(dcfg, i, device=dev) for i in range(MT_STEPS)]
+    total = {"villa_gather": 0, "flash_attention_prefill": 0}
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa: E731
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    # one single-device step: its params, and where its gradient is > 1e-6
+    one = TS.ParallelConfig(fsdp=False)
+    st = TS.init_train_state(cfg, gen(), one, device=dev)
+    grads = TS.grads_of(cfg, one, st.params, batches[0])[2]
+    big = {p: (g.abs() > 1e-6).cpu() for p, g in _flatten(grads)}
+    del grads
+    s1, m1 = TS.make_train_step(cfg, one, ocfg)(st, batches[0])
+    single = (float(m1["loss"]), float(m1["grad_norm"]))
+    check(rel(single[0], single_hist["losses"][0]) <= MT_STEP_BAR
+          and rel(single[1], single_hist["grad_norms"][0]) <= MT_STEP_BAR,
+          f"sharded training: the single-device step 1 {single} is not "
+          f"phase 19's ({single_hist['losses'][0]}, "
+          f"{single_hist['grad_norms'][0]})")
+    p1 = {p: t.cpu() for p, t in _flatten(s1.params)}
+    del st, s1
+    torch.cuda.empty_cache()
+
+    def same_update(label, params, sh):
+        """Step 1's laid-out params against the single-device step's,
+        leaf by leaf on the card (gathered outside the counted steps)."""
+        moved = 0.0
+        for (path, leaf), (_, s) in zip(_flatten(params), _flatten(sh)):
+            diff = (SH._gather(leaf, s)[0] - p1[path].to(dev)).abs()
+            mask = big[path].to(dev)
+            moved = max(moved, float(diff[mask].max()) if mask.any() else 0)
+            check(bool((diff[mask] <= 1e-5).all())
+                  and bool((diff <= ocfg.lr).all()),
+                  f"sharded training {label}: step 1's {path} is not the "
+                  f"single-device step's")
+        return moved
+
+    def run(shape, first, state=None, save_to=None):
+        """Steps ``first``..MT_STEPS - 1 on a stacked ``shape`` mesh from
+        phase 19's initial state, or from a laid-out ``state``."""
+        label = f"{shape[0]}x{shape[1]}"
+        mesh = make_local_mesh(*shape, device=dev)
+        _, compile_step, state_shardings = TS.make_train_step(cfg, mesh,
+                                                              pcfg, ocfg)
+        sh = state_shardings(like)
+        step = compile_step(like, batches[0])
+        if state is None:
+            state = SH.shard(TS.init_train_state(cfg, gen(), pcfg,
+                                                 device=dev), sh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batch_axes = tuple(a for a in ("data",) if mesh.shape[a] > 1)
+        want = mesh_step_counts(sh.params, mesh.shape, batch_axes)
+        hops = sum(h for h, _ in want.values())
+        layers = cfg.n_layers * mesh.n_local
+        out = {"loss": [], "grad_norm": [], "step_s": []}
+        for i in range(first, MT_STEPS):
+            ops.reset_launch_counts()
+            mesh.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            out["loss"].append(float(m["loss"]))
+            out["step_s"].append(time.perf_counter() - t0)
+            out["grad_norm"].append(float(m["grad_norm"]))
+            check(mesh.counts() == want,
+                  f"sharded training {label} step {i + 1}: hops and "
+                  f"reductions {mesh.counts()}, {want} due")
+            check_counts(ops.launch_counts(),
+                         {"villa_gather": hops, "flash_attention": layers,
+                          "flash_attention_prefill": layers},
+                         f"sharded training {label} step {i + 1}")
+            total["villa_gather"] += hops
+            total["flash_attention_prefill"] += layers
+            if i == 0:
+                out["moved"] = same_update(label, state.params, sh.params)
+            if save_to is not None and i + 1 == MT_SAVE:
+                t0 = time.perf_counter()
+                manager.save(state, save_to, MT_SAVE, shardings=sh)
+                out["save_s"] = time.perf_counter() - t0
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out["want"], out["n_local"] = want, mesh.n_local
+        if first == 0 and shape == MT_MESHES[-1]:
+            # one step's device time by op (the first mesh's split is the
+            # same with twice the rows: profiled once, to keep the phase
+            # short)
+            profile_step(lambda: step(state, batches[0]), label, tag)
+        del state
+        torch.cuda.empty_cache()
+        return out
+
+    # (a) each mesh from step 0, the first saved at MT_SAVE
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    try:
+        runs = {}
+        for k, shape in enumerate(MT_MESHES):
+            label = f"{shape[0]}x{shape[1]}"
+            r = runs[label] = run(shape, 0, save_to=ckdir if k == 0
+                                  else None)
+            r1 = (rel(r["loss"][0], single_hist["losses"][0]),
+                  rel(r["grad_norm"][0], single_hist["grad_norms"][0]))
+            check(max(r1) <= MT_STEP_BAR,
+                  f"sharded training {label}: step 1 loss {r['loss'][0]} "
+                  f"grad norm {r['grad_norm'][0]} against phase 19's "
+                  f"{single_hist['losses'][0]}, "
+                  f"{single_hist['grad_norms'][0]}")
+            worst = max(rel(a, b) for a, b in zip(
+                r["loss"], single_hist["losses"][:MT_STEPS]))
+            check(worst <= MT_LOSS_BAR,
+                  f"sharded training {label}: losses {r['loss']} against "
+                  f"phase 19's {single_hist['losses'][:MT_STEPS]}")
+            step_ms = statistics.median(r["step_s"][1:]) * 1e3
+            print(f"sharded training {label} (stacked, fsdp, "
+                  f"tensor_parallel; {r['n_local']} device forwards of "
+                  f"{T_BATCH // shape[0]} x {T_SEQ} a step): losses "
+                  f"{r['loss']}; step 1 loss rel {r1[0]:.3g}, grad norm rel "
+                  f"{r1[1]:.3g} from phase 19's, every loss within "
+                  f"{worst:.3g}; step 1's params within {r['moved']:.3g} of "
+                  f"the single device's where |g| > 1e-6; {step_ms:.1f} ms a "
+                  f"step (median of steps 2-{MT_STEPS}; steps "
+                  f"{[round(t * 1e3, 1) for t in r['step_s']]}; phase 19's "
+                  f"single device 860.6 ms, PR 21); peak memory "
+                  f"{r['peak'] / 2**30:.2f} GiB; hops and reductions a step "
+                  f"{r['want']} [{tag}]")
+            if k == 0:
+                print(f"sharded training: the {label} state saved at step "
+                      f"{MT_SAVE} in {r['save_s']:.1f} s [{tag}]")
+
+        # (b) restored onto the second mesh, stepped on
+        first, second = (f"{a}x{b}" for a, b in MT_MESHES)
+        sh2 = TS.make_train_step(
+            cfg, make_local_mesh(*MT_MESHES[1], device=dev), pcfg,
+            ocfg)[2](like)
+        t0 = time.perf_counter()
+        restored = manager.restore(like, ckdir, shardings=sh2)
+        restore_s = time.perf_counter() - t0
+        data = np.load(Path(ckdir) / f"step_{MT_SAVE:08d}" / "arrays.npz")
+        for (path, leaf), (_, s) in zip(_flatten(restored), _flatten(sh2)):
+            a = data[path]
+            for j, sl in enumerate(s.slices(a.shape)):
+                check(torch.equal(leaf[j].cpu(),
+                                  torch.from_numpy(np.array(a[sl]))),
+                      f"elastic restore: {path} slice {j} is not the saved "
+                      f"array's")
+        r2 = run(MT_MESHES[1], MT_SAVE, state=restored)
+        del restored
+        want = runs[first]["loss"][MT_SAVE:]
+        got = [rel(a, b) for a, b in zip(r2["loss"], want)]
+        check(max(got) <= MT_STEP_BAR,
+              f"elastic restore: {second}'s steps {MT_SAVE + 1}-{MT_STEPS} "
+              f"losses {r2['loss']} against {first}'s {want}")
+        print(f"sharded training: {first}'s step-{MT_SAVE} checkpoint "
+              f"restored onto {second} in {restore_s:.1f} s, every slice "
+              f"bit-equal to the saved arrays'; steps {MT_SAVE + 1}-"
+              f"{MT_STEPS} losses {r2['loss']} against {want} (rel "
+              f"{max(got):.3g}) [{tag}]")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (e) one step's collectives alone: device time against the bound
+    for shape in MT_MESHES:
+        mesh = make_local_mesh(*shape, device=dev)
+        sh = TS.make_train_step(cfg, mesh, pcfg, ocfg)[2](like).params
+        params = SH.shard(lm.init_lm(cfg, gen(), device=dev), sh)
+        torch.cuda.empty_cache()
+        batch_axes = tuple(a for a in ("data",) if mesh.shape[a] > 1)
+        pairs = [(x, s) for (_, x), (_, s) in zip(_flatten(params),
+                                                  _flatten(sh))]
+        gather_ms = timed(lambda: [SH._gather(x, s) for x, s in pairs],
+                          reps=5, device=True)
+        grads = [(torch.ones((mesh.n_local,) + tuple(x.shape), device=dev),
+                  s) for (_, x), (_, s) in zip(_flatten(like.params),
+                                               _flatten(sh))]
+        reduce_ms = timed(lambda: [SH._grad_to_shards(g, s, batch_axes)
+                                   for g, s in grads], reps=5, device=True)
+        gb, rb = hop_bytes(like.params, sh, mesh.shape, batch_axes)
+        print(f"sharded training {shape[0]}x{shape[1]} collectives a step "
+              f"(K2 hops and the ring's copies): all-gathers "
+              f"{gather_ms:.2f} device ms, its hops moving {gb:,} B (bound "
+              f"{2 * gb / HBM_BYTES_PER_S * 1e3:.2f} ms: 2 x bytes / 3.35 "
+              f"TB/s); gradient reductions {reduce_ms:.2f} device ms, "
+              f"{rb:,} B (bound {2 * rb / HBM_BYTES_PER_S * 1e3:.2f} ms) "
+              f"[{tag}]")
+        del params, pairs, grads
+        torch.cuda.empty_cache()
+
+    # (c) the launcher on a reduced mesh, and the elastic example
+    class Crash(Exception):
+        pass
+
+    argv = list(MT_ARGV) + ["--data", "2", "--model", "2"]
+    res, st_a, hist = launch_train.run(argv)
+    real_save = manager.save
+
+    def save_then_crash(*a, **kw):
+        real_save(*a, **kw)
+        raise Crash
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_launch_")
+    try:
+        manager.save = save_then_crash
+        try:
+            launch_train.run(argv + ["--ckpt-dir", ckdir, "--ckpt-every",
+                                     str(MT_LAUNCH_CKPT)])
+            check(False, "the launcher's checkpointed mesh run did not stop")
+        except Crash:
+            pass
+        manager.save = real_save
+        _, st_b, hist_b = launch_train.run(argv + ["--ckpt-dir", ckdir])
+        _, _, hist_c = launch_train.run(
+            list(MT_ARGV) + ["--data", "4", "--model", "1", "--ckpt-dir",
+                             ckdir])
+    finally:
+        manager.save = real_save
+        shutil.rmtree(ckdir, ignore_errors=True)
+    same = all(bit_equal(a, b) for (_, a), (_, b) in zip(
+        _flatten(st_a.params), _flatten(st_b.params)))
+    tail = hist["losses"][MT_LAUNCH_CKPT:]
+    check(same and hist_b["losses"] == tail,
+          f"the launcher's resumed 2x2 run differs: params bit-equal {same},"
+          f" losses {hist_b['losses']} against {tail}")
+    onto = max(rel(a, b) for a, b in zip(hist_c["losses"], tail))
+    check(onto <= MT_STEP_BAR,
+          f"the launcher resumed onto 4x1: losses {hist_c['losses']} "
+          f"against {tail}")
+    ex = elastic_rescale.main([])
+    print(f"sharded training launcher (reduced, --data 2 --model 2): loss "
+          f"{res['first_loss']:.4f} -> {res['last_loss']:.4f}; resumed from "
+          f"step {MT_LAUNCH_CKPT} bit-exactly, and onto --data 4 --model 1 "
+          f"within rel {onto:.3g}; the elastic example 4x2 -> 2x2 resumed "
+          f"at step {ex['resumed_step']}, losses {ex['phase1_loss']:.4f}, "
+          f"{ex['phase2_loss']:.4f} [{tag}]")
+    del st_a, st_b
+    torch.cuda.empty_cache()
+    mesh_train_nccl(tag, hist)
+    print(f"sharded training phase: {time.perf_counter() - t_phase:.1f} s "
+          f"[{tag}]")
+    return total
+
+
+def profile_step(fn, label, tag, ops_shown=10) -> None:
+    """Device time of one training step by the operator that launched it
+    (torch.profiler), and the device's busy share of the host window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if "CUDA" in str(e.device_type)]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_op = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                    for e in events if "CUDA" not in str(e.device_type)
+                    and e.self_device_time_total > 0), reverse=True)
+    print(f"sharded training {label} profile of one step: host "
+          f"{wall_ms:.1f} ms (profiled), device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.1f}%), "
+          f"{sum(e.count for e in kernels)} kernels [{tag}]")
+    for ms, n, key in by_op[:ops_shown]:
+        print(f"  {label} op {ms:.2f} device ms, {n} calls: {key[:60]} "
+              f"[{tag}]")
+
+def mesh_train_nccl(tag, want) -> None:
+    """Phase 21's NCCL route: with two cards or more, the launcher of
+    (c) as min(count, 4) ranks on a (ranks x 1) mesh
+    (``Mesh.from_env``), its losses within MT_STEP_BAR of the stacked 2 x
+    2 run's ``want``; with one card, a line that says it did not run."""
+    import os
+    import socket
+    import torch
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"sharded training NCCL route: not run: "
+              f"torch.cuda.device_count() is {count}, and NCCL takes one "
+              f"card a rank; phase 21's meshes ran stacked on this card "
+              f"only [{tag}]")
+        return
+    ranks = 4 if count >= 4 else 2
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = [sys.executable, "-m", "repro_torch.launch.train", *MT_ARGV,
+            "--data", str(ranks), "--model", "1"]
+    procs = [subprocess.Popen(
+        argv, cwd=str(ROOT), env={
+            **os.environ, "PYTHONPATH": str(ROOT / "src"), "RANK": str(r),
+            "WORLD_SIZE": str(ranks), "LOCAL_RANK": str(r),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(ranks)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=M_NCCL_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"NCCL rank {r} failed:\n{logs[r][-3000:]}")
+    got = json.loads(logs[0].strip().splitlines()[-1])
+    last = want["losses"][-1]
+    check(abs(got["last_loss"] - last) <= MT_STEP_BAR * abs(last),
+          f"NCCL ranks' last loss {got['last_loss']} against {last}")
+    print(f"sharded training NCCL route: {ranks} ranks over NCCL "
+          f"(--data {ranks}), last loss {got['last_loss']} against the "
+          f"stacked 2x2 run's {last} [{tag}]")
 
 
 def check_counts(counts, due, path) -> None:

@@ -1,9 +1,9 @@
 # Port of src/repro/checkpoint/manager.py in torch.  The on-disk format is
 # the reference's (step_<N>/arrays.npz + meta.json + the crc trailer, leaf
 # keys by tree path), so either package verifies and restores what the
-# other wrote.  Without a counterpart: ``restore(shardings=)``, the elastic
-# restore onto another mesh (ROADMAP item 16); ``restore`` takes a
-# ``device`` instead.
+# other wrote.  ``restore`` takes a ``device`` for one device besides the
+# reference's ``shardings``, and ``save`` a tree laid out on a mesh takes
+# its ``shardings`` (a port's laid-out leaf does not know its layout).
 """Fault-tolerant checkpointing: atomic save / restore / auto-resume.
 
 Layout: <dir>/step_<N>/arrays.npz + meta.json + trailer.json, written to a
@@ -128,7 +128,27 @@ def _file_crc(path: str) -> int:
     return crc & 0xFFFFFFFF
 
 
-def save(tree: Any, ckpt_dir: str, step: int, keep_last: int = 3) -> str:
+def save(tree: Any, ckpt_dir: str, step: int, keep_last: int = 3,
+         shardings: Any = None) -> str:
+    """Write ``tree`` as ``step``'s checkpoint.  A tree laid out on a mesh
+    (``train.shardings``) comes with its matching tree of
+    ``NamedSharding``s: its full arrays are gathered over the mesh's rings
+    and written in the same format; on ranks every rank gathers, rank 0
+    writes and the others wait for it at a barrier."""
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if shardings is not None:
+        from repro_torch.train import shardings as SH
+        mesh = _mesh_of(shardings)
+        tree = SH.unshard(tree, shardings)
+        if not mesh.stacked:
+            import torch.distributed as dist
+            if dist.get_rank() != 0:
+                dist.barrier()
+                return final
+            try:
+                return save(tree, ckpt_dir, step, keep_last)
+            finally:
+                dist.barrier()
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _flatten(tree)
     staged = _stage([l for _, l in flat], to_host=True)
@@ -146,7 +166,6 @@ def save(tree: Any, ckpt_dir: str, step: int, keep_last: int = 3) -> str:
         with open(os.path.join(tmp, "trailer.json"), "w") as f:
             json.dump({"crc32": _file_crc(npz),
                        "size": os.path.getsize(npz)}, f, allow_nan=False)
-        final = os.path.join(ckpt_dir, f"step_{step:08d}")
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
@@ -213,17 +232,27 @@ def verify_checkpoint(ckpt_dir: str, step: int) -> None:
             f"(crc32 {actual_crc:#010x}, trailer says {crc:#010x})")
 
 
+def _mesh_of(shardings):
+    return next(sh for _, sh in _flatten(shardings)).mesh
+
+
 def restore(tree_like: Any, ckpt_dir: str, step: Optional[int] = None,
-            device=None) -> Any:
+            device=None, shardings: Any = None) -> Any:
     """Restore into the structure of ``tree_like`` (a nested dict / list /
     tuple / named tuple whose leaves name the arrays to read); every leaf
-    comes back as a tensor on ``device`` (default: cuda, raising without a
-    GPU) in the dtype it was saved with.
+    comes back as a tensor in the dtype it was saved with, on ``device``
+    (default: cuda, raising without a GPU).
+
+    ``shardings``: a matching tree of ``NamedSharding``s over one mesh —
+    each leaf comes back laid out on it (its local devices' slices on dim
+    0, on the mesh's device), whatever mesh wrote it: the elastic rescale.
 
     Integrity-verified first: a torn, truncated, or bit-rotted checkpoint
     raises :class:`CorruptCheckpoint` rather than restoring garbage.
     """
-    device = resolve_device(device)
+    if shardings is not None and device is not None:
+        raise ValueError("restore takes a device or shardings (whose mesh "
+                         "names the device), not both")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -231,6 +260,19 @@ def restore(tree_like: Any, ckpt_dir: str, step: Optional[int] = None,
     verify_checkpoint(ckpt_dir, step)
     path = os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz")
     data = np.load(path)
-    hosted = [data[p] for p, _ in _flatten(tree_like)]
+    flat = _flatten(tree_like)
+    if shardings is None:
+        device = resolve_device(device)
+        hosted = [data[p] for p, _ in flat]
+    else:
+        shard_flat = [sh for _, sh in _flatten(shardings)]
+        if len(shard_flat) != len(flat):
+            raise ValueError(f"{len(shard_flat)} shardings for {len(flat)} "
+                             f"leaves")
+        device = shard_flat[0].mesh.device
+        hosted = []
+        for (p, _), sh in zip(flat, shard_flat):
+            a = data[p]
+            hosted.append(np.stack([a[s] for s in sh.slices(a.shape)]))
     leaves = _stage(hosted, to_host=False, device=device)
     return _unflatten(tree_like, iter(leaves))

@@ -1,7 +1,7 @@
-# Port of src/repro/launch/mesh.py:29-36 (make_local_mesh) in torch: the
-# axis objects that take the place of a named mesh axis.  The production
-# mesh (make_production_mesh, :9-26) is ROADMAP item 16's last part.
-"""Mesh axes for the LISA hop substrate: a process group, or a stack.
+# Port of src/repro/launch/mesh.py:29-36 (make_local_mesh) in torch, and
+# the axis objects that take the place of a named mesh axis.  The
+# production mesh (make_production_mesh, :9-26) comes with ROADMAP item 18.
+"""Meshes and their axes for the LISA hop substrate: ranks, or a stack.
 
 The reference runs its hop chains inside ``shard_map`` over a named mesh
 axis.  The port names the axis by an object, and every function of
@@ -20,7 +20,18 @@ both kinds:
                the page gather K2 over the stack viewed as rows, whose
                table maps each destination's rows to its source's (rows of
                a device that receives nothing stay zero); on the CPU the
-               same table runs through the plain gather.
+               same table runs through the plain gather.  One axis of a
+               stacked mesh is a StackedAxis over the whole stack
+               (``mesh_shape``, ``dim``): its hop applies the pairs inside
+               every group of the axis at once, still one K2 launch, and
+               ``psum``/``pmax`` reduce within each group.
+
+A :class:`Mesh` names its axes ``("data", "model")`` as the reference's
+``make_local_mesh`` does, its devices in the reference's row-major order:
+``make_local_mesh(data, model)`` stacks all of them in one process (on one
+card), ``Mesh.from_env(data, model)`` takes one ``torchrun`` rank a device
+and gives each axis its ``dist.new_group`` subgroups.  ``mesh.axis(name)``
+is the axis object that :mod:`repro_torch.core.lisa.rbm` takes.
 
 ``ppermute`` has ``jax.lax.ppermute``'s semantics: ``out[dst] = x[src]``
 for each pair, zeros where a device receives nothing.  Each axis counts
@@ -31,9 +42,11 @@ to another device behind the caller's back.
 """
 from __future__ import annotations
 
+import math
 import os
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -86,7 +99,7 @@ class _Axis:
 
     size: int
     n_local: int
-    positions: Tuple[int, ...]     # this process's devices on the axis (host)
+    positions: Tuple[int, ...]     # each local device's index on the axis
     device: torch.device
     name: str
 
@@ -124,33 +137,60 @@ class _Axis:
 
 
 class StackedAxis(_Axis):
-    """An axis of ``n`` devices held by one process, stacked on dim 0."""
+    """An axis of ``n`` devices held by one process, stacked on dim 0.
 
-    def __init__(self, n: int, device=None, name: str = "x"):
+    Alone, the stack is the axis (``mesh_shape=(n,)``).  As axis ``dim`` of
+    a stacked mesh of ``mesh_shape`` (devices in row-major order on dim 0),
+    the stack holds ``prod(mesh_shape)`` devices, each group of the axis
+    (the devices that differ only in coordinate ``dim``) is a ring of
+    ``n``, and a hop's pairs apply in every group."""
+
+    def __init__(self, n: int, device=None, name: str = "x", *,
+                 mesh_shape: Sequence[int] = None, dim: int = 0):
         if n < 1:
             raise ValueError(f"an axis needs at least one device (got {n})")
-        self.size = self.n_local = n
-        self.positions = tuple(range(n))
+        self.mesh_shape = (n,) if mesh_shape is None else tuple(
+            int(m) for m in mesh_shape)
+        if self.mesh_shape[dim] != n:
+            raise ValueError(f"axis {name!r} of {n} devices is not dim "
+                             f"{dim} of a mesh of {self.mesh_shape}")
+        self.dim = dim
+        self.size = n
+        self.n_local = math.prod(self.mesh_shape)
+        self._stride = math.prod(self.mesh_shape[dim + 1:])
+        self.positions = tuple(int(c) for c in np.unravel_index(
+            np.arange(self.n_local), self.mesh_shape)[dim])
         self.device = _axis_device(device)
         self.name = name
         self._index = None
         self.reset_counts()
 
+    def _stack_pairs(self, pairs: Tuple[Tuple[int, int], ...]
+                     ) -> Tuple[Tuple[int, int], ...]:
+        """The pairs over the stack: each axis pair in every group."""
+        if self.n_local == self.size:
+            return pairs
+        dst_of = dict(pairs)
+        return tuple((f, f + (dst_of[c] - c) * self._stride)
+                     for f, c in enumerate(self.positions) if c in dst_of)
+
     def ppermute_start(self, x: torch.Tensor, pairs: Pairs) -> _Done:
         self.check(x)
         pairs = _check_pairs(pairs, self.size)
         self.hops += 1
-        return _Done(stacked_hop(x, pairs))
+        return _Done(stacked_hop(x, self._stack_pairs(pairs)))
+
+    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        self.check(x)
+        self.reductions += 1
+        g = x.reshape(self.mesh_shape + tuple(x.shape[1:]))
+        return op(g, self.dim).expand(g.shape).reshape(x.shape).contiguous()
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        self.check(x)
-        self.reductions += 1
-        return x.sum(0, keepdim=True).expand(x.shape).contiguous()
+        return self._reduce(x, lambda g, d: g.sum(d, keepdim=True))
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        self.check(x)
-        self.reductions += 1
-        return x.amax(0, keepdim=True).expand(x.shape).contiguous()
+        return self._reduce(x, lambda g, d: g.amax(d, keepdim=True))
 
 
 def hop_rows(nbytes: int) -> int:
@@ -299,3 +339,83 @@ class _Posted:
             w.wait()
         self._works, self._sent = [], None
         return self._out
+
+
+class Mesh:
+    """A (data, model) mesh: ``axis_names``, ``shape`` (name -> size),
+    ``devices`` (the device ids in the reference's ``reshape(data,
+    model)`` order: stack positions, or ranks), this process's devices
+    ``local`` (flat ids, the leading dim of every local tensor) and an
+    axis object per name.  ``stacked`` tells the two kinds apart."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 axes: Dict[str, _Axis], local: Sequence[int],
+                 device: torch.device, stacked: bool):
+        self.axis_names = tuple(axis_names)
+        self.devices = np.arange(math.prod(shape)).reshape(tuple(shape))
+        self.shape = dict(zip(self.axis_names, self.devices.shape))
+        self._axes = dict(axes)
+        self.local = tuple(local)
+        self.n_local = len(self.local)
+        self.device = device
+        self.stacked = stacked
+
+    def axis(self, name: str) -> _Axis:
+        return self._axes[name]
+
+    def coords(self) -> np.ndarray:
+        """``(n_local, len(axis_names))``: each local device's coordinate
+        on every axis."""
+        return np.stack(np.unravel_index(np.asarray(self.local),
+                                         self.devices.shape), axis=1)
+
+    def reset_counts(self) -> None:
+        for a in self._axes.values():
+            a.reset_counts()
+
+    def counts(self) -> Dict[str, Tuple[int, int]]:
+        """``{axis name: (hops, reductions)}``."""
+        return {n: (a.hops, a.reductions) for n, a in self._axes.items()}
+
+    def __repr__(self) -> str:
+        kind = "stacked" if self.stacked else "ranks"
+        return f"Mesh({self.shape}, {kind}, {self.device})"
+
+    @classmethod
+    def from_env(cls, data: int = 1, model: int = 1, device=None) -> "Mesh":
+        """One ``torchrun`` rank a device (``WORLD_SIZE == data * model``;
+        rank r is device r of the row-major mesh): the world group is
+        initialised as :meth:`GroupAxis.from_env` does, and each axis gets
+        a GroupAxis over its subgroups (every rank creates every subgroup,
+        in one order, as ``dist.new_group`` asks)."""
+        world = int(os.environ["WORLD_SIZE"])
+        if world != data * model:
+            raise ValueError(f"a {data} x {model} mesh takes {data * model} "
+                             f"ranks; WORLD_SIZE is {world}")
+        world_axis = GroupAxis.from_env(device=device, name="world")
+        ids = np.arange(world).reshape(data, model)
+        rank = world_axis.rank
+        axes = {}
+        for d, name in enumerate(("data", "model")):
+            lines = np.moveaxis(ids, d, -1).reshape(-1, ids.shape[d])
+            for line in lines:
+                group = dist.new_group([int(r) for r in line])
+                if rank in line:
+                    axes[name] = GroupAxis(group, world_axis.device, name)
+        return cls((data, model), ("data", "model"), axes, (rank,),
+                   world_axis.device, stacked=False)
+
+
+def make_local_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
+    """The reference's ``make_local_mesh``: a (data, model) mesh whose
+    ``data * model`` devices one process holds stacked on dim 0 of every
+    local tensor, on ``device`` (default: cuda, raising without a GPU)."""
+    if data < 1 or model < 1:
+        raise ValueError(f"a mesh needs at least one device an axis (got "
+                         f"{data} x {model})")
+    dev = _axis_device(device)
+    shape = (data, model)
+    axes = {name: StackedAxis(n, dev, name, mesh_shape=shape, dim=d)
+            for d, (name, n) in enumerate(zip(("data", "model"), shape))}
+    return Mesh(shape, ("data", "model"), axes, range(data * model), dev,
+                stacked=True)

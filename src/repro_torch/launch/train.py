@@ -1,24 +1,31 @@
-# Port of src/repro/launch/train.py in torch, on one device.  The flags are
-# the reference's plus ``--device`` (default cuda); ``--data``/``--model``
-# above 1 need a mesh (ROADMAP item 16) and raise.  The last line of output
-# is the reference's JSON.
-"""Training launcher: checkpoint/restart, deterministic data, one device.
+# Port of src/repro/launch/train.py in torch.  The flags are the
+# reference's plus ``--device`` (default cuda).  ``--data``/``--model``
+# build the mesh: stacked on one device, or one rank a device under
+# torchrun.  The last line of output is the reference's JSON.
+"""Training launcher: local mesh, checkpoint/restart, deterministic data.
 
 Crash-and-rerun resumes from the newest intact checkpoint with the data
-pipeline replaying the exact token stream (stateless ``batch_at(step)``).
+pipeline replaying the exact token stream (stateless ``batch_at(step)``),
+onto whatever mesh the rerun asks for (the elastic restore).
 
-  # on the card
+  # on the card: one device, then a 2 x 2 mesh stacked on it
   python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 20 \
       --batch 8 --seq 512
+  python -m repro_torch.launch.train --arch tinyllama-1.1b --reduced \
+      --data 2 --model 2
+  # across cards: one rank a card (WORLD_SIZE = data x model)
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch tinyllama-1.1b --reduced --data 2 --model 2
   # on the CPU, at the reduced width
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch tinyllama-1.1b --reduced --steps 50 --batch 8 --seq 128 \
-      --ckpt-dir /tmp/ck --ckpt-every 20
+      --data 2 --model 2 --ckpt-dir /tmp/ck --ckpt-every 20
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Dict, List, Tuple
 
@@ -28,7 +35,9 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.data.pipeline import DataConfig, batch_at
+from repro_torch.launch.mesh import Mesh, make_local_mesh
 from repro_torch.optim.adamw import OptConfig
+from repro_torch.train import shardings as SH
 from repro_torch.train.step import (ParallelConfig, TrainState,
                                     init_train_state, make_train_step)
 
@@ -53,14 +62,11 @@ def run(argv=None) -> Tuple[dict, TrainState, Dict[str, List[float]]]:
     p.add_argument("--device", default=None,
                    help="cpu or cuda (default: cuda, raising without a GPU)")
     args = p.parse_args(argv)
-    if args.data > 1 or args.model > 1:
-        raise NotImplementedError(
-            f"--data {args.data} --model {args.model}: data and model "
-            f"parallelism need a process group over several devices "
-            f"(ROADMAP item 16); this launcher trains on one device")
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    pcfg = ParallelConfig(fsdp=False, grad_compress=args.grad_compress)
+    mesh = _mesh(args.data, args.model, dev)
+    pcfg = ParallelConfig(fsdp=args.data > 1,
+                          grad_compress=args.grad_compress)
     ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                      total_steps=args.steps)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
@@ -69,13 +75,26 @@ def run(argv=None) -> Tuple[dict, TrainState, Dict[str, List[float]]]:
     state = init_train_state(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), pcfg,
         device=dev)
+    if mesh is None:
+        step_fn = make_train_step(cfg, pcfg, ocfg)
+        save_kw = {}
+    else:
+        _, compile_step, state_shardings = make_train_step(cfg, mesh, pcfg,
+                                                           ocfg)
+        shardings = state_shardings(state)
+        save_kw = {"shardings": shardings}
+        step_fn = compile_step(state, batch_at(dcfg, 0, device=dev))
     start_step = 0
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
-        state = ckpt.restore(state, args.ckpt_dir, device=dev)
-        start_step = int(state.step)
+        if mesh is None:
+            state = ckpt.restore(state, args.ckpt_dir, device=dev)
+        else:
+            state = ckpt.restore(state, args.ckpt_dir, shardings=shardings)
+        start_step = int(state.step.reshape(-1)[0])
         print(f"[resume] from step {start_step}")
+    elif mesh is not None:
+        state = SH.shard(state, shardings)
 
-    step_fn = make_train_step(cfg, pcfg, ocfg)
     losses, gnorms, step_s = [], [], []
     t0 = time.time()
     for step in range(start_step, args.steps):
@@ -92,7 +111,7 @@ def run(argv=None) -> Tuple[dict, TrainState, Dict[str, List[float]]]:
                   f"lr {float(metrics['lr']):.2e}", flush=True)
         if args.ckpt_dir and args.ckpt_every and \
                 (step + 1) % args.ckpt_every == 0:
-            ckpt.save(state, args.ckpt_dir, step + 1)
+            ckpt.save(state, args.ckpt_dir, step + 1, **save_kw)
     dt = time.time() - t0
     result = {"first_loss": losses[0] if losses else None,
               "last_loss": losses[-1] if losses else None,
@@ -100,6 +119,16 @@ def run(argv=None) -> Tuple[dict, TrainState, Dict[str, List[float]]]:
     print(json.dumps(result, allow_nan=False))
     return result, state, {"losses": losses, "grad_norms": gnorms,
                            "step_s": step_s}
+
+
+def _mesh(data: int, model: int, dev: torch.device):
+    """None for one device; a ranks mesh under torchrun (``WORLD_SIZE``
+    set), else ``data x model`` devices stacked on ``dev``."""
+    if "WORLD_SIZE" in os.environ:
+        return Mesh.from_env(data, model, device=dev)
+    if data * model == 1:
+        return None
+    return make_local_mesh(data, model, device=dev)
 
 
 def main(argv=None) -> dict:

@@ -77,9 +77,14 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(leaves))
 
 
-def update(cfg: OptConfig, grads, state: OptState, params
-           ) -> Tuple[Dict, OptState, Dict[str, torch.Tensor]]:
-    gnorm = global_norm(grads)
+def update(cfg: OptConfig, grads, state: OptState, params, gnorm=None,
+           lead: int = 0) -> Tuple[Dict, OptState, Dict[str, torch.Tensor]]:
+    """One AdamW step over the tree.  On a mesh (``lead=1``) every leaf,
+    moment and ``count`` carries its local devices on dim 0, and ``gnorm``
+    (n_local,) is the whole tree's norm, which the caller reduces over the
+    mesh's axes; by default it is :func:`global_norm` of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     count = state.count + 1
@@ -88,13 +93,16 @@ def update(cfg: OptConfig, grads, state: OptState, params
     b2c = 1 - cfg.beta2 ** count.to(torch.float32)
 
     def upd(p, g, m, v):
-        g = g.to(torch.float32) * scale
+        # per local device scalars, shaped to broadcast over its slice
+        s, r, c1, c2 = (t.view((-1,) + (1,) * (p.dim() - 1)) if lead else t
+                        for t in (scale, lr, b1c, b2c))
+        g = g.to(torch.float32) * s
         m = cfg.beta1 * m + (1 - cfg.beta1) * g
         v = cfg.beta2 * v + (1 - cfg.beta2) * torch.square(g)
-        step_ = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        decay = cfg.weight_decay if p.dim() >= 2 else 0.0
+        step_ = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        decay = cfg.weight_decay if p.dim() - lead >= 2 else 0.0
         p32 = p.to(torch.float32)
-        newp = p32 - lr * (step_ + decay * p32)
+        newp = p32 - r * (step_ + decay * p32)
         return newp.to(p.dtype), m, v
 
     flat = tree_map(upd, params, grads, state.m, state.v)

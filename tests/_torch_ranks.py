@@ -147,9 +147,73 @@ def raises_job(axis, local, shared):
     return {"raised": torch.tensor([got])}
 
 
+MESH_TRAIN_STEPS = 3
+
+
+def mesh_train_job(axis, local, shared):
+    """Reduced tinyllama trained MESH_TRAIN_STEPS steps on a 2 x 2 mesh
+    (fsdp, tensor_parallel; then saved with its shardings and restored):
+    on ranks ``Mesh.from_env``, on a stack ``make_local_mesh``, from the
+    full params and batches in ``shared`` (keys ``param/<path>``,
+    ``tokens@<i>``, ``labels@<i>``, and ``ckpt_dir``); then the launcher
+    with ``--data 2 --model 2`` (on ranks under torchrun's env, which
+    ``_rank_main`` sets)."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import GroupAxis, Mesh, make_local_mesh
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import shardings as SH
+    from repro_torch.train import step as TS
+    mesh = (Mesh.from_env(2, 2, device="cpu") if isinstance(axis, GroupAxis)
+            else make_local_mesh(2, 2, device="cpu"))
+    cfg = get_reduced("tinyllama-1.1b")
+    pcfg = TS.ParallelConfig(fsdp=True)
+    params = {}
+    for k, v in shared.items():
+        if k.startswith("param/"):
+            node = params
+            *head, last = k[len("param/"):].split("/")
+            for h in head:
+                node = node.setdefault(h, {})
+            node[last] = torch.from_numpy(v)
+    state = TS.state_from_params(params, pcfg)
+    batches = [{k: torch.from_numpy(shared[f"{k}@{i}"])
+                for k in ("tokens", "labels")}
+               for i in range(MESH_TRAIN_STEPS)]
+    _, compile_step, state_shardings = TS.make_train_step(
+        cfg, mesh, pcfg, OptConfig(lr=8e-3, warmup_steps=2, total_steps=40))
+    sh = state_shardings(state)
+    step = compile_step(state, batches[0])
+    st = SH.shard(state, sh)
+    hist, counts = [], []
+    for b in batches:
+        mesh.reset_counts()
+        st, m = step(st, b)
+        hist.append([float(m["loss"]), float(m["grad_norm"])])
+        counts.append([c for a in ("data", "model")
+                       for c in mesh.counts()[a]])
+    d = str(shared["ckpt_dir"])
+    ckpt.save(st, d, MESH_TRAIN_STEPS, shardings=sh)
+    back = ckpt.restore(state, d, shardings=sh)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(ckpt._flatten(st), ckpt._flatten(back)))
+    from repro_torch.launch import train as launch_train
+    launched = launch_train.run(
+        ["--device", "cpu", "--arch", "tinyllama-1.1b", "--reduced",
+         "--steps", "4", "--batch", "4", "--seq", "32", "--data", "2",
+         "--model", "2"])[2]["losses"]
+    out = {f"shard/{p}": leaf for p, leaf in ckpt._flatten(st.params)}
+    n = mesh.n_local
+    out.update(hist=torch.tensor([hist] * n, dtype=torch.float64),
+               launcher=torch.tensor([launched] * n, dtype=torch.float64),
+               counts=torch.tensor([counts] * n),
+               restored=torch.tensor([same] * n))
+    return out
+
+
 JOBS = {"rbm": rbm_job, "ring_attention": ring_attention_job,
         "pipeline": pipeline_job, "mesh_movement": mesh_movement_job,
-        "raises": raises_job}
+        "raises": raises_job, "mesh_train": mesh_train_job}
 
 
 # ---------------------------------------------------------------------------

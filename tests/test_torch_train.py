@@ -398,7 +398,7 @@ def test_grad_compression_step_matches_the_reference():
 
 def test_mesh_knobs_raise():
     cfg = get_reduced("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 16c"):
         P_step.make_train_step(cfg, P_step.ParallelConfig(moe_groups=2))
 
 
@@ -409,39 +409,48 @@ ARGV = ["--device", "cpu", "--arch", "tinyllama-1.1b", "--reduced",
 
 
 def test_launcher_runs_resumes_and_refuses_a_mesh(tmp_path, monkeypatch):
-    """The launcher's run, the same run checkpointed at step 3 and stopped
-    right after that save, then resumed: the resumed run's losses and final
-    params equal the uninterrupted run's.  ``--data 2`` and ``--model 2``
-    raise."""
+    """On one device and on ``--data 2 --model 2``: the launcher's run, the
+    same run checkpointed at step 3 and stopped right after that save, then
+    resumed: the resumed run's losses and final params equal the
+    uninterrupted run's.  The mesh's checkpoint also resumes onto ``--data
+    4 --model 1``, its losses within rel 1e-5 of the uninterrupted run's.
+    A mesh that splits the batch of an MoE model is refused (item 16c)."""
     from repro_torch.checkpoint import manager as P_ckpt
-    res, state, hist = P_launch.run(ARGV)
-    assert res["steps"] == 6 and res["last_loss"] == hist["losses"][-1]
-    assert all(np.isfinite(hist["grad_norms"]))
 
     class Crash(Exception):
         pass
 
     real = P_ckpt.save
 
-    def save_then_crash(tree, d, step, keep_last=3):
-        real(tree, d, step, keep_last)
+    def save_then_crash(*a, **kw):
+        real(*a, **kw)
         raise Crash
 
-    ck = str(tmp_path / "ck")
-    monkeypatch.setattr(P_ckpt, "save", save_then_crash)
-    with pytest.raises(Crash):
-        P_launch.run(ARGV + ["--ckpt-dir", ck, "--ckpt-every", "3"])
-    monkeypatch.setattr(P_ckpt, "save", real)
-    assert P_ckpt.latest_step(ck) == 3
-    res2, state2, hist2 = P_launch.run(ARGV + ["--ckpt-dir", ck])
-    assert res2["steps"] == 3 and hist2["losses"] == hist["losses"][3:]
-    assert res2["last_loss"] == res["last_loss"]
-    for a, b in zip(P_opt.tree_leaves(state.params),
-                    P_opt.tree_leaves(state2.params)):
-        assert torch.equal(a, b)
-    for flag in ("--data", "--model"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            P_launch.main(ARGV + [flag, "2"])
+    for mesh in ([], ["--data", "2", "--model", "2"]):
+        argv = ARGV + mesh
+        res, state, hist = P_launch.run(argv)
+        assert res["steps"] == 6 and res["last_loss"] == hist["losses"][-1]
+        assert all(np.isfinite(hist["grad_norms"]))
+        ck = str(tmp_path / f"ck{len(mesh)}")
+        monkeypatch.setattr(P_ckpt, "save", save_then_crash)
+        with pytest.raises(Crash):
+            P_launch.run(argv + ["--ckpt-dir", ck, "--ckpt-every", "3"])
+        monkeypatch.setattr(P_ckpt, "save", real)
+        assert P_ckpt.latest_step(ck) == 3
+        res2, state2, hist2 = P_launch.run(argv + ["--ckpt-dir", ck])
+        assert res2["steps"] == 3 and hist2["losses"] == hist["losses"][3:]
+        assert res2["last_loss"] == res["last_loss"]
+        for a, b in zip(P_opt.tree_leaves(state.params),
+                        P_opt.tree_leaves(state2.params)):
+            assert torch.equal(a, b)
+    res3, state3, hist3 = P_launch.run(ARGV + ["--data", "4", "--model", "1",
+                                               "--ckpt-dir", ck])
+    assert res3["steps"] == 3 and state3.step.shape == (4,)
+    for a, b in zip(hist3["losses"], hist["losses"][3:]):
+        assert a == pytest.approx(b, rel=1e-5)
+    with pytest.raises(NotImplementedError, match="item 16c"):
+        P_launch.main(["--device", "cpu", "--arch", "olmoe-1b-7b",
+                       "--reduced", "--steps", "1", "--data", "2"])
 
 
 def test_launcher_as_a_module_prints_the_reference_json(tmp_path):
