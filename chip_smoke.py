@@ -187,10 +187,35 @@ nvcc (sm_90a), then:
                 1e-5 of the uninterrupted run's); the launcher on a reduced
                 2 x 2 mesh resumed bit-exactly there and onto 4 x 1; the
                 elastic example; K2 launches == the axes' hops ==
-                ``mesh_step_counts`` a step, K3 prefill == layers x device
-                forwards; ms a step, the collectives' device ms beside
-                their byte bound, peak memory; the NCCL route with two
-                cards or more, else a line saying it did not run.
+                ``mesh_step_counts`` a step (the split compute's:
+                model-split leaves gathered over data only, the model
+                axis's reductions), K3 prefill == layers a step for
+                the whole stack; ms a step, the collectives' device ms
+                beside their byte bound, peak memory; the NCCL route with
+                two cards or more, else a line saying it did not run.
+  22. split training — full-width tinyllama-1.1b in f32 (phase 19's seed
+                and OptConfig) SP_STEPS donated steps on a stacked 1 x 4
+                mesh with tensor parallelism (4 x 512 a step: the
+                reference's layout stores the MLP whole on each device at
+                model 4) and a 2 x 2 one with sequence parallelism (8 x
+                512): step 1's loss and grad norm within rel 1e-5 of the
+                single device's over the same rows, every loss within rel
+                1e-4; hops and
+                reductions == ``mesh_step_counts``, K2 == the hops, K3e
+                launches 22 a step for the whole stack; ms a step, peak
+                memory, one step profiled by op.
+  23. mesh serving — ``make_prefill_step`` + SV_STEPS greedy
+                ``make_serve_step`` decode steps over a laid-out cache:
+                full-width tinyllama-1.1b in f32 on 2 x 2 and 1 x 4, and
+                full-width, full-depth olmoe-1b-7b in f32 on 1 x 4
+                (experts over model, each stored once), against the
+                single-device ``lm.prefill``/``decode_step``, fed its
+                greedy tokens: logits within SV_BAR (olmoe SV_MOE_BAR),
+                greedy tokens equal but at ties (an MoE row whose routing
+                moved at a near-tie left out, counted); K3's prefill route
+                layers a prefill and its decode route layers a step for
+                the whole stack, K2 == the hops; ms a prefill and a step,
+                peak memory.
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -361,6 +386,32 @@ MT_ARGV = ("--arch", "tinyllama-1.1b", "--reduced", "--steps", "12",
            "--batch", "8", "--seq", "64", "--lr", "8e-3", "--log-every",
            "6")
 MT_LAUNCH_CKPT = 6
+# phase 22: phase 19 (b)'s full-width tinyllama training for SP_STEPS steps
+# on each (mesh, ParallelConfig keywords, rows a step) of SP_RUNS.  At
+# model 4 the reference's layout keeps tinyllama's MLP whole on every
+# device (22 layers do not divide 4): the 1 x 4 state alone is 40.6 GB, and
+# its step of T_BATCH rows ran out of the card's memory in the backward, so
+# it takes half the rows, against the single device's run of the same rows
+SP_STEPS = 3
+SP_RUNS = (((1, 4), {}, T_BATCH // 2),
+           ((2, 2), {"sequence_parallel": True}, T_BATCH))
+# phase 23: SV_BATCH prompts of SV_PROMPT random tokens prefilled into a
+# cache of SV_MAX_LEN slots, then SV_STEPS greedy decode steps, on each
+# mesh of SV_MESHES (olmoe on SV_MOE_MESH), fed the single device's
+# greedy tokens; logits within SV_BAR of the single device's
+SV_BATCH, SV_PROMPT, SV_MAX_LEN, SV_STEPS = 4, 128, 256, 32
+SV_MESHES, SV_MOE_MESH, SV_BAR = ((2, 2), (1, 4)), (1, 4), 3e-5
+# an MoE row whose expert choice first differs from the single device's
+# where the single device's k-th and (k+1)-th router probabilities lie
+# within SV_TIE is a near-tie moved by rounding: the row is counted and
+# left out of the logit bar from there on (the split sums in another
+# order, as tests/test_torch_mla.py exempts bf16 near-ties)
+SV_TIE = 1e-5
+# olmoe's bar: its 16 MoE layers sum in other orders on 1 x 4 (each
+# token's 8 experts over 4 devices, their products in other tile shapes,
+# the combine's psum): every row came within 1.0e-4-1.4e-4 of the single
+# device's on an H100 80GB HBM3 at 700 W, ~5x tinyllama's 2e-5, not 3e-5
+SV_MOE_BAR = 3e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -848,8 +899,23 @@ def main() -> int:
     counts["villa_gather"] += sharded["villa_gather"]
     counts["villa_gather_hop"] += sharded["villa_gather"]
     train["prefill"] += sharded["flash_attention_prefill"]
-    counts["flash_attention_train"] = train["prefill"] + train["decode"]
     wall(21)
+    # the split compute: its hops are K2 launches, its forwards K3e
+    split = split_train_phase(tag, train_hist)
+    counts["villa_gather"] += split["villa_gather"]
+    counts["villa_gather_hop"] += split["villa_gather"]
+    train["prefill"] += split["flash_attention_prefill"]
+    counts["flash_attention_train"] = train["prefill"] + train["decode"]
+    wall(22)
+    # the prefill and decode steps over a mesh: tinyllama's K3 launches
+    # count on tinyllama's rows, olmoe's on its own
+    served = serve_steps_phase(tag)
+    counts["villa_gather"] += served["villa_gather"]
+    counts["villa_gather_hop"] += served["villa_gather"]
+    for route in ("prefill", "decode"):
+        counts[f"flash_attention_{route}"] += served["tinyllama"][route]
+        paths["flash_attention_moe"][route] += served["olmoe"][route]
+    wall(23)
     routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
                                   "decode": counts["flash_attention_decode"]},
               **paths, "flash_attention_train": train}
@@ -908,9 +974,12 @@ def main() -> int:
     # flash_attention_train the prefill kernel under autograd (K3e) on the
     # training path (phase 19; its backward launches no K3); a row's
     # source is its headline route's (the prefill kernel is
-    # csrc/flash_attention.cu); villa_gather_hop counts the K2 launches of
-    # phase 20's and phase 21's hops (each also in villa_gather), timed at
-    # the shift of every shard of tinyllama's weights over 8 stacked
+    # csrc/flash_attention.cu), and of the split compute's training
+    # (phases 21-22, K3e once a layer for the whole stack); phase 23's
+    # prefill and decode steps over a mesh count on tinyllama's rows and
+    # olmoe's (flash_attention_moe); villa_gather_hop counts the K2
+    # launches of phases 20-23's hops (each also in villa_gather), timed
+    # at the shift of every shard of tinyllama's weights over 8 stacked
     # devices
     kernels = []
     for name in ("villa_scatter", "villa_gather", "villa_gather_hop",
@@ -3643,42 +3712,88 @@ def nccl_rank_main() -> int:
     return 0
 
 
-def mesh_step_counts(shardings, sizes, batch_axes, grad_compress=False):
-    """{axis: (hops, reductions)} that one mesh step's rule calls for
-    (``train/step.py``): a leaf's all-gather makes n hops on each axis of n
-    devices it is split over, its gradient's reduce-scatter n - 1 more
-    where that axis splits the batch (none where it does not: each device
-    keeps its own slice); a leaf whole along a batch axis is all-reduced
-    over it (2n - 1 hops); the clip's norm reduces once on each axis a
-    leaf is split over, grad compression's scale once more, the metrics
-    once on each batch axis.  On a stacked mesh each hop is one K2
-    launch."""
+def leaf_rules(like, shardings, mesh, batch_axes, pcfg, cfg) -> list:
+    """Each param leaf's rule in one mesh step (``train/step.py``):
+    ``(like leaf, sharding, kept axes, sum axes, sliced)``: the model axis
+    is kept (not gathered) where the split compute uses the leaf's stored
+    model slice (``shardings.compute_dim``); a leaf it splits otherwise is
+    gathered whole and sliced (``sliced``: the slices' gradients are
+    all-gathered over the model axis); the gradient is summed over the
+    batch axes, and over the model axis (tensor_parallel) for a leaf each
+    device of a model group uses whole."""
     from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.models import sharding as SHD
+    from repro_torch.train import shardings as SH
+    from repro_torch.train import step as TS
+    tp = pcfg.tensor_parallel and mesh.shape["model"] > 1
+    out = []
+    with SHD.use_sharding(mesh, TS.sharding_rules(pcfg),
+                          batch_axes=batch_axes):
+        for (path, x), (_, sh) in zip(_flatten(like), _flatten(shardings)):
+            cd = SH.compute_dim(path.split("/"), x.shape, cfg)
+            keep = (("model",) if cd is not None
+                    and dict(sh.dims()).get(cd) == ("model",) else ())
+            sums = tuple(batch_axes) + (("model",) if tp and cd is None
+                                        else ())
+            out.append((x, sh, keep, sums, tp and cd is not None
+                        and not keep))
+    return out
+
+
+def split_reductions(cfg, m, sp) -> int:
+    """The model axis's collectives in one train step of a dense GQA
+    model's split compute, forward and backward: each partial output's
+    reduction (the embedding where the vocab splits, every attention and
+    MLP block where its heads or ff split), under sequence parallelism
+    every block input's all-gather and the final norm's; the cross
+    entropy's pmax and its two psums where the vocab splits."""
+    vs = cfg.vocab_size % m == 0
+    block = ((2 if cfg.n_heads % m == 0 else 0)
+             + (2 if cfg.d_ff % m == 0 else 0) + (4 if sp else 0))
+    return ((2 if vs else 0) + cfg.n_layers * block + (2 if sp else 0)
+            + (5 if vs else 0))
+
+
+def mesh_step_counts(rules, sizes, batch_axes, pcfg, cfg):
+    """{axis: (hops, reductions)} that one mesh step's rule calls for
+    (``train/step.py``, :func:`leaf_rules`): a leaf's all-gather makes n
+    hops on each axis of n devices it is split over but a kept one, its
+    gradient's reduce-scatter n - 1 more on a sum axis; a leaf whole
+    along a sum axis is all-reduced over it (2n - 1 hops); the clip's
+    norm reduces once on each axis a leaf is split over, grad
+    compression's scale once more, the metrics once on each batch axis,
+    and the split compute's collectives (:func:`split_reductions`, and a
+    sliced leaf's gradient all-gather) on the model axis.  On a stacked
+    mesh each hop is one K2 launch."""
     hops = {a: 0 for a in sizes}
     red = {a: 0 for a in sizes}
-    for _, sh in _flatten(shardings):
+    for _, sh, keep, sums, sliced in rules:
         split = [a for a in sh.axes() if sizes[a] > 1]
+        red["model"] += 1 if sliced else 0
         for a in split:
-            hops[a] += sizes[a] + (sizes[a] - 1 if a in batch_axes else 0)
-            red[a] += 2 if grad_compress else 1
-        for a in batch_axes:
+            red[a] += 2 if pcfg.grad_compress else 1
+            if a not in keep:
+                hops[a] += sizes[a] + (sizes[a] - 1 if a in sums else 0)
+        for a in sums:
             if a not in split:
                 hops[a] += 2 * sizes[a] - 1
     for a in batch_axes:
         red[a] += 1
+    if pcfg.tensor_parallel and sizes["model"] > 1:
+        red["model"] += split_reductions(cfg, sizes["model"],
+                                         pcfg.sequence_parallel)
     return {a: (hops[a], red[a]) for a in sizes}
 
 
-def hop_bytes(like, shardings, sizes, batch_axes) -> tuple:
+def hop_bytes(rules, sizes) -> tuple:
     """Bytes the hops of one mesh step move, (the all-gathers', the
-    gradient reductions'), for the params shaped as ``like``: every hop
-    carries the whole stack, ``n_local`` devices' current slices; a
-    reduce-scatter's hops carry one chunk a device, an all-reduce's 2n - 1
-    hops one padded chunk each."""
+    gradient reductions'), by :func:`leaf_rules`: every hop carries the
+    whole stack, ``n_local`` devices' current slices; a reduce-scatter's
+    hops carry one chunk a device, an all-reduce's 2n - 1 hops one padded
+    chunk each."""
     import math
-    from repro_torch.checkpoint.manager import _flatten
     gather = reduce = 0
-    for (_, x), (_, sh) in zip(_flatten(like), _flatten(shardings)):
+    for x, sh, keep, sums, _ in rules:
         n_local = sh.mesh.n_local
         split = [a for a in sh.axes() if sizes[a] > 1]
         cur = x.numel() * x.element_size() // math.prod(
@@ -3686,16 +3801,16 @@ def hop_bytes(like, shardings, sizes, batch_axes) -> tuple:
         shard = cur
         for _, names in sh.dims():          # _gather's order
             for a in reversed(names):
-                if sizes[a] > 1:
+                if sizes[a] > 1 and a not in keep:
                     gather += sizes[a] * n_local * cur
                     cur *= sizes[a]
         for _, names in reversed(sh.dims()):    # _grad_to_shards' order
             for a in names:
-                if sizes[a] > 1:
+                if sizes[a] > 1 and a not in keep:
                     cur //= sizes[a]
-                    if a in batch_axes:
+                    if a in sums:
                         reduce += (sizes[a] - 1) * n_local * cur
-        for a in batch_axes:
+        for a in sums:
             if a not in split:
                 chunk = -(-shard // x.element_size() // sizes[a]) \
                     * x.element_size()
@@ -3724,8 +3839,8 @@ def mesh_train_phase(tag, single_hist) -> dict:
         the elastic example (``repro_torch.examples.elastic_rescale``);
     (d) every step of (a) and (b): the axes' hops and reductions equal
         ``mesh_step_counts``, K2 launches equal the hops, K3's prefill
-        route layers x local devices (K3e: one forward a device), nothing
-        else;
+        route layers a step (K3e: one forward of the folded stack, the
+        model axis splitting its heads), nothing else;
     (e) ms a step on the host clock (median of steps 2-MT_STEPS), the
         device ms of one step's all-gathers and of its gradient
         reductions beside their byte bound, the peak memory of each run,
@@ -3813,9 +3928,11 @@ def mesh_train_phase(tag, single_hist) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         batch_axes = tuple(a for a in ("data",) if mesh.shape[a] > 1)
-        want = mesh_step_counts(sh.params, mesh.shape, batch_axes)
+        want = mesh_step_counts(
+            leaf_rules(like.params, sh.params, mesh, batch_axes, pcfg, cfg),
+            mesh.shape, batch_axes, pcfg, cfg)
         hops = sum(h for h, _ in want.values())
-        layers = cfg.n_layers * mesh.n_local
+        layers = cfg.n_layers
         out = {"loss": [], "grad_norm": [], "step_s": []}
         for i in range(first, MT_STEPS):
             ops.reset_launch_counts()
@@ -3874,8 +3991,9 @@ def mesh_train_phase(tag, single_hist) -> dict:
                   f"phase 19's {single_hist['losses'][:MT_STEPS]}")
             step_ms = statistics.median(r["step_s"][1:]) * 1e3
             print(f"sharded training {label} (stacked, fsdp, "
-                  f"tensor_parallel; {r['n_local']} device forwards of "
-                  f"{T_BATCH // shape[0]} x {T_SEQ} a step): losses "
+                  f"tensor_parallel; one forward of {r['n_local']} devices' "
+                  f"{T_BATCH // shape[0]} x {T_SEQ} folded, the model axis "
+                  f"splitting it): losses "
                   f"{r['loss']}; step 1 loss rel {r1[0]:.3g}, grad norm rel "
                   f"{r1[1]:.3g} from phase 19's, every loss within "
                   f"{worst:.3g}; step 1's params within {r['moved']:.3g} of "
@@ -3928,16 +4046,22 @@ def mesh_train_phase(tag, single_hist) -> dict:
         params = SH.shard(lm.init_lm(cfg, gen(), device=dev), sh)
         torch.cuda.empty_cache()
         batch_axes = tuple(a for a in ("data",) if mesh.shape[a] > 1)
-        pairs = [(x, s) for (_, x), (_, s) in zip(_flatten(params),
-                                                  _flatten(sh))]
-        gather_ms = timed(lambda: [SH._gather(x, s) for x, s in pairs],
+        rules = leaf_rules(like.params, sh, mesh, batch_axes, pcfg, cfg)
+        pairs = [(x, r[1], r[2]) for (_, x), r in zip(_flatten(params),
+                                                      rules)]
+        # (the sliced leaves' gradient all-gathers are not timed here)
+        gather_ms = timed(lambda: [SH._gather(x, s, k) for x, s, k in pairs],
                           reps=5, device=True)
-        grads = [(torch.ones((mesh.n_local,) + tuple(x.shape), device=dev),
-                  s) for (_, x), (_, s) in zip(_flatten(like.params),
-                                               _flatten(sh))]
-        reduce_ms = timed(lambda: [SH._grad_to_shards(g, s, batch_axes)
-                                   for g, s in grads], reps=5, device=True)
-        gb, rb = hop_bytes(like.params, sh, mesh.shape, batch_axes)
+        # each leaf's gradient as the step's backward gets it: the shape
+        # of its gathered copy
+        grads = [(SH._gather(torch.ones((mesh.n_local,)
+                                        + s.local_shape(x.shape),
+                                        device=dev), s, k), s, sums, k)
+                 for x, s, k, sums, _ in rules]
+        reduce_ms = timed(lambda: [SH._grad_to_shards(g, s, sums, k)
+                                   for g, s, sums, k in grads], reps=5,
+                          device=True)
+        gb, rb = hop_bytes(rules, mesh.shape)
         print(f"sharded training {shape[0]}x{shape[1]} collectives a step "
               f"(K2 hops and the ring's copies): all-gathers "
               f"{gather_ms:.2f} device ms, its hops moving {gb:,} B (bound "
@@ -4074,6 +4198,366 @@ def mesh_train_nccl(tag, want) -> None:
     print(f"sharded training NCCL route: {ranks} ranks over NCCL "
           f"(--data {ranks}), last loss {got['last_loss']} against the "
           f"stacked 2x2 run's {last} [{tag}]")
+
+
+def split_train_phase(tag, single_hist) -> dict:
+    """Phase 22: the split compute of the model axis in training.
+
+    Full-width tinyllama-1.1b in f32 from phase 19's seed and OptConfig,
+    SP_STEPS steps of the donated step (the state updated in place) on
+    each (mesh, ParallelConfig, rows) of SP_RUNS: stacked 1 x 4 with
+    tensor parallelism (8 q heads, 1 KV head, 1408 of ff and 8000 of the
+    vocab a device) and 2 x 2 with sequence parallelism; step 1's loss and
+    grad norm within MT_STEP_BAR of the single device's run over the same
+    batches (phase 19's at T_BATCH rows, else one run here), every loss
+    within MT_LOSS_BAR; every step's hops and reductions equal
+    ``mesh_step_counts``, K2 the hops, K3's prefill route (K3e) the
+    layers, nothing else; ms a step, peak memory, one step profiled by op.
+    Returns the K2 and K3-prefill launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import shardings as SH
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b")
+    ocfg = adamw.OptConfig(lr=T_LR, warmup_steps=max(T_STEPS // 10, 1),
+                           total_steps=T_STEPS)
+    total = {"villa_gather": 0, "flash_attention_prefill": 0}
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa: E731
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    for shape, kw, rows in SP_RUNS:
+        label = f"{shape[0]}x{shape[1]}" + (" SP" if kw else " TP")
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=T_SEQ,
+                          global_batch=rows, seed=SEED)
+        batches = [batch_at(dcfg, i, device=dev) for i in range(SP_STEPS)]
+        want = single_hist
+        if rows != T_BATCH:
+            # the single device over the same rows (phase 19's recipe)
+            one = TS.ParallelConfig(fsdp=False)
+            step1 = TS.make_train_step(cfg, one, ocfg)
+            st = TS.init_train_state(cfg, gen(), one, device=dev)
+            want = {"losses": [], "grad_norms": []}
+            for b in batches:
+                st, m = step1(st, b)
+                want["losses"].append(float(m["loss"]))
+                want["grad_norms"].append(float(m["grad_norm"]))
+            del st, step1
+            torch.cuda.empty_cache()
+        pcfg = TS.ParallelConfig(fsdp=True, **kw)
+        like = specs.state_specs(cfg, pcfg, torch.float32)
+        mesh = make_local_mesh(*shape, device=dev)
+        _, compile_step, state_shardings = TS.make_train_step(
+            cfg, mesh, pcfg, ocfg, donate=True)
+        sh = state_shardings(like)
+        step = compile_step(like, batches[0])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # phase 19's initial state laid out, its moments made in place
+        laid = SH.shard(lm.init_lm(cfg, gen(), device=dev), sh.params)
+        n = mesh.n_local
+        zeros = lambda: adamw.tree_map(torch.zeros_like, laid)  # noqa: E731
+        state = TS.TrainState(
+            laid, adamw.OptState(zeros(), zeros(), torch.zeros(
+                (n,), dtype=torch.int32, device=dev)),
+            torch.zeros((n,), dtype=torch.int32, device=dev), None)
+        del laid
+        torch.cuda.empty_cache()
+        batch_axes = tuple(a for a in ("data",) if mesh.shape[a] > 1)
+        due = mesh_step_counts(
+            leaf_rules(like.params, sh.params, mesh, batch_axes, pcfg, cfg),
+            mesh.shape, batch_axes, pcfg, cfg)
+        hops = sum(h for h, _ in due.values())
+        losses, gnorms, step_s = [], [], []
+        for i in range(SP_STEPS):
+            ops.reset_launch_counts()
+            mesh.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            gnorms.append(float(m["grad_norm"]))
+            check(mesh.counts() == due,
+                  f"split training {label} step {i + 1}: hops and "
+                  f"reductions {mesh.counts()}, {due} due")
+            check_counts(ops.launch_counts(),
+                         {"villa_gather": hops,
+                          "flash_attention": cfg.n_layers,
+                          "flash_attention_prefill": cfg.n_layers},
+                         f"split training {label} step {i + 1}")
+            total["villa_gather"] += hops
+            total["flash_attention_prefill"] += cfg.n_layers
+        peak = torch.cuda.max_memory_allocated()
+        r1 = (rel(losses[0], want["losses"][0]),
+              rel(gnorms[0], want["grad_norms"][0]))
+        worst = max(rel(a, b) for a, b in zip(
+            losses, want["losses"][:SP_STEPS]))
+        check(max(r1) <= MT_STEP_BAR and worst <= MT_LOSS_BAR,
+              f"split training {label}: losses {losses}, grad norms "
+              f"{gnorms} against the single device's "
+              f"{want['losses'][:SP_STEPS]}, "
+              f"{want['grad_norms'][:SP_STEPS]}")
+        step_ms = statistics.median(step_s[1:]) * 1e3
+        print(f"split training {label} (stacked, fsdp, {pcfg}, donated; "
+              f"{rows} x {T_SEQ} a step): losses {losses}; step 1 loss rel "
+              f"{r1[0]:.3g}, grad norm rel {r1[1]:.3g} from the single "
+              f"device's ({'phase 19' if rows == T_BATCH else 'run here'}"
+              f"), every loss within {worst:.3g}; {step_ms:.1f} ms a step "
+              f"(median of steps 2-{SP_STEPS}; steps "
+              f"{[round(t * 1e3, 1) for t in step_s]}); peak memory "
+              f"{peak / 2**30:.2f} GiB; K3e {cfg.n_layers} launches a step "
+              f"for the {n}-device stack; hops and reductions a step {due} "
+              f"[{tag}]")
+        profile_step(lambda: step(state, batches[0]), label, tag)
+        del state, step
+        torch.cuda.empty_cache()
+    print(f"split training phase: {time.perf_counter() - t_phase:.1f} s "
+          f"[{tag}]")
+    return total
+
+
+def serve_steps_phase(tag) -> dict:
+    """Phase 23: ``make_prefill_step`` and ``make_serve_step`` over a
+    laid-out cache on stacked meshes of the card.
+
+    Full-width tinyllama-1.1b (f32, random weights from SEED) on each
+    mesh of SV_MESHES and full-width, full-depth olmoe-1b-7b (f32, 27.7
+    GB; experts over model, each stored once) on SV_MOE_MESH: SV_BATCH
+    prompts of SV_PROMPT tokens prefilled into a cache of SV_MAX_LEN, then
+    SV_STEPS greedy decode steps;
+    each fed the single device's greedy tokens: every prefill and step's
+    logits within SV_BAR (olmoe: SV_MOE_BAR) of the single-device
+    ``lm.prefill``/
+    ``decode_step``'s and the greedy tokens equal (but where the single
+    device's top two logits tie within 2 x SV_BAR: counted); an MoE row
+    whose expert choice first differs at a near-tie (SV_TIE) leaves the
+    bar from there, counted, and at least one row stays; K3's
+    prefill route cfg.n_layers launches for the prefill and its decode
+    route cfg.n_layers a step, for the whole stack; K2 == the hops;
+    nothing else; ms a prefill and a decode step, peak memory.  Returns
+    the K2 launches and K3's by route and model."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import shardings as SH
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out = {"villa_gather": 0, "tinyllama": {"prefill": 0, "decode": 0},
+           "olmoe": {"prefill": 0, "decode": 0}}
+    pcfg = TS.ParallelConfig()
+
+    def single(cfg, params, toks):
+        """The single device's prefill logits, each greedy step's, and its
+        greedy tokens (SV_STEPS + 1 of them), which the meshes are fed."""
+        cache = lm.init_cache(cfg, SV_BATCH, SV_MAX_LEN, device=dev)
+        logits, _ = lm.prefill(cfg, params, toks, cache)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        steps, fed = [], [tok]
+        for i in range(SV_STEPS):
+            lg, _ = lm.decode_step(cfg, params, cache, tok, SV_PROMPT + i)
+            steps.append(lg)
+            tok = lg[:, -1:].argmax(-1).to(torch.int32)
+            fed.append(tok)
+        del cache
+        return logits, steps, fed
+
+    class Routes:
+        """Every MoE layer's router probabilities and top-k choices of a
+        run, in call order (``torch.topk`` over the experts, wrapped)."""
+
+        def __init__(self, n_experts):
+            self.n, self.calls, self._real = n_experts, [], torch.topk
+
+        def __enter__(self):
+            def spy(x, k, *a, **kw):
+                out = self._real(x, k, *a, **kw)
+                if x.shape[-1] == self.n:
+                    self.calls.append((x.detach().clone(),
+                                       out.indices.clone()))
+                return out
+            torch.topk = spy
+            return self
+
+        def __exit__(self, *exc):
+            torch.topk = self._real
+
+    def tokens_of(probs, ids, mesh):
+        """A call's (probs, ids) rows in global token order: a mesh's from
+        the devices at model position 0, by data position."""
+        if mesh is None:
+            return (probs.reshape(-1, probs.shape[-1]),
+                    ids.reshape(-1, ids.shape[-1]))
+        c = mesh.coords()
+        sel = sorted((int(c[i][0]), i) for i in range(len(c))
+                     if int(c[i][1]) == 0)
+        pick = [i for _, i in sel]
+        return (probs[pick].reshape(-1, probs.shape[-1]),
+                ids[pick].reshape(-1, ids.shape[-1]))
+
+    def route_flips(single_calls, mesh_calls, mesh, per_call_rows):
+        """{batch row: the call at which its expert choice first differs},
+        and the largest single-device margin (k-th minus (k+1)-th
+        probability) at such a first difference."""
+        first, worst = {}, 0.0
+        for c, ((p1, i1), (p2, i2)) in enumerate(zip(single_calls,
+                                                     mesh_calls)):
+            p1, i1 = tokens_of(p1, i1, None)
+            _, i2 = tokens_of(p2, i2, mesh)
+            k = i1.shape[-1]
+            diff = (i1.sort(-1).values != i2.sort(-1).values).any(-1)
+            top = p1.topk(k + 1, dim=-1).values
+            margin = top[:, k - 1] - top[:, k]
+            for t in torch.nonzero(diff).flatten().tolist():
+                b = t // per_call_rows(c)
+                if b not in first:
+                    first[b] = c
+                    worst = max(worst, float(margin[t]))
+        return first, worst
+
+    def greedy_check(mine, want):
+        """(tokens that differ, near-ties exempted): the mesh's greedy
+        token against the single device's at every row, a difference
+        exempted only where the single device's top two logits lie within
+        2 x SV_BAR (a tie inside the bar is no disagreement)."""
+        a = mine[:, -1].argmax(-1)
+        top = want[:, -1].topk(2, dim=-1).values
+        tie = (top[:, 0] - top[:, 1]) <= 2 * SV_BAR
+        diff = a != want[:, -1].argmax(-1)
+        return int((diff & ~tie).sum()), int((diff & tie).sum())
+
+    for name, arch, meshes in (("tinyllama", "tinyllama-1.1b", SV_MESHES),
+                               ("olmoe", "olmoe-1b-7b", (SV_MOE_MESH,))):
+        cfg = get_config(arch)
+        params = model_params(cfg, torch.float32, arch,
+                              "full width and depth")
+        toks = torch.randint(0, cfg.vocab_size, (SV_BATCH, SV_PROMPT),
+                             device=dev, dtype=torch.int32,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(SEED + 23))
+        moe = "moe" in cfg.mlp_kinds()
+        with Routes(cfg.n_experts) as r1:
+            want_pre, want_steps, fed = single(cfg, params, toks)
+        n_moe = sum(k == "moe" for k in cfg.mlp_kinds())
+        for shape in meshes:
+            label = f"{name} {shape[0]}x{shape[1]}"
+            mesh = make_local_mesh(*shape, device=dev)
+            cache = lm.init_cache(cfg, SV_BATCH, SV_MAX_LEN, device="meta")
+            _, pcomp = TS.make_prefill_step(cfg, mesh, pcfg)
+            _, scomp = TS.make_serve_step(cfg, mesh, pcfg)
+            ps = SH.tree_shardings(params, mesh, SH.param_spec)
+            cs = SH.tree_shardings(cache, mesh, SH.cache_spec)
+            lg_sh = TS._logits_sharding(cfg, mesh, SV_BATCH)
+            laid_p = SH.shard(params, ps)
+            laid_c = SH.shard(lm.init_cache(cfg, SV_BATCH, SV_MAX_LEN,
+                                            device=dev), cs, stack_dim=1)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            batch = {"tokens": toks}
+            pstep = pcomp(params, cache, batch)
+            tok0 = toks[:, :1]
+            sstep = scomp(params, cache, tok0)
+            ops.reset_launch_counts()
+            mesh.reset_counts()
+            outs, step_s = [], []
+            with Routes(cfg.n_experts) as r2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, laid_c = pstep(laid_p, laid_c, batch)
+                torch.cuda.synchronize()
+                prefill_ms = (time.perf_counter() - t0) * 1e3
+                outs.append(SH.unshard({"l": lg}, {"l": lg_sh})["l"])
+                for i in range(SV_STEPS):
+                    # teacher-forced: fed the single device's greedy token,
+                    # so that every step's logits compare (one flipped tie
+                    # would send the two runs down different texts)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, laid_c = sstep(laid_p, laid_c, fed[i],
+                                       SV_PROMPT + i)
+                    outs.append(SH.unshard({"l": lg}, {"l": lg_sh})["l"])
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+            # rows whose expert choice moved at a near-tie leave the bar
+            # from the call where it moved (prefill calls: n_moe, then
+            # n_moe a step)
+            first, tie_margin = ({}, 0.0) if not moe else route_flips(
+                r1.calls, r2.calls, mesh,
+                lambda c: SV_PROMPT if c < n_moe else 1)
+            err, differ, ties = 0.0, 0, 0
+            row_err = [0.0] * SV_BATCH
+            for i, (full, want) in enumerate(zip(outs, [want_pre]
+                                                 + want_steps)):
+                keep = [b for b in range(SV_BATCH)
+                        if first.get(b, 1 << 30) >= n_moe * (i + 1)]
+                if not keep:
+                    continue
+                for b in keep:
+                    row_err[b] = max(row_err[b], float(
+                        (full[b] - want[b]).abs().max()))
+                d, t = greedy_check(full[keep], want[keep])
+                differ, ties = differ + d, ties + t
+            err = max(row_err)
+            check(tie_margin <= SV_TIE and len(first) < SV_BATCH,
+                  f"mesh serving {label}: expert choices differ from the "
+                  f"single device's in rows {first} (calls), the largest "
+                  f"margin there {tie_margin} (a near-tie is within "
+                  f"{SV_TIE})")
+            hops = sum(h for h, _ in mesh.counts().values())
+            check_counts(ops.launch_counts(), {
+                "villa_gather": hops,
+                "flash_attention": cfg.n_layers * (1 + SV_STEPS),
+                "flash_attention_prefill": cfg.n_layers,
+                "flash_attention_decode": cfg.n_layers * SV_STEPS},
+                f"mesh serving {label}")
+            bar = SV_MOE_BAR if moe else SV_BAR
+            check(err <= bar and differ == 0,
+                  f"mesh serving {label}: logits {err} from the single "
+                  f"device's (bar {bar}; by row {row_err}, rows "
+                  f"{first} left out from those calls), {differ} greedy "
+                  f"tokens differ outside a tie")
+            out["villa_gather"] += hops
+            out[name]["prefill"] += cfg.n_layers
+            out[name]["decode"] += cfg.n_layers * SV_STEPS
+            print(f"mesh serving {label} (stacked, tensor_parallel, "
+                  f"experts over model where MoE): prefill of {SV_BATCH} x "
+                  f"{SV_PROMPT} {prefill_ms:.1f} ms, {SV_STEPS} greedy "
+                  f"decode steps {statistics.median(step_s) * 1e3:.2f} ms "
+                  f"a step (median; host clock with a sync, the logits "
+                  f"gathered), every logit within {err:.3g} of the single "
+                  f"device's (teacher-forced; by row "
+                  f"{[float(f'{e:.3g}') for e in row_err]}; bar {bar}), "
+                  f"greedy tokens equal but "
+                  f"at {ties} ties within 2 x {SV_BAR}; "
+                  + (f"MoE rows whose expert choice moved at a near-tie "
+                     f"(margin <= {tie_margin:.3g}), left out from that "
+                     f"call: {first}; " if moe else "")
+                  + f"K3 {cfg.n_layers} "
+                  f"launches a prefill and a step for the "
+                  f"{mesh.n_local}-device stack, K2 {hops} hops; peak "
+                  f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                  f" GiB [{tag}]")
+            del laid_p, laid_c, pstep, sstep
+            torch.cuda.empty_cache()
+        del params, want_pre, want_steps
+        torch.cuda.empty_cache()
+    print(f"mesh serving phase: {time.perf_counter() - t_phase:.1f} s "
+          f"[{tag}]")
+    return out
 
 
 def check_counts(counts, due, path) -> None:

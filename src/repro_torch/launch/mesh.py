@@ -36,7 +36,11 @@ is the axis object that :mod:`repro_torch.core.lisa.rbm` takes.
 ``ppermute`` has ``jax.lax.ppermute``'s semantics: ``out[dst] = x[src]``
 for each pair, zeros where a device receives nothing.  Each axis counts
 its hops and its reductions in plain integers (``hops``, ``reductions``;
-``reset_counts()`` zeroes them).
+``reset_counts()`` zeroes them).  The split compute's collectives,
+``all_reduce``, and the all-gather and reduce-scatter along a tensor dim
+``gather_along`` and ``scatter_along``,
+run under autograd (each backward the other's collective) and count as
+reductions, forward and backward alike.
 A tensor on another device than the axis's raises: no axis moves a tensor
 to another device behind the caller's back.
 """
@@ -135,6 +139,25 @@ class _Axis:
         """``out[dst] = x[src]`` for each pair; zeros elsewhere."""
         return self.ppermute_start(x, pairs).wait()
 
+    # the split compute's collectives, under autograd (models/sharding.py)
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`psum` whose backward is a psum of the gradient: the
+        row-parallel reduction (Megatron's forward and backward
+        all-reduce)."""
+        return _AllReduce.apply(x, self)
+
+    def gather_along(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Each device's ``x`` concatenated along tensor dim ``dim`` (dim 0
+        is the local devices) in axis order, on every device; its backward
+        reduce-scatters the gradient."""
+        return _AllGather.apply(x, self, dim)
+
+    def scatter_along(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` summed over the axis and cut into ``size`` chunks along
+        ``dim``, device p keeping chunk p; its backward all-gathers the
+        gradient."""
+        return _ReduceScatter.apply(x, self, dim)
+
 
 class StackedAxis(_Axis):
     """An axis of ``n`` devices held by one process, stacked on dim 0.
@@ -191,6 +214,62 @@ class StackedAxis(_Axis):
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         return self._reduce(x, lambda g, d: g.amax(d, keepdim=True))
+
+    def gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The all-gather along ``dim`` without autograd: a copy of the
+        group's chunks for every device of it."""
+        self.check(x)
+        self.reductions += 1
+        nd = len(self.mesh_shape)
+        g = x.reshape(self.mesh_shape + tuple(x.shape[1:]))
+        c = torch.cat(g.unbind(self.dim), dim=nd - 2 + dim)
+        rest = tuple(c.shape[nd - 1:])
+        return c.unsqueeze(self.dim).expand(self.mesh_shape + rest).reshape(
+            (self.n_local,) + rest)
+
+    def scatter_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The reduce-scatter along ``dim`` without autograd: the group's
+        sum, device p keeping chunk p."""
+        self.check(x)
+        self.reductions += 1
+        nd = len(self.mesh_shape)
+        s = x.reshape(self.mesh_shape + tuple(x.shape[1:])).sum(self.dim)
+        k = nd - 2 + dim
+        s = s.unflatten(k, (self.size, -1)).movedim(k, self.dim)
+        return s.reshape((self.n_local,) + tuple(s.shape[nd:]))
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.psum(g), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.gather_dim(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.scatter_dim(g.contiguous(), ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.scatter_dim(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.gather_dim(g.contiguous(), ctx.dim), None, None
 
 
 def hop_rows(nbytes: int) -> int:
@@ -325,6 +404,23 @@ class GroupAxis(_Axis):
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         return self._all_reduce(x, dist.ReduceOp.MAX)
+
+    def gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        self.check(x)
+        self.reductions += 1
+        x = x.contiguous()
+        bufs = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(bufs, x, group=self.group)
+        return torch.cat(bufs, dim)
+
+    def scatter_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The group's sum by ``dist.all_reduce`` (gloo has no
+        reduce-scatter), this rank keeping its chunk."""
+        self.check(x)
+        self.reductions += 1
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+        return out.chunk(self.size, dim)[self.rank].contiguous()
 
 
 class _Posted:

@@ -16,6 +16,13 @@ cache leaves of their own; GQA decode hands them to K3, which dequantises
 as it loads, and MLA's absorbed einsums multiply them into the scores and
 the weights, as the reference does.
 
+In a sharding context (``models/sharding.py``) :func:`gqa_block` runs
+over each device's heads: ``wq``/``wk``/``wv`` column-parallel, ``wo``
+row-parallel (its partial sums reduced by the caller), K3 over the local
+heads of the folded batch in one launch.  Where the KV heads do not divide
+the model axis but the q heads do, every device holds all KV heads (the
+cache too) and passes K3 the ones its q heads use.
+
 Cross attention (:func:`cross_block`, the enc-dec decoder's) runs the same
 core with positions that encode only a mask: every query at ``2**29`` and
 every encoder frame at 0, or at ``2**30`` where the encoder mask says the
@@ -29,6 +36,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models import sharding as SHD
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        rms_norm)
 
@@ -125,20 +133,26 @@ def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
     temporal, height and width ids), whose temporal ids ``positions[0]``
     are the causal positions and the ones written to the cache."""
     B, S, _ = x.shape
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = SHD.matmul(x, params["wq"])
+    k = SHD.matmul(x, params["wk"])
+    v = SHD.matmul(x, params["wv"])
     if "bq" in params:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        q, k, v = (SHD.add(q, params["bq"]), SHD.add(k, params["bk"]),
+                   SHD.add(v, params["bv"]))
+    # in a sharding context, each device's heads (all of them but where
+    # the weights are its slice)
+    hl, kl = q.shape[-1] // head_dim, k.shape[-1] // head_dim
     rope = apply_mrope if mrope else apply_rope
-    q = rope(q.reshape(B, S, n_heads, head_dim), positions, rope_theta)
-    k = rope(k.reshape(B, S, n_kv, head_dim), positions, rope_theta)
-    v = v.reshape(B, S, n_kv, head_dim)
+    q = rope(q.reshape(B, S, hl, head_dim), positions, rope_theta)
+    k = rope(k.reshape(B, S, kl, head_dim), positions, rope_theta)
+    v = v.reshape(B, S, kl, head_dim)
     tok_pos = positions[0] if mrope else positions
+    pick = (lambda t: t) if hl * n_kv == kl * n_heads else (
+        lambda t: _local_kv(t, n_heads, n_kv, hl))
 
     if kv_cache is None:
-        out = chunked_attention(q, k, v, tok_pos, tok_pos, causal=True,
-                                window=window, block=block)
+        out = chunked_attention(q, pick(k), pick(v), tok_pos, tok_pos,
+                                causal=True, window=window, block=block)
         new = (k, v)
     else:
         ck, cv, cpos = kv_cache
@@ -151,12 +165,36 @@ def gqa_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
         _cache_write(ck, k, cache_index, rows)
         _cache_write(cv, v, cache_index, rows)
         _cache_write(cpos, tok_pos.to(cpos.dtype), cache_index, rows)
-        out = chunked_attention(q, ck, cv, tok_pos, cpos, causal=True,
-                                window=window, block=block, k_scale=ks,
-                                v_scale=vs)
+        if ks is not None:
+            ks, vs = (pick(t[..., None])[..., 0] for t in (ks, vs))
+        out = chunked_attention(q, pick(ck), pick(cv), tok_pos, cpos,
+                                causal=True, window=window, block=block,
+                                k_scale=ks, v_scale=vs)
         new = kv_cache
-    y = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
+    y = SHD.matmul(out.reshape(B, S, hl * head_dim), params["wo"])
     return y, new
+
+
+def _local_kv(t: torch.Tensor, n_heads: int, n_kv: int,
+              hl: int) -> torch.Tensor:
+    """Of a folded (B, T, n_kv, D) K or V that every device holds whole,
+    each device's rows' KV heads that its ``hl`` local q heads use (local
+    head j of model position i is global head i * hl + j, its KV head
+    that over the group size): a run of whole groups, one head shared by
+    all ``hl``, or else one KV head a q head."""
+    g = n_heads // n_kv
+    mi = SHD.model_index()[:, None]
+    if hl % g == 0:
+        idx = mi * (hl // g) + torch.arange(hl // g, device=t.device)
+    elif g % hl == 0:
+        idx = mi * hl // g
+    else:
+        idx = (mi * hl + torch.arange(hl, device=t.device)) // g
+    d = SHD.dev(t)                                # (n, b, T, n_kv, D)
+    n, b, T = d.shape[:3]
+    idx = idx.view(n, 1, 1, -1, 1).expand(n, b, T, idx.shape[1],
+                                          *d.shape[4:])
+    return torch.gather(d, 3, idx).flatten(0, 1)
 
 
 # ---------------------------------------------------------------------------

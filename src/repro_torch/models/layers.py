@@ -1,6 +1,13 @@
 # Port of src/repro/models/layers.py:12-123 in torch.
 """Shared model building blocks: norms, embeddings, MLPs, RoPE and
-M-RoPE."""
+M-RoPE.
+
+Inside a sharding context (``models/sharding.py``) the MLP's and the
+embedding's weights carry the local devices on dim 0: the MLP's matmuls
+run per device (column-parallel ``wi_gate``/``wi_up``, row-parallel
+``wo``, whose partial sums the caller reduces), the lookup is
+vocab-parallel where each device holds a row range of the table, and the
+logits come out split over the vocab where the table or head is."""
 from __future__ import annotations
 
 import math
@@ -9,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import sharding as SHD
 
 BIG_LEAF = 2**32         # values of a leaf drawn one matrix at a time
 
@@ -70,15 +78,17 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, reps: int = 1,
 
 def mlp(params: Dict, x: torch.Tensor,
         activation: str = "swiglu") -> torch.Tensor:
-    gate = x @ params["wi_gate"]
-    up = x @ params["wi_up"]
+    """The gated MLP; in a sharding context over each device's ``ff``
+    slice, giving its partial sums where the slice is not all of ``ff``."""
+    gate = SHD.matmul(x, params["wi_gate"])
+    up = SHD.matmul(x, params["wi_up"])
     if activation == "swiglu":
         h = torch.nn.functional.silu(gate) * up
     elif activation == "geglu":
         h = torch.nn.functional.gelu(gate, approximate="tanh") * up
     else:
         raise ValueError(f"unknown activation {activation}")
-    return h @ params["wo"]
+    return SHD.matmul(h, params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -141,11 +151,35 @@ def init_embed(gen: torch.Generator, vocab: int, d_model: int,
                       dtype=dtype, device=device)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          vocab: int = 0) -> torch.Tensor:
+    """The rows of ``table`` (V, M) at ``tokens``.  In a sharding context
+    ``table`` is (n_local, V', M) and ``tokens`` folded: where V' is less
+    than ``vocab`` each device holds its model position's row range,
+    looks up the tokens in it and zeros the rest (the partial sums a
+    vocab-parallel lookup reduces over the model axis); a whole table
+    gives each device's rows whole."""
+    if not SHD.active():
+        return table[tokens]
+    n, V, _ = table.shape
+    t = SHD.dev(tokens).long()
+    dev = torch.arange(n, device=t.device).view(n, *([1] * (t.dim() - 1)))
+    if V == vocab:
+        return table[dev, t].flatten(0, 1)
+    local = t - SHD.model_index().view_as(dev) * V
+    inside = (local >= 0) & (local < V)
+    rows = table[dev, local.clamp(0, V - 1)]
+    return torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype,
+                                   device=rows.device)).flatten(0, 1)
 
 
 def unembed(table_or_w: torch.Tensor, x: torch.Tensor,
             tied: bool) -> torch.Tensor:
+    """``x @ head``, or ``x @ embed.T`` tied; in a sharding context each
+    device's (M, V / p) slice, the logits split over the vocab."""
+    if SHD.active():
+        w = table_or_w.transpose(1, 2) if tied else table_or_w
+        return SHD.matmul(x, w)
     w = table_or_w.T if tied else table_or_w
     return x @ w

@@ -53,6 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
+from repro_torch.models import sharding as SHD
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (apply_rope, embed, init_embed,
                                        init_mlp, init_rms, mlp, rms_norm,
@@ -249,16 +250,33 @@ def _layer(tree: Dict, r: int) -> Dict:
             for k, v in tree.items()}
 
 
+def _norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    return SHD.norm(rms_norm, x, scale, eps)
+
+
+def _whole(cfg: ModelConfig, mixer_kind: str, mlp_kind: str) -> bool:
+    """Whether a layer runs whole on every device of a model group inside
+    a sharding context (MLA, cross attention, mamba and rwkv: their split
+    is ROADMAP item 16d): per device, as on one device."""
+    return SHD.active() and (mixer_kind in ("mla",) + RECURRENT
+                             or mlp_kind == "rwkv_cm" or cfg.encdec)
+
+
 def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
          positions: torch.Tensor, mode: str, cache: Optional[Dict],
          slot: int, cache_index: Optional[torch.Tensor],
          rows: Optional[torch.Tensor],
-         enc_out: Optional[torch.Tensor] = None
+         enc_out: Optional[torch.Tensor] = None, moe_groups: int = 0,
+         sp: bool = False
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The stack over ``x``; returns (x, the MoE layers' summed aux loss,
     None where no layer is MoE or in decode, which has no use for it).
     An enc-dec config's blocks attend over ``enc_out``, the encoder's
-    output, or in decode over the cache's ``enc_k``/``enc_v``."""
+    output, or in decode over the cache's ``enc_k``/``enc_v``.  In a
+    sharding context each block's input is all-gathered on S under
+    ``sp`` and its output reduced over the model axis where it holds
+    partial sums (``models/sharding.py``); a block :func:`_whole` leaves
+    whole runs per device."""
     ring_index: Dict[int, torch.Tensor] = {}    # cache length -> write slots
     aux = None
     for i, (reps, group) in enumerate(stages_of(cfg)):
@@ -267,7 +285,15 @@ def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                 p = _layer(params[f"stage{i}"][f"b{j}"], r)
                 c = (None if cache is None else
                      {k: t[r] for k, t in cache[f"stage{i}"][f"b{j}"].items()})
-                h = rms_norm(x, p["ln1"], cfg.norm_eps)
+                h = _norm(x, p["ln1"], cfg.norm_eps)
+                if _whole(cfg, mixer_kind, mlp_kind):
+                    x, aux_l = _whole_layer(cfg, mixer_kind, mlp_kind, p, x,
+                                            h, positions, enc_out, sp,
+                                            moe_groups)
+                    if aux_l is not None:
+                        aux = aux_l if aux is None else aux + aux_l
+                    continue
+                h = SHD.gather_in(h, sp)
                 st = None if c is None else _state_rows(c, mode, slot,
                                                         x.shape[0])
                 updates: Dict[str, torch.Tensor] = {}
@@ -289,16 +315,19 @@ def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                 else:
                     y = _attention(cfg, mixer_kind, p, c, h, positions,
                                    mode, slot, cache_index, rows, ring_index)
+                    y = SHD.reduce_out(y, p["mixer"]["wo"].shape[-2]
+                                       < cfg.n_heads * cfg.head_dim, sp)
                 x = x + y
                 if cfg.encdec:
                     x = x + _cross(cfg, p, c, x, mode, slot, enc_out)
-                h = rms_norm(x, p["ln2"], cfg.norm_eps)
+                h = _norm(x, p["ln2"], cfg.norm_eps)
                 if mlp_kind == "moe":
                     y, aux_l = MOE.moe_block(
-                        p["mlp"], h, top_k=cfg.top_k,
+                        p["mlp"], SHD.gather_in(h, sp), top_k=cfg.top_k,
                         capacity_factor=cfg.capacity_factor,
-                        activation=cfg.activation,
-                        aux_loss=mode != "decode")
+                        n_groups=moe_groups, activation=cfg.activation,
+                        aux_loss=mode != "decode",
+                        shared_ff=cfg.n_shared_experts * cfg.moe_d_ff, sp=sp)
                     if aux_l is not None:
                         aux = aux_l if aux is None else aux + aux_l
                 elif mlp_kind == "rwkv_cm":
@@ -308,11 +337,69 @@ def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                     if shift is not None:
                         updates["ffn_shift"] = shift
                 else:
-                    y = mlp(p["mlp"], h, cfg.activation)
+                    y = mlp(p["mlp"], SHD.gather_in(h, sp), cfg.activation)
+                    y = SHD.reduce_out(y, p["mlp"]["wo"].shape[-2]
+                                       < cfg.d_ff, sp)
                 x = x + y
                 if updates:
                     _state_write(c, updates, mode, slot, rows)
     return x, aux
+
+
+def _whole_layer(cfg: ModelConfig, mixer_kind: str, mlp_kind: str, p: Dict,
+                 x: torch.Tensor, h: torch.Tensor, positions: torch.Tensor,
+                 enc_out: Optional[torch.Tensor], sp: bool, moe_groups: int
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A cacheless layer that a sharding context leaves whole (MLA, cross
+    attention, mamba, rwkv), run per device with its whole weights; its
+    dense or MoE MLP split as :func:`_run` splits it.  Under ``sp`` the
+    whole blocks take the gathered rows and keep their S chunk."""
+    def mixer(pm, hd, pos):
+        if mixer_kind == "mamba":
+            return SSM.mamba_block(pm, hd, d_state=cfg.d_state,
+                                   d_conv=cfg.d_conv, expand=cfg.expand)[0]
+        if mixer_kind == "rwkv":
+            return R.rwkv_time_mix(pm, hd)[0]
+        if mixer_kind == "mla":
+            return A.mla_block(
+                pm, hd, pos, n_heads=cfg.n_heads, q_lora=cfg.q_lora_rank,
+                kv_lora=cfg.kv_lora_rank, qk_nope=cfg.qk_nope_dim,
+                qk_rope=cfg.qk_rope_dim, v_dim=cfg.v_head_dim,
+                rope_theta=cfg.rope_theta, block=cfg.attn_block)[0]
+        return A.gqa_block(
+            pm, hd, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            mrope=cfg.mrope, block=cfg.attn_block,
+            window=cfg.window if mixer_kind == "attn_local" else 0)[0]
+
+    pos_b = positions if positions.dim() == 2 else positions.movedim(0, 1)
+    y = SHD.each(lambda pm, hd, pb: mixer(
+        pm, hd, pb if pb.dim() == 2 else pb.movedim(0, 1)), p["mixer"],
+        SHD.gather_in(h, sp), pos_b)
+    x = x + SHD.reduce_out(y, False, sp)
+    if cfg.encdec:
+        hc = SHD.gather_in(_norm(x, p["ln_cross"], cfg.norm_eps), sp)
+        y = SHD.each(lambda pc, hd, eo: A.cross_block(
+            pc, hd, A.encode_kv(pc, eo, cfg.n_heads, cfg.head_dim), None,
+            n_heads=cfg.n_heads, head_dim=cfg.head_dim), p["cross"], hc,
+            enc_out)
+        x = x + SHD.reduce_out(y, False, sp)
+    h = _norm(x, p["ln2"], cfg.norm_eps)
+    aux = None
+    if mlp_kind == "rwkv_cm":
+        y = SHD.reduce_out(SHD.each(
+            lambda pm, hd: R.rwkv_channel_mix(pm, hd)[0], p["mixer"],
+            SHD.gather_in(h, sp)), False, sp)
+    elif mlp_kind == "moe":
+        y, aux = MOE.moe_block(
+            p["mlp"], SHD.gather_in(h, sp), top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, n_groups=moe_groups,
+            activation=cfg.activation,
+            shared_ff=cfg.n_shared_experts * cfg.moe_d_ff, sp=sp)
+    else:
+        y = mlp(p["mlp"], SHD.gather_in(h, sp), cfg.activation)
+        y = SHD.reduce_out(y, p["mlp"]["wo"].shape[-2] < cfg.d_ff, sp)
+    return x + y, aux
 
 
 def _attention(cfg: ModelConfig, mixer_kind: str, p: Dict,
@@ -432,9 +519,21 @@ def _prefill_write(c: Dict, slot: int, leaves: Dict[str, torch.Tensor]
 
 
 def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params["embed"] if cfg.tie_embeddings else params["head"],
                    x, tied=cfg.tie_embeddings)
+
+
+def _embed(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+           sp: bool = False) -> torch.Tensor:
+    """The scaled embedding; in a sharding context vocab-parallel where the
+    table is split (its partial rows reduced over the model axis), in the
+    layout between blocks."""
+    x = embed(params["embed"], tokens, cfg.vocab_size)
+    if SHD.active():
+        x = SHD.reduce_out(x, params["embed"].shape[-2] < cfg.vocab_size,
+                           sp)
+    return x * math.sqrt(cfg.d_model)
 
 
 def _default_positions(cfg: ModelConfig, B: int, Sq: int,
@@ -475,7 +574,8 @@ def _encode(cfg: ModelConfig, params: Dict,
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None, mode: str = "train",
-            slot: int = 0, enc_embeds: Optional[torch.Tensor] = None
+            slot: int = 0, enc_embeds: Optional[torch.Tensor] = None,
+            moe_groups: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Returns (logits, aux_loss, cache), as the reference's: the aux loss
     sums the MoE layers' load-balance losses (a 0 scalar without MoE).
@@ -488,7 +588,12 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     T, d_model) and raises ``ValueError`` without them; a prefill also
     writes the cross attention's K/V, and raises ``ValueError`` where T is
     not the cache's ``enc_len`` (the reference would replace the cache's
-    leaves with ones of T frames; the port writes its caches in place)."""
+    leaves with ones of T frames; the port writes its caches in place).
+    ``moe_groups`` > 0 routes the MoE layers in that many token groups.
+    In a sharding context (``models/sharding.py``: the mesh steps) the
+    batch is the mesh's folded one, the params each device's compute
+    slices, and the logits come out split over the vocab where the head
+    is."""
     if cfg.encdec and enc_embeds is None:
         raise ValueError(f"{cfg.name} is enc-dec: forward and prefill take "
                          f"enc_embeds (B, T, d_model)")
@@ -509,19 +614,25 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     B, Sq = tokens.shape
     if positions is None:
         positions = _default_positions(cfg, B, Sq, tokens.device)
-    x = embed(params["embed"], tokens) * math.sqrt(cfg.d_model)
-    enc_out = _encode(cfg, params, enc_embeds) if cfg.encdec else None
+    sp = SHD.sp_on(Sq)
+    x = _embed(cfg, params, tokens, sp)
+    enc_out = None
+    if cfg.encdec:
+        enc_out = (SHD.each(lambda p, e: _encode(cfg, p, e), {
+            "encoder": params["encoder"], "enc_norm": params["enc_norm"]},
+            enc_embeds) if SHD.active() else
+            _encode(cfg, params, enc_embeds))
     x, aux = _run(cfg, params, x, positions, mode, cache, slot, None, None,
-                  enc_out)
+                  enc_out, moe_groups, sp)
     if aux is None:
         aux = torch.zeros((), device=x.device)
-    return _logits(cfg, params, x), aux, cache
+    return _logits(cfg, params, SHD.gather_in(x, sp)), aux, cache
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             cache: Dict, positions: Optional[torch.Tensor] = None,
-            slot: int = 0, enc_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Dict]:
+            slot: int = 0, enc_embeds: Optional[torch.Tensor] = None,
+            moe_groups: int = 0) -> Tuple[torch.Tensor, Dict]:
     """Prefill cache rows ``slot:slot+B`` IN PLACE.  Bucketed serving
     passes right-padded tokens with sentinel (2**30) positions for the
     pads, which keeps them causally invisible forever (an MoE layer routes
@@ -530,12 +641,13 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     d_model) and writes their cross-attention K/V too."""
     logits, _, cache = forward(cfg, params, tokens, positions=positions,
                                cache=cache, mode="prefill", slot=slot,
-                               enc_embeds=enc_embeds)
+                               enc_embeds=enc_embeds, moe_groups=moe_groups)
     return logits, cache
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, Dict]:
+                tokens: torch.Tensor, pos, moe_groups: int = 0
+                ) -> Tuple[torch.Tensor, Dict]:
     """One decode step at a uniform position, the reference's
     ``lm.decode_step`` (its ``lm.py:423-445``).  tokens: (B, 1); pos: the
     scalar position of every row (an int or a 0-d tensor), under M-RoPE
@@ -554,9 +666,9 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
            else to_device(int(pos), dev, torch.int32)).reshape(())
     idx = pos.expand(B)
     rows = torch.arange(B, device=dev)
-    x = embed(params["embed"], tokens) * math.sqrt(cfg.d_model)
+    x = _embed(cfg, params, tokens)
     x, _ = _run(cfg, params, x, _step_positions(cfg, idx), "decode", cache,
-                0, idx, rows)
+                0, idx, rows, moe_groups=moe_groups)
     return _logits(cfg, params, x), cache
 
 
@@ -570,7 +682,7 @@ def _step_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
 
 def decode_step_batched(cfg: ModelConfig, params: Dict, cache: Dict,
                         tokens: torch.Tensor, pos: torch.Tensor,
-                        active: Sequence[bool]
+                        active: Sequence[bool], moe_groups: int = 0
                         ) -> Tuple[torch.Tensor, Dict]:
     """One continuous-batching decode step for a ragged batch.
 
@@ -583,7 +695,7 @@ def decode_step_batched(cfg: ModelConfig, params: Dict, cache: Dict,
     from repro_torch import to_device
 
     act = np.asarray(active, dtype=bool)
-    logits = decode_logits(cfg, params, cache, tokens, pos, act)
+    logits = decode_logits(cfg, params, cache, tokens, pos, act, moe_groups)
     nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
     mask = to_device(act, tokens.device)
     return torch.where(mask, nxt, torch.full_like(nxt, -1)), cache
@@ -591,7 +703,8 @@ def decode_step_batched(cfg: ModelConfig, params: Dict, cache: Dict,
 
 def decode_logits(cfg: ModelConfig, params: Dict, cache: Dict,
                   tokens: torch.Tensor, pos: torch.Tensor,
-                  active: Sequence[bool]) -> torch.Tensor:
+                  active: Sequence[bool], moe_groups: int = 0
+                  ) -> torch.Tensor:
     """The logits (B, 1, V) of one decode step of
     :func:`decode_step_batched`, which writes the active rows' cache
     entries IN PLACE as it does."""
@@ -601,7 +714,7 @@ def decode_logits(cfg: ModelConfig, params: Dict, cache: Dict,
     rows = to_device(np.flatnonzero(np.asarray(active, dtype=bool)), dev,
                      torch.long)
     pos = pos.to(device=dev, dtype=torch.int32)
-    x = embed(params["embed"], tokens[:, None]) * math.sqrt(cfg.d_model)
+    x = _embed(cfg, params, tokens[:, None])
     x, _ = _run(cfg, params, x, _step_positions(cfg, pos), "decode", cache,
-                0, pos, rows)
+                0, pos, rows, moe_groups=moe_groups)
     return _logits(cfg, params, x)

@@ -78,11 +78,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def update(cfg: OptConfig, grads, state: OptState, params, gnorm=None,
-           lead: int = 0) -> Tuple[Dict, OptState, Dict[str, torch.Tensor]]:
+           lead: int = 0, inplace: bool = False
+           ) -> Tuple[Dict, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step over the tree.  On a mesh (``lead=1``) every leaf,
     moment and ``count`` carries its local devices on dim 0, and ``gnorm``
     (n_local,) is the whole tree's norm, which the caller reduces over the
-    mesh's axes; by default it is :func:`global_norm` of ``grads``."""
+    mesh's axes; by default it is :func:`global_norm` of ``grads``.
+    ``inplace`` writes the new params and moments into the given ones (the
+    same values, bit for bit): a donated state, whose old and new copies
+    never coexist."""
     if gnorm is None:
         gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -97,12 +101,18 @@ def update(cfg: OptConfig, grads, state: OptState, params, gnorm=None,
         s, r, c1, c2 = (t.view((-1,) + (1,) * (p.dim() - 1)) if lead else t
                         for t in (scale, lr, b1c, b2c))
         g = g.to(torch.float32) * s
-        m = cfg.beta1 * m + (1 - cfg.beta1) * g
-        v = cfg.beta2 * v + (1 - cfg.beta2) * torch.square(g)
+        if inplace:
+            m = m.mul_(cfg.beta1).add_((1 - cfg.beta1) * g)
+            v = v.mul_(cfg.beta2).add_((1 - cfg.beta2) * torch.square(g))
+        else:
+            m = cfg.beta1 * m + (1 - cfg.beta1) * g
+            v = cfg.beta2 * v + (1 - cfg.beta2) * torch.square(g)
         step_ = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
         decay = cfg.weight_decay if p.dim() - lead >= 2 else 0.0
         p32 = p.to(torch.float32)
         newp = p32 - r * (step_ + decay * p32)
+        if inplace:
+            return p.copy_(newp), m, v
         return newp.to(p.dtype), m, v
 
     flat = tree_map(upd, params, grads, state.m, state.v)

@@ -1,8 +1,9 @@
 # Port of src/repro/train/shardings.py in torch: the rules, param_spec,
 # cache_spec, tree_shardings and batch_specs, with P and NamedSharding as
 # small classes of the port.  Port only: what each device holds under a
-# spec (local_shape, shard), unshard by the ring all-gather, and gather,
-# the all-gather under autograd that the mesh training step runs.
+# spec (local_shape, shard), unshard by the ring all-gather, gather, the
+# all-gather under autograd that the mesh training step runs, and
+# compute_dim, the layout of the split compute.
 """Parameter / cache / batch PartitionSpecs (FSDP x TP, path-based rules).
 
 TP (Megatron) over "model": attention heads, FFN hidden, experts, vocab.
@@ -241,23 +242,29 @@ def batch_specs(mesh, batch_tree, dp_axes=("pod", "data")):
 # what each device holds (port only)
 # ---------------------------------------------------------------------------
 
-def shard(tree, shardings):
+def shard(tree, shardings, stack_dim: int = 0):
     """Full leaves (any device) to laid-out ones on each sharding's mesh:
-    ``(n_local, *local_shape)``, local device i's slice at i."""
+    ``(n_local, *local_shape)``, local device i's slice at i.  With
+    ``stack_dim=1`` the local devices lie after each leaf's dim 0 in
+    storage (a cache's layer dim: each layer's slices then fold into one
+    batch without a copy, ``step.make_serve_step``)."""
     def cut(x, sh):
         x = x.to(sh.mesh.device)
-        return torch.stack([x[s] for s in sh.slices(x.shape)])
+        got = torch.stack([x[s] for s in sh.slices(x.shape)],
+                          dim=min(stack_dim, x.dim()))
+        return got.movedim(min(stack_dim, x.dim()), 0)
     return tree_map(cut, tree, shardings)
 
 
-def _gather(x: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
+def _gather(x: torch.Tensor, sh: NamedSharding,
+            keep: Tuple[str, ...] = ()) -> torch.Tensor:
     """Laid-out to ``(n_local, *full_shape)``: the ring all-gather over
     each split dim's axes, the minor axis first (an axis of one device is
-    the identity)."""
+    the identity); axes in ``keep`` stay split."""
     for d, names in sh.dims():
         for a in reversed(names):
             axis = sh.mesh.axis(a)
-            if axis.size > 1:
+            if axis.size > 1 and a not in keep:
                 x = rbm.ring_allgather(x, axis, dim=d)
     return x
 
@@ -280,17 +287,20 @@ def _split(g: torch.Tensor, d: int, n: int) -> torch.Tensor:
 
 
 def _grad_to_shards(g: torch.Tensor, sh: NamedSharding,
-                    batch_axes: Tuple[str, ...]) -> torch.Tensor:
+                    batch_axes: Tuple[str, ...],
+                    keep: Tuple[str, ...] = ()) -> torch.Tensor:
     """The gradient of every local device's full copy to its stored
-    slice's, by the rule of the mesh step: over an axis that splits the
-    batch the copies' gradients are summed and scattered (the ring
+    slice's, by the rule of the mesh step: over an axis in ``batch_axes``
+    (one that splits the batch, or whose devices each hold a share of the
+    gradient) the copies' gradients are summed and scattered (the ring
     reduce-scatter); over one that does not they are equal, and each
-    device keeps its own slice; a leaf whole along a batch axis is summed
-    over it (the ring all-reduce)."""
+    device keeps its own slice; a leaf whole along such an axis is summed
+    over it (the ring all-reduce).  Axes in ``keep`` were not gathered:
+    the gradient is already the slice's along them."""
     for d, names in reversed(sh.dims()):
         for a in names:
             axis = sh.mesh.axis(a)
-            if axis.size == 1:
+            if axis.size == 1 or a in keep:
                 continue
             v = _split(g, d, axis.size)
             if a in batch_axes:
@@ -309,21 +319,95 @@ class _Gather(torch.autograd.Function):
     """All-gather forward; :func:`_grad_to_shards` backward."""
 
     @staticmethod
-    def forward(ctx, x, sh, batch_axes):
-        ctx.sh, ctx.batch_axes = sh, batch_axes
-        return _gather(x, sh)
+    def forward(ctx, x, sh, batch_axes, keep):
+        ctx.sh, ctx.batch_axes, ctx.keep = sh, batch_axes, keep
+        return _gather(x, sh, keep)
 
     @staticmethod
     def backward(ctx, g):
-        return _grad_to_shards(g.contiguous(), ctx.sh, ctx.batch_axes), \
-            None, None
+        return _grad_to_shards(g.contiguous(), ctx.sh, ctx.batch_axes,
+                               ctx.keep), None, None, None
 
 
 def gather(x: torch.Tensor, sh: NamedSharding,
-           batch_axes: Tuple[str, ...] = ()) -> torch.Tensor:
+           batch_axes: Tuple[str, ...] = (),
+           keep: Tuple[str, ...] = ()) -> torch.Tensor:
     """``(n_local, *full_shape)`` from a laid-out leaf, under autograd:
     its backward takes the gradient of every local device's copy to the
     gradient of the stored slices (summed over ``batch_axes``, the axes
-    that split the batch).  Without grad it is :func:`unshard`'s gather
+    over which devices hold shares of it).  Axes in ``keep`` stay split,
+    forward and backward.  Without grad it is :func:`unshard`'s gather
     for all local devices."""
-    return _Gather.apply(x, sh, tuple(batch_axes))
+    return _Gather.apply(x, sh, tuple(batch_axes), tuple(keep))
+
+
+class _ModelSlice(torch.autograd.Function):
+    """Each local device's chunk of a whole copy; all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, d, axis):
+        ctx.d, ctx.axis = d, axis
+        v = _split(x, d, axis.size)
+        rows = torch.arange(x.shape[0], device=x.device)
+        return v[rows, axis.index()].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.gather_dim(g.contiguous(), ctx.d + 1), None, None
+
+
+def model_slice(x: torch.Tensor, d: int, axis) -> torch.Tensor:
+    """Of a gathered leaf ``(n_local, *full_shape)`` that every device of
+    ``axis`` holds whole, each device's chunk along full dim ``d`` (chunk
+    p at axis position p), under autograd: its backward all-gathers the
+    chunks' gradients along ``d``, so each device gets the whole leaf's
+    gradient (each chunk's from the one device that computed with it)."""
+    return _ModelSlice.apply(x, d, axis)
+
+
+# ---------------------------------------------------------------------------
+# the compute layout of the split (port only)
+# ---------------------------------------------------------------------------
+
+def compute_dim(path, shape: Sequence[int], cfg) -> Any:
+    """The dim of a param leaf (full ``shape``) that the split compute
+    keeps cut over the model axis under the active sharding context
+    (``models/sharding.py``), or None where every device uses it whole:
+    the vocab of ``embed``/``head``, the heads of a GQA layer's
+    projections (its KV heads only where they divide too), ``ff`` of a
+    dense MLP and of the shared experts, the experts of an MoE layer.  The
+    layers the split leaves whole (MLA, cross attention, mamba, rwkv, the
+    encoder) and norms and routers are used whole."""
+    from repro_torch.models import sharding as SHD
+    from repro_torch.models.lm import stages_of
+    keys = [str(k) for k in path]
+    nd = len(shape)
+    if keys == ["embed"]:
+        return nd - 2 if SHD.parts("vocab", cfg.vocab_size) > 1 else None
+    if keys == ["head"]:
+        return nd - 1 if SHD.parts("vocab", cfg.vocab_size) > 1 else None
+    if len(keys) < 4 or not keys[0].startswith("stage"):
+        return None
+    mixer, mlp = stages_of(cfg)[int(keys[0][5:])][1][int(keys[1][1:])]
+    if cfg.encdec or mixer in ("mla", "mamba", "rwkv"):
+        mixer = None                     # a layer the split leaves whole
+    name = keys[-1]
+    if keys[2] == "mixer" and mixer is not None:
+        heads = SHD.parts("heads", cfg.n_heads) > 1
+        kv = heads and SHD.parts("kv_heads", cfg.n_kv_heads) > 1
+        if name in ("wq", "bq") and heads or name in ("wk", "wv", "bk",
+                                                      "bv") and kv:
+            return nd - 1
+        if name == "wo" and heads:
+            return nd - 2
+        return None
+    if keys[2] != "mlp" or mlp not in ("dense", "moe"):
+        return None
+    if mlp == "moe" and len(keys) == 4:
+        if name == "router" or SHD.parts("experts", cfg.n_experts) == 1:
+            return None
+        return nd - 3                    # (reps, E, rows, cols)
+    ff = cfg.d_ff if mlp == "dense" else cfg.n_shared_experts * cfg.moe_d_ff
+    if SHD.parts("ff", ff) == 1:
+        return None
+    return nd - 2 if name == "wo" else nd - 1

@@ -1,42 +1,59 @@
-# Port of src/repro/train/step.py:24-130 in torch: ParallelConfig,
-# TrainState, init_train_state, sharding_rules, loss_fn and
-# make_train_step, on one device and on a (data, model) mesh, with the
-# grad-compress branch.  make_prefill_step and make_serve_step, and the
-# Megatron split of the compute that sharding_rules names, are ROADMAP
-# item 16c.
-"""The training step: forward, backward and AdamW, on one device or a mesh.
+# Port of src/repro/train/step.py in torch: ParallelConfig, TrainState,
+# init_train_state, sharding_rules, loss_fn, make_train_step,
+# _logits_sharding, make_prefill_step and make_serve_step, on one device
+# and on a (data, model) mesh, with the grad-compress branch and the
+# Megatron split of the compute that sharding_rules names.
+"""The training step, and the prefill and decode steps over a mesh.
 
 ``make_train_step`` has two forms, told apart by its second argument:
 
   make_train_step(cfg, pcfg, ocfg=None)
       one device: ``step_fn(state, batch) -> (state, metrics)``;
-  make_train_step(cfg, mesh, pcfg, ocfg=None)
+  make_train_step(cfg, mesh, pcfg, ocfg=None, donate=False)
       a :class:`~repro_torch.launch.mesh.Mesh`: the reference's
-      ``(step_fn, compile_step, state_shardings)``.  ``state_shardings``
-      lays out params, moments and error feedback by ``param_spec`` and
+      ``(step_fn, compile_step, state_shardings)``; ``donate`` (the
+      reference's keyword, whose default there is True) lets the compiled
+      step update the laid-out state in place.  ``state_shardings`` lays
+      out params, moments and error feedback by ``param_spec`` and
       ``count``/``step`` replicated; ``compile_step(state_shapes,
       batch_shapes)`` returns the step over a state laid out so
       (``shardings.shard``) and a global batch; ``step_fn`` steps a full
       state (it lays it out, steps and gathers it back).
 
-The mesh step is DP x FSDP over the mesh's hop rings.  The batch is split
-by ``batch_specs`` over ("pod", "data"), or over every axis when
-``tensor_parallel=False``.  Each stored slice is all-gathered once a step
-for all local devices (``shardings.gather``, under autograd); each local
-device runs ``loss_fn`` on its batch slice with its gathered copy, its
-loss divided by the number of distinct batch slices; one backward runs
-over all of them, the gather's backward reduce-scattering over the batch
-axes.  AdamW updates each slice: the clip's norm and grad-compress's scale
-are reduced over each leaf's split axes.  In this slice the ``model`` axis
-shards storage only: its devices compute the same batch slice whole, as
-one device would; the Megatron split of that compute (``sharding_rules``'
-heads/ff/vocab) is item 16c and changes no number.
+``make_prefill_step(cfg, mesh, pcfg)`` and ``make_serve_step(cfg, mesh,
+pcfg)`` return the reference's ``(step_fn, compile_step)``:
+``compile_step(param_shapes, cache_shapes, batch_shapes)`` (token shapes
+for the serve step) returns a step over params laid out by ``param_spec``,
+a cache laid out by ``cache_spec`` (``shard(cache, cs, stack_dim=1)``: each
+layer's slices then fold into one batch without a copy) and a global
+batch, whose logits come out laid out by :func:`_logits_sharding`; the
+cache is written IN PLACE.  ``step_fn`` takes and returns full trees.
 
-The forward is the model's cacheless ``lm.forward``; on the card its
-attention runs K3's prefill kernel under autograd (K3e,
-``kernels/flash_attention.py::train_attention``), once a local device.  A
-step returns a new state and leaves its input as it was, as the
-reference's (undonated) step does, so a caller may step one state twice.
+The mesh steps run the reference's compute split (``sharding_rules``,
+``models/sharding.py``).  The batch is split by ``batch_specs`` over
+("pod", "data"), or over every axis when ``tensor_parallel=False``; the
+local devices of a stacked mesh fold into the batch, so one forward runs
+for the whole stack (K3 launches once a layer).  With
+``tensor_parallel`` the ``model`` axis splits the compute: heads, ``ff``,
+vocab and experts over it (``shardings.compute_dim``), the row-parallel
+outputs all-reduced over it (reduce-scattered on S with
+``sequence_parallel``), the cross entropy over the vocab-split logits by a
+``pmax`` and a ``psum``.  A leaf the compute uses split keeps its
+``model`` slice and is all-gathered over its other axes only; any other
+is gathered whole.  The gathers' backward reduce-scatters over the batch
+axes, and over ``model`` for a leaf each device of a model group uses
+whole (each holds a share of its gradient).  The loss is replicated over
+``model`` and counts once: each device's loss is divided by the batch
+slices and the model axis's size.  AdamW updates each slice: the clip's
+norm and grad-compress's scale are reduced over each leaf's split axes.
+MLA, cross attention, mamba and rwkv layers run whole on every device
+(ROADMAP item 16d); the serve steps refuse their configs.
+
+On the card the forward's attention runs K3's prefill kernel under
+autograd (K3e, ``kernels/flash_attention.py::train_attention``), the
+decode step K3's split-KV kernel.  A train step returns a new state and
+leaves its input as it was, as the reference's (undonated) step does, so
+a caller may step one state twice.
 """
 from __future__ import annotations
 
@@ -50,6 +67,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lisa import compression as COMP
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import lm
+from repro_torch.models import sharding as SHD
 from repro_torch.optim import adamw
 from repro_torch.train import shardings as SH
 from repro_torch.train.shardings import P, NamedSharding
@@ -107,16 +125,54 @@ def sharding_rules(pcfg: ParallelConfig) -> Dict[str, Any]:
 
 def loss_fn(cfg: ModelConfig, pcfg: ParallelConfig, params, batch
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's loss: cross entropy, the MoE aux loss and the
+    z-loss.  In a sharding context (the mesh step) every value is (n_local,),
+    each device's over its rows, and the cross entropy runs over the
+    vocab-split logits (:func:`_vocab_ce`)."""
     logits, aux, _ = lm.forward(
         cfg, params, batch["tokens"], positions=batch.get("positions"),
-        enc_embeds=batch.get("enc_embeds"))
+        enc_embeds=batch.get("enc_embeds"), moe_groups=pcfg.moe_groups)
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
-    ce = (logz - tgt).mean()
-    zloss = torch.square(logz).mean()
+    if SHD.active():
+        logz, tgt = _vocab_ce(cfg, logits, batch["labels"].long())
+        n = SHD.n_local()
+
+        def mean(t):
+            return SHD.dev(t).reshape(n, -1).mean(1)
+        ce, zloss = mean(logz - tgt), mean(torch.square(logz))
+        aux = aux.expand(n) if aux.dim() == 0 else aux
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        ce = (logz - tgt).mean()
+        zloss = torch.square(logz).mean()
     loss = ce + pcfg.aux_weight * aux + pcfg.z_weight * zloss
     return loss, {"ce": ce, "aux": aux, "zloss": zloss}
+
+
+def _vocab_ce(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(logz, target logit)`` of folded logits, whole or split over the
+    vocab: split, ``logsumexp`` by a ``pmax`` (no gradient: it cancels)
+    and a ``psum`` of the shifted exponentials over the model axis, the
+    target logit by a masked gather on the device that holds it and a
+    ``psum``."""
+    vl = logits.shape[-1]
+    if vl == cfg.vocab_size:
+        return (torch.logsumexp(logits, dim=-1),
+                logits.gather(-1, labels[..., None])[..., 0])
+    c = SHD.ctx()
+    mx = c.model.pmax(SHD.dev(logits.detach().amax(-1))).flatten(0, 1)
+    se = SHD.psum(torch.exp(logits - mx[..., None]).sum(-1))
+    logz = torch.log(se) + mx
+    lo = (SHD.model_index() * vl).view(-1, *([1] * labels.dim()))
+    local = SHD.dev(labels) - lo
+    inside = ((local >= 0) & (local < vl)).flatten(0, 1)
+    local = local.flatten(0, 1).clamp(0, vl - 1)
+    got = logits.gather(-1, local[..., None])[..., 0]
+    tgt = SHD.psum(torch.where(inside, got,
+                               torch.zeros((), device=got.device)))
+    return logz, tgt
 
 
 def grads_of(cfg: ModelConfig, pcfg: ParallelConfig, params, batch
@@ -140,19 +196,12 @@ def grads_of(cfg: ModelConfig, pcfg: ParallelConfig, params, batch
 
 def make_train_step(cfg: ModelConfig, *args, **kw):
     """One device: ``make_train_step(cfg, pcfg, ocfg=None) -> step_fn``.
-    A mesh: ``make_train_step(cfg, mesh, pcfg, ocfg=None) -> (step_fn,
-    compile_step, state_shardings)`` (module docstring).  A ``mesh`` as
-    the second argument selects the second form."""
+    A mesh: ``make_train_step(cfg, mesh, pcfg, ocfg=None, donate=False)
+    -> (step_fn, compile_step, state_shardings)`` (module docstring).  A
+    ``mesh`` as the second argument selects the second form."""
     if args and isinstance(args[0], Mesh):
         return _mesh_train_step(cfg, *args, **kw)
     return _train_step(cfg, *args, **kw)
-
-
-def _refuse_moe_groups(pcfg: ParallelConfig) -> None:
-    if pcfg.moe_groups:
-        raise NotImplementedError(
-            "moe_groups shards the MoE dispatch over the model axis: ROADMAP "
-            "item 16c (the port routes in the model's own groups)")
 
 
 def _mesh_compressed(grads, err_fb, shardings, amax):
@@ -176,7 +225,6 @@ def _train_step(cfg: ModelConfig, pcfg: ParallelConfig,
                 ocfg: Optional[adamw.OptConfig] = None):
     """The single-device ``step_fn(state, batch) -> (state, metrics)``."""
     ocfg = ocfg or adamw.OptConfig()
-    _refuse_moe_groups(pcfg)
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         loss, metrics, grads = grads_of(cfg, pcfg, state.params, batch)
@@ -201,11 +249,62 @@ def _train_step(cfg: ModelConfig, pcfg: ParallelConfig,
 _METRICS = ("loss", "ce", "aux", "zloss")
 
 
+def _batch_axes(mesh: Mesh, bs) -> Tuple[str, ...]:
+    """The mesh axes of more than one device that split the batch (its
+    ``tokens``' dim 0, major first) under batch specs ``bs``."""
+    lead = bs["tokens"] if isinstance(bs, dict) else bs
+    split = dict(lead.dims()).get(0, ())
+    return tuple(a for a in split if mesh.shape[a] > 1)
+
+
+def _fold(x: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
+    """A laid-out batch leaf (n_local, ...) with its batch dim (dim 0, or
+    1 for M-RoPE's (3, B, S) positions) folded with the local devices,
+    device-major."""
+    d = 1 if len(sh.spec) == 3 and sh.spec[0] is None and \
+        sh.spec[1] is not None else 0
+    return x.movedim(0, d).flatten(d, d + 1)
+
+
+def compute_params(cfg: ModelConfig, mesh: Mesh, params, shardings,
+                   batch_axes: Tuple[str, ...]):
+    """The params the model computes with in a sharding context (under
+    autograd where grad is on).  Each laid-out leaf is all-gathered
+    (``shardings.gather``) but along a model split the compute shares
+    (``shardings.compute_dim``).  A leaf the compute splits otherwise than
+    its storage is cut to each device's compute slice after the gather
+    (``shardings.model_slice``, whose backward all-gathers the slices'
+    gradients).  A stacked layer leaf is cut into its layers, each
+    (n_local, ...), by one ``unbind`` (``lm._layer`` indexes them), whose
+    backward writes the leaf's gradient once where a select a layer would
+    write it each time.  Each leaf's gradient reduces over the batch axes,
+    and over the model axis for a leaf the devices of a model group use
+    whole (each holds a share of its gradient)."""
+    c = SHD.ctx()
+
+    def one(path, p, sh):
+        shape = [n * math.prod(mesh.shape[a] for a in
+                               dict(sh.dims()).get(d, ()))
+                 for d, n in enumerate(p.shape[1:])]
+        cd = SH.compute_dim(path, shape, cfg)
+        keep = ()
+        if cd is not None and dict(sh.dims()).get(cd) == ("model",):
+            keep = ("model",)
+        sums = batch_axes + (("model",) if c.m > 1 and cd is None else ())
+        x = SH.gather(p, sh, sums, keep)
+        if cd is not None and not keep:
+            x = SH.model_slice(x, cd, c.model)
+        if str(path[0]).startswith("stage"):
+            x = x.movedim(0, 1).unbind(0)
+        return x
+
+    return SH.tree_map(one, params, shardings, with_path=True)
+
+
 def _mesh_train_step(cfg: ModelConfig, mesh: Mesh, pcfg: ParallelConfig,
-                     ocfg: Optional[adamw.OptConfig] = None):
+                     ocfg: Optional[adamw.OptConfig] = None,
+                     donate: bool = False):
     ocfg = ocfg or adamw.OptConfig()
-    _refuse_moe_groups(pcfg)
-    moe = "moe" in cfg.mlp_kinds()
 
     def state_shardings(state_shapes: TrainState) -> TrainState:
         ps = SH.tree_shardings(state_shapes.params, mesh, SH.param_spec,
@@ -220,20 +319,12 @@ def _mesh_train_step(cfg: ModelConfig, mesh: Mesh, pcfg: ParallelConfig,
         dp = ("pod", "data") if pcfg.tensor_parallel else \
             ("pod", "data", "model")
         bs = SH.batch_specs(mesh, batch_shapes, dp_axes=dp)
-        split = dict(bs["tokens"].dims()).get(0, ())
-        batch_axes = tuple(a for a in split if mesh.shape[a] > 1)
-        n_slices = math.prod(mesh.shape[a] for a in batch_axes)
-        if moe and n_slices > 1:
-            raise NotImplementedError(
-                f"{cfg.name} has MoE layers, whose token groups and aux loss "
-                f"span the global batch; a mesh that splits the batch over "
-                f"{n_slices} devices would route in other groups: ROADMAP "
-                f"item 16c")
+        batch_axes = _batch_axes(mesh, bs)
         want = SH.tree_map(lambda x, sh: (mesh.n_local,)
                            + sh.local_shape(x.shape), state_shapes, ss)
         return lambda state, batch: _mesh_step(
-            cfg, pcfg, ocfg, mesh, ss, want, bs, batch_axes, n_slices,
-            state, batch)
+            cfg, pcfg, ocfg, mesh, ss, want, bs, batch_axes, donate, state,
+            batch)
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         ss = state_shardings(state)
@@ -251,26 +342,22 @@ def _check_laid_out(path, x: torch.Tensor, shape) -> None:
             f"{tuple(x.shape)} — lay it out with shardings.shard")
 
 
-def _mesh_step(cfg, pcfg, ocfg, mesh, ss, want, bs, batch_axes, n_slices,
+def _mesh_step(cfg, pcfg, ocfg, mesh, ss, want, bs, batch_axes, donate,
                state: TrainState, batch) -> Tuple[TrainState, Dict]:
     """One step of the mesh form over a laid-out ``state`` (module
     docstring)."""
     SH.tree_map(_check_laid_out, state, want, with_path=True)
-    shards = SH.shard(batch, bs)
+    folded = SH.tree_map(_fold, SH.shard(batch, bs), bs)
     ps = ss.params
+    n_slices = math.prod(mesh.shape[a] for a in batch_axes)
     leaves = adamw.tree_map(lambda p: p.detach().requires_grad_(),
                             state.params)
-    with torch.enable_grad():
-        copies = adamw.tree_map(
-            lambda p, sh: SH.gather(p, sh, batch_axes).unbind(0), leaves, ps)
-        total, mets = 0.0, []
-        for i in range(mesh.n_local):
-            loss, m = loss_fn(cfg, pcfg,
-                              adamw.tree_map(lambda c: c[i], copies),
-                              {k: v[i] for k, v in shards.items()})
-            total = total + loss / n_slices
-            mets.append(torch.stack([loss.detach()] + [
-                m[k].detach().to(torch.float32) for k in _METRICS[1:]]))
+    with torch.enable_grad(), SHD.use_sharding(
+            mesh, sharding_rules(pcfg), batch_axes=batch_axes):
+        full = compute_params(cfg, mesh, leaves, ps, batch_axes)
+        loss, m = loss_fn(cfg, pcfg, full, folded)
+        # each batch slice's loss once: its model group's m replicas share
+        total = loss.sum() / (n_slices * SHD.ctx().m)
         flat = adamw.tree_leaves(leaves)
         gs = torch.autograd.grad(total, flat, allow_unused=True)
     by_leaf = {id(p): g for p, g in zip(flat, gs)}
@@ -278,7 +365,8 @@ def _mesh_step(cfg, pcfg, ocfg, mesh, ss, want, bs, batch_axes, n_slices,
                            if by_leaf[id(p)] is None else by_leaf[id(p)],
                            leaves)
     # the global batch's means: each slice's, summed over the batch axes
-    met = torch.stack(mets)
+    met = torch.stack([loss.detach()] + [m[k].detach().to(torch.float32)
+                                         for k in _METRICS[1:]], dim=1)
     for a in batch_axes:
         met = mesh.axis(a).psum(met)
     met = met / n_slices
@@ -302,8 +390,181 @@ def _mesh_step(cfg, pcfg, ocfg, mesh, ss, want, bs, batch_axes, n_slices,
         torch.sum(torch.square(g.to(torch.float32)).reshape(g.shape[0], -1),
                   1), sh, "psum"), grads, ps)
     gnorm = torch.sqrt(sum(adamw.tree_leaves(sq)))
+    del flat, gs, by_leaf, leaves
     params, opt, om = adamw.update(ocfg, grads, state.opt, state.params,
-                                   gnorm=gnorm, lead=1)
+                                   gnorm=gnorm, lead=1, inplace=donate)
     metrics = {k: met[0, j] for j, k in enumerate(_METRICS)}
     metrics.update(grad_norm=om["grad_norm"][0], lr=om["lr"][0])
     return TrainState(params, opt, state.step + 1, err_fb), metrics
+
+
+# ---------------------------------------------------------------------------
+# the prefill and decode steps over a mesh
+# ---------------------------------------------------------------------------
+
+def _logits_sharding(cfg: ModelConfig, mesh: Mesh,
+                     batch: int) -> NamedSharding:
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    spec = SH._fit_spec([dp if dp else None, None, "model"],
+                        (batch, 1, cfg.vocab_size), mesh)
+    return NamedSharding(mesh, spec)
+
+
+def _refuse_whole_layers(cfg: ModelConfig) -> None:
+    kinds = set(cfg.layer_kinds()) | set(cfg.mlp_kinds())
+    whole = sorted(kinds & {"mla", "mamba", "rwkv", "rwkv_cm"}) + (
+        ["cross attention"] if cfg.encdec else [])
+    if whole:
+        raise NotImplementedError(
+            f"{cfg.name}: the mesh's prefill and decode steps split GQA, "
+            f"dense and MoE layers; {', '.join(whole)} over a laid-out "
+            f"cache is ROADMAP item 16d")
+
+
+def _cache_folded(cfg: ModelConfig, cache, cs, mesh: Mesh):
+    """Each laid-out cache leaf (n_local, reps, b, ...) as the folded
+    (reps, n_local * b, ...) the model indexes, and what has to be written
+    back after the step: the leaves whose fold copied (storage not
+    layer-major) and the KV leaves split over the model axis where the
+    compute keeps every KV head on every device (gathered whole over it
+    here, each device's slice written back)."""
+    kv_split = (SHD.parts("heads", cfg.n_heads) > 1
+                and SHD.parts("kv_heads", cfg.n_kv_heads) > 1)
+    back = []
+
+    def fold(x, sh):
+        src, model_dim = x, None
+        if not kv_split and mesh.shape.get("model", 1) > 1 and \
+                "model" in sh.axes():
+            model_dim = [d for d, a in sh.dims() if "model" in a][0]
+            src = SH._gather(x, sh, keep=tuple(a for a in sh.axes()
+                                               if a != "model"))
+        v = src.movedim(0, 1)
+        f = v.reshape((v.shape[0], -1) + tuple(v.shape[3:]))
+        if model_dim is not None or (f.untyped_storage().data_ptr()
+                                     != x.untyped_storage().data_ptr()):
+            back.append((x, f, model_dim))
+        return f
+    return SH.tree_map(fold, cache, cs), back
+
+
+def _write_back(back, mesh: Mesh) -> None:
+    for x, f, model_dim in back:
+        u = f.view((f.shape[0], x.shape[0], -1) + tuple(f.shape[2:]))
+        u = u.movedim(1, 0)
+        if model_dim is not None:
+            u = SH._split(u, model_dim, mesh.shape["model"])[
+                torch.arange(u.shape[0], device=u.device),
+                mesh.axis("model").index()]
+        x.copy_(u)
+
+
+def _logits_out(logits: torch.Tensor, lg: NamedSharding, mesh: Mesh,
+                vocab: int) -> torch.Tensor:
+    """Folded logits (n_local * b, S, V') laid out by ``lg``: (n_local, b,
+    S, V / p), each device's vocab slice cut from whole logits where the
+    compute left them whole (``tensor_parallel=False``)."""
+    out = SHD.dev(logits)
+    if "model" in dict(lg.dims()).get(2, ()) and out.shape[-1] == vocab:
+        v = SH._split(out, 2, mesh.shape["model"])
+        out = v[torch.arange(out.shape[0], device=out.device),
+                mesh.axis("model").index()]
+    return out
+
+
+def _serving_step(cfg, pcfg, mesh, ps, cs, bs, lg, params, cache, run):
+    """The common part of the prefill and decode steps: ``run(full
+    params, folded cache)`` in the sharding context, without grad, its
+    logits laid out by ``lg``."""
+    batch_axes = _batch_axes(mesh, bs)
+    with torch.no_grad(), SHD.use_sharding(
+            mesh, sharding_rules(pcfg), batch_axes=batch_axes):
+        full = compute_params(cfg, mesh, params, ps, batch_axes)
+        folded, back = _cache_folded(cfg, cache, cs, mesh)
+        logits = run(full, folded)
+        _write_back(back, mesh)
+        return _logits_out(logits, lg, mesh, cfg.vocab_size), cache
+
+
+def _serving_layout(cfg, mesh, pcfg, param_shapes, cache_shapes,
+                    batch_shapes, batch: int):
+    """The serving steps' layouts: params by ``param_spec``, the cache by
+    ``cache_spec``, the batch (or tokens) by ``batch_specs``, the logits
+    by :func:`_logits_sharding`."""
+    return (SH.tree_shardings(param_shapes, mesh, SH.param_spec,
+                              fsdp=pcfg.fsdp),
+            SH.tree_shardings(cache_shapes, mesh, SH.cache_spec),
+            SH.batch_specs(mesh, batch_shapes),
+            _logits_sharding(cfg, mesh, batch))
+
+
+def _full_step(step, layout, params, cache, *rest):
+    """``step_fn`` of the serving steps: full params and cache laid out,
+    stepped, the cache written back IN PLACE; full logits."""
+    ps, cs, _, lg = layout
+    laid = SH.shard(cache, cs, stack_dim=1)
+    logits, laid = step(SH.shard(params, ps), laid, *rest)
+    SH.tree_map(lambda c, x: c.copy_(x), cache, SH.unshard(laid, cs))
+    return SH.unshard({"l": logits}, {"l": lg})["l"], cache
+
+
+def make_prefill_step(cfg: ModelConfig, mesh: Mesh, pcfg: ParallelConfig):
+    """Inference-prefill over a mesh: causal forward + KV-cache population
+    (module docstring)."""
+    _refuse_whole_layers(cfg)
+
+    def step_of(layout):
+        ps, cs, bs, lg = layout
+
+        def step(params, cache, batch):
+            b = SH.tree_map(_fold, SH.shard(batch, bs), bs)
+            return _serving_step(
+                cfg, pcfg, mesh, ps, cs, bs, lg, params, cache,
+                lambda full, c: lm.forward(
+                    cfg, full, b["tokens"], positions=b.get("positions"),
+                    cache=c, mode="prefill", moe_groups=pcfg.moe_groups)[0])
+        return step
+
+    def layout_of(params, cache, batch):
+        return _serving_layout(cfg, mesh, pcfg, params, cache, batch,
+                               batch["tokens"].shape[0])
+
+    def compile_step(param_shapes, cache_shapes, batch_shapes):
+        return step_of(layout_of(param_shapes, cache_shapes, batch_shapes))
+
+    def step_fn(params, cache, batch):
+        layout = layout_of(params, cache, batch)
+        return _full_step(step_of(layout), layout, params, cache, batch)
+
+    return step_fn, compile_step
+
+
+def make_serve_step(cfg: ModelConfig, mesh: Mesh, pcfg: ParallelConfig):
+    """One decode step over a mesh at a uniform position (the reference's
+    over ``lm.decode_step``; module docstring)."""
+    _refuse_whole_layers(cfg)
+
+    def step_of(layout):
+        ps, cs, ts, lg = layout
+
+        def step(params, cache, tokens, pos):
+            t = _fold(SH.shard(tokens, ts), ts)
+            return _serving_step(
+                cfg, pcfg, mesh, ps, cs, ts, lg, params, cache,
+                lambda full, c: lm.decode_step(
+                    cfg, full, c, t, pos, moe_groups=pcfg.moe_groups)[0])
+        return step
+
+    def layout_of(params, cache, tokens):
+        return _serving_layout(cfg, mesh, pcfg, params, cache, tokens,
+                               tokens.shape[0])
+
+    def compile_step(param_shapes, cache_shapes, token_shapes):
+        return step_of(layout_of(param_shapes, cache_shapes, token_shapes))
+
+    def step_fn(params, cache, tokens, pos):
+        layout = layout_of(params, cache, tokens)
+        return _full_step(step_of(layout), layout, params, cache, tokens,
+                          pos)
+
+    return step_fn, compile_step

@@ -211,9 +211,111 @@ def mesh_train_job(axis, local, shared):
     return out
 
 
+def _mesh_22(axis):
+    """A 2 x 2 mesh: on ranks ``Mesh.from_env``, on a stack
+    ``make_local_mesh``."""
+    from repro_torch.launch.mesh import GroupAxis, Mesh, make_local_mesh
+    return (Mesh.from_env(2, 2, device="cpu") if isinstance(axis, GroupAxis)
+            else make_local_mesh(2, 2, device="cpu"))
+
+
+def _shared_params(shared):
+    params = {}
+    for k, v in shared.items():
+        if k.startswith("param/"):
+            node = params
+            *head, last = k[len("param/"):].split("/")
+            for h in head:
+                node = node.setdefault(h, {})
+            node[last] = torch.from_numpy(v)
+    return params
+
+
+def tp_train_job(axis, local, shared):
+    """Reduced tinyllama, 2 steps on a 2 x 2 mesh with tensor and sequence
+    parallelism, from the full params (``param/<path>``) and batches
+    (``tokens``/``labels`` (2, B, S)) in ``shared``."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_reduced
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import shardings as SH
+    from repro_torch.train import step as TS
+    mesh = _mesh_22(axis)
+    cfg = get_reduced("tinyllama-1.1b")
+    pcfg = TS.ParallelConfig(sequence_parallel=True)
+    state = TS.state_from_params(_shared_params(shared), pcfg)
+    batches = [{k: torch.from_numpy(shared[k][i].copy())
+                for k in ("tokens", "labels")} for i in range(2)]
+    _, compile_step, state_shardings = TS.make_train_step(
+        cfg, mesh, pcfg, OptConfig(lr=8e-3, warmup_steps=2, total_steps=40))
+    sh = state_shardings(state)
+    step = compile_step(state, batches[0])
+    st = SH.shard(state, sh)
+    hist, counts = [], []
+    for b in batches:
+        mesh.reset_counts()
+        st, m = step(st, b)
+        hist.append([float(m["loss"]), float(m["grad_norm"])])
+        counts.append([c for a in ("data", "model")
+                       for c in mesh.counts()[a]])
+    out = {f"shard/{p}": leaf for p, leaf in ckpt._flatten(st.params)}
+    n = mesh.n_local
+    out.update(hist=torch.tensor([hist] * n, dtype=torch.float64),
+               counts=torch.tensor([counts] * n))
+    return out
+
+
+def tp_serve_job(axis, local, shared):
+    """Reduced ``shared["arch"]``'s prefill of ``tokens`` (B, S) and
+    ``steps`` greedy decode steps on a 2 x 2 mesh (tensor parallel) over
+    a laid-out cache of ``max_len``: every step's laid-out logits, the
+    greedy tokens, the laid-out cache and the counts."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.train import shardings as SH
+    from repro_torch.train import step as TS
+    mesh = _mesh_22(axis)
+    cfg = get_reduced(str(shared["arch"]))
+    pcfg = TS.ParallelConfig()
+    params = _shared_params(shared)
+    toks = torch.from_numpy(shared["tokens"])
+    B, S = toks.shape
+    cache = lm.init_cache(cfg, B, int(shared["max_len"]), device="cpu")
+    _, pcomp = TS.make_prefill_step(cfg, mesh, pcfg)
+    _, scomp = TS.make_serve_step(cfg, mesh, pcfg)
+    batch = {"tokens": toks}
+    ps = SH.tree_shardings(params, mesh, SH.param_spec)
+    cs = SH.tree_shardings(cache, mesh, SH.cache_spec)
+    laid_p = SH.shard(params, ps)
+    laid_c = SH.shard(cache, cs, stack_dim=1)
+    mesh.reset_counts()
+    lg, laid_c = pcomp(params, cache, batch)(laid_p, laid_c, batch)
+    out = {"prefill": lg}
+    lg_sh = TS._logits_sharding(cfg, mesh, B)
+    tok = SH.unshard({"l": lg}, {"l": lg_sh})["l"][:, -1].argmax(-1)
+    tok = tok[:, None].to(torch.int32)
+    sstep = scomp(params, cache, tok)
+    got = [tok]
+    for i in range(int(shared["steps"])):
+        lg, laid_c = sstep(laid_p, laid_c, tok, S + i)
+        out[f"decode{i}"] = lg
+        tok = SH.unshard({"l": lg}, {"l": lg_sh})["l"][:, -1].argmax(-1)
+        tok = tok[:, None].to(torch.int32)
+        got.append(tok)
+    n = mesh.n_local
+    out.update({f"cache/{p}": leaf.contiguous()
+                for p, leaf in ckpt._flatten(laid_c)})
+    out["greedy"] = torch.cat(got, 1)[None].expand(n, -1, -1).contiguous()
+    out["counts"] = torch.tensor([[c for a in ("data", "model")
+                                   for c in mesh.counts()[a]]] * n)
+    return out
+
+
 JOBS = {"rbm": rbm_job, "ring_attention": ring_attention_job,
         "pipeline": pipeline_job, "mesh_movement": mesh_movement_job,
-        "raises": raises_job, "mesh_train": mesh_train_job}
+        "raises": raises_job, "mesh_train": mesh_train_job,
+        "tp_train": tp_train_job, "tp_serve": tp_serve_job}
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ kernels' tiles or splits, the decode kernel's dispatch
 rule, int8 K/V with their scales on the decode route (K3d) at every
 instantiated head dim and group, and the Engine on the card against the
 Engine on the CPU (the dense, sliding-window, MoE, MLA and recurrent
-families).
+families), and the mesh's split train, prefill and decode steps on the
+card against the CPU.
 """
 import numpy as np
 import pytest
@@ -1390,8 +1391,9 @@ def test_mesh_train_step_on_card_matches_cpu(dev):
     3 steps on the card against the same steps on the CPU: step 1's loss
     and grad norm within rel 1e-5, its params within 1e-5 where the CPU's
     gradient is above 1e-6 and within lr everywhere, every loss within rel
-    1e-4; K3 prefill launches layers x 4 device forwards a step, and the
-    K2 launches equal the mesh's hops."""
+    1e-4; K3 prefill launches layers a step (one forward of the folded
+    stack, its heads split over the model axis), and the K2 launches
+    equal the mesh's hops."""
     from repro_torch.checkpoint.manager import _flatten
     from repro_torch.configs import get_reduced
     from repro_torch.data.pipeline import DataConfig, batch_at
@@ -1429,7 +1431,7 @@ def test_mesh_train_step_on_card_matches_cpu(dev):
             counts = ops.launch_counts()
             hops = sum(h for h, _ in mesh.counts().values())
             assert counts["villa_gather"] == hops
-            assert counts["flash_attention_prefill"] == 3 * 4 * cfg.n_layers
+            assert counts["flash_attention_prefill"] == 3 * cfg.n_layers
         runs[str(where)] = (hist, first)
     (hc, fc), (hg, fg) = runs["cpu"], runs[str(dev)]
     assert hg[0][0] == pytest.approx(hc[0][0], rel=1e-5)
@@ -1442,3 +1444,95 @@ def test_mesh_train_step_on_card_matches_cpu(dev):
         diff = (g.cpu() - c).abs()
         assert (diff[grads[path].abs() > 1e-6] <= 1e-5).all(), path
         assert (diff <= ocfg.lr).all(), path
+
+
+@pytest.mark.parametrize("arch,shape,kw", [
+    ("tinyllama-1.1b", (1, 4), {}),
+    ("tinyllama-1.1b", (2, 2), {"sequence_parallel": True}),
+    ("olmoe-1b-7b", (2, 2), {"moe_groups": 2})])
+def test_split_train_and_serve_steps_on_card_match_cpu(dev, arch, shape,
+                                                       kw):
+    """The model axis's split compute on the card against the same on the
+    CPU: one train step (loss and grad norm within rel 1e-5, params within
+    1e-5 where the gradient is above 1e-6 and within lr everywhere), then
+    a prefill of 4 x 24 tokens and 6 greedy decode steps through
+    ``make_prefill_step``/``make_serve_step`` over a laid-out cache
+    (logits within 1e-4, greedy tokens equal); K3 once a layer for the
+    whole stack on each route, K2 == the hops."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import shardings as SH
+    from repro_torch.train import step as TS
+    cfg = get_reduced(arch)
+    pcfg = TS.ParallelConfig(**kw)
+    ocfg = OptConfig(lr=8e-3, warmup_steps=2, total_steps=40)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(1), device="cpu")
+    g = torch.Generator().manual_seed(2)
+    t = torch.randint(0, cfg.vocab_size, (8, 33), generator=g,
+                      dtype=torch.int32)
+    batch = {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
+    prompt = torch.randint(0, cfg.vocab_size, (4, 24), generator=g,
+                           dtype=torch.int32)
+    runs = {}
+    for where in ("cpu", dev):
+        mesh = make_local_mesh(*shape, device=where)
+        on = {k: v.to(where) for k, v in batch.items()}
+        p = SH.tree_map(lambda x: x.to(where), params)
+        state = TS.state_from_params(p, pcfg)
+        _, compile_step, state_shardings = TS.make_train_step(cfg, mesh,
+                                                              pcfg, ocfg)
+        sh = state_shardings(state)
+        ops.reset_launch_counts()
+        mesh.reset_counts()
+        st, m = compile_step(state, on)(SH.shard(state, sh), on)
+        if where == dev:
+            torch.cuda.synchronize()
+            c = ops.launch_counts()
+            assert c["flash_attention_prefill"] == cfg.n_layers
+            assert c["villa_gather"] == sum(
+                h for h, _ in mesh.counts().values())
+        full = SH.unshard(st, sh).params
+        cache = lm.init_cache(cfg, 4, 40, device=where)
+        _, pcomp = TS.make_prefill_step(cfg, mesh, pcfg)
+        _, scomp = TS.make_serve_step(cfg, mesh, pcfg)
+        ps = SH.tree_shardings(p, mesh, SH.param_spec)
+        cs = SH.tree_shardings(cache, mesh, SH.cache_spec)
+        lg_sh = TS._logits_sharding(cfg, mesh, 4)
+        laid_p, laid_c = SH.shard(p, ps), SH.shard(cache, cs, stack_dim=1)
+        pb = {"tokens": prompt.to(where)}
+        ops.reset_launch_counts()
+        mesh.reset_counts()
+        lg, laid_c = pcomp(p, cache, pb)(laid_p, laid_c, pb)
+        logits = [SH.unshard({"l": lg}, {"l": lg_sh})["l"].cpu()]
+        tok = logits[0][:, -1:].argmax(-1).to(torch.int32)
+        toks = [tok]
+        sstep = scomp(p, cache, tok.to(where))
+        for i in range(6):
+            lg, laid_c = sstep(laid_p, laid_c, tok.to(where), 24 + i)
+            logits.append(SH.unshard({"l": lg}, {"l": lg_sh})["l"].cpu())
+            tok = logits[-1][:, -1:].argmax(-1).to(torch.int32)
+            toks.append(tok)
+        if where == dev:
+            torch.cuda.synchronize()
+            c = ops.launch_counts()
+            assert c["flash_attention_prefill"] == cfg.n_layers
+            assert c["flash_attention_decode"] == 6 * cfg.n_layers
+            assert c["villa_gather"] == sum(
+                h for h, _ in mesh.counts().values())
+        runs[str(where)] = (m, full, logits, toks)
+    (mc, fc, lc, tc), (mg, fg, lgpu, tg) = runs["cpu"], runs[str(dev)]
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    assert float(mg["grad_norm"]) == pytest.approx(float(mc["grad_norm"]),
+                                                   rel=1e-5)
+    grads = dict(_flatten(TS.grads_of(cfg, pcfg, params, batch)[2]))
+    for (path, c), (_, gp) in zip(_flatten(fc), _flatten(fg)):
+        diff = (gp.cpu() - c).abs()
+        assert (diff[grads[path].abs() > 1e-6] <= 1e-5).all(), path
+        assert (diff <= ocfg.lr).all(), path
+    for a, b in zip(lgpu, lc):
+        assert float((a - b).abs().max()) <= 1e-4
+    for a, b in zip(tg, tc):
+        assert torch.equal(a, b)

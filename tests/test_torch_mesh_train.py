@@ -1,6 +1,7 @@
 """The port's mesh training step against its own single-device step, on
 stacked meshes on the CPU and on 4 gloo ranks; the two-axis mesh; the
-counts of hops and reductions a step; the refusals; the elastic example.
+counts of hops and reductions a step; MoE over a split batch; the elastic
+example.
 
 Bars: loss and grad norm within rel 1e-5 of the single-device step's (the
 two differ in the order of their sums: each device's loss over its batch
@@ -24,6 +25,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.examples import elastic_rescale
 from repro_torch.launch.mesh import StackedAxis, make_local_mesh
 from repro_torch.models import lm
+from repro_torch.models import sharding as SHD
 from repro_torch.optim import adamw as P_opt
 from repro_torch.train import shardings as SH
 from repro_torch.train import step as TS
@@ -48,27 +50,63 @@ def _params(cfg, seed=0):
                       device="cpu")
 
 
-def step_counts(shardings, sizes, batch_axes, grad_compress):
+def step_counts(params, shardings, mesh, batch_axes, pcfg, cfg):
     """{axis: (hops, reductions)} of one mesh step, from the step's rule:
     a leaf's all-gather makes n hops on each axis it is split over of n
-    devices, its gradient's reduce-scatter n - 1 more on a batch axis (none
-    where the axis does not split the batch); a leaf whole along a batch
-    axis is all-reduced over it (2n - 1 hops); the clip's norm reduces
-    once on each axis a leaf is split over, grad compression's scale once
-    more; the metrics once on each batch axis."""
+    devices, but along a model split the compute shares
+    (``shardings.compute_dim``), which it keeps; its gradient's
+    reduce-scatter n - 1 more on an axis whose devices hold shares of it
+    (a batch axis; the model axis with tensor_parallel for a leaf each
+    device of a model group uses whole, where a leaf the compute splits
+    otherwise than its storage is cut after the gather and its slices'
+    gradients all-gathered over the model axis, a reduction); a leaf whole
+    along such an axis
+    is all-reduced over it (2n - 1 hops); the clip's norm reduces once on
+    each axis a leaf is split over, grad compression's scale once more;
+    the metrics once on each batch axis; the split compute's collectives
+    (:func:`split_reductions`) on the model axis."""
+    sizes = mesh.shape
+    tp = pcfg.tensor_parallel and sizes["model"] > 1
     hops = {a: 0 for a in sizes}
     red = {a: 0 for a in sizes}
-    for sh in P_ckpt._flatten(shardings):
-        split = [a for a in sh[1].axes() if sizes[a] > 1]
-        for a in split:
-            hops[a] += sizes[a] + (sizes[a] - 1 if a in batch_axes else 0)
-            red[a] += 2 if grad_compress else 1
-        for a in batch_axes:
-            if a not in split:
-                hops[a] += 2 * sizes[a] - 1
+    with SHD.use_sharding(mesh, TS.sharding_rules(pcfg),
+                          batch_axes=batch_axes):
+        for (path, x), (_, sh) in zip(P_ckpt._flatten(params),
+                                      P_ckpt._flatten(shardings)):
+            split = [a for a in sh.axes() if sizes[a] > 1]
+            cd = SH.compute_dim(path.split("/"), x.shape, cfg)
+            keep = cd is not None and dict(sh.dims()).get(cd) == ("model",)
+            sums = tuple(batch_axes) + (("model",) if tp and cd is None
+                                        else ())
+            if tp and cd is not None and not keep:
+                red["model"] += 1     # model_slice's backward all-gather
+            for a in split:
+                red[a] += 2 if pcfg.grad_compress else 1
+                if not (keep and a == "model"):
+                    hops[a] += sizes[a] + (sizes[a] - 1 if a in sums else 0)
+            for a in sums:
+                if a not in split:
+                    hops[a] += 2 * sizes[a] - 1
     for a in batch_axes:
         red[a] += 1
+    if tp:
+        red["model"] += split_reductions(cfg, sizes["model"],
+                                         pcfg.sequence_parallel)
     return {a: (hops[a], red[a]) for a in sizes}
+
+
+def split_reductions(cfg, m, sp):
+    """The model axis's collectives in one step of a dense GQA model's
+    split compute, forward and backward: each partial output's reduction
+    (the embedding where the vocab splits, every attention and MLP block
+    where its heads or ff split), under sequence parallelism each block
+    input's all-gather and the final norm's; the cross entropy's pmax and
+    its two psums where the vocab splits (the pmax has no backward)."""
+    vs = cfg.vocab_size % m == 0
+    block = ((2 if cfg.n_heads % m == 0 else 0)
+             + (2 if cfg.d_ff % m == 0 else 0) + (4 if sp else 0))
+    return ((2 if vs else 0) + cfg.n_layers * block + (2 if sp else 0)
+            + (5 if vs else 0))
 
 
 def _same_update(p1, s1, grads, lr, compressed=False):
@@ -117,8 +155,8 @@ def test_mesh_step_matches_the_single_device_step(data, model, tp, fsdp, gc):
     sh = state_shardings(state)
     step = compile_step(state, batches[0])
     dp = ("data",) if tp else ("data", "model")
-    want = step_counts(sh.params, mesh.shape,
-                       tuple(a for a in dp if mesh.shape[a] > 1), gc)
+    want = step_counts(state.params, sh.params, mesh,
+                       tuple(a for a in dp if mesh.shape[a] > 1), pcfg, cfg)
     st, s1 = SH.shard(state, sh), state
     for i, b in enumerate(batches):
         mesh.reset_counts()
@@ -161,28 +199,53 @@ def test_rwkv_mesh_step_matches_the_single_device_step():
 
 def test_moe_runs_where_the_batch_is_whole_and_refuses_a_split():
     """An MoE layer routes over the global batch: reduced olmoe on a 1 x 2
-    mesh (tensor_parallel: the batch stays whole) matches the single
-    device; a mesh that splits the batch, and moe_groups, raise."""
+    mesh (tensor_parallel: the batch stays whole, experts over model)
+    matches the single device; so do the meshes that split the batch
+    (2 x 1, and 1 x 2 without tensor_parallel: the batch over model),
+    whose routing groups span the devices, and ``moe_groups`` 2 (once
+    refused, ROADMAP item 16c)."""
     cfg = get_reduced("olmoe-1b-7b")
-    pcfg = TS.ParallelConfig(fsdp=True)
-    state = TS.state_from_params(_params(cfg, 2), pcfg)
     b = _batches(cfg, 1, seed=2)[0]
-    mesh = make_local_mesh(1, 2, device="cpu")
-    _, compile_step, state_shardings = TS.make_train_step(cfg, mesh, pcfg)
-    st, m = compile_step(state, b)(SH.shard(state, state_shardings(state)),
-                                   b)
-    _, m1 = TS.make_train_step(cfg, pcfg)(state, b)
-    assert _rel(m["loss"], m1["loss"]) <= 1e-5
-    assert float(m["aux"]) > 0
-    for shape, tp in (((2, 1), True), ((1, 2), False)):
-        _, compile_step, _ = TS.make_train_step(
-            cfg, make_local_mesh(*shape, device="cpu"),
-            TS.ParallelConfig(tensor_parallel=tp))
-        with pytest.raises(NotImplementedError, match="item 16c"):
-            compile_step(state, b)
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        TS.make_train_step(get_reduced("tinyllama-1.1b"), mesh,
-                           TS.ParallelConfig(moe_groups=2))
+    for shape, kw in (((1, 2), {}), ((2, 1), {}),
+                      ((1, 2), {"tensor_parallel": False}),
+                      ((2, 2), {"moe_groups": 2})):
+        pcfg = TS.ParallelConfig(fsdp=True, **kw)
+        state = TS.state_from_params(_params(cfg, 2), pcfg)
+        mesh = make_local_mesh(*shape, device="cpu")
+        _, compile_step, state_shardings = TS.make_train_step(cfg, mesh,
+                                                              pcfg)
+        st, m = compile_step(state, b)(
+            SH.shard(state, state_shardings(state)), b)
+        _, m1 = TS.make_train_step(cfg, pcfg)(state, b)
+        assert _rel(m["loss"], m1["loss"]) <= 1e-5, (shape, kw)
+        assert _rel(m["aux"], m1["aux"]) <= 1e-5, (shape, kw)
+        assert _rel(m["grad_norm"], m1["grad_norm"]) <= 1e-5, (shape, kw)
+        assert float(m["aux"]) > 0
+
+
+def test_a_donated_state_is_updated_in_place():
+    """``donate=True`` (the reference's keyword): the compiled step writes
+    the new params and moments into the laid-out state it was given, and
+    its numbers are the undonated step's, bit for bit."""
+    cfg = get_reduced("tinyllama-1.1b")
+    pcfg = TS.ParallelConfig(sequence_parallel=True)
+    state = TS.state_from_params(_params(cfg), pcfg)
+    b = _batches(cfg, 1)[0]
+    mesh = make_local_mesh(2, 2, device="cpu")
+    runs = []
+    for donate in (False, True):
+        _, compile_step, state_shardings = TS.make_train_step(
+            cfg, mesh, pcfg, P_opt.OptConfig(**RECIPE), donate=donate)
+        laid = SH.shard(state, state_shardings(state))
+        ptrs = [t.data_ptr() for t in P_opt.tree_leaves(laid.params)]
+        new, m = compile_step(state, b)(laid, b)
+        same = [t.data_ptr() for t in P_opt.tree_leaves(new.params)] == ptrs
+        assert same == donate
+        runs.append((new, m))
+    (a, ma), (c, mc) = runs
+    assert float(ma["loss"]) == float(mc["loss"])
+    for (path, x), (_, y) in zip(P_ckpt._flatten(a), P_ckpt._flatten(c)):
+        assert torch.equal(x, y), path
 
 
 def test_step_refuses_a_state_not_laid_out():
@@ -309,7 +372,7 @@ def test_ranks_match_the_single_device_step(ranks):
     single = TS.make_train_step(cfg, pcfg, P_opt.OptConfig(**RECIPE))
     mesh = make_local_mesh(2, 2, device="cpu")
     sh = TS.make_train_step(cfg, mesh, pcfg)[2](state)
-    want = step_counts(sh.params, mesh.shape, ("data",), False)
+    want = step_counts(state.params, sh.params, mesh, ("data",), pcfg, cfg)
     for i in range(MESH_TRAIN_STEPS):
         b = {k: torch.from_numpy(shared[f"{k}@{i}"])
              for k in ("tokens", "labels")}

@@ -397,9 +397,31 @@ def test_grad_compression_step_matches_the_reference():
 
 
 def test_mesh_knobs_raise():
-    cfg = get_reduced("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        P_step.make_train_step(cfg, P_step.ParallelConfig(moe_groups=2))
+    """``moe_groups`` (once refused, ROADMAP item 16c) on one device:
+    reduced olmoe routed in 2 and in 4 token groups, loss, aux and every
+    gradient against the reference's with the same groups (1e-5), and the
+    step runs."""
+    cfg, _, rstate, _, dcfg = _ref_setup("olmoe-1b-7b")
+    rb = R_data.batch_at(dcfg, 0)
+    pparams = params_from_jax(_np_tree(rstate.params), device="cpu")
+    for groups in (2, 4):
+        rp = R_step.ParallelConfig(fsdp=False, moe_groups=groups)
+        pp = P_step.ParallelConfig(fsdp=False, moe_groups=groups)
+        (rloss, rmet), rgrads = jax.jit(jax.value_and_grad(
+            lambda p: R_step.loss_fn(cfg, rp, p, rb), has_aux=True))(
+                rstate.params)
+        ploss, pmet, pgrads = P_step.grads_of(cfg, pp, pparams,
+                                              _port_batch(rb))
+        assert float(ploss) == pytest.approx(float(rloss), rel=1e-5)
+        assert float(pmet["aux"]) == pytest.approx(float(rmet["aux"]),
+                                                   rel=1e-5)
+        for path, r, p in _leaves_with_path(rgrads, pgrads):
+            bar = max(1e-5 * float(np.abs(r).max()), 1e-7)
+            np.testing.assert_allclose(p.numpy(), r, rtol=0, atol=bar,
+                                       err_msg=path)
+        _, m = P_step.make_train_step(cfg, pp, P_opt.OptConfig(**RECIPE))(
+            P_step.state_from_params(pparams, pp), _port_batch(rb))
+        assert float(m["loss"]) == pytest.approx(float(ploss), rel=1e-6)
 
 
 # ------------------------------------------------------------- launcher ---
@@ -414,7 +436,9 @@ def test_launcher_runs_resumes_and_refuses_a_mesh(tmp_path, monkeypatch):
     resumed: the resumed run's losses and final params equal the
     uninterrupted run's.  The mesh's checkpoint also resumes onto ``--data
     4 --model 1``, its losses within rel 1e-5 of the uninterrupted run's.
-    A mesh that splits the batch of an MoE model is refused (item 16c)."""
+    A mesh that splits the batch of an MoE model (once refused, item 16c)
+    runs: reduced olmoe on ``--data 2``, its losses within rel 1e-5 of
+    ``--data 1``'s."""
     from repro_torch.checkpoint import manager as P_ckpt
 
     class Crash(Exception):
@@ -448,9 +472,13 @@ def test_launcher_runs_resumes_and_refuses_a_mesh(tmp_path, monkeypatch):
     assert res3["steps"] == 3 and state3.step.shape == (4,)
     for a, b in zip(hist3["losses"], hist["losses"][3:]):
         assert a == pytest.approx(b, rel=1e-5)
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        P_launch.main(["--device", "cpu", "--arch", "olmoe-1b-7b",
-                       "--reduced", "--steps", "1", "--data", "2"])
+    moe = ["--device", "cpu", "--arch", "olmoe-1b-7b", "--reduced",
+           "--steps", "2", "--batch", "4", "--seq", "32"]
+    one = P_launch.run(moe)[2]["losses"]
+    two = P_launch.run(moe + ["--data", "2"])[2]["losses"]
+    assert len(two) == 2
+    for a, b in zip(two, one):
+        assert a == pytest.approx(b, rel=1e-5)
 
 
 def test_launcher_as_a_module_prints_the_reference_json(tmp_path):
