@@ -156,7 +156,8 @@ nvcc (sm_90a), then:
                 ``python -m repro_torch.launch.train`` for 20 steps of 8 x
                 512 tokens, and a run checkpointed at step 10 and resumed
                 whose params end bit-equal to the uninterrupted run's; K3's
-                prefill launches layers x forward passes (K3e), its
+                prefill launches layers x forward passes (K3e), again in
+                each rep's recompute under the config's remat, its
                 backward none.
   20. mesh    — LISA's hop chains over a ``StackedAxis`` on the card, a
                 hop one K2 launch over the stack viewed as 1 KiB rows:
@@ -193,17 +194,19 @@ nvcc (sm_90a), then:
                 the whole stack; ms a step, the collectives' device ms
                 beside their byte bound, peak memory; the NCCL route with
                 two cards or more, else a line saying it did not run.
+                With the config's remat: a stacked leaf gathered a rep at
+                a time, again in the recompute, K3e twice a layer a step.
   22. split training — full-width tinyllama-1.1b in f32 (phase 19's seed
                 and OptConfig) SP_STEPS donated steps on a stacked 1 x 4
-                mesh with tensor parallelism (4 x 512 a step: the
-                reference's layout stores the MLP whole on each device at
-                model 4) and a 2 x 2 one with sequence parallelism (8 x
-                512): step 1's loss and grad norm within rel 1e-5 of the
-                single device's over the same rows, every loss within rel
-                1e-4; hops and
-                reductions == ``mesh_step_counts``, K2 == the hops, K3e
-                launches 22 a step for the whole stack; ms a step, peak
-                memory, one step profiled by op.
+                mesh with tensor parallelism and a 2 x 2 one with
+                sequence parallelism, 8 x 512 a step with the config's
+                remat (the reference's layout stores the MLP whole on each
+                device at model 4: without remat 8 x 512 did not fit):
+                step 1's loss and grad norm within rel 1e-5 of the single
+                device's over the same rows, every loss within rel 1e-4;
+                hops and reductions == ``mesh_step_counts``, K2 == the
+                hops, K3e launches 44 a step for the whole stack; ms a
+                step, peak memory, one step profiled by op.
   23. mesh serving — ``make_prefill_step`` + SV_STEPS greedy
                 ``make_serve_step`` decode steps over a laid-out cache:
                 full-width tinyllama-1.1b in f32 on 2 x 2 and 1 x 4, and
@@ -216,6 +219,19 @@ nvcc (sm_90a), then:
                 layers a prefill and its decode route layers a step for
                 the whole stack, K2 == the hops; ms a prefill and a step,
                 peak memory.
+  24. split mesh serving — the same steps for MLA, rwkv, mamba and the
+                enc-dec model split over model, at full width: deepseek-v2 bf16 (2
+                layers) and rwkv6 f32 (full depth) on 1 x 2, jamba bf16
+                (its first 5 layers, one rep of every kind) on 2 x 2,
+                seamless-m4t-medium f32 (full depth, 1024 frames) on 1 x
+                2; teacher-forced on the single device's tokens and MoE
+                routing (where the mesh's own top-k differs, a near-tie);
+                logits within SV_BAR, or where a run's rounding moves them
+                further (bf16; rwkv's group norm), a relative L2 gap at
+                most SS_RATIO x the single device's own to its weights in
+                f32 or moved by one ulp; K3's launches what the layers
+                call for, K2 == the hops; phase 2 times K3 at its
+                local-head shapes.
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -389,11 +405,11 @@ MT_LAUNCH_CKPT = 6
 # phase 22: phase 19 (b)'s full-width tinyllama training for SP_STEPS steps
 # on each (mesh, ParallelConfig keywords, rows a step) of SP_RUNS.  At
 # model 4 the reference's layout keeps tinyllama's MLP whole on every
-# device (22 layers do not divide 4): the 1 x 4 state alone is 40.6 GB, and
-# its step of T_BATCH rows ran out of the card's memory in the backward, so
-# it takes half the rows, against the single device's run of the same rows
+# device (22 layers do not divide 4): the 1 x 4 state alone is 40.6 GB;
+# without remat its step of T_BATCH rows ran out of the card's memory in
+# the backward; with remat (the config's) it holds one rep's activations
 SP_STEPS = 3
-SP_RUNS = (((1, 4), {}, T_BATCH // 2),
+SP_RUNS = (((1, 4), {}, T_BATCH),
            ((2, 2), {"sequence_parallel": True}, T_BATCH))
 # phase 23: SV_BATCH prompts of SV_PROMPT random tokens prefilled into a
 # cache of SV_MAX_LEN slots, then SV_STEPS greedy decode steps, on each
@@ -412,6 +428,50 @@ SV_TIE = 1e-5
 # the combine's psum): every row came within 1.0e-4-1.4e-4 of the single
 # device's on an H100 80GB HBM3 at 700 W, ~5x tinyllama's 2e-5, not 3e-5
 SV_MOE_BAR = 3e-4
+# phase 24: the families item 16c left whole, split over model through
+# make_prefill_step + make_serve_step at full width: SS_BATCH prompts of
+# SS_PROMPT tokens (seamless's over SS_FRAMES frame embeddings, std 0.02)
+# into a cache of SS_MAX_LEN slots, then SS_STEPS teacher-forced greedy
+# decode steps, against the single device's lm.prefill/decode_step with
+# its copy of the weights beside the laid-out one.  (name, arch, weights'
+# dtype, mesh, layers or None for full depth, the truth's dtype or None,
+# why that depth).  Logits are held within SV_BAR of the single device's,
+# but where a run's own rounding moves them further than that bar, the
+# run names a truth, the single device's run of other weights fed its
+# tokens and routing, and the mesh's relative L2 gap to the single device
+# must be at most SS_RATIO times the single device's own gap to it: a
+# bf16 run (the split rounds each device's partial sums before the
+# reduction: 1.4-2.1% relative L2 at width 1024 on the CPU, tinyllama's
+# too) against its weights in f32; rwkv6 against its weights each moved
+# by one f32 ulp ("ulp"): its per-head group norm divides rows whose
+# variance (2e-4 at random weights) lies below its 6.4e-4 epsilon, so any
+# rounding grows with depth (at width 1024 on the CPU: the split's gap
+# 1.0e-5 at 4 layers, 4.2e-4 at 16, and the ulp-moved weights' 1.7e-5
+# and 2.4e-4; 4.4e-5 at 4 full-width layers on an H100), and its scan
+# pins f32, so no wider dtype exists to hold it to.
+SS_BATCH, SS_PROMPT, SS_MAX_LEN, SS_STEPS, SS_FRAMES = 4, 64, 128, 8, 1024
+SS_RUNS = (
+    # 3.97 B parameters a layer, 7.9 GB in bf16: 2 layers and the 1 GB
+    # embedding and head in bf16 beside their f32 copy are 51 GB, then
+    # beside the laid-out copy 34 GB
+    ("deepseek-v2", "deepseek-v2-236b", "bfloat16", (1, 2), 2, "float32",
+     "MLA's 128 heads and the 160 experts over model; every layer alike"),
+    # 30.1 GB in f32 beside the ulp-moved copy, then beside the laid-out
+    # one (wr and wg whole on both devices) ~65 GB
+    ("rwkv6", "rwkv6-7b", "float32", (1, 2), None, "ulp",
+     "64 heads and ff over model; full depth"),
+    # the first 5 layers are one of each kind (mamba with dense and MoE
+    # MLPs, the attention layer at index 4), one rep of 6.6 B parameters:
+    # 13 GB in bf16 beside their f32 copy, then two bf16 copies and the
+    # rep's gather over data on 2 x 2 are ~45 GB; a whole 8-layer period
+    # would pass 80
+    ("jamba", "jamba-v0.1-52b", "bfloat16", (2, 2), 5, "float32",
+     "inner 8192 and 8 KV heads over model, 16 experts; one rep of every "
+     "layer kind"),
+    ("seamless", "seamless-m4t-medium", "float32", (1, 2), None, None,
+     "the encoder and cross attention over 16 heads; full depth"),
+)
+SS_RATIO = 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -663,6 +723,13 @@ def main() -> int:
     rows["flash_attention_encdec"], rows["flash_attention_mrope"] = \
         encdec_and_mrope_rows(dev, gen, flush, tag)
     rows["flash_attention_train"] = train_attention_row(dev, gen, flush, tag)
+    # phase 24's local-head shapes, beside each path's rows
+    for entry, extra in split_family_rows(dev, gen, flush, tag).items():
+        row = rows[entry]
+        row.setdefault("shapes", {}).update(extra)
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            r["max_abs_err"] for r in extra.values()
+            if r["dtypes"] == row["dtypes"]])
 
     # K4 at the tile_copy path's shape: one K leaf of the serving cache
     leaf = torch.randn((cfg.n_layers, SLOTS, MAX_LEN, K, D), device=dev,
@@ -916,6 +983,19 @@ def main() -> int:
         counts[f"flash_attention_{route}"] += served["tinyllama"][route]
         paths["flash_attention_moe"][route] += served["olmoe"][route]
     wall(23)
+    # the families item 16c left whole, split over a laid-out cache:
+    # deepseek-v2's K3 launches count on the MLA row, jamba's on the
+    # bf16-weight (mixed) row, seamless's on the enc-dec row; rwkv6 runs
+    # no K3
+    split_served = split_serve_phase(tag)
+    counts["villa_gather"] += split_served["villa_gather"]
+    counts["villa_gather_hop"] += split_served["villa_gather"]
+    for name, entry in (("deepseek-v2", "flash_attention_mla"),
+                        ("jamba", "flash_attention_mixed"),
+                        ("seamless", "flash_attention_encdec")):
+        for route in ("prefill", "decode"):
+            paths[entry][route] += split_served[name][route]
+    wall(24)
     routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
                                   "decode": counts["flash_attention_decode"]},
               **paths, "flash_attention_train": train}
@@ -2043,6 +2123,82 @@ def encdec_and_mrope_rows(dev, gen, flush, tag):
     return out
 
 
+def split_family_rows(dev, gen, flush, tag) -> dict:
+    """Phase 2 at the K3 shapes phase 24's mesh steps launch and no
+    earlier row holds: each device's local heads of the folded stack
+    (SS_BATCH rows on each of 2 devices at 1 x 2, 2 rows on each of 4 at
+    2 x 2: 8 rows).  deepseek-v2's MLA prefill (64 of 128 heads, Dk 192 /
+    Dv 128, bf16); jamba's attention layer (16/4 of 32/8 heads, D 128):
+    the bf16 prefill and the decode of bf16 q over the f32 cache;
+    seamless-m4t-medium's (8 of 16 heads, D 64, f32): the encoder over
+    SS_FRAMES frames, non-causal, cross attention in prefill and decode,
+    and the decoder's self-attention in decode.  Each held to
+    ``ref.attention_bar`` and timed beside its plain version and SDPA.
+    Returns {kernels entry: {shape name: row}}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    B, S, L, T = 8, SS_PROMPT, SS_MAX_LEN, SS_FRAMES
+    last = SS_PROMPT + SS_STEPS - 1          # the last decode step's position
+    causal = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    frames = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    cache = np.full((B, L), 2**30, np.int32)
+    cache[:, :last + 1] = np.arange(last + 1)
+    at_last = np.full((B, 1), last, np.int32)
+
+    def case(S, T, H, K, dk, dv, qp, kp, qdt, kvdt):
+        q = torch.randn((B, S, H, dk), device=dev, generator=gen).to(qdt)
+        k = torch.randn((B, T, K, dk), device=dev, generator=gen).to(kvdt)
+        v = torch.randn((B, T, K, dv), device=dev, generator=gen).to(kvdt)
+        return (q, k, v, torch.from_numpy(qp).to(dev),
+                torch.from_numpy(kp).to(dev))
+
+    bf, f32 = torch.bfloat16, torch.float32
+    ds = get_config("deepseek-v2-236b")
+    dk = ds.qk_nope_dim + ds.qk_rope_dim
+    jb = get_config("jamba-v0.1-52b")
+    jh, jk, jd = jb.n_heads // 2, jb.n_kv_heads // 2, jb.head_dim
+    sm = get_config("seamless-m4t-medium")
+    sh, sd = sm.n_heads // 2, sm.head_dim
+    cross_q = np.full((B, S), 2**29, np.int32)
+    cross_d = np.full((B, 1), 2**29, np.int32)
+    valid = np.zeros((B, T), np.int32)
+    return {
+        "flash_attention_mla": {
+            "mesh_prefill_64_heads_bf16": attention_row(
+                "deepseek-v2 MLA mesh prefill, 64 local heads", *case(
+                    S, S, ds.n_heads // 2, ds.n_heads // 2, dk,
+                    ds.v_head_dim, causal, causal, bf, bf), 0, flush, tag)},
+        "flash_attention_mixed": {
+            "jamba_mesh_prefill_bf16": attention_row(
+                "jamba mesh prefill, 16/4 local heads", *case(
+                    S, S, jh, jk, jd, jd, causal, causal, bf, bf), 0,
+                flush, tag),
+            "jamba_mesh_decode": attention_row(
+                "jamba mesh decode, 16/4 local heads", *case(
+                    1, L, jh, jk, jd, jd, at_last, cache, bf, f32), 0,
+                flush, tag)},
+        "flash_attention_encdec": {
+            "mesh_encoder_8_heads": attention_row(
+                "seamless mesh encoder, 8 local heads", *case(
+                    T, T, sh, sh, sd, sd, frames, frames, f32, f32), 0,
+                flush, tag, causal=False),
+            "mesh_cross_prefill": attention_row(
+                "seamless mesh cross prefill, 8 local heads", *case(
+                    S, T, sh, sh, sd, sd, cross_q, valid, f32, f32), 0,
+                flush, tag),
+            "mesh_cross_decode": attention_row(
+                "seamless mesh cross decode, 8 local heads", *case(
+                    1, T, sh, sh, sd, sd, cross_d, valid, f32, f32), 0,
+                flush, tag),
+            "mesh_self_decode": attention_row(
+                "seamless mesh self decode, 8 local heads", *case(
+                    1, L, sh, sh, sd, sd, at_last, cache, f32, f32), 0,
+                flush, tag)},
+    }
+
+
 def repeat_decode(label, cfg, params, prompts, slots, max_len) -> None:
     """One decode batch run twice, each from its own copy of the same cache
     (prefilled with ``prompts``, one a slot, the last slot idle): the
@@ -2778,9 +2934,11 @@ def train_phase(tag) -> tuple:
     dev = torch.device("cuda")
     total = {"prefill": 0, "decode": 0}
 
-    def counted(n_layers, passes, path):
+    def counted(n_layers, passes, path, remat=False):
+        """K3e forwards: a layer's each forward pass, again in the
+        backward's recompute under remat."""
         counts = ops.launch_counts()
-        n = n_layers * passes
+        n = n_layers * passes * (2 if remat else 1)
         check_counts(counts, {"flash_attention": n,
                               "flash_attention_prefill": n}, path)
         total["prefill"] += counts["flash_attention_prefill"]
@@ -2807,7 +2965,7 @@ def train_phase(tag) -> tuple:
         st, m = step(st, batch_at(dcfg, i, device=dev))
         losses.append(float(m["loss"]))
         ces.append(float(m["ce"]))
-    counted(cfg.n_layers, TL_STEPS, "reduced training")
+    counted(cfg.n_layers, TL_STEPS, "reduced training", cfg.remat)
     diff = max(abs(a - b) for a, b in zip(losses, cpu_losses))
     drop = statistics.mean(ces[:4]) - statistics.mean(ces[-4:])
     check(drop >= 0.15, f"reduced training: ce fell {drop} over {TL_STEPS} "
@@ -2830,7 +2988,8 @@ def train_phase(tag) -> tuple:
     t0 = time.perf_counter()
     res_a, st_a, hist_a = launch_train.run(argv)
     run_s = time.perf_counter() - t0
-    counted(full.n_layers, T_STEPS, "the full-width training run")
+    counted(full.n_layers, T_STEPS, "the full-width training run",
+            full.remat)
     check(all(math.isfinite(x) for x in hist_a["losses"]
               + hist_a["grad_norms"]),
           f"full-width training: a loss or grad norm is not finite "
@@ -2871,7 +3030,7 @@ def train_phase(tag) -> tuple:
             pass
         crash_s = time.perf_counter() - t0
         manager.save = real_save
-        counted(full.n_layers, T_CKPT, "the checkpointed run")
+        counted(full.n_layers, T_CKPT, "the checkpointed run", full.remat)
         check(manager.latest_step(ckdir) == T_CKPT,
               f"no checkpoint at step {T_CKPT}: {manager.all_steps(ckdir)}")
         torch.cuda.empty_cache()
@@ -2879,7 +3038,8 @@ def train_phase(tag) -> tuple:
         t0 = time.perf_counter()
         res_c, st_c, hist_c = launch_train.run(argv + ["--ckpt-dir", ckdir])
         resume_s = time.perf_counter() - t0
-        counted(full.n_layers, T_STEPS - T_CKPT, "the resumed run")
+        counted(full.n_layers, T_STEPS - T_CKPT, "the resumed run",
+                full.remat)
     finally:
         manager.save = real_save
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -2894,8 +3054,9 @@ def train_phase(tag) -> tuple:
           f"then stopped: {crash_s:.1f} s wall) and resumed ({resume_s:.1f} "
           f"s wall, the restore included) ends with params bit-equal to the "
           f"uninterrupted run's and last_loss {res_c['last_loss']!r}; K3 "
-          f"prefill {full.n_layers} x {T_STEPS} launches uninterrupted, "
-          f"none in the backward [{tag}]")
+          f"prefill {full.n_layers} x {T_STEPS} launches uninterrupted"
+          f"{', twice under remat (the recompute)' if full.remat else ''}"
+          f", none in the backward [{tag}]")
     del params_a, st_c
     torch.cuda.empty_cache()
     return total, hist_a
@@ -3714,13 +3875,15 @@ def nccl_rank_main() -> int:
 
 def leaf_rules(like, shardings, mesh, batch_axes, pcfg, cfg) -> list:
     """Each param leaf's rule in one mesh step (``train/step.py``):
-    ``(like leaf, sharding, kept axes, sum axes, sliced)``: the model axis
-    is kept (not gathered) where the split compute uses the leaf's stored
-    model slice (``shardings.compute_dim``); a leaf it splits otherwise is
-    gathered whole and sliced (``sliced``: the slices' gradients are
-    all-gathered over the model axis); the gradient is summed over the
-    batch axes, and over the model axis (tensor_parallel) for a leaf each
-    device of a model group uses whole."""
+    ``(like leaf, sharding, kept axes, sum axes, sliced, stacked, lead)``:
+    the model axis is kept (not gathered) where the split compute uses the
+    leaf's stored model slice (``shardings.compute_dim``, one piece); a
+    leaf it splits otherwise is gathered whole and sliced (``sliced``: the
+    slices' gradients are all-gathered over the model axis); the gradient
+    is summed over the batch axes, and over the model axis
+    (tensor_parallel) for a leaf each device of a model group uses whole;
+    a ``stacked`` layer leaf is gathered a rep at a time (``step.Reps``),
+    but along the axes ``lead`` that split its reps dim, gathered once."""
     from repro_torch.checkpoint.manager import _flatten
     from repro_torch.models import sharding as SHD
     from repro_torch.train import shardings as SH
@@ -3730,13 +3893,17 @@ def leaf_rules(like, shardings, mesh, batch_axes, pcfg, cfg) -> list:
     with SHD.use_sharding(mesh, TS.sharding_rules(pcfg),
                           batch_axes=batch_axes):
         for (path, x), (_, sh) in zip(_flatten(like), _flatten(shardings)):
-            cd = SH.compute_dim(path.split("/"), x.shape, cfg)
+            keys = path.split("/")
+            cd = SH.compute_dim(keys, x.shape, cfg)
             keep = (("model",) if cd is not None
+                    and SH.compute_pieces(keys) == 1
                     and dict(sh.dims()).get(cd) == ("model",) else ())
             sums = tuple(batch_axes) + (("model",) if tp and cd is None
                                         else ())
+            stacked = TS._stacked(keys)
+            lead = dict(sh.dims()).get(0, ()) if stacked else ()
             out.append((x, sh, keep, sums, tp and cd is not None
-                        and not keep))
+                        and not keep, stacked, lead))
     return out
 
 
@@ -3746,10 +3913,14 @@ def split_reductions(cfg, m, sp) -> int:
     reduction (the embedding where the vocab splits, every attention and
     MLP block where its heads or ff split), under sequence parallelism
     every block input's all-gather and the final norm's; the cross
-    entropy's pmax and its two psums where the vocab splits."""
+    entropy's pmax and its two psums where the vocab splits.  Under
+    ``cfg.remat`` a block's forward collectives run again in its
+    recompute."""
     vs = cfg.vocab_size % m == 0
     block = ((2 if cfg.n_heads % m == 0 else 0)
              + (2 if cfg.d_ff % m == 0 else 0) + (4 if sp else 0))
+    if cfg.remat:
+        block += block // 2
     return ((2 if vs else 0) + cfg.n_layers * block + (2 if sp else 0)
             + (5 if vs else 0))
 
@@ -3759,24 +3930,33 @@ def mesh_step_counts(rules, sizes, batch_axes, pcfg, cfg):
     (``train/step.py``, :func:`leaf_rules`): a leaf's all-gather makes n
     hops on each axis of n devices it is split over but a kept one, its
     gradient's reduce-scatter n - 1 more on a sum axis; a leaf whole
-    along a sum axis is all-reduced over it (2n - 1 hops); the clip's
-    norm reduces once on each axis a leaf is split over, grad
-    compression's scale once more, the metrics once on each batch axis,
-    and the split compute's collectives (:func:`split_reductions`, and a
-    sliced leaf's gradient all-gather) on the model axis.  On a stacked
-    mesh each hop is one K2 launch."""
+    along a sum axis is all-reduced over it (2n - 1 hops); a stacked leaf
+    does that once a rep, its gathers twice under remat (the recompute),
+    but along its reps dim's axes once; the clip's norm reduces once on
+    each axis a leaf is split over, grad compression's scale once more,
+    the metrics once on each batch axis, and the split compute's
+    collectives (:func:`split_reductions`, and a sliced leaf's gradient
+    all-gather a rep) on the model axis.  On a stacked mesh each hop is
+    one K2 launch."""
     hops = {a: 0 for a in sizes}
     red = {a: 0 for a in sizes}
-    for _, sh, keep, sums, sliced in rules:
+    for x, sh, keep, sums, sliced, stacked, lead in rules:
+        reps = x.shape[0] if stacked else 1
+        again = 2 if stacked and cfg.remat else 1
         split = [a for a in sh.axes() if sizes[a] > 1]
-        red["model"] += 1 if sliced else 0
+        red["model"] += reps if sliced else 0
         for a in split:
             red[a] += 2 if pcfg.grad_compress else 1
-            if a not in keep:
-                hops[a] += sizes[a] + (sizes[a] - 1 if a in sums else 0)
+            if a in keep:
+                continue
+            back = sizes[a] - 1 if a in sums else 0
+            if a in lead:
+                hops[a] += sizes[a] + back
+            else:
+                hops[a] += reps * (again * sizes[a] + back)
         for a in sums:
             if a not in split:
-                hops[a] += 2 * sizes[a] - 1
+                hops[a] += reps * (2 * sizes[a] - 1)
     for a in batch_axes:
         red[a] += 1
     if pcfg.tensor_parallel and sizes["model"] > 1:
@@ -3793,7 +3973,7 @@ def hop_bytes(rules, sizes) -> tuple:
     chunk each."""
     import math
     gather = reduce = 0
-    for x, sh, keep, sums, _ in rules:
+    for x, sh, keep, sums, *_ in rules:
         n_local = sh.mesh.n_local
         split = [a for a in sh.axes() if sizes[a] > 1]
         cur = x.numel() * x.element_size() // math.prod(
@@ -3932,7 +4112,7 @@ def mesh_train_phase(tag, single_hist) -> dict:
             leaf_rules(like.params, sh.params, mesh, batch_axes, pcfg, cfg),
             mesh.shape, batch_axes, pcfg, cfg)
         hops = sum(h for h, _ in want.values())
-        layers = cfg.n_layers
+        layers = cfg.n_layers * (2 if cfg.remat else 1)     # K3e forwards
         out = {"loss": [], "grad_norm": [], "step_s": []}
         for i in range(first, MT_STEPS):
             ops.reset_launch_counts()
@@ -4057,7 +4237,7 @@ def mesh_train_phase(tag, single_hist) -> dict:
         grads = [(SH._gather(torch.ones((mesh.n_local,)
                                         + s.local_shape(x.shape),
                                         device=dev), s, k), s, sums, k)
-                 for x, s, k, sums, _ in rules]
+                 for x, s, k, sums, *_ in rules]
         reduce_ms = timed(lambda: [SH._grad_to_shards(g, s, sums, k)
                                    for g, s, sums, k in grads], reps=5,
                           device=True)
@@ -4278,6 +4458,7 @@ def split_train_phase(tag, single_hist) -> dict:
             leaf_rules(like.params, sh.params, mesh, batch_axes, pcfg, cfg),
             mesh.shape, batch_axes, pcfg, cfg)
         hops = sum(h for h, _ in due.values())
+        layers = cfg.n_layers * (2 if cfg.remat else 1)     # K3e forwards
         losses, gnorms, step_s = [], [], []
         for i in range(SP_STEPS):
             ops.reset_launch_counts()
@@ -4293,11 +4474,11 @@ def split_train_phase(tag, single_hist) -> dict:
                   f"reductions {mesh.counts()}, {due} due")
             check_counts(ops.launch_counts(),
                          {"villa_gather": hops,
-                          "flash_attention": cfg.n_layers,
-                          "flash_attention_prefill": cfg.n_layers},
+                          "flash_attention": layers,
+                          "flash_attention_prefill": layers},
                          f"split training {label} step {i + 1}")
             total["villa_gather"] += hops
-            total["flash_attention_prefill"] += cfg.n_layers
+            total["flash_attention_prefill"] += layers
         peak = torch.cuda.max_memory_allocated()
         r1 = (rel(losses[0], want["losses"][0]),
               rel(gnorms[0], want["grad_norms"][0]))
@@ -4316,8 +4497,9 @@ def split_train_phase(tag, single_hist) -> dict:
               f"), every loss within {worst:.3g}; {step_ms:.1f} ms a step "
               f"(median of steps 2-{SP_STEPS}; steps "
               f"{[round(t * 1e3, 1) for t in step_s]}); peak memory "
-              f"{peak / 2**30:.2f} GiB; K3e {cfg.n_layers} launches a step "
-              f"for the {n}-device stack; hops and reductions a step {due} "
+              f"{peak / 2**30:.2f} GiB; K3e {layers} launches a step "
+              f"for the {n}-device stack (remat {cfg.remat}); hops and "
+              f"reductions a step {due} "
               f"[{tag}]")
         profile_step(lambda: step(state, batches[0]), label, tag)
         del state, step
@@ -4325,6 +4507,111 @@ def split_train_phase(tag, single_hist) -> dict:
     print(f"split training phase: {time.perf_counter() - t_phase:.1f} s "
           f"[{tag}]")
     return total
+
+
+def one_ulp(t, gen):
+    """A copy of ``t`` with each value moved by one ulp of f32 (2**-24 of
+    its magnitude), up or down at random from ``gen``, a chunk at a time
+    (a large leaf's temporaries stay small)."""
+    import torch
+    out = t.clone()
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), 1 << 26):
+        c = flat[i:i + (1 << 26)]
+        step = c.abs().mul_(2.0 ** -24)
+        up = torch.rand(c.shape, generator=gen, device=c.device) < 0.5
+        c.add_(torch.where(up, step, -step))
+    return out
+
+
+def single_serve(cfg, params, toks, max_len, steps, enc=None, fed=None):
+    """The single device's prefill logits of ``toks`` (over ``enc``'s
+    frames for an enc-dec config) into a cache of ``max_len``, each greedy
+    decode step's logits, and its greedy tokens (``steps`` + 1 of them),
+    which the meshes are fed; with ``fed``, each step takes those tokens
+    instead of its own."""
+    import torch
+    from repro_torch.models import lm
+    B, S = toks.shape
+    cache = lm.init_cache(cfg, B, max_len, device=toks.device,
+                          enc_len=0 if enc is None else enc.shape[1])
+    logits, _ = lm.prefill(cfg, params, toks, cache, enc_embeds=enc)
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    out, own = [], [tok]
+    for i in range(steps):
+        lg, _ = lm.decode_step(cfg, params, cache,
+                               tok if fed is None else fed[i], S + i)
+        out.append(lg)
+        tok = lg[:, -1:].argmax(-1).to(torch.int32)
+        own.append(tok)
+    del cache
+    return logits, out, own
+
+
+def tokens_of(probs, ids, mesh):
+    """A call's (probs, ids) rows in global token order: a mesh's from
+    the devices at model position 0, by data position."""
+    if mesh is None:
+        return (probs.reshape(-1, probs.shape[-1]),
+                ids.reshape(-1, ids.shape[-1]))
+    c = mesh.coords()
+    sel = sorted((int(c[i][0]), i) for i in range(len(c))
+                 if int(c[i][1]) == 0)
+    pick = [i for _, i in sel]
+    return (probs[pick].reshape(-1, probs.shape[-1]),
+            ids[pick].reshape(-1, ids.shape[-1]))
+
+
+class Routes:
+    """Every MoE layer's router probabilities and top-k choices of a run,
+    in call order (``torch.topk`` over the experts, wrapped).  With
+    ``force`` (another run's calls, global token order) and its ``mesh``,
+    the run is teacher-forced on the routing too: each call takes the
+    forced choices (each mesh device its rows'), and records its own
+    beside them (``own``)."""
+
+    def __init__(self, n_experts, force=None, mesh=None):
+        import torch
+        self.n, self.calls, self._real = n_experts, [], torch.topk
+        self.force, self.mesh, self.own = force, mesh, []
+
+    def __enter__(self):
+        import torch
+
+        def spy(x, k, *a, **kw):
+            out = self._real(x, k, *a, **kw)
+            if x.shape[-1] != self.n:
+                return out
+            ids = out.indices
+            if self.force is not None:
+                self.own.append(ids.clone())
+                want = tokens_of(*self.force[len(self.calls)], None)[1]
+                if self.mesh is None:
+                    ids = want.reshape(ids.shape)
+                else:
+                    rows = [int(c[0]) for c in self.mesh.coords()]
+                    ids = want.reshape(-1, x.shape[1], k)[rows]
+                out = (x.gather(-1, ids), ids)
+            self.calls.append((x.detach().clone(), ids.clone()))
+            return out
+        torch.topk = spy
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.topk = self._real
+
+
+def greedy_check(mine, want, bar):
+    """(tokens that differ, near-ties exempted): the mesh's greedy token
+    against the single device's at every row, a difference exempted only
+    where the single device's top two logits lie within 2 x ``bar`` (a
+    tie inside the bar is no disagreement)."""
+    a = mine[:, -1].argmax(-1)
+    top = want[:, -1].topk(2, dim=-1).values
+    tie = (top[:, 0] - top[:, 1]) <= 2 * bar
+    diff = a != want[:, -1].argmax(-1)
+    return int((diff & ~tie).sum()), int((diff & tie).sum())
 
 
 def serve_steps_phase(tag) -> dict:
@@ -4361,54 +4648,6 @@ def serve_steps_phase(tag) -> dict:
            "olmoe": {"prefill": 0, "decode": 0}}
     pcfg = TS.ParallelConfig()
 
-    def single(cfg, params, toks):
-        """The single device's prefill logits, each greedy step's, and its
-        greedy tokens (SV_STEPS + 1 of them), which the meshes are fed."""
-        cache = lm.init_cache(cfg, SV_BATCH, SV_MAX_LEN, device=dev)
-        logits, _ = lm.prefill(cfg, params, toks, cache)
-        tok = logits[:, -1:].argmax(-1).to(torch.int32)
-        steps, fed = [], [tok]
-        for i in range(SV_STEPS):
-            lg, _ = lm.decode_step(cfg, params, cache, tok, SV_PROMPT + i)
-            steps.append(lg)
-            tok = lg[:, -1:].argmax(-1).to(torch.int32)
-            fed.append(tok)
-        del cache
-        return logits, steps, fed
-
-    class Routes:
-        """Every MoE layer's router probabilities and top-k choices of a
-        run, in call order (``torch.topk`` over the experts, wrapped)."""
-
-        def __init__(self, n_experts):
-            self.n, self.calls, self._real = n_experts, [], torch.topk
-
-        def __enter__(self):
-            def spy(x, k, *a, **kw):
-                out = self._real(x, k, *a, **kw)
-                if x.shape[-1] == self.n:
-                    self.calls.append((x.detach().clone(),
-                                       out.indices.clone()))
-                return out
-            torch.topk = spy
-            return self
-
-        def __exit__(self, *exc):
-            torch.topk = self._real
-
-    def tokens_of(probs, ids, mesh):
-        """A call's (probs, ids) rows in global token order: a mesh's from
-        the devices at model position 0, by data position."""
-        if mesh is None:
-            return (probs.reshape(-1, probs.shape[-1]),
-                    ids.reshape(-1, ids.shape[-1]))
-        c = mesh.coords()
-        sel = sorted((int(c[i][0]), i) for i in range(len(c))
-                     if int(c[i][1]) == 0)
-        pick = [i for _, i in sel]
-        return (probs[pick].reshape(-1, probs.shape[-1]),
-                ids[pick].reshape(-1, ids.shape[-1]))
-
     def route_flips(single_calls, mesh_calls, mesh, per_call_rows):
         """{batch row: the call at which its expert choice first differs},
         and the largest single-device margin (k-th minus (k+1)-th
@@ -4429,17 +4668,6 @@ def serve_steps_phase(tag) -> dict:
                     worst = max(worst, float(margin[t]))
         return first, worst
 
-    def greedy_check(mine, want):
-        """(tokens that differ, near-ties exempted): the mesh's greedy
-        token against the single device's at every row, a difference
-        exempted only where the single device's top two logits lie within
-        2 x SV_BAR (a tie inside the bar is no disagreement)."""
-        a = mine[:, -1].argmax(-1)
-        top = want[:, -1].topk(2, dim=-1).values
-        tie = (top[:, 0] - top[:, 1]) <= 2 * SV_BAR
-        diff = a != want[:, -1].argmax(-1)
-        return int((diff & ~tie).sum()), int((diff & tie).sum())
-
     for name, arch, meshes in (("tinyllama", "tinyllama-1.1b", SV_MESHES),
                                ("olmoe", "olmoe-1b-7b", (SV_MOE_MESH,))):
         cfg = get_config(arch)
@@ -4451,7 +4679,8 @@ def serve_steps_phase(tag) -> dict:
                              .manual_seed(SEED + 23))
         moe = "moe" in cfg.mlp_kinds()
         with Routes(cfg.n_experts) as r1:
-            want_pre, want_steps, fed = single(cfg, params, toks)
+            want_pre, want_steps, fed = single_serve(
+                cfg, params, toks, SV_MAX_LEN, SV_STEPS)
         n_moe = sum(k == "moe" for k in cfg.mlp_kinds())
         for shape in meshes:
             label = f"{name} {shape[0]}x{shape[1]}"
@@ -4498,7 +4727,7 @@ def serve_steps_phase(tag) -> dict:
             first, tie_margin = ({}, 0.0) if not moe else route_flips(
                 r1.calls, r2.calls, mesh,
                 lambda c: SV_PROMPT if c < n_moe else 1)
-            err, differ, ties = 0.0, 0, 0
+            err, err_own, differ, ties = 0.0, 0.0, 0, 0
             row_err = [0.0] * SV_BATCH
             for i, (full, want) in enumerate(zip(outs, [want_pre]
                                                  + want_steps)):
@@ -4509,7 +4738,7 @@ def serve_steps_phase(tag) -> dict:
                 for b in keep:
                     row_err[b] = max(row_err[b], float(
                         (full[b] - want[b]).abs().max()))
-                d, t = greedy_check(full[keep], want[keep])
+                d, t = greedy_check(full[keep], want[keep], SV_BAR)
                 differ, ties = differ + d, ties + t
             err = max(row_err)
             check(tie_margin <= SV_TIE and len(first) < SV_BATCH,
@@ -4557,6 +4786,216 @@ def serve_steps_phase(tag) -> dict:
         torch.cuda.empty_cache()
     print(f"mesh serving phase: {time.perf_counter() - t_phase:.1f} s "
           f"[{tag}]")
+    return out
+
+
+def split_serve_phase(tag) -> dict:
+    """Phase 24: ``make_prefill_step`` and ``make_serve_step`` of the
+    families item 16c left whole, split over ``model`` on stacked meshes
+    of the card (SS_RUNS: deepseek-v2's MLA heads and experts, rwkv6's
+    heads and ``ff``, jamba's mamba channels, attention heads and experts,
+    seamless's encoder and cross attention), at full width, each cut in
+    depth as SS_RUNS says, with random weights from SEED.
+
+    SS_BATCH prompts of SS_PROMPT tokens (seamless's over SS_FRAMES frame
+    embeddings) into a cache of SS_MAX_LEN, then SS_STEPS decode steps,
+    teacher-forced on the single device's greedy tokens, and an MoE model
+    on its routing too (``Routes(force=)``: a near-tie moved by rounding
+    would send a token to another expert, and with it every later
+    position); where the mesh's own top-k differs, the single device's
+    margin there must be a near-tie.  Logits within SV_BAR of the single
+    device's, or where a run names a truth (its weights in a wider dtype
+    on the single device, fed its tokens and routing), at most SS_RATIO
+    times the single device's own relative L2 gap to it, the near-tie
+    band of its routing likewise twice the single device's own move of
+    each token's router probabilities.  Greedy tokens equal but at ties
+    within twice the bar (against a truth: its own largest move); K3's
+    launches what the run's layers call for
+    (MLA decodes through its absorbed einsums, rwkv and mamba run none),
+    K2 == the hops, nothing else.  Returns the K2 launches and K3's by
+    route and model."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import shardings as SH
+    from repro_torch.train import step as TS
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    pcfg = TS.ParallelConfig()
+    out = {"villa_gather": 0}
+    for k, (name, arch, dtype, shape, layers, truth_dt,
+            why) in enumerate(SS_RUNS):
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        dt = getattr(torch, dtype)
+        params = model_params(cfg, dt, f"{arch} {dtype}",
+                              f"{cfg.n_layers} of {full.n_layers} layers: "
+                              f"{why}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 24 + k)
+        toks = torch.randint(0, cfg.vocab_size, (SS_BATCH, SS_PROMPT),
+                             device=dev, dtype=torch.int32, generator=gen)
+        enc = (torch.randn((SS_BATCH, SS_FRAMES, cfg.d_model), device=dev,
+                           generator=gen) * 0.02 if cfg.encdec else None)
+        moe = "moe" in cfg.mlp_kinds()
+        with Routes(cfg.n_experts) as r1:
+            want_pre, want_steps, fed = single_serve(
+                cfg, params, toks, SS_MAX_LEN, SS_STEPS, enc)
+        want = [want_pre] + want_steps
+        truth = None
+        if truth_dt is not None:
+            # the single device over the truth's weights, fed its tokens
+            # and routing: how far its own rounding moves the logits
+            if truth_dt == "ulp":
+                g_ulp = torch.Generator(device=dev).manual_seed(SEED + 240)
+                p_hi = SH.tree_map(lambda t: one_ulp(t, g_ulp), params)
+            else:
+                p_hi = SH.tree_map(
+                    lambda t: t.to(getattr(torch, truth_dt)), params)
+            with Routes(cfg.n_experts,
+                        force=r1.calls if moe else None) as r_hi:
+                t_pre, t_steps, _ = single_serve(
+                    cfg, p_hi, toks, SS_MAX_LEN, SS_STEPS, enc, fed=fed)
+            truth = [t_pre] + t_steps
+            del p_hi, t_pre, t_steps
+            torch.cuda.empty_cache()
+        label = f"{name} {shape[0]}x{shape[1]}"
+        mesh = make_local_mesh(*shape, device=dev)
+        enc_len = 0 if enc is None else SS_FRAMES
+        like = lm.init_cache(cfg, SS_BATCH, SS_MAX_LEN, device="meta",
+                             enc_len=enc_len)
+        _, pcomp = TS.make_prefill_step(cfg, mesh, pcfg)
+        _, scomp = TS.make_serve_step(cfg, mesh, pcfg)
+        ps = SH.tree_shardings(params, mesh, SH.param_spec)
+        cs = SH.tree_shardings(like, mesh, SH.cache_spec)
+        lg_sh = TS._logits_sharding(cfg, mesh, SS_BATCH)
+        laid_p = SH.shard(params, ps)
+        laid_c = SH.shard(lm.init_cache(cfg, SS_BATCH, SS_MAX_LEN,
+                                        device=dev, enc_len=enc_len), cs,
+                          stack_dim=1)
+        batch = {"tokens": toks}
+        if enc is not None:
+            batch["enc_embeds"] = enc
+        pstep = pcomp(params, like, batch)
+        sstep = scomp(params, like, toks[:, :1])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        mesh.reset_counts()
+        outs, step_s = [], []
+        with Routes(cfg.n_experts, force=r1.calls if moe else None,
+                    mesh=mesh) as r2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, laid_c = pstep(laid_p, laid_c, batch)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            outs.append(SH.unshard({"l": lg}, {"l": lg_sh})["l"])
+            for i in range(SS_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, laid_c = sstep(laid_p, laid_c, fed[i], SS_PROMPT + i)
+                outs.append(SH.unshard({"l": lg}, {"l": lg_sh})["l"])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        hops = sum(h for h, _ in mesh.counts().values())
+        peak = torch.cuda.max_memory_allocated()
+        # the routing: where the mesh's own choice differs, a near-tie:
+        # the single device's margin (k-th minus (k+1)-th probability)
+        # within SV_TIE, or against a truth within twice how far the
+        # single device's rounding moves that token's probabilities
+        flips, margin, over = 0, 0.0, 0
+        for c, ((p1, i1), own) in enumerate(zip(r1.calls, r2.own)):
+            p1, i1 = tokens_of(p1, i1, None)
+            n_k = i1.shape[-1]
+            mine = tokens_of(own, own, mesh)[1]
+            diff = (i1.sort(-1).values != mine.sort(-1).values).any(-1)
+            top = p1.topk(n_k + 1, dim=-1).values
+            gap = top[:, n_k - 1] - top[:, n_k]
+            tie = (torch.full_like(gap, SV_TIE) if truth is None else
+                   2 * (p1 - tokens_of(*r_hi.calls[c], None)[0]
+                        .to(p1.dtype)).abs().amax(-1))
+            flips += int(diff.sum())
+            over += int((diff & (gap > tie)).sum())
+            if bool(diff.any()):
+                margin = max(margin, float(gap[diff].max()))
+        check(over == 0,
+              f"mesh serving {label}: the mesh's own expert choice differs "
+              f"from the single device's at {flips} tokens, {over} of them "
+              f"outside a near-tie (the largest margin {margin})")
+        err, err_own, differ, ties = 0.0, 0.0, 0, 0
+        sq = {"mesh": 0.0, "own": 0.0, "norm": 0.0}
+        for i, (got, w) in enumerate(zip(outs, want)):
+            got, w = got.float(), w.float()
+            e = float((got - w).abs().max())
+            err = max(err, e)
+            if truth is None:
+                bar = SV_BAR
+                check(e <= bar, f"mesh serving {label}: logits {e} from "
+                                f"the single device's (bar {bar})")
+            else:
+                t = truth[i].float()
+                bar = float((w - t).abs().max())    # its own move, a tie
+                err_own = max(err_own, bar)
+                sq["mesh"] += float((got - w).square().sum())
+                sq["own"] += float((w - t).square().sum())
+                sq["norm"] += float(w.square().sum())
+            d, n_tie = greedy_check(got, w, bar)
+            differ, ties = differ + d, ties + n_tie
+        check(differ == 0, f"mesh serving {label}: {differ} greedy tokens "
+                           f"differ outside a tie")
+        gaps = ""
+        if truth is not None:
+            gap = math.sqrt(sq["mesh"] / sq["norm"])
+            own = math.sqrt(sq["own"] / sq["norm"])
+            what = ("its weights moved by one ulp" if truth_dt == "ulp"
+                    else f"its weights in {truth_dt}")
+            check(gap <= SS_RATIO * own,
+                  f"mesh serving {label}: the logits' relative L2 gap to "
+                  f"the single device's {gap:.4g}, past {SS_RATIO} x its "
+                  f"own gap to {what} ({own:.4g})")
+            gaps = (f", relative L2 gap {gap:.4g} against the single "
+                    f"device's own {own:.4g} to {what} (bar {SS_RATIO} "
+                    f"x); largest {err_own:.3g} against {what}'s")
+        kinds = cfg.layer_kinds()
+        attn = sum(k in ("attn_full", "attn_local") for k in kinds)
+        pre = attn + sum(k == "mla" for k in kinds) + (
+            cfg.n_enc_layers + cfg.n_layers if cfg.encdec else 0)
+        dec = (attn + (cfg.n_layers if cfg.encdec else 0)) * SS_STEPS
+        due = {"villa_gather": hops}
+        if pre + dec:
+            due.update(flash_attention=pre + dec)
+        if pre:
+            due["flash_attention_prefill"] = pre
+        if dec:
+            due["flash_attention_decode"] = dec
+        check_counts(counts, due, f"mesh serving {label}")
+        out["villa_gather"] += hops
+        out[name] = {"prefill": pre, "decode": dec}
+        print(f"mesh serving {label} ({dtype} weights, f32 cache; stacked, "
+              f"tensor_parallel): prefill of {SS_BATCH} x {SS_PROMPT}"
+              f"{f' over {SS_FRAMES} frames' if enc is not None else ''} "
+              f"{prefill_ms:.1f} ms, {SS_STEPS} teacher-forced decode steps "
+              f"{statistics.median(step_s) * 1e3:.2f} ms a step (median; "
+              f"host clock with a sync, the logits gathered); logits within "
+              f"{err:.3g} of the single device's{gaps}; greedy tokens "
+              f"equal but at {ties} ties"
+              + (f"; routing forced on the single device's, the mesh's own "
+                 f"top-k differing at {flips} tokens (margin <= "
+                 f"{margin:.3g})" if moe else "")
+              + f"; K3 {pre} launches a prefill and {dec // SS_STEPS} a "
+              f"step for the {mesh.n_local}-device stack, K2 {hops} hops; "
+              f"peak memory {peak / 2**30:.2f} GiB [{tag}]")
+        del params, laid_p, laid_c, pstep, sstep, want, truth, outs
+        torch.cuda.empty_cache()
+    print(f"split mesh serving phase: {time.perf_counter() - t_phase:.1f} "
+          f"s [{tag}]")
     return out
 
 

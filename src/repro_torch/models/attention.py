@@ -23,6 +23,15 @@ heads of the folded batch in one launch.  Where the KV heads do not divide
 the model axis but the q heads do, every device holds all KV heads (the
 cache too) and passes K3 the ones its q heads use.
 
+:func:`mla_block` splits its query heads (the reference's ``attention.py
+:247``): ``q_a``, ``kv_a`` and the two latent norms are whole, so every
+device computes the latent ``c_kv`` and the shared key whole (and writes
+the same ``cc``/``cr``), ``q_b``/``kv_b`` are its heads' columns and ``wo``
+their rows.  Its prefill expands K/V for the local heads only; its decode
+runs the absorbed einsums for them over the whole latent cache.
+:func:`cross_block` and :func:`encode_kv` run over the device's heads too,
+against ``enc_k``/``enc_v`` split on heads.
+
 Cross attention (:func:`cross_block`, the enc-dec decoder's) runs the same
 core with positions that encode only a mask: every query at ``2**29`` and
 every encoder frame at 0, or at ``2**30`` where the encoder mask says the
@@ -228,14 +237,15 @@ def _mla_qkr(params: Dict, x: torch.Tensor, positions: torch.Tensor,
              n_heads: int, qk_nope: int, qk_rope: int, kv_lora: int,
              rope_theta: float):
     """(q_nope (B,S,H,nope), roped q_rope (B,S,H,rope), the normed latent
-    c_kv (B,S,kv_lora), the roped shared key k_rope (B,S,rope))."""
+    c_kv (B,S,kv_lora), the roped shared key k_rope (B,S,rope)); H the
+    local heads in a sharding context."""
     B, S, _ = x.shape
-    cq = rms_norm(x @ params["q_a"], params["q_norm"])
-    q = (cq @ params["q_b"]).reshape(B, S, n_heads, qk_nope + qk_rope)
+    cq = SHD.norm(rms_norm, SHD.matmul(x, params["q_a"]), params["q_norm"])
+    q = SHD.matmul(cq, params["q_b"]).reshape(B, S, -1, qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
     q_rope = apply_rope(q_rope, positions, rope_theta)
-    ckv = x @ params["kv_a"]
-    c_kv = rms_norm(ckv[..., :kv_lora], params["kv_norm"])
+    ckv = SHD.matmul(x, params["kv_a"])
+    c_kv = SHD.norm(rms_norm, ckv[..., :kv_lora], params["kv_norm"])
     k_rope = apply_rope(ckv[..., kv_lora:][:, :, None, :], positions,
                         rope_theta)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_rope
@@ -268,14 +278,15 @@ def mla_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
     B, S, _ = x.shape
     q_nope, q_rope, c_kv, k_rope = _mla_qkr(
         params, x, positions, n_heads, qk_nope, qk_rope, kv_lora, rope_theta)
-    w_kv = params["kv_b"].reshape(kv_lora, n_heads, qk_nope + v_dim)
+    hl = q_nope.shape[2]                        # the local heads
+    w_kv = params["kv_b"].unflatten(-1, (hl, qk_nope + v_dim))
     w_uk, w_uv = w_kv[..., :qk_nope], w_kv[..., qk_nope:]
 
     if kv_cache is None:
-        kv = torch.einsum("btc,chd->bthd", c_kv, w_kv)
+        kv = SHD.einsum("btc,chd->bthd", c_kv, w_kv)
         k_nope, v = kv[..., :qk_nope], kv[..., qk_nope:]
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-            B, S, n_heads, qk_rope)], dim=-1)
+            B, S, hl, qk_rope)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = chunked_attention(q, k, v, positions, positions, causal=True,
                                 block=block)
@@ -292,7 +303,7 @@ def mla_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
         _cache_write(cr, k_rope, cache_index, rows)
         _cache_write(cpos, positions.to(cpos.dtype), cache_index, rows)
         scale = (qk_nope + qk_rope) ** -0.5
-        q_c = torch.einsum("bshd,chd->bshc", q_nope, w_uk)
+        q_c = SHD.einsum("bshd,chd->bshc", q_nope, w_uk)
         ccq = cc.to(q_c.dtype)
         s_nope = torch.einsum("bshc,btc->bhst", q_c, ccq)
         s_rope = torch.einsum("bshd,btd->bhst", q_rope, cr.to(q_rope.dtype))
@@ -307,9 +318,9 @@ def mla_block(params: Dict, x: torch.Tensor, positions: torch.Tensor, *,
         if cs is not None:
             p = p * cs[:, None, None, :]
         ctx = torch.einsum("bhst,btc->bshc", p.to(q_c.dtype), ccq)
-        out = torch.einsum("bshc,chd->bshd", ctx, w_uv)
+        out = SHD.einsum("bshc,chd->bshd", ctx, w_uv)
         new = kv_cache
-    y = out.reshape(B, S, n_heads * v_dim) @ params["wo"]
+    y = SHD.matmul(out.reshape(B, S, hl * v_dim), params["wo"])
     return y, new
 
 
@@ -333,9 +344,11 @@ def cross_block(params: Dict, x: torch.Tensor,
     """The decoder's ``x`` (B, S, M) attends over the encoder's projected
     ``enc_kv`` = (k, v), each (B, T, H, D), without RoPE: queries at
     ``2**29``, frames at 0 where ``enc_mask`` (B, T) is true (every frame
-    without a mask) and at ``2**30`` where it is false."""
+    without a mask) and at ``2**30`` where it is false.  In a sharding
+    context over the device's heads, its output a partial sum where
+    ``wo`` is split."""
     B, S, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
+    q = SHD.matmul(x, params["wq"]).reshape(B, S, -1, head_dim)
     k, v = enc_kv
     T = k.shape[1]
     if enc_mask is None:
@@ -344,14 +357,14 @@ def cross_block(params: Dict, x: torch.Tensor,
         kv_pos = torch.where(enc_mask, 0, 2**30).to(torch.int32)
     q_pos = torch.full((B, S), 2**29, dtype=torch.int32, device=x.device)
     out = chunked_attention(q, k, v, q_pos, kv_pos, causal=True, block=512)
-    return out.reshape(B, S, n_heads * head_dim) @ params["wo"]
+    return SHD.matmul(out.reshape(B, S, -1), params["wo"])
 
 
 def encode_kv(params: Dict, enc_out: torch.Tensor, n_heads: int,
               head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cross attention's (k, v), each (B, T, H, D), of the encoder's
-    output (B, T, M)."""
+    output (B, T, M); the device's heads in a sharding context."""
     B, T, _ = enc_out.shape
-    k = (enc_out @ params["wk"]).reshape(B, T, n_heads, head_dim)
-    v = (enc_out @ params["wv"]).reshape(B, T, n_heads, head_dim)
+    k = SHD.matmul(enc_out, params["wk"]).reshape(B, T, -1, head_dim)
+    v = SHD.matmul(enc_out, params["wv"]).reshape(B, T, -1, head_dim)
     return k, v

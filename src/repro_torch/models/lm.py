@@ -39,14 +39,22 @@ enc_len=T)`` adds each decoder block's ``enc_k``/``enc_v``/``enc_pos``,
 positions are (3, B, S) temporal/height/width ids; the temporal ids are
 the causal positions and the ones a cache holds, and decode broadcasts one
 position to all three.
+
+Under ``cfg.remat`` (every full config's; the reduced ones set it off)
+with grad on, each rep of a stage's layer group and each encoder layer
+runs checkpointed, as the reference's scan body under ``jax.checkpoint``
+(its ``lm.py:349-350``, ``:390``): the backward recomputes the rep's
+forward, and in the mesh steps gathers its params again.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -254,12 +262,19 @@ def _norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return SHD.norm(rms_norm, x, scale, eps)
 
 
-def _whole(cfg: ModelConfig, mixer_kind: str, mlp_kind: str) -> bool:
-    """Whether a layer runs whole on every device of a model group inside
-    a sharding context (MLA, cross attention, mamba and rwkv: their split
-    is ROADMAP item 16d): per device, as on one device."""
-    return SHD.active() and (mixer_kind in ("mla",) + RECURRENT
-                             or mlp_kind == "rwkv_cm" or cfg.encdec)
+def _remat(fn, *args):
+    """``fn(*args)`` under activation checkpointing (the reference's
+    ``jax.checkpoint``): its activations are recomputed in the backward,
+    params gathered inside ``fn`` gathered again.  The recompute replays
+    all of ``fn`` (no early stop), so each collective in it runs once
+    more, in the same order on every rank, and in the forward's sharding
+    context wherever the backward runs."""
+    c = SHD.ctx()
+    with ckpt.set_checkpoint_early_stop(False):
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                SHD.installed(c)))
 
 
 def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
@@ -272,134 +287,98 @@ def _run(cfg: ModelConfig, params: Dict, x: torch.Tensor,
     """The stack over ``x``; returns (x, the MoE layers' summed aux loss,
     None where no layer is MoE or in decode, which has no use for it).
     An enc-dec config's blocks attend over ``enc_out``, the encoder's
-    output, or in decode over the cache's ``enc_k``/``enc_v``.  In a
-    sharding context each block's input is all-gathered on S under
-    ``sp`` and its output reduced over the model axis where it holds
-    partial sums (``models/sharding.py``); a block :func:`_whole` leaves
-    whole runs per device."""
+    output, or in decode over the cache's ``enc_k``/``enc_v``.  Each rep
+    of a stage's layer group is one step of the reference's scan, its
+    carry ``(x, aux)``; under ``cfg.remat`` with grad on and no cache it
+    runs checkpointed (:func:`_remat`), its params indexed (in the mesh
+    steps: gathered) inside.  In a sharding context each block's input
+    is all-gathered on S under ``sp`` and its output reduced over the
+    model axis where it holds partial sums (``models/sharding.py``)."""
     ring_index: Dict[int, torch.Tensor] = {}    # cache length -> write slots
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux = None
     for i, (reps, group) in enumerate(stages_of(cfg)):
+        stage = params[f"stage{i}"]
+        cst = None if cache is None else cache[f"stage{i}"]
+
+        def rep(x, aux, r, group=group, stage=stage, cst=cst):
+            c = None if cst is None else {
+                b: {k: t[r] for k, t in cb.items()} for b, cb in cst.items()}
+            return _group(cfg, group, _layer(stage, r), c, x, aux,
+                          positions, mode, slot, cache_index, rows,
+                          ring_index, enc_out, moe_groups, sp)
         for r in range(reps):
-            for j, (mixer_kind, mlp_kind) in enumerate(group):
-                p = _layer(params[f"stage{i}"][f"b{j}"], r)
-                c = (None if cache is None else
-                     {k: t[r] for k, t in cache[f"stage{i}"][f"b{j}"].items()})
-                h = _norm(x, p["ln1"], cfg.norm_eps)
-                if _whole(cfg, mixer_kind, mlp_kind):
-                    x, aux_l = _whole_layer(cfg, mixer_kind, mlp_kind, p, x,
-                                            h, positions, enc_out, sp,
-                                            moe_groups)
-                    if aux_l is not None:
-                        aux = aux_l if aux is None else aux + aux_l
-                    continue
-                h = SHD.gather_in(h, sp)
-                st = None if c is None else _state_rows(c, mode, slot,
-                                                        x.shape[0])
-                updates: Dict[str, torch.Tensor] = {}
-                if mixer_kind == "mamba":
-                    y, new = SSM.mamba_block(
-                        p["mixer"], h, d_state=cfg.d_state,
-                        d_conv=cfg.d_conv, expand=cfg.expand,
-                        state=None if st is None else SSM.MambaState(
-                            st["conv"], st["ssm"]))
-                    if new is not None:
-                        updates.update(conv=new.conv, ssm=new.ssm)
-                elif mixer_kind == "rwkv":
-                    y, new = R.rwkv_time_mix(
-                        p["mixer"], h, state=None if st is None else
-                        R.RWKVState(st["att_shift"], st["ffn_shift"],
-                                    st["wkv"]))
-                    if new is not None:
-                        updates.update(att_shift=new[0], wkv=new[1])
-                else:
-                    y = _attention(cfg, mixer_kind, p, c, h, positions,
-                                   mode, slot, cache_index, rows, ring_index)
-                    y = SHD.reduce_out(y, p["mixer"]["wo"].shape[-2]
-                                       < cfg.n_heads * cfg.head_dim, sp)
-                x = x + y
-                if cfg.encdec:
-                    x = x + _cross(cfg, p, c, x, mode, slot, enc_out)
-                h = _norm(x, p["ln2"], cfg.norm_eps)
-                if mlp_kind == "moe":
-                    y, aux_l = MOE.moe_block(
-                        p["mlp"], SHD.gather_in(h, sp), top_k=cfg.top_k,
-                        capacity_factor=cfg.capacity_factor,
-                        n_groups=moe_groups, activation=cfg.activation,
-                        aux_loss=mode != "decode",
-                        shared_ff=cfg.n_shared_experts * cfg.moe_d_ff, sp=sp)
-                    if aux_l is not None:
-                        aux = aux_l if aux is None else aux + aux_l
-                elif mlp_kind == "rwkv_cm":
-                    y, shift = R.rwkv_channel_mix(
-                        p["mixer"], h, state=None if st is None else
-                        R.RWKVState(None, st["ffn_shift"], None))
-                    if shift is not None:
-                        updates["ffn_shift"] = shift
-                else:
-                    y = mlp(p["mlp"], SHD.gather_in(h, sp), cfg.activation)
-                    y = SHD.reduce_out(y, p["mlp"]["wo"].shape[-2]
-                                       < cfg.d_ff, sp)
-                x = x + y
-                if updates:
-                    _state_write(c, updates, mode, slot, rows)
+            x, aux = _remat(rep, x, aux, r) if remat else rep(x, aux, r)
     return x, aux
 
 
-def _whole_layer(cfg: ModelConfig, mixer_kind: str, mlp_kind: str, p: Dict,
-                 x: torch.Tensor, h: torch.Tensor, positions: torch.Tensor,
-                 enc_out: Optional[torch.Tensor], sp: bool, moe_groups: int
-                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """A cacheless layer that a sharding context leaves whole (MLA, cross
-    attention, mamba, rwkv), run per device with its whole weights; its
-    dense or MoE MLP split as :func:`_run` splits it.  Under ``sp`` the
-    whole blocks take the gathered rows and keep their S chunk."""
-    def mixer(pm, hd, pos):
+def _group(cfg: ModelConfig, group: Tuple[LayerSpec, ...], ps: Dict,
+           cs: Optional[Dict], x: torch.Tensor, aux: Optional[torch.Tensor],
+           positions: torch.Tensor, mode: str, slot: int,
+           cache_index: Optional[torch.Tensor],
+           rows: Optional[torch.Tensor], ring_index: Dict[int, torch.Tensor],
+           enc_out: Optional[torch.Tensor], moe_groups: int, sp: bool
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One rep of a stage's layer group over ``(x, aux)``: ``ps`` its
+    params, ``cs`` its cache leaves (None without a cache)."""
+    for j, (mixer_kind, mlp_kind) in enumerate(group):
+        p = ps[f"b{j}"]
+        c = None if cs is None else cs[f"b{j}"]
+        h = SHD.gather_in(_norm(x, p["ln1"], cfg.norm_eps), sp)
+        st = None if c is None else _state_rows(c, mode, slot, x.shape[0])
+        updates: Dict[str, torch.Tensor] = {}
         if mixer_kind == "mamba":
-            return SSM.mamba_block(pm, hd, d_state=cfg.d_state,
-                                   d_conv=cfg.d_conv, expand=cfg.expand)[0]
-        if mixer_kind == "rwkv":
-            return R.rwkv_time_mix(pm, hd)[0]
-        if mixer_kind == "mla":
-            return A.mla_block(
-                pm, hd, pos, n_heads=cfg.n_heads, q_lora=cfg.q_lora_rank,
-                kv_lora=cfg.kv_lora_rank, qk_nope=cfg.qk_nope_dim,
-                qk_rope=cfg.qk_rope_dim, v_dim=cfg.v_head_dim,
-                rope_theta=cfg.rope_theta, block=cfg.attn_block)[0]
-        return A.gqa_block(
-            pm, hd, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            mrope=cfg.mrope, block=cfg.attn_block,
-            window=cfg.window if mixer_kind == "attn_local" else 0)[0]
+            y, new = SSM.mamba_block(
+                p["mixer"], h, d_state=cfg.d_state, d_conv=cfg.d_conv,
+                expand=cfg.expand, state=None if st is None else
+                SSM.MambaState(st["conv"], st["ssm"]))
+            if new is not None:
+                updates.update(conv=new.conv, ssm=new.ssm)
+            rows_of = ("out_proj", cfg.expand * cfg.d_model)
+        elif mixer_kind == "rwkv":
+            y, new = R.rwkv_time_mix(
+                p["mixer"], h, state=None if st is None else
+                R.RWKVState(st["att_shift"], st["ffn_shift"], st["wkv"]))
+            if new is not None:
+                updates.update(att_shift=new[0], wkv=new[1])
+            rows_of = ("wo", cfg.d_model)
+        else:
+            y = _attention(cfg, mixer_kind, p, c, h, positions, mode, slot,
+                           cache_index, rows, ring_index)
+            rows_of = ("wo", cfg.n_heads * (cfg.v_head_dim if mixer_kind
+                                             == "mla" else cfg.head_dim))
+        x = x + SHD.reduce_out(y, _partial(p["mixer"], *rows_of), sp)
+        if cfg.encdec:
+            x = x + _cross(cfg, p, c, x, mode, slot, enc_out, sp)
+        h = SHD.gather_in(_norm(x, p["ln2"], cfg.norm_eps), sp)
+        if mlp_kind == "moe":
+            y, aux_l = MOE.moe_block(
+                p["mlp"], h, top_k=cfg.top_k,
+                capacity_factor=cfg.capacity_factor, n_groups=moe_groups,
+                activation=cfg.activation, aux_loss=mode != "decode",
+                shared_ff=cfg.n_shared_experts * cfg.moe_d_ff, sp=sp)
+            if aux_l is not None:
+                aux = aux_l if aux is None else aux + aux_l
+        elif mlp_kind == "rwkv_cm":
+            y, shift = R.rwkv_channel_mix(
+                p["mixer"], h, state=None if st is None else
+                R.RWKVState(None, st["ffn_shift"], None), ff=cfg.d_ff)
+            y = SHD.reduce_out(y, False, sp)
+            if shift is not None:
+                updates["ffn_shift"] = shift
+        else:
+            y = SHD.reduce_out(mlp(p["mlp"], h, cfg.activation),
+                               _partial(p["mlp"], "wo", cfg.d_ff), sp)
+        x = x + y
+        if updates:
+            _state_write(c, updates, mode, slot, rows)
+    return x, aux
 
-    pos_b = positions if positions.dim() == 2 else positions.movedim(0, 1)
-    y = SHD.each(lambda pm, hd, pb: mixer(
-        pm, hd, pb if pb.dim() == 2 else pb.movedim(0, 1)), p["mixer"],
-        SHD.gather_in(h, sp), pos_b)
-    x = x + SHD.reduce_out(y, False, sp)
-    if cfg.encdec:
-        hc = SHD.gather_in(_norm(x, p["ln_cross"], cfg.norm_eps), sp)
-        y = SHD.each(lambda pc, hd, eo: A.cross_block(
-            pc, hd, A.encode_kv(pc, eo, cfg.n_heads, cfg.head_dim), None,
-            n_heads=cfg.n_heads, head_dim=cfg.head_dim), p["cross"], hc,
-            enc_out)
-        x = x + SHD.reduce_out(y, False, sp)
-    h = _norm(x, p["ln2"], cfg.norm_eps)
-    aux = None
-    if mlp_kind == "rwkv_cm":
-        y = SHD.reduce_out(SHD.each(
-            lambda pm, hd: R.rwkv_channel_mix(pm, hd)[0], p["mixer"],
-            SHD.gather_in(h, sp)), False, sp)
-    elif mlp_kind == "moe":
-        y, aux = MOE.moe_block(
-            p["mlp"], SHD.gather_in(h, sp), top_k=cfg.top_k,
-            capacity_factor=cfg.capacity_factor, n_groups=moe_groups,
-            activation=cfg.activation,
-            shared_ff=cfg.n_shared_experts * cfg.moe_d_ff, sp=sp)
-    else:
-        y = mlp(p["mlp"], SHD.gather_in(h, sp), cfg.activation)
-        y = SHD.reduce_out(y, p["mlp"]["wo"].shape[-2] < cfg.d_ff, sp)
-    return x + y, aux
+
+def _partial(p: Dict, name: str, full: int) -> bool:
+    """Whether the row-parallel weight ``p[name]`` is a slice of its
+    ``full`` rows: its product is then a partial sum."""
+    return p[name].shape[-2] < full
 
 
 def _attention(cfg: ModelConfig, mixer_kind: str, p: Dict,
@@ -449,14 +428,16 @@ def _attention(cfg: ModelConfig, mixer_kind: str, p: Dict,
 
 
 def _cross(cfg: ModelConfig, p: Dict, c: Optional[Dict], x: torch.Tensor,
-           mode: str, slot: int, enc_out: Optional[torch.Tensor]
-           ) -> torch.Tensor:
+           mode: str, slot: int, enc_out: Optional[torch.Tensor],
+           sp: bool = False) -> torch.Tensor:
     """A decoder block's cross attention (the reference's
     ``lm.py:286-301``): over the encoder output's projected K/V, which a
     prefill also writes into cache rows ``slot:`` (every frame valid,
     position 0); decode reads them from the cache and never recomputes
-    them."""
-    hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+    them.  In a sharding context over the device's heads, the cache's
+    ``enc_k``/``enc_v`` those heads', its output in the layout between
+    blocks."""
+    hc = SHD.gather_in(_norm(x, p["ln_cross"], cfg.norm_eps), sp)
     if c is not None and mode == "decode":
         enc_k, enc_v, enc_pos = c["enc_k"], c["enc_v"], c["enc_pos"]
     else:
@@ -469,8 +450,10 @@ def _cross(cfg: ModelConfig, p: Dict, c: Optional[Dict], x: torch.Tensor,
             c["enc_k"][slot:slot + B] = enc_k
             c["enc_v"][slot:slot + B] = enc_v
             c["enc_pos"][slot:slot + B] = enc_pos
-    return A.cross_block(p["cross"], hc, (enc_k, enc_v), enc_pos == 0,
-                         n_heads=cfg.n_heads, head_dim=cfg.head_dim)
+    y = A.cross_block(p["cross"], hc, (enc_k, enc_v), enc_pos == 0,
+                      n_heads=cfg.n_heads, head_dim=cfg.head_dim)
+    return SHD.reduce_out(y, _partial(p["cross"], "wo",
+                                    cfg.n_heads * cfg.head_dim), sp)
 
 
 def _state_rows(c: Dict, mode: str, slot: int, B: int
@@ -548,27 +531,38 @@ def _encode(cfg: ModelConfig, params: Dict,
             enc_embeds: torch.Tensor) -> torch.Tensor:
     """The bidirectional encoder over the frontend's frame embeddings
     (B, T, d_model), the reference's ``lm.py:368-393``: RoPE at
-    ``arange(T)``, attention with ``causal=False``, no bias."""
+    ``arange(T)``, attention with ``causal=False``, no bias; each layer
+    checkpointed under ``cfg.remat`` with grad on, as the reference's
+    scan body.  In a sharding context over the device's heads and ``ff``
+    slice, each block's partial output all-reduced over the model axis."""
     B, T, _ = enc_embeds.shape
-    H, D = cfg.n_heads, cfg.head_dim
+    D = cfg.head_dim
     pos = torch.arange(T, dtype=torch.int32,
                        device=enc_embeds.device).expand(B, T)
     enc = params["encoder"]["b0"]
-    x = enc_embeds
-    for r in range(cfg.n_enc_layers):
+
+    def layer(x, r):
         p = _layer(enc, r)
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q = (h @ p["mixer"]["wq"]).reshape(B, T, H, D)
-        k = (h @ p["mixer"]["wk"]).reshape(B, T, H, D)
-        v = (h @ p["mixer"]["wv"]).reshape(B, T, H, D)
+        h = _norm(x, p["ln1"], cfg.norm_eps)
+        q = SHD.matmul(h, p["mixer"]["wq"]).reshape(B, T, -1, D)
+        k = SHD.matmul(h, p["mixer"]["wk"]).reshape(B, T, -1, D)
+        v = SHD.matmul(h, p["mixer"]["wv"]).reshape(B, T, -1, D)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
         out = A.chunked_attention(q, k, v, pos, pos, causal=False,
                                   block=cfg.attn_block)
-        x = x + out.reshape(B, T, -1) @ p["mixer"]["wo"]
-        x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                    cfg.activation)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+        y = SHD.matmul(out.reshape(B, T, -1), p["mixer"]["wo"])
+        x = x + SHD.reduce_out(y, _partial(p["mixer"], "wo",
+                                         cfg.n_heads * D), False)
+        y = mlp(p["mlp"], _norm(x, p["ln2"], cfg.norm_eps), cfg.activation)
+        return x + SHD.reduce_out(y, _partial(p["mlp"], "wo", cfg.d_ff),
+                                  False)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    x = enc_embeds
+    for r in range(cfg.n_enc_layers):
+        x = _remat(layer, x, r) if remat else layer(x, r)
+    return _norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -616,12 +610,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         positions = _default_positions(cfg, B, Sq, tokens.device)
     sp = SHD.sp_on(Sq)
     x = _embed(cfg, params, tokens, sp)
-    enc_out = None
-    if cfg.encdec:
-        enc_out = (SHD.each(lambda p, e: _encode(cfg, p, e), {
-            "encoder": params["encoder"], "enc_norm": params["enc_norm"]},
-            enc_embeds) if SHD.active() else
-            _encode(cfg, params, enc_embeds))
+    enc_out = _encode(cfg, params, enc_embeds) if cfg.encdec else None
     x, aux = _run(cfg, params, x, positions, mode, cache, slot, None, None,
                   enc_out, moe_groups, sp)
     if aux is None:

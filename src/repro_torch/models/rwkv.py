@@ -9,6 +9,16 @@ matrix and two token-shift vectors in the cache's dtype.  The wkv
 recurrence runs as a plain step loop over time; the reference chunks and
 rematerialises it (``rwkv.py:97-100``), which only changes what its
 backward pass keeps.
+
+In a sharding context (``models/sharding.py``) the time mix runs over
+each device's heads (the reference's split, its ``rwkv.py:124``): ``wk``,
+``wv``, ``wr``, ``wg``, ``w2``, ``w0``, ``u`` and ``ln_x`` are the
+device's head columns, ``wo`` its rows (a partial output, which the caller
+reduces), and the per-head group norm and the ``wkv`` state stay local.
+The channel mix splits ``ff`` (its ``rwkv.py:149``): ``cm_wk``
+column-parallel, ``cm_wv`` row-parallel and summed over the model axis,
+and the gate ``cm_wr`` whole, so its output is whole on every device.
+The mixing weights and ``w1`` are whole.
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.models import sharding as SHD
 from repro_torch.models.layers import dense_init
 
 HEAD_DIM = 64
@@ -86,15 +97,16 @@ def _wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out_t = r_t . (S_{t-1} + u * k_t v_t^T);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
     At S == 1 (decode) this is the reference's single step (its
-    ``rwkv.py:88``).  Returns (out (B,S,H,D), the final state)."""
+    ``rwkv.py:88``).  In a sharding context u is each device's (n_local,
+    H, D).  Returns (out (B,S,H,D), the final state)."""
     B, S, H, D = r.shape
     s = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
          if state is None else state)
+    u = SHD.rows(u, B)[..., None]
     outs = []
     for t in range(S):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]       # (B,H,Dk,Dv)
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                                 s + u[None, :, :, None] * kv))
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + u * kv))
         s = w[:, t, :, :, None] * s + kv
     return torch.stack(outs, dim=1), s
 
@@ -105,23 +117,24 @@ def rwkv_time_mix(params: Dict, x: torch.Tensor, *,
                              Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """x: (B,S,M).  Returns (y, None) without a state, else (y, (the last
     token, the new wkv state))."""
-    B, S, M = x.shape
-    H = M // HEAD_DIM
+    B, S, _ = x.shape
     xs = _shift(x, state.att_shift if state is not None else None)
 
     def mix(mu):
-        return (x + (xs - x) * mu).to(x.dtype)
+        return (x + SHD.mul(xs - x, mu)).to(x.dtype)
 
     xw, xk, xv, xr, xg = (mix(params[f"mu_{n}"]) for n in "wkvrg")
-    # data-dependent per-channel decay, in f32
-    dd = params["w0"] + torch.tanh(xw @ params["w1"]).float() \
-        @ params["w2"].float()
-    w = torch.exp(-torch.exp(torch.clamp(dd, -20.0, 1.0)))       # (B,S,M)
+    # data-dependent per-channel decay, in f32 (the device's channels)
+    dd = SHD.add(SHD.matmul(torch.tanh(SHD.matmul(xw, params["w1"])).float(),
+                            params["w2"].float()), params["w0"])
+    w = torch.exp(-torch.exp(torch.clamp(dd, -20.0, 1.0)))       # (B,S,Ml)
+    ml = w.shape[-1]
+    H = ml // HEAD_DIM
 
-    k = (xk @ params["wk"]).reshape(B, S, H, HEAD_DIM)
-    v = (xv @ params["wv"]).reshape(B, S, H, HEAD_DIM)
-    r = (xr @ params["wr"]).reshape(B, S, H, HEAD_DIM)
-    g = F.silu(xg @ params["wg"])
+    k = SHD.matmul(xk, params["wk"]).reshape(B, S, H, HEAD_DIM)
+    v = SHD.matmul(xv, params["wv"]).reshape(B, S, H, HEAD_DIM)
+    r = SHD.matmul(xr, params["wr"]).reshape(B, S, H, HEAD_DIM)
+    g = F.silu(SHD.matmul(xg, params["wg"]))
 
     out, new_wkv = _wkv_scan(r.float(), k.float(), v.float(),
                              w.reshape(B, S, H, HEAD_DIM), params["u"],
@@ -130,21 +143,23 @@ def rwkv_time_mix(params: Dict, x: torch.Tensor, *,
     mean = out.mean(-1, keepdim=True)
     var = out.var(-1, keepdim=True, correction=0)
     out = (out - mean) * torch.rsqrt(var + 64e-5)
-    out = out.reshape(B, S, M) * params["ln_x"]
-    y = (out.to(x.dtype) * g) @ params["wo"]
+    out = SHD.mul(out.reshape(B, S, ml), params["ln_x"])
+    y = SHD.matmul(out.to(x.dtype) * g, params["wo"])
     if state is None:
         return y, None
     return y, (x[:, -1, :], new_wkv)
 
 
 def rwkv_channel_mix(params: Dict, x: torch.Tensor,
-                     state: Optional[RWKVState] = None
+                     state: Optional[RWKVState] = None, ff: int = 0
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Squared-ReLU channel mix; returns (y, the last token or None)."""
+    """Squared-ReLU channel mix; returns (y, the last token or None).
+    ``ff``, the full ``d_ff``, tells a split ``cm_wv`` from a whole one."""
     xs = _shift(x, state.ffn_shift if state is not None else None)
-    xk = x + (xs - x) * params["cm_mu_k"]
-    xr = x + (xs - x) * params["cm_mu_r"]
-    k = torch.square(F.relu(xk.to(x.dtype) @ params["cm_wk"]))
-    v = k @ params["cm_wv"]
-    y = torch.sigmoid(xr.to(x.dtype) @ params["cm_wr"]) * v
+    xk = x + SHD.mul(xs - x, params["cm_mu_k"])
+    xr = x + SHD.mul(xs - x, params["cm_mu_r"])
+    k = torch.square(F.relu(SHD.matmul(xk.to(x.dtype), params["cm_wk"])))
+    v = SHD.psum_split(SHD.matmul(k, params["cm_wv"]),
+                       params["cm_wv"].shape[-2] < ff)
+    y = torch.sigmoid(SHD.matmul(xr.to(x.dtype), params["cm_wr"])) * v
     return y, (x[:, -1, :] if state is not None else None)

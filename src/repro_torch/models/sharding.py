@@ -25,6 +25,16 @@ so a ``model`` group computes one batch slice between them:
                     the rows' tokens (``seq_sp``); :func:`gather_in`
                     all-gathers them before a block.
 
+Every layer kind splits so: GQA and cross attention and the encoder over
+heads, MLA over its query heads, mamba over its ``inner`` channels, rwkv
+over its heads and ``ff``, MLPs over ``ff`` and experts.  A param a
+block applies elementwise or per device (a scale, a bias, a conv tap,
+mamba's ``A``) goes through :func:`mul`, :func:`add` or :func:`rows`, a
+weight in an einsum through :func:`einsum`; a row-parallel product that
+the block needs whole (mamba's ``x_proj``, rwkv's ``cm_wv``) through
+:func:`psum_split`.  A checkpointed block's recompute runs in its
+forward's context (:func:`installed`).
+
 Every parameter leaf the model sees in a context carries the local devices
 on dim 0 (a stacked layer dim follows it and is indexed away per layer),
 each its device's compute slice; the model reads from a leaf's shape
@@ -124,10 +134,11 @@ def use_sharding(mesh, rules: Optional[Mapping[str, Axis]] = None, *,
 
 
 @contextlib.contextmanager
-def plain():
-    """No context inside: a block the split leaves whole runs as on one
-    device (:func:`each`)."""
-    token = _CTX.set(None)
+def installed(c: Optional["_Ctx"]):
+    """The context ``c`` (from :func:`ctx`, or None) installed again: a
+    checkpointed block's recompute runs in its forward's context, wherever
+    the backward runs."""
+    token = _CTX.set(c)
     try:
         yield
     finally:
@@ -221,6 +232,43 @@ def add(x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (dev(x) + b.view(shape)).flatten(0, 1)
 
 
+def mul(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``x * s`` for a scale over x's trailing dims; in a context ``s`` is
+    (n_local, ...), each device's over its rows."""
+    if _CTX.get() is None:
+        return x * s
+    d = dev(x)
+    return (d * per_device(s, d)).flatten(0, 1)
+
+
+def rows(p: torch.Tensor, B: int) -> torch.Tensor:
+    """``p[None]``, a param broadcast over a batch; in a context ``p``
+    (n_local, ...) repeated for each of its device's rows of a folded
+    batch of ``B``: (B, ...)."""
+    if _CTX.get() is None:
+        return p[None]
+    n = p.shape[0]
+    return p[:, None].expand(n, B // n, *p.shape[1:]).flatten(0, 1)
+
+
+def einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` of an activation ``x`` (its batch first)
+    and a weight ``w``; in a context ``x`` folded and ``w`` (n_local,
+    ...), each device's rows with its own weight."""
+    if _CTX.get() is None:
+        return torch.einsum(eq, x, w)
+    lhs, out = eq.split("->")
+    a, b = lhs.split(",")
+    return torch.einsum(f"N{a},N{b}->N{out}", dev(x), w).flatten(0, 1)
+
+
+def psum_split(y: torch.Tensor, split: bool) -> torch.Tensor:
+    """A row-parallel product whole on every device: ``y`` summed over the
+    model axis where its weight was ``split`` (:func:`psum`), else
+    ``y``."""
+    return psum(y) if split and _CTX.get() is not None else y
+
+
 def per_device(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``scale`` (n_local, *s) shaped to broadcast over ``dev(x)``."""
     shape = ((scale.shape[0],) + (1,) * (x.dim() - scale.dim())
@@ -281,36 +329,3 @@ def gather_in(h: torch.Tensor, sp: bool) -> torch.Tensor:
     if not sp:
         return h
     return _CTX.get().model.gather_along(dev(h), 2).flatten(0, 1)
-
-
-def each(fn: Callable, params, *args):
-    """``fn(params_i, *args_i)`` for each local device i, without a
-    context: ``params`` leaves carry the local devices on dim 0, ``args``
-    (tensors or None) the folded batch; the outputs' tensors are folded
-    back (a tuple's entries each).  A block the split leaves whole runs
-    so, on every device of a model group alike."""
-    c = _CTX.get()
-    split = [None if t is None else dev(t) for t in args]
-    outs = []
-    with plain():
-        for i in range(c.n):
-            outs.append(fn(_index(params, i),
-                           *(None if t is None else t[i] for t in split)))
-    return _cat(outs)
-
-
-def _index(tree, i):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-def _cat(outs):
-    first = outs[0]
-    if first is None:
-        return None
-    if isinstance(first, torch.Tensor):
-        return torch.cat(outs, 0)
-    if isinstance(first, tuple) and not hasattr(first, "_fields"):
-        return tuple(_cat([o[k] for o in outs]) for k in range(len(first)))
-    raise TypeError(f"each: cannot fold a {type(first).__name__}")

@@ -8,6 +8,15 @@ backward pass keeps; the forward values are the same steps in the same
 order.  Decode is the single-step closed form with a rolling conv buffer, so
 the state is constant in context length.  The ``ssm`` state stays f32
 whatever the weights' dtype; the conv history takes the cache's.
+
+In a sharding context (``models/sharding.py``) the block runs over each
+device's ``inner`` channels, the reference's split (its ``ssm.py:111``):
+``in_proj`` is the device's ``x_in`` and ``z`` columns side by side,
+``conv_*``, ``dt_w``, ``dt_bias``, ``A_log`` and ``D`` its channels, and
+``x_proj`` and ``out_proj`` its rows, so ``dt_r``, ``B`` and ``C`` are
+summed over the model axis before the scan and the output is the
+device's partial sum, which the caller reduces.  The ``conv`` and ``ssm``
+state is the device's own channels.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.models import sharding as SHD
 from repro_torch.models.layers import dense_init
 
 
@@ -66,13 +76,15 @@ def _ssm_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Selective scan, one step a token: ``h = exp(dt A) h + (dt x) B``,
     ``y = h . C``.  dt/xs: (B,S,D), Bm/Cm: (B,S,N), A: (D,N), all f32.
-    Returns (y (B,S,D), h_final (B,D,N))."""
+    Returns (y (B,S,D), h_final (B,D,N)).  In a sharding context A is
+    each device's (n_local, D, N)."""
     B, S, D = xs.shape
     h = (torch.zeros((B, D, A.shape[-1]), dtype=torch.float32,
                      device=xs.device) if h0 is None else h0.float())
+    A = SHD.rows(A, B)
     ys = []
     for t in range(S):
-        h = (torch.exp(dt[:, t, :, None] * A[None]) * h
+        h = (torch.exp(dt[:, t, :, None] * A) * h
              + (dt[:, t] * xs[:, t])[..., None] * Bm[:, t, None, :])
         ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
     return torch.stack(ys, dim=1), h
@@ -81,16 +93,18 @@ def _ssm_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
 def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  history: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise causal conv over time.  x: (B,S,D), w: (K,D); the history
-    (B,K-1,D) is cast to x's dtype, zeros without one."""
-    K, S = w.shape[0], x.shape[1]
+    (B,K-1,D) is cast to x's dtype, zeros without one.  In a sharding
+    context w and b are each device's, (n_local, K, D) and (n_local,
+    D)."""
+    K, S = w.shape[-2], x.shape[1]
     if history is None:
         xp = F.pad(x, (0, 0, K - 1, 0))
     else:
         xp = torch.cat([history.to(x.dtype), x], dim=1)
     out = 0
     for i in range(K):                 # the reference's sum, in its order
-        out = out + xp[:, i:i + S, :] * w[i]
-    return out + b
+        out = out + SHD.mul(xp[:, i:i + S, :], w.select(-2, i))
+    return SHD.add(out, b)
 
 
 def mamba_block(params: Dict, x: torch.Tensor, *, d_state: int, d_conv: int,
@@ -101,8 +115,8 @@ def mamba_block(params: Dict, x: torch.Tensor, *, d_state: int, d_conv: int,
     from a state (prefill).  Returns (y, the new state or None); the new
     conv history is in the promoted dtype of the old one and x's."""
     B, S, M = x.shape
-    dt_rank = params["dt_w"].shape[0]
-    x_in, z = torch.chunk(x @ params["in_proj"], 2, dim=-1)
+    dt_rank = params["dt_w"].shape[-2]
+    x_in, z = torch.chunk(SHD.matmul(x, params["in_proj"]), 2, dim=-1)
 
     if state is None:
         xc = _conv_causal(x_in, params["conv_w"], params["conv_b"])
@@ -114,18 +128,20 @@ def mamba_block(params: Dict, x: torch.Tensor, *, d_state: int, d_conv: int,
             state.conv.dtype, x_in.dtype))], dim=1)[:, -(d_conv - 1):]
     xc = F.silu(xc)
 
-    x_db = xc @ params["x_proj"]
+    x_db = SHD.psum_split(SHD.matmul(xc, params["x_proj"]),
+                          params["x_proj"].shape[-2] < expand * M)
     dt_r = x_db[..., :dt_rank]
     Bm = x_db[..., dt_rank:dt_rank + d_state].float()
     Cm = x_db[..., dt_rank + d_state:].float()
-    dt = F.softplus((dt_r @ params["dt_w"]).float() + params["dt_bias"])
+    dt = F.softplus(SHD.add(SHD.matmul(dt_r, params["dt_w"]).float(),
+                            params["dt_bias"]))
     A = -torch.exp(params["A_log"])
 
     if state is None:
         y, _ = _ssm_scan(dt, Bm, Cm, xc.float(), A)
         new_state = None
     elif S == 1:
-        h = (torch.exp(dt[:, 0, :, None] * A[None]) * state.ssm
+        h = (torch.exp(dt[:, 0, :, None] * SHD.rows(A, B)) * state.ssm
              + (dt[:, 0] * xc[:, 0].float())[..., None] * Bm[:, 0, None, :])
         y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None, :]
         new_state = MambaState(conv=new_conv, ssm=h)
@@ -133,6 +149,6 @@ def mamba_block(params: Dict, x: torch.Tensor, *, d_state: int, d_conv: int,
         y, h = _ssm_scan(dt, Bm, Cm, xc.float(), A, h0=state.ssm)
         new_state = MambaState(conv=new_conv, ssm=h)
 
-    y = (y + params["D"] * xc.float()).to(x.dtype)
+    y = (y + SHD.mul(xc.float(), params["D"])).to(x.dtype)
     y = y * F.silu(z)
-    return y @ params["out_proj"], new_state
+    return SHD.matmul(y, params["out_proj"]), new_state

@@ -3,7 +3,8 @@
 # small classes of the port.  Port only: what each device holds under a
 # spec (local_shape, shard), unshard by the ring all-gather, gather, the
 # all-gather under autograd that the mesh training step runs, and
-# compute_dim, the layout of the split compute.
+# compute_dim, compute_pieces and cache_split, the layout of the split
+# compute.
 """Parameter / cache / batch PartitionSpecs (FSDP x TP, path-based rules).
 
 TP (Megatron) over "model": attention heads, FFN hidden, experts, vocab.
@@ -345,39 +346,96 @@ class _ModelSlice(torch.autograd.Function):
     """Each local device's chunk of a whole copy; all-gather backward."""
 
     @staticmethod
-    def forward(ctx, x, d, axis):
-        ctx.d, ctx.axis = d, axis
-        v = _split(x, d, axis.size)
+    def forward(ctx, x, d, axis, pieces):
+        ctx.d, ctx.axis, ctx.pieces = d, axis, pieces
+        v = _split(x, d, pieces * axis.size)
+        v = v.unflatten(1, (pieces, axis.size))
         rows = torch.arange(x.shape[0], device=x.device)
-        return v[rows, axis.index()].contiguous()
+        got = v[rows, :, axis.index()]            # (local, pieces, ...)
+        return got.movedim(1, d + 1).flatten(d + 1, d + 2).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.axis.gather_dim(g.contiguous(), ctx.d + 1), None, None
+        d, n, k = ctx.d + 1, ctx.axis.size, ctx.pieces
+        full = ctx.axis.gather_dim(g.contiguous(), d)   # device-major
+        if k > 1:
+            c = full.shape[d] // (n * k)
+            full = full.unflatten(d, (n, k, c)).transpose(d, d + 1) \
+                .flatten(d, d + 2)
+        return full, None, None, None
 
 
-def model_slice(x: torch.Tensor, d: int, axis) -> torch.Tensor:
+def model_slice(x: torch.Tensor, d: int, axis,
+                pieces: int = 1) -> torch.Tensor:
     """Of a gathered leaf ``(n_local, *full_shape)`` that every device of
     ``axis`` holds whole, each device's chunk along full dim ``d`` (chunk
     p at axis position p), under autograd: its backward all-gathers the
     chunks' gradients along ``d``, so each device gets the whole leaf's
-    gradient (each chunk's from the one device that computed with it)."""
-    return _ModelSlice.apply(x, d, axis)
+    gradient (each chunk's from the one device that computed with it).
+    With ``pieces`` > 1 the dim is that many equal parts side by side (a
+    packed projection) and the device takes its chunk of each, in
+    order."""
+    return _ModelSlice.apply(x, d, axis, pieces)
 
 
 # ---------------------------------------------------------------------------
 # the compute layout of the split (port only)
 # ---------------------------------------------------------------------------
 
+# the leaves of a layer the split compute cuts, by kind: (column-split
+# leaves, the dim of theirs it cuts counted from the last); a leaf of the
+# kind not named is used whole
+_SPLIT_LEAVES = {
+    # MLA: the query heads; q_a, kv_a and the latent norms whole
+    "mla": {"q_b": 1, "kv_b": 1, "wo": 2},
+    # mamba: the inner channels; x_proj and out_proj are row-parallel
+    "mamba": {"in_proj": 1, "conv_w": 1, "conv_b": 1, "dt_w": 1,
+              "dt_bias": 1, "D": 1, "x_proj": 2, "A_log": 2,
+              "out_proj": 2},
+    # rwkv's time mix: the heads (the mixing weights and w1 whole)
+    "rwkv": {"wk": 1, "wv": 1, "wr": 1, "wg": 1, "w2": 1, "w0": 1,
+             "ln_x": 1, "u": 2, "wo": 2},
+    # rwkv's channel mix: ff (the gate cm_wr whole)
+    "rwkv_cm": {"cm_wk": 1, "cm_wv": 2},
+    # cross attention (MHA): the heads
+    "cross": {"wq": 1, "wk": 1, "wv": 1, "wo": 2},
+}
+# leaves whose cut dim packs parts side by side (mamba's [x_in | z])
+_PIECES = {"in_proj": 2}
+
+
+def _split_by(kind: str, cfg) -> bool:
+    """Whether the split compute cuts a layer kind's leaves of
+    :data:`_SPLIT_LEAVES` under the active context: its logical axis
+    divides the model axis (the reference's constrain)."""
+    from repro_torch.models import sharding as SHD
+    from repro_torch.models.rwkv import HEAD_DIM
+    if kind in ("mla", "cross"):
+        return SHD.parts("heads", cfg.n_heads) > 1
+    if kind == "mamba":
+        return SHD.parts("inner", cfg.expand * cfg.d_model) > 1
+    if kind == "rwkv":
+        return SHD.parts("heads", cfg.d_model // HEAD_DIM) > 1
+    return SHD.parts("ff", cfg.d_ff) > 1              # rwkv_cm
+
+
+def compute_pieces(path) -> int:
+    """The parts a leaf's cut dim packs (:func:`model_slice`'s
+    ``pieces``): 2 for mamba's ``in_proj``, else 1."""
+    return _PIECES.get(str(path[-1]), 1)
+
+
 def compute_dim(path, shape: Sequence[int], cfg) -> Any:
     """The dim of a param leaf (full ``shape``) that the split compute
     keeps cut over the model axis under the active sharding context
     (``models/sharding.py``), or None where every device uses it whole:
     the vocab of ``embed``/``head``, the heads of a GQA layer's
-    projections (its KV heads only where they divide too), ``ff`` of a
-    dense MLP and of the shared experts, the experts of an MoE layer.  The
-    layers the split leaves whole (MLA, cross attention, mamba, rwkv, the
-    encoder) and norms and routers are used whole."""
+    projections (its KV heads only where they divide too) and of the
+    encoder's, ``ff`` of a dense MLP and of the shared experts, the
+    experts of an MoE layer, and :data:`_SPLIT_LEAVES` of MLA, mamba,
+    rwkv and cross attention, each where its logical axis divides the
+    model axis.  Norms, routers, MLA's ``q_a``/``kv_a``, rwkv's mixing
+    weights and gate ``cm_wr`` are used whole."""
     from repro_torch.models import sharding as SHD
     from repro_torch.models.lm import stages_of
     keys = [str(k) for k in path]
@@ -386,13 +444,23 @@ def compute_dim(path, shape: Sequence[int], cfg) -> Any:
         return nd - 2 if SHD.parts("vocab", cfg.vocab_size) > 1 else None
     if keys == ["head"]:
         return nd - 1 if SHD.parts("vocab", cfg.vocab_size) > 1 else None
-    if len(keys) < 4 or not keys[0].startswith("stage"):
+    if len(keys) < 4:
         return None
-    mixer, mlp = stages_of(cfg)[int(keys[0][5:])][1][int(keys[1][1:])]
-    if cfg.encdec or mixer in ("mla", "mamba", "rwkv"):
-        mixer = None                     # a layer the split leaves whole
+    if keys[0] == "encoder":
+        mixer, mlp = "attn_full", "dense"
+    elif keys[0].startswith("stage"):
+        mixer, mlp = stages_of(cfg)[int(keys[0][5:])][1][int(keys[1][1:])]
+    else:
+        return None
     name = keys[-1]
-    if keys[2] == "mixer" and mixer is not None:
+    if keys[2] == "cross" or keys[2] == "mixer" and mixer in (
+            "mla", "mamba", "rwkv"):
+        kind = "cross" if keys[2] == "cross" else mixer
+        if mixer == "rwkv" and name.startswith("cm_"):
+            kind = "rwkv_cm"
+        back = _SPLIT_LEAVES[kind].get(name)
+        return nd - back if back and _split_by(kind, cfg) else None
+    if keys[2] == "mixer":
         heads = SHD.parts("heads", cfg.n_heads) > 1
         kv = heads and SHD.parts("kv_heads", cfg.n_kv_heads) > 1
         if name in ("wq", "bq") and heads or name in ("wk", "wv", "bk",
@@ -411,3 +479,20 @@ def compute_dim(path, shape: Sequence[int], cfg) -> Any:
     if SHD.parts("ff", ff) == 1:
         return None
     return nd - 2 if name == "wo" else nd - 1
+
+
+def cache_split(path, cfg) -> bool:
+    """Whether the split compute keeps a cache leaf's model split (each
+    device computes with its stored slice): GQA K/V where the KV heads
+    split with the q heads, ``enc_k``/``enc_v`` where cross attention's
+    heads split, mamba's ``conv``/``ssm`` where its inner channels do,
+    rwkv's ``wkv`` where its heads do.  MLA's latents and rwkv's shifts
+    are whole over the model axis: every device writes the same value."""
+    from repro_torch.models import sharding as SHD
+    name = str(path[-1])
+    if name in ("k", "v", "k_scale", "v_scale"):
+        return (SHD.parts("heads", cfg.n_heads) > 1
+                and SHD.parts("kv_heads", cfg.n_kv_heads) > 1)
+    kind = {"enc_k": "cross", "enc_v": "cross", "conv": "mamba",
+            "ssm": "mamba", "wkv": "rwkv"}.get(name)
+    return kind is not None and _split_by(kind, cfg)

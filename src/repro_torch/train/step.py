@@ -40,14 +40,19 @@ outputs all-reduced over it (reduce-scattered on S with
 ``sequence_parallel``), the cross entropy over the vocab-split logits by a
 ``pmax`` and a ``psum``.  A leaf the compute uses split keeps its
 ``model`` slice and is all-gathered over its other axes only; any other
-is gathered whole.  The gathers' backward reduce-scatters over the batch
+is gathered whole.  A stacked layer leaf is gathered one rep at a time,
+inside the rep's function, which ``cfg.remat`` checkpoints: the backward
+gathers each rep's params again and no rep's gathered copy is held
+through it (ZeRO-3).  The gathers' backward reduce-scatters over the batch
 axes, and over ``model`` for a leaf each device of a model group uses
 whole (each holds a share of its gradient).  The loss is replicated over
 ``model`` and counts once: each device's loss is divided by the batch
 slices and the model axis's size.  AdamW updates each slice: the clip's
 norm and grad-compress's scale are reduced over each leaf's split axes.
-MLA, cross attention, mamba and rwkv layers run whole on every device
-(ROADMAP item 16d); the serve steps refuse their configs.
+Every layer kind splits: GQA, MLA (query heads), cross attention and the
+encoder (heads), mamba (inner channels), rwkv (heads and ``ff``), dense
+and MoE MLPs; a layer stays whole only where its axis does not divide the
+model axis (the reference's fit rule).
 
 On the card the forward's attention runs K3's prefill kernel under
 autograd (K3e, ``kernels/flash_attention.py::train_attention``), the
@@ -266,6 +271,28 @@ def _fold(x: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
     return x.movedim(0, d).flatten(d, d + 1)
 
 
+class Reps:
+    """A stacked leaf's laid-out reps (one ``unbind``), each all-gathered
+    to its compute slice where the model indexes it (``lm._layer``):
+    inside the rep's function, so that a checkpointed rep gathers it again
+    in its recompute and no rep's gathered copy outlives its use."""
+
+    def __init__(self, parts, fetch):
+        self.parts, self.fetch = parts, fetch
+
+    def __len__(self) -> int:
+        return len(self.parts)
+
+    def __getitem__(self, r: int) -> torch.Tensor:
+        return self.fetch(self.parts[r])
+
+
+def _stacked(path) -> bool:
+    """A leaf with a stacked layer dim first: a stage's or the
+    encoder's."""
+    return str(path[0]).startswith("stage") or str(path[0]) == "encoder"
+
+
 def compute_params(cfg: ModelConfig, mesh: Mesh, params, shardings,
                    batch_axes: Tuple[str, ...]):
     """The params the model computes with in a sharding context (under
@@ -274,12 +301,14 @@ def compute_params(cfg: ModelConfig, mesh: Mesh, params, shardings,
     (``shardings.compute_dim``).  A leaf the compute splits otherwise than
     its storage is cut to each device's compute slice after the gather
     (``shardings.model_slice``, whose backward all-gathers the slices'
-    gradients).  A stacked layer leaf is cut into its layers, each
-    (n_local, ...), by one ``unbind`` (``lm._layer`` indexes them), whose
-    backward writes the leaf's gradient once where a select a layer would
-    write it each time.  Each leaf's gradient reduces over the batch axes,
-    and over the model axis for a leaf the devices of a model group use
-    whole (each holds a share of its gradient)."""
+    gradients).  A stacked layer leaf is cut into its reps by one
+    ``unbind`` (whose backward writes the leaf's gradient once) and comes
+    as :class:`Reps`: each rep is gathered where the model indexes it,
+    inside the rep's (checkpointed, under ``cfg.remat``) function, the
+    ZeRO-3 gather a layer; a leaf whose stored reps dim is split is first
+    gathered along it, once.  Each leaf's gradient reduces over the batch
+    axes, and over the model axis for a leaf the devices of a model group
+    use whole (each holds a share of its gradient)."""
     c = SHD.ctx()
 
     def one(path, p, sh):
@@ -287,16 +316,32 @@ def compute_params(cfg: ModelConfig, mesh: Mesh, params, shardings,
                                dict(sh.dims()).get(d, ()))
                  for d, n in enumerate(p.shape[1:])]
         cd = SH.compute_dim(path, shape, cfg)
+        pieces = SH.compute_pieces(path)
         keep = ()
-        if cd is not None and dict(sh.dims()).get(cd) == ("model",):
+        if cd is not None and pieces == 1 and \
+                dict(sh.dims()).get(cd) == ("model",):
             keep = ("model",)
         sums = batch_axes + (("model",) if c.m > 1 and cd is None else ())
-        x = SH.gather(p, sh, sums, keep)
-        if cd is not None and not keep:
-            x = SH.model_slice(x, cd, c.model)
-        if str(path[0]).startswith("stage"):
-            x = x.movedim(0, 1).unbind(0)
-        return x
+
+        def fetch(x, sh, cd, sums):
+            x = SH.gather(x, sh, sums, keep)
+            if cd is not None and not keep:
+                x = SH.model_slice(x, cd, c.model, pieces)
+            return x
+
+        if not _stacked(path):
+            return fetch(p, sh, cd, sums)
+        # the reps dim itself split (a dense MLP under the reference's
+        # first-match expert rule): gathered over its axes once, first
+        lead = dict(sh.dims()).get(0, ())
+        if lead:
+            p = SH.gather(p, NamedSharding(mesh, P(sh.spec[0], *(
+                [None] * (len(sh.spec) - 1)))),
+                tuple(a for a in sums if a in lead))
+            sums = tuple(a for a in sums if a not in lead)
+        rep_sh = NamedSharding(mesh, P(*sh.spec[1:]))
+        return Reps(p.movedim(0, 1).unbind(0), lambda x: fetch(
+            x, rep_sh, None if cd is None else cd - 1, sums))
 
     return SH.tree_map(one, params, shardings, with_path=True)
 
@@ -410,32 +455,20 @@ def _logits_sharding(cfg: ModelConfig, mesh: Mesh,
     return NamedSharding(mesh, spec)
 
 
-def _refuse_whole_layers(cfg: ModelConfig) -> None:
-    kinds = set(cfg.layer_kinds()) | set(cfg.mlp_kinds())
-    whole = sorted(kinds & {"mla", "mamba", "rwkv", "rwkv_cm"}) + (
-        ["cross attention"] if cfg.encdec else [])
-    if whole:
-        raise NotImplementedError(
-            f"{cfg.name}: the mesh's prefill and decode steps split GQA, "
-            f"dense and MoE layers; {', '.join(whole)} over a laid-out "
-            f"cache is ROADMAP item 16d")
-
-
 def _cache_folded(cfg: ModelConfig, cache, cs, mesh: Mesh):
     """Each laid-out cache leaf (n_local, reps, b, ...) as the folded
     (reps, n_local * b, ...) the model indexes, and what has to be written
     back after the step: the leaves whose fold copied (storage not
-    layer-major) and the KV leaves split over the model axis where the
-    compute keeps every KV head on every device (gathered whole over it
-    here, each device's slice written back)."""
-    kv_split = (SHD.parts("heads", cfg.n_heads) > 1
-                and SHD.parts("kv_heads", cfg.n_kv_heads) > 1)
+    layer-major) and the leaves split over the model axis where the
+    compute keeps them whole (``shardings.cache_split``: GQA K/V whose KV
+    heads do not split with the q heads, say), gathered whole over it
+    here, each device's slice written back."""
     back = []
 
-    def fold(x, sh):
+    def fold(path, x, sh):
         src, model_dim = x, None
-        if not kv_split and mesh.shape.get("model", 1) > 1 and \
-                "model" in sh.axes():
+        if mesh.shape.get("model", 1) > 1 and "model" in sh.axes() and \
+                not SH.cache_split(path, cfg):
             model_dim = [d for d, a in sh.dims() if "model" in a][0]
             src = SH._gather(x, sh, keep=tuple(a for a in sh.axes()
                                                if a != "model"))
@@ -445,7 +478,7 @@ def _cache_folded(cfg: ModelConfig, cache, cs, mesh: Mesh):
                                      != x.untyped_storage().data_ptr()):
             back.append((x, f, model_dim))
         return f
-    return SH.tree_map(fold, cache, cs), back
+    return SH.tree_map(fold, cache, cs, with_path=True), back
 
 
 def _write_back(back, mesh: Mesh) -> None:
@@ -510,8 +543,7 @@ def _full_step(step, layout, params, cache, *rest):
 
 def make_prefill_step(cfg: ModelConfig, mesh: Mesh, pcfg: ParallelConfig):
     """Inference-prefill over a mesh: causal forward + KV-cache population
-    (module docstring)."""
-    _refuse_whole_layers(cfg)
+    (module docstring); an enc-dec config's batch holds ``enc_embeds``."""
 
     def step_of(layout):
         ps, cs, bs, lg = layout
@@ -522,7 +554,8 @@ def make_prefill_step(cfg: ModelConfig, mesh: Mesh, pcfg: ParallelConfig):
                 cfg, pcfg, mesh, ps, cs, bs, lg, params, cache,
                 lambda full, c: lm.forward(
                     cfg, full, b["tokens"], positions=b.get("positions"),
-                    cache=c, mode="prefill", moe_groups=pcfg.moe_groups)[0])
+                    enc_embeds=b.get("enc_embeds"), cache=c,
+                    mode="prefill", moe_groups=pcfg.moe_groups)[0])
         return step
 
     def layout_of(params, cache, batch):
@@ -542,7 +575,6 @@ def make_prefill_step(cfg: ModelConfig, mesh: Mesh, pcfg: ParallelConfig):
 def make_serve_step(cfg: ModelConfig, mesh: Mesh, pcfg: ParallelConfig):
     """One decode step over a mesh at a uniform position (the reference's
     over ``lm.decode_step``; module docstring)."""
-    _refuse_whole_layers(cfg)
 
     def step_of(layout):
         ps, cs, ts, lg = layout

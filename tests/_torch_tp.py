@@ -13,6 +13,7 @@ same shape.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -31,7 +32,7 @@ from repro_torch.weights import params_from_jax
 RECIPE = dict(lr=8e-3, warmup_steps=2, total_steps=40)
 
 REF = r"""
-import json, numpy as np, jax, jax.numpy as jnp
+import dataclasses, json, numpy as np, jax, jax.numpy as jnp
 from repro.configs import get_reduced
 from repro.launch.mesh import make_local_mesh
 from repro.models import lm
@@ -57,6 +58,8 @@ shapes = lambda t: jax.tree.map(
 
 for case in cases:
     cfg = get_reduced(case["arch"])
+    if "remat" in case:
+        cfg = dataclasses.replace(cfg, remat=case["remat"])
     dtype = jnp.bfloat16 if case["dtype"] == "bfloat16" else jnp.float32
     mesh = make_local_mesh(case["data"], case["model"])
     coord = {{d.id: np.argwhere(mesh.devices == d)[0]
@@ -95,13 +98,15 @@ for case in cases:
     if "serve" in case["kinds"]:
         toks = batch["tokens"]
         B, S = toks.shape
-        cache = lm.init_cache(cfg, B, case["max_len"])
+        pb = {{k: v for k, v in batch.items()
+               if k in ("tokens", "enc_embeds")}}
+        enc_len = pb["enc_embeds"].shape[1] if "enc_embeds" in pb else 0
+        cache = lm.init_cache(cfg, B, case["max_len"], enc_len=enc_len)
         cs = SH.tree_shardings(cache, mesh, SH.cache_spec)
         _, pcomp = ST.make_prefill_step(cfg, mesh, pcfg)
         _, scomp = ST.make_serve_step(cfg, mesh, pcfg)
-        pstep = pcomp(shapes(params), shapes(cache),
-                      shapes({{"tokens": toks}}))
-        lg, cache = pstep(pd, jax.device_put(cache, cs), {{"tokens": toks}})
+        pstep = pcomp(shapes(params), shapes(cache), shapes(pb))
+        lg, cache = pstep(pd, jax.device_put(cache, cs), pb)
         out["prefill_logits"] = np.asarray(lg)
         tok = jnp.argmax(lg[:, -1], -1)[:, None].astype(jnp.int32)
         sstep = scomp(shapes(params), shapes(cache), shapes(tok))
@@ -125,8 +130,10 @@ print("REF_OK")
 
 def run_reference(cases, inputs, tmp, devices=4, timeout=560):
     """The reference's run of ``cases`` (dicts: name, arch, dtype, data,
-    model, pcfg, seed, batch keys, kinds, and for serve max_len and steps)
-    over ``inputs`` ({case name/key: array}); {case name: its arrays}."""
+    model, pcfg, seed, batch keys, kinds, for serve max_len and steps, and
+    optionally remat, the config's override) over ``inputs`` ({case
+    name/key: array}; an enc-dec serve case's prefill takes its
+    ``enc_embeds``); {case name: its arrays}."""
     tmp = Path(tmp)
     with open(tmp / "cases.json", "w") as f:
         json.dump(cases, f)
@@ -181,6 +188,7 @@ def mesh_forward(cfg, pcfg, mesh, params, batch):
         b = SH.tree_map(TS._fold, SH.shard(batch, bs), bs)
         logits, aux, _ = lm.forward(cfg, full, b["tokens"],
                                     positions=b.get("positions"),
+                                    enc_embeds=b.get("enc_embeds"),
                                     moe_groups=pcfg.moe_groups)
         out = TS._logits_out(logits.float(), lg, mesh, cfg.vocab_size)
     aux = aux.reshape(-1)[0]
@@ -203,7 +211,10 @@ def mesh_train(cfg, pcfg, mesh, params, batch):
 
 
 def cfg_of(case):
-    return get_reduced(case["arch"])
+    cfg = get_reduced(case["arch"])
+    if "remat" in case:
+        cfg = dataclasses.replace(cfg, remat=case["remat"])
+    return cfg
 
 
 def mesh_of(case):

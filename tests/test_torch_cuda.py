@@ -13,8 +13,8 @@ kernels' tiles or splits, the decode kernel's dispatch
 rule, int8 K/V with their scales on the decode route (K3d) at every
 instantiated head dim and group, and the Engine on the card against the
 Engine on the CPU (the dense, sliding-window, MoE, MLA and recurrent
-families), and the mesh's split train, prefill and decode steps on the
-card against the CPU.
+families), and the mesh's split train, prefill and decode steps (MLA's
+and rwkv's among them) on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -1532,6 +1532,86 @@ def test_split_train_and_serve_steps_on_card_match_cpu(dev, arch, shape,
         diff = (gp.cpu() - c).abs()
         assert (diff[grads[path].abs() > 1e-6] <= 1e-5).all(), path
         assert (diff <= ocfg.lr).all(), path
+    for a, b in zip(lgpu, lc):
+        assert float((a - b).abs().max()) <= 1e-4
+    for a, b in zip(tg, tc):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "rwkv6-7b"])
+def test_split_families_serve_steps_on_card_match_cpu(dev, arch):
+    """MLA and rwkv split over ``model`` on a 1 x 2 stacked mesh on the
+    card against the same on the CPU: reduced deepseek-v2 at its full
+    MLA head dims (Dk 192 / Dv 128, the K3 instantiation the full model
+    takes) and reduced rwkv6, a prefill of 4 x 24 tokens and 6 greedy
+    decode steps through ``make_prefill_step``/``make_serve_step`` over
+    a laid-out cache (logits within 1e-4, greedy tokens equal); K3's
+    prefill route once a layer over each device's local heads (MLA's
+    decode runs its absorbed einsums, rwkv no K3), K2 == the hops."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import shardings as SH
+    from repro_torch.train import step as TS
+    cfg = get_reduced(arch)
+    if cfg.kv_lora_rank:
+        full = get_config(arch)
+        cfg = dataclasses.replace(
+            cfg, qk_nope_dim=full.qk_nope_dim, qk_rope_dim=full.qk_rope_dim,
+            v_head_dim=full.v_head_dim,
+            head_dim=full.qk_nope_dim + full.qk_rope_dim)
+    pcfg = TS.ParallelConfig()
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(4), device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (4, 24), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(5))
+    heads = []
+    real = ops.chunked_attention
+
+    def spy(q, *a, **kw):
+        heads.append(q.shape[2])
+        return real(q, *a, **kw)
+    runs = {}
+    for where in ("cpu", dev):
+        mesh = make_local_mesh(1, 2, device=where)
+        p = SH.tree_map(lambda x: x.to(where), params)
+        cache = lm.init_cache(cfg, 4, 40, device=where)
+        _, pcomp = TS.make_prefill_step(cfg, mesh, pcfg)
+        _, scomp = TS.make_serve_step(cfg, mesh, pcfg)
+        ps = SH.tree_shardings(p, mesh, SH.param_spec)
+        cs = SH.tree_shardings(cache, mesh, SH.cache_spec)
+        lg_sh = TS._logits_sharding(cfg, mesh, 4)
+        laid_p, laid_c = SH.shard(p, ps), SH.shard(cache, cs, stack_dim=1)
+        pb = {"tokens": prompt.to(where)}
+        ops.reset_launch_counts()
+        mesh.reset_counts()
+        heads.clear()
+        ops.chunked_attention = spy
+        try:
+            lg, laid_c = pcomp(p, cache, pb)(laid_p, laid_c, pb)
+            logits = [SH.unshard({"l": lg}, {"l": lg_sh})["l"].cpu()]
+            tok = logits[0][:, -1:].argmax(-1).to(torch.int32)
+            toks = [tok]
+            sstep = scomp(p, cache, tok.to(where))
+            for i in range(6):
+                lg, laid_c = sstep(laid_p, laid_c, tok.to(where), 24 + i)
+                logits.append(SH.unshard({"l": lg}, {"l": lg_sh})["l"].cpu())
+                tok = logits[-1][:, -1:].argmax(-1).to(torch.int32)
+                toks.append(tok)
+        finally:
+            ops.chunked_attention = real
+        if where == dev:
+            torch.cuda.synchronize()
+            c = ops.launch_counts()
+            mla = sum(k == "mla" for k in cfg.layer_kinds())
+            assert c["flash_attention_prefill"] == mla
+            assert c["flash_attention_decode"] == 0
+            assert heads == [cfg.n_heads // 2] * mla
+            assert c["villa_gather"] == sum(
+                h for h, _ in mesh.counts().values())
+        runs[str(where)] = (logits, toks)
+    (lc, tc), (lgpu, tg) = runs["cpu"], runs[str(dev)]
     for a, b in zip(lgpu, lc):
         assert float((a - b).abs().max()) <= 1e-4
     for a, b in zip(tg, tc):

@@ -61,7 +61,9 @@ def step_counts(params, shardings, mesh, batch_axes, pcfg, cfg):
     otherwise than its storage is cut after the gather and its slices'
     gradients all-gathered over the model axis, a reduction); a leaf whole
     along such an axis
-    is all-reduced over it (2n - 1 hops); the clip's norm reduces once on
+    is all-reduced over it (2n - 1 hops); a stacked layer leaf does all of
+    that once a rep (``step.Reps``), but along a split of its reps dim,
+    gathered once; the clip's norm reduces once on
     each axis a leaf is split over, grad compression's scale once more;
     the metrics once on each batch axis; the split compute's collectives
     (:func:`split_reductions`) on the model axis."""
@@ -78,15 +80,18 @@ def step_counts(params, shardings, mesh, batch_axes, pcfg, cfg):
             keep = cd is not None and dict(sh.dims()).get(cd) == ("model",)
             sums = tuple(batch_axes) + (("model",) if tp and cd is None
                                         else ())
+            reps = x.shape[0] if path.startswith("stage") else 1
+            lead = dict(sh.dims()).get(0, ()) if reps > 1 else ()
             if tp and cd is not None and not keep:
-                red["model"] += 1     # model_slice's backward all-gather
+                red["model"] += reps  # model_slice's backward all-gather
             for a in split:
                 red[a] += 2 if pcfg.grad_compress else 1
                 if not (keep and a == "model"):
-                    hops[a] += sizes[a] + (sizes[a] - 1 if a in sums else 0)
+                    hops[a] += (1 if a in lead else reps) * (
+                        sizes[a] + (sizes[a] - 1 if a in sums else 0))
             for a in sums:
                 if a not in split:
-                    hops[a] += 2 * sizes[a] - 1
+                    hops[a] += reps * (2 * sizes[a] - 1)
     for a in batch_axes:
         red[a] += 1
     if tp:

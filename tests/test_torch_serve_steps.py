@@ -144,17 +144,6 @@ def test_step_fn_takes_full_trees_and_writes_the_cache_in_place():
         _close(a.float(), b.float(), p)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "rwkv6-7b",
-                                  "jamba-v0.1-52b", "seamless-m4t-medium"])
-def test_layers_left_whole_are_refused_over_a_cache(arch):
-    """MLA, mamba, rwkv and cross attention over a laid-out cache are
-    item 16d: both steps say so at construction."""
-    mesh = mesh_of({"data": 1, "model": 2})
-    for make in (TS.make_prefill_step, TS.make_serve_step):
-        with pytest.raises(NotImplementedError, match="item 16d"):
-            make(get_reduced(arch), mesh, TS.ParallelConfig())
-
-
 def test_serve_job_on_gloo_ranks_equals_the_stack(tmp_path):
     """The tp_serve job (reduced olmoe: attention heads, experts and vocab
     over ``model``; 2 x 2) on 4 gloo ranks and stacked: logits, greedy
