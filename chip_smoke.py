@@ -48,7 +48,9 @@ nvcc (sm_90a), then:
                 may fail its checksums, the stats must add up, and every
                 kernel's launch counter, reset just before the measured
                 Engine and read after its last step, must equal what that
-                run's stats call for (and so be above 0);
+                run's stats and movement dispatches call for (a suspend
+                or resume wave launches as one session does; and so be
+                above 0);
   3b. tile_copy — every leaf of that Engine's live KV cache goes through a
                 device->device ``movement`` transfer (the ``tile_copy`` leg,
                 K4): each copy bit-exact and a new tensor, and K4's counter,
@@ -232,6 +234,29 @@ nvcc (sm_90a), then:
                 f32 or moved by one ulp; K3's launches what the layers
                 call for, K2 == the hops; phase 2 times K3 at its
                 local-head shapes.
+  25. entry-point audit and live roofline — full-width tinyllama-1.1b in
+                f32 at phase 3's slots and max_len: (a) every registered
+                entry point (``repro_torch.analysis.entrypoints``: decode,
+                each prefill bucket, suspend, suspend_many, resume,
+                resume_many, a 2-replica Cluster's migrate route,
+                simulate_params) audited on the card by one watched call:
+                launches a call of each kernel as its contract says (a
+                wave's as one call's), no device->host sync, its state in
+                place (data pointers kept, no allocation of its size), no
+                uint8 page widened; any finding fails; (b) each entry
+                point once under torch.profiler: the cost model's flops
+                and bytes (``roofline/cost.py``), its bound, device ms
+                under kernels and, apart, under copies and sets, share =
+                bound / kernel device ms (above 105% fails: the model
+                counts work the call does not do), the dominant kernel
+                and the device's busy share (``roofline/attribution.py``).
+                Every profile here (phases 4-16, 21-22, 25) is
+                ``attribution.capture``'s: a lead-in of one-element
+                kernels takes the device records a profiling session
+                drops at its start, the call runs in a marked region, and
+                a launch of the region without its device record fails
+                the run; each profile prints how many lead-in records
+                were dropped.
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -251,10 +276,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
-TF32_FLOP_PER_S = 495e12         # H100 SXM tensor cores, dense TF32
-BF16_FLOP_PER_S = 989e12         # H100 SXM tensor cores, dense bf16
+# the card's peaks and K3's bounds live in the port's roofline layer
+# (repro_torch/roofline/analysis.py, the one home of the H100's peaks)
+from repro_torch.roofline.analysis import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_BF16_FLOPS as BF16_FLOP_PER_S,
+    PEAK_F32_FLOPS as F32_FLOP_PER_S)
+from repro_torch.roofline.cost import attention_bound, tc_bound  # noqa: E402
 SLEEP_CYCLES = 400_000           # ~0.2 ms of GPU sleep ahead of a timing
 SLOTS, MAX_LEN, N_SESSIONS, SEED = 8, 1024, 32, 0
 SERVE_LEN = 256                  # the launcher's --max-len in phase 5
@@ -472,6 +499,10 @@ SS_RUNS = (
      "the encoder and cross attention over 16 heads; full depth"),
 )
 SS_RATIO = 2.0
+# phase 25: a roofline share (bound / device ms) above this fails the run;
+# each entry point's profile holds this many calls (device ms a call)
+SHARE_LIMIT = 1.05
+ROOFLINE_CALLS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -843,7 +874,7 @@ def main() -> int:
             + n_res * eng.plan_resume.cost.ns_lisa)
     check(math.isclose(st["modeled_move_ns_lisa"], want, rel_tol=1e-9),
           "modeled movement does not add up")
-    check_counts(counts, serving_launches(cfg, st), "the Engine's path")
+    check_counts(counts, serving_launches(cfg, eng), "the Engine's path")
     print(f"serving: tokens match the uninterrupted run for all 8 requests "
           f"({len(wave)} suspended+resumed); stats {json.dumps(st)}")
 
@@ -996,6 +1027,11 @@ def main() -> int:
         for route in ("prefill", "decode"):
             paths[entry][route] += split_served[name][route]
     wall(24)
+    # the entry points' audit and live roofline: tinyllama's K1, K2 and K3
+    # launches count on its rows
+    for name, n in audit_phase(tag).items():
+        counts[name] += n
+    wall(25)
     routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
                                   "decode": counts["flash_attention_decode"]},
               **paths, "flash_attention_train": train}
@@ -1175,47 +1211,6 @@ def attention_err(label, got, q, k, v, qp, kp, window=0, causal=True):
           f"attention {label}: error {float(diff.max())} past its bar "
           f"({share:.3g} of it, {got.dtype})")
     return float(diff.max()), share
-
-
-def attention_bound(q, k, q_pos, kv_pos, window, peak=F32_FLOP_PER_S,
-                    passes=1, dv=None, scale_bytes=0, causal=True):
-    """(ms, "bytes" or "operations") of the least time the card could take
-    for this attention: q read and the output written once (in q's dtype),
-    positions read once, the K/V rows that some query of their batch row
-    attends read once (in k's dtype, with ``scale_bytes`` of scales a kv
-    head for an int8 row: its K and V scales, 8); 2*H*(Dk + Dv) FLOP per
-    valid (query, key) pair (4*H*D where V's head dim ``dv`` is q's and
-    K's), at the f32 peak (or, for the prefill kernel's own bound,
-    ``passes`` products of each at a tensor-core peak: 3 TF32 ones for
-    f32, one bf16).  Without ``causal`` every (query, key) pair is valid."""
-    import numpy as np
-    qp, kp = q_pos.cpu().numpy(), kv_pos.cpu().numpy()
-    valid = (kp[:, None, :] <= qp[:, :, None] if causal else
-             np.ones((kp.shape[0], qp.shape[1], kp.shape[1]), bool))
-    if window > 0:
-        valid &= kp[:, None, :] > qp[:, :, None] - window
-    B, S, H, D = q.shape
-    K = k.shape[2]
-    dv = D if dv is None else dv
-    rows = int(valid.any(1).sum())
-    nbytes = (q.element_size() * B * S * H * (D + dv)
-              + (k.element_size() * (D + dv) + scale_bytes) * rows * K
-              + 4 * (qp.size + kp.size))
-    flops = 2 * H * (D + dv) * int(valid.sum()) * passes
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def tc_bound(q, k, q_pos, kv_pos, window, dv=None, causal=True):
-    """The prefill kernel's tensor-core bound (ms): one bf16 product when
-    q and K/V are bf16, else 3xTF32 (any f32 operand takes that path)."""
-    import torch
-    if q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16:
-        return attention_bound(q, k, q_pos, kv_pos, window,
-                               BF16_FLOP_PER_S, dv=dv, causal=causal)[0]
-    return attention_bound(q, k, q_pos, kv_pos, window, TF32_FLOP_PER_S,
-                           3, dv=dv, causal=causal)[0]
 
 
 def prefill_rows(attn_case, flush, tag) -> dict:
@@ -1702,7 +1697,7 @@ def serve_phase(label, cfg, params, prompts, tag, *, slots, max_len,
             + n_res * eng.plan_resume.cost.ns_lisa)
     check(math.isclose(st["modeled_move_ns_lisa"], want, rel_tol=1e-9),
           f"{label}: modeled movement does not add up")
-    check_counts(counts, serving_launches(cfg, st), f"{label}'s Engine path")
+    check_counts(counts, serving_launches(cfg, eng), f"{label}'s Engine path")
     print(f"{label} serving: tokens match the uninterrupted run for all "
           f"{len(reqs)} requests ({len(wave)} suspended+resumed); launches "
           f"{json.dumps(counts)}; stats {json.dumps(st)}")
@@ -1747,7 +1742,7 @@ def serve_phase(label, cfg, params, prompts, tag, *, slots, max_len,
           f"{label} scheduler: not one host read per decode dispatch")
     check(eng.verify_failure_count() == 0,
           f"{label} scheduler: a resume failed its checksums")
-    check_counts(sched_counts, serving_launches(cfg, st),
+    check_counts(sched_counts, serving_launches(cfg, eng),
                  f"{label} scheduler")
     print(f"{label} scheduler: {summary['jobs_completed']} jobs, "
           f"{st['decoded_tokens']} tokens in {s.tick_count} ticks, "
@@ -3222,7 +3217,7 @@ def fleet_phase(tag) -> dict:
           and cs["migration_waves"] == 3 * n_routes
           and cs["migrated_bytes"] == 3 * len(F_MOVES) * cl.snapshot_bytes,
           f"fleet: migration stats {cs}")
-    check_counts(counts, fleet_launches(cfg, st), "the fleet's migration")
+    check_counts(counts, fleet_launches(cfg, cl), "the fleet's migration")
     hops = [cl.topo.hops(u // F_SLOTS, d) for u, d in F_MOVES]
     nbytes = len(F_MOVES) * cl.snapshot_bytes
     print(f"fleet: {F_REPLICAS} replicas x {F_SLOTS} slots, one copy of "
@@ -3249,7 +3244,7 @@ def fleet_phase(tag) -> dict:
               f"fleet launcher ({arm}): not every job completed")
         check(s.eng.verify_failure_count() == 0,
               f"fleet launcher ({arm}): a resume failed its checksums")
-        check_counts(got, fleet_launches(cfg, s.eng.stats),
+        check_counts(got, fleet_launches(cfg, s.eng),
                      f"the fleet launcher ({arm})")
         for name, n in got.items():
             total[name] += n
@@ -3400,12 +3395,13 @@ def fleet_phase(tag) -> dict:
     return total
 
 
-def fleet_launches(cfg, st) -> dict:
-    """The launches a fleet's stats call for: the serving launches of
-    its replicas' engines (``serving_launches`` of the summed stats), and
-    one K2 and one K1 a route wave — a migration wave, each of its
-    retries, each cross-replica fork materialization."""
-    due = serving_launches(cfg, st)
+def fleet_launches(cfg, cl) -> dict:
+    """The launches a fleet's run calls for: the serving launches of
+    its replicas' engines (``serving_launches`` of the cluster), and one
+    K2 and one K1 a route wave — a migration wave, each of its retries,
+    each cross-replica fork materialization."""
+    st = cl.stats
+    due = serving_launches(cfg, cl)
     waves = (st["migration_waves"] + st["migration_retries"]
              + st["fork_materializations"])
     for name in ("villa_gather", "villa_scatter"):
@@ -3413,17 +3409,19 @@ def fleet_launches(cfg, st) -> dict:
     return {name: n for name, n in due.items() if n}
 
 
-def serving_launches(cfg, st) -> dict:
-    """The launches a serving run's stats call for.  K3 runs once an
+def serving_launches(cfg, eng) -> dict:
+    """The launches a serving run of ``eng`` (an Engine or a Cluster) calls
+    for, from its stats and its movement dispatches.  K3 runs once an
     attention layer per prefill (its prefill kernel: every prompt is longer
     than one token) and, in a GQA layer, per decode dispatch (its decode
     kernel; an MLA layer decodes through its absorbed einsums, without K3;
-    a mamba or rwkv layer runs no K3); a suspend
-    writes the slow row and its fast copy (two K1), a resume reads the slow
-    row and the fast slot (two K2) and may insert into the fast tier (K1),
-    a demotion clones a row (one K2, one K1); K4 is not on the serving
-    path.  Kernels due no launch are left out (``check_counts`` holds them
-    to 0)."""
+    a mamba or rwkv layer runs no K3); a suspend dispatch (one session or
+    a wave) writes the slow rows and their fast copies (two K1), a resume
+    dispatch reads the slow rows and the fast slots (two K2) and inserts
+    into the fast tier (one K1), a demotion clones a row (one K2, one K1);
+    K4 is not on the serving path.  Kernels due no launch are left out
+    (``check_counts`` holds them to 0)."""
+    st, moves = eng.stats, eng.move_dispatches
     kinds = cfg.layer_kinds()
     n_pre = sum(kind in ("attn_full", "attn_local", "mla") for kind in kinds)
     n_dec = sum(kind in ("attn_full", "attn_local") for kind in kinds)
@@ -3432,9 +3430,9 @@ def serving_launches(cfg, st) -> dict:
     due = {"flash_attention": prefill + decode,
            "flash_attention_prefill": prefill,
            "flash_attention_decode": decode,
-           "villa_scatter": 2 * st["suspends"] + st["resumes"]
+           "villa_scatter": 2 * moves["suspend"] + moves["resume"]
            + st["demotions"],
-           "villa_gather": 2 * st["resumes"] + st["demotions"]}
+           "villa_gather": 2 * moves["resume"] + st["demotions"]}
     return {name: n for name, n in due.items() if n}
 
 
@@ -4306,31 +4304,56 @@ def mesh_train_phase(tag, single_hist) -> dict:
     return total
 
 
+def profiled(fn, **kw):
+    """``fn()`` once under torch.profiler (``roofline.attribution.
+    capture``: a lead-in of one-element kernels absorbs the device records
+    a session drops, then ``fn`` in a marked region, the card
+    synchronised before and after it): (the profile, the attribution of
+    the region over the host window of the call and its sync).  Fails if
+    a launch of the region has no device record."""
+    from repro_torch.roofline import attribution as AT
+    prof, att = AT.capture(fn, top=12, **kw)
+    check(att["unrecorded"] == 0,
+          f"profile: {att['unrecorded']} launches of the region without "
+          f"a device record (the lead-in's {AT.LEAD_IN} launches lost "
+          f"{att['lead_in_unrecorded']})")
+    return prof, att
+
+
+def device_split(prof, att) -> str:
+    """One profile's device time three ways: under kernels and under
+    copies and sets (the region's records, ``roofline.attribution``), and
+    the sum of ``key_averages()``' self device time of its device events
+    (torch's own table of the whole profile: the lead-in's one-element
+    kernels included, the region's own annotation, which spans it, left
+    out); and the lead-in's records the session dropped."""
+    from repro_torch.roofline import attribution as AT
+    table_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                   if "CUDA" in str(e.device_type)
+                   and e.key != AT.REGION) / 1e3
+    return (f"kernels {att['kernel_ms']:.3f} ms ({att['launches']}), "
+            f"copies and sets {att['copy_ms']:.3f} ms ({att['copies']}), "
+            f"key_averages {table_ms:.3f} ms, lead-in records dropped "
+            f"{att['lead_in_unrecorded']}")
+
+
 def profile_step(fn, label, tag, ops_shown=10) -> None:
     """Device time of one training step by the operator that launched it
-    (torch.profiler), and the device's busy share of the host window."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events if "CUDA" in str(e.device_type)]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    (torch.profiler), and the device's busy share of the host window
+    (``roofline.attribution``)."""
+    prof, att = profiled(fn)
     by_op = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                    for e in events if "CUDA" not in str(e.device_type)
+                    for e in prof.key_averages()
+                    if "CUDA" not in str(e.device_type)
                     and e.self_device_time_total > 0), reverse=True)
     print(f"sharded training {label} profile of one step: host "
-          f"{wall_ms:.1f} ms (profiled), device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f}%), "
-          f"{sum(e.count for e in kernels)} kernels [{tag}]")
+          f"{att['window_ms']:.1f} ms (profiled), device busy "
+          f"{att['busy_ms']:.1f} ms ({100 * att['busy_share']:.1f}%): "
+          f"{device_split(prof, att)} [{tag}]")
     for ms, n, key in by_op[:ops_shown]:
         print(f"  {label} op {ms:.2f} device ms, {n} calls: {key[:60]} "
               f"[{tag}]")
+
 
 def mesh_train_nccl(tag, want) -> None:
     """Phase 21's NCCL route: with two cards or more, the launcher of
@@ -4999,6 +5022,108 @@ def split_serve_phase(tag) -> dict:
     return out
 
 
+def audit_phase(tag) -> dict:
+    """Phase 25: the entry points of full-width tinyllama-1.1b (f32, SLOTS
+    slots at MAX_LEN, N_SESSIONS sessions, waves of SLOTS // 2) audited on
+    the card and each one's live roofline.  Returns the launches the
+    phase made, by counter."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import dispatch as D
+    from repro_torch.analysis import entrypoints as E
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.roofline import cost as C
+
+    dev = torch.device("cuda")
+    cfg = get_config("tinyllama-1.1b")
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    wave = SLOTS // 2
+    ops.reset_launch_counts()
+    targets, eng = E.default_targets(
+        device=dev, params=params, reduced=False, slots=SLOTS,
+        max_len=MAX_LEN, n_sessions=N_SESSIONS, wave=wave, seed=SEED)
+    # (a) the audit: one warm call and one watched call a target
+    audit = D.run_audit(targets, device=dev, extra_findings=(
+        D.audit_bucket_stability(eng, E.prefill_buckets(eng))))
+    for rec in audit["targets"]:
+        print(f"audit {rec['name']}: launches {json.dumps(rec['launches'])}"
+              f", syncs {rec['syncs']}, in place {rec['inplace']} "
+              f"({rec['inplace_tensors']} tensors, {rec['alloc_bytes']} B "
+              f"allocated), uint8 upcasts {rec.get('uint8_upcasts', '-')} "
+              f"[{tag}]")
+    check(audit["findings"] == [],
+          f"entry-point audit findings: {json.dumps(audit['findings'])}")
+
+    # (b) the live roofline of each entry point
+    spec = eng.page_spec
+    by_name = {t.name: t for t in targets}
+
+    def cost_of(t):
+        if t.name == "decode":
+            return C.decode_cost(cfg, eng.params, eng.cache, eng.pos,
+                                 [s in eng.active for s in range(SLOTS)])
+        if t.name.startswith("prefill["):
+            lb = int(t.name.split("=")[1].rstrip("]"))
+            return C.prefill_cost(cfg, eng.params, eng.cache, lb,
+                                  np.arange(lb))
+        if t.name == "simulate_params":
+            return C.tree_read_cost(t.args)
+        moved = wave if t.name in ("suspend_many", "resume_many",
+                                   "migrate") else 1
+        return C.page_move_cost(moved, spec.total_bytes, spec.n_pages)
+
+    # the process's first profile loads the profiler's own modules and
+    # runs slower: one of the decode step is taken first and dropped
+    profiled(lambda: by_name["decode"].fn())
+    dropped = {}
+    for name, t in by_name.items():
+        cost = cost_of(t)
+
+        def calls():
+            for _ in range(ROOFLINE_CALLS):
+                t.fn(*t.args, **t.kwargs)
+
+        prof, att = profiled(calls)
+        dropped[name] = att["lead_in_unrecorded"]
+        check(att["kernel_ms"] > 0, f"roofline {name}: no device time")
+        device_ms = att["kernel_ms"] / ROOFLINE_CALLS
+        bound = C.bound_ms(cost)
+        share = bound / device_ms
+        row = {"entry": name, "flops": cost["flops"],
+               "useful_flops": cost["useful_flops"], "bytes": cost["bytes"],
+               "bound_ms": bound, "bound_by": C.bound_by(cost),
+               "device_ms": device_ms,
+               "copy_ms": att["copy_ms"] / ROOFLINE_CALLS, "share": share,
+               "dominant_kernel": att["dominant"],
+               "port_kernels": {k: {"device_ms": v["device_ms"]
+                                    / ROOFLINE_CALLS,
+                                    "count": v["count"] / ROOFLINE_CALLS}
+                                for k, v in att["port_kernels"].items()},
+               "busy_share": att["busy_share"],
+               "window_ms": att["window_ms"] / ROOFLINE_CALLS,
+               "launches": att["launches"] / ROOFLINE_CALLS,
+               "copies": att["copies"] / ROOFLINE_CALLS,
+               "lead_in_dropped": att["lead_in_unrecorded"]}
+        print(json.dumps({"roofline": row}, allow_nan=False))
+        check(share <= SHARE_LIMIT,
+              f"roofline {name}: bound {bound:.4f} ms over device "
+              f"{device_ms:.4f} ms is {share:.3f}: the cost model "
+              f"counts work the call does not do")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"audit and roofline: {len(targets)} entry points, each "
+          f"profile complete; lead-in records the profiles dropped "
+          f"{json.dumps(dropped)}; launches {json.dumps(counts)} [{tag}]")
+    del targets, eng, params
+    torch.cuda.empty_cache()
+    return {name: counts[name] for name in
+            ("villa_scatter", "villa_gather", "flash_attention_prefill",
+             "flash_attention_decode")}
+
+
 def check_counts(counts, due, path) -> None:
     """Each kernel launched exactly as often as ``due`` says (never, for a
     kernel ``due`` leaves out), and each kernel ``due`` names at least
@@ -5052,7 +5177,7 @@ def serve_runs(tag):
                     events = json.load(f)["traceEvents"]
                 check(len(events) > 0 and all("ph" in e for e in events),
                       f"{name}: the trace is not Chrome trace JSON")
-            check_counts(counts, serving_launches(cfg, st), name)
+            check_counts(counts, serving_launches(cfg, eng), name)
             print(f"{name}: {out['jobs_completed']} jobs, "
                   f"{out['tokens_per_s']} tok/s, {out['ticks']} ticks, "
                   f"{out['seconds']} s, p50 {out['p50_latency_ns']} ns, "
@@ -5063,42 +5188,31 @@ def serve_runs(tag):
 
 def profile_decode(eng, tag, steps=4, label="profile", experts=0):
     """Device time by kernel over a few decode steps of every slot
-    (torch.profiler), and the device's busy share of the host window.
-    With ``experts`` (an MoE model's expert count) also the device time of
-    the routed expert products (the batched matmuls over ``experts``
-    weight matrices) and of the dispatch (sort, searchsorted, gather,
-    scatter, topk), from the operators that launched them."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    (torch.profiler, ``roofline.attribution``), and the device's busy
+    share of the host window.  With ``experts`` (an MoE model's expert
+    count) also the device time of the routed expert products (the
+    batched matmuls over ``experts`` weight matrices) and of the dispatch
+    (sort, searchsorted, gather, scatter, topk), from the operators that
+    launched them."""
     # budget: the seed token, one warm step, the window, and one more, so
     # no request completes (and suspends) inside the window
     eng.resume_many(sorted(eng.session_pos)[:eng.slots], steps + 3)
     eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=experts > 0) as prof:
-        t0 = time.perf_counter()
+
+    def window():
         for _ in range(steps):
             eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):   # kernels only, not aten ops
-            continue
-        dev_us = e.self_device_time_total
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    launches = sum(r[1] for r in rows)
-    print(f"{label}: {steps} decode steps, host window {wall_ms:.3f} ms, "
-          f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
-          f"{launches / steps:.0f} kernels/step [{tag}]")
-    for ms, n, key in rows[:12]:
-        print(f"  {label} kernel {ms / steps:.4f} ms/step, {n} launches: "
-              f"{key[:80]}")
+
+    prof, att = profiled(window, record_shapes=experts > 0)
+    print(f"{label}: {steps} decode steps, host window "
+          f"{att['window_ms']:.3f} ms, device busy {att['busy_ms']:.3f} ms "
+          f"({100 * att['busy_share']:.1f}%), "
+          f"{att['launches'] / steps:.0f} kernels/step; over the window: "
+          f"{device_split(prof, att)} [{tag}]")
+    for r in att["kernels"]:
+        port = f" [{r['port']}]" if r["port"] else ""
+        print(f"  {label} {r['kind']} {r['device_ms'] / steps:.4f} ms/step, "
+              f"{r['count']} launches: {r['name'][:80]}{port}")
     if experts:
         dispatch = ("aten::sort", "aten::searchsorted", "aten::gather",
                     "aten::scatter_", "aten::topk")
@@ -5121,7 +5235,7 @@ def profile_decode(eng, tag, steps=4, label="profile", experts=0):
               f"(sort/searchsorted/gather/scatter/topk) "
               f"{part['dispatch'][0] / steps:.4f} ms/step in "
               f"{part['dispatch'][1] / steps:.0f} calls; "
-              f"{launches / steps:.0f} kernels/step [{tag}]")
+              f"{att['launches'] / steps:.0f} kernels/step [{tag}]")
     while eng.active:
         eng.step()
 

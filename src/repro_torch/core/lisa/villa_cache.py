@@ -21,8 +21,13 @@ What differs from the reference, and why:
     masked read leaves the buffer it reads into as it was.  No ``.item()``
     and no Python ``if`` on a device value anywhere: a suspend or resume
     never waits for the device.
-  * A wave (``access_many`` / ``write_many``) is a Python loop over items in
-    order — the reference's ``lax.scan`` — with the same result.
+  * A wave (``access_many`` / ``write_many``) is one movement dispatch,
+    as the reference's ``lax.scan`` is one jitted dispatch: the policy
+    runs item by item in order (small device ops), and the wave's pages
+    move in as many launches as one item's (a write: one K1 into the slow
+    pool, one into the fast; a read: one K2 from the slow pool, one from
+    the fast, one K1 for the insertions), however wide the wave, with the
+    result of a loop of single accesses.
 """
 from __future__ import annotations
 
@@ -68,10 +73,13 @@ def _item(arr: torch.Tensor, item_id) -> torch.Tensor:
     return _items(arr, item_id).reshape(())
 
 
-def _table(item: torch.Tensor, spp: int) -> torch.Tensor:
-    """Page table of one item's pages; all -1 (skip) when ``item < 0``."""
-    t = item * spp + torch.arange(spp, dtype=torch.int32, device=item.device)
-    return torch.where(item >= 0, t, torch.full_like(t, -1))
+def _table(items: torch.Tensor, spp: int) -> torch.Tensor:
+    """Page table of the pages of each item in ``items`` (0-d or 1-d), in
+    order; an item's entries are all -1 (skip) when it is ``< 0``."""
+    items = items.reshape(-1, 1)
+    t = items * spp + torch.arange(spp, dtype=torch.int32,
+                                   device=items.device)
+    return torch.where(items >= 0, t, torch.full_like(t, -1)).reshape(-1)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -80,24 +88,32 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def _read_item(arr: torch.Tensor, item_id, tier: str = "slow",
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Item ``item_id`` of ``arr``; with ``out``, read into it, and an
-    ``item_id`` of -1 leaves ``out`` as it was."""
+    """Item ``item_id`` of ``arr`` (a 1-d ``item_id``: those items, stacked;
+    ONE page gather either way); with ``out``, read into it, and an item of
+    -1 leaves its part of ``out`` as it was."""
     n, spp, P, d = arr.shape
-    p = _pool_plan("read", tier, spp, P, d, _dtype_name(arr.dtype))
-    env = {"pool": arr.view(n * spp, P, d),
-           "table": _table(_item(arr, item_id), spp)}
+    items = _items(arr, item_id)
+    p = _pool_plan("read", tier, items.numel() * spp, P, d,
+                   _dtype_name(arr.dtype))
+    env = {"pool": arr.view(n * spp, P, d), "table": _table(items, spp)}
     if out is not None:
-        env["out"] = out
-    return MV.execute(p, **env)["data"]
+        env["out"] = out.view(-1, P, d)
+    data = MV.execute(p, **env)["data"]
+    shape = ((items.numel(),) if items.dim() else ()) + (spp, P, d)
+    return data.view(shape) if out is None else out
 
 
 def _write_item(arr: torch.Tensor, item_id, data: torch.Tensor,
                 tier: str = "slow") -> torch.Tensor:
-    """Write item ``item_id`` of ``arr`` IN PLACE; -1 writes nothing."""
+    """Write item ``item_id`` of ``arr`` IN PLACE (a 1-d ``item_id``: each
+    item its row of ``data``, later duplicates winning; ONE page scatter
+    either way); an item of -1 writes nothing."""
     n, spp, P, d = arr.shape
-    p = _pool_plan("write", tier, spp, P, d, _dtype_name(arr.dtype))
-    MV.execute(p, pool=arr.view(n * spp, P, d),
-               table=_table(_item(arr, item_id), spp), data=data)
+    items = _items(arr, item_id)
+    p = _pool_plan("write", tier, items.numel() * spp, P, d,
+                   _dtype_name(arr.dtype))
+    MV.execute(p, pool=arr.view(n * spp, P, d), table=_table(items, spp),
+               data=data.reshape(-1, P, d))
     return arr
 
 
@@ -158,26 +174,80 @@ def write(store: TieredStore, item_id, data: torch.Tensor) -> TieredStore:
 
 def access_many(store: TieredStore, item_ids, cfg: VillaConfig
                 ) -> Tuple[TieredStore, torch.Tensor, torch.Tensor]:
-    """Batched :func:`access`: policy updates apply in ``item_ids`` order,
-    exactly a loop of ``access`` calls.  Returns (store', data (k, *item),
-    hits (k,))."""
+    """Batched :func:`access`, with the result of a loop of ``access``
+    calls in ``item_ids`` order.  Returns (store', data (k, *item), hits
+    (k,)).
+
+    The policy runs item by item; the pages move once for the wave: every
+    item's slow pages (one K2), then the resident items' fast pages over
+    them (one masked K2), then the insertions (one K1).  The fast reads
+    come before the wave's insertions, so each reads what the loop's
+    would: another item's insertion later in the wave cannot have reached
+    it yet, and an item re-read after the wave itself inserted it (a
+    duplicate) keeps its slow pages, which that insertion copied."""
     items = _items(store.slow, item_ids).reshape(-1)
-    data = torch.empty((items.numel(),) + tuple(store.slow.shape[1:]),
-                       dtype=store.slow.dtype, device=store.slow.device)
-    hits = []
-    for i in range(items.numel()):
-        store, _, hit = access(store, items[i], cfg, out=data[i])
+    k = items.numel()
+    if k == 0:
+        return store, torch.empty((0,) + tuple(store.slow.shape[1:]),
+                                  dtype=store.slow.dtype,
+                                  device=store.slow.device), torch.zeros(
+            0, dtype=torch.bool, device=store.slow.device)
+    policy = store.policy
+    hits, inserts, victims, slots = [], [], [], []
+    for i in range(k):
+        policy, hit, insert, victim = villa_access(policy, items[i], cfg)
         hits.append(hit)
-    return store, data, torch.stack(hits) if hits else torch.zeros(
-        0, dtype=torch.bool, device=store.slow.device)
+        inserts.append(insert)
+        victims.append(victim)
+        slots.append(_first(policy.tags == items[i]))
+    hit, insert = torch.stack(hits), torch.stack(inserts)
+    victim, slot = torch.stack(victims), torch.stack(slots)
+    neg = torch.full_like(victim, -1)
+    # filled[j]: an earlier item of the wave inserted into j's slot
+    earlier = torch.ones((k, k), dtype=torch.bool,
+                         device=items.device).tril(-1)
+    filled = ((insert[None, :] & (victim[None, :] == slot[:, None])
+               & earlier).any(dim=1))
+    data = _read_item(store.slow, items, tier="slow")
+    _read_item(store.fast, torch.where(hit & ~filled, slot, neg),
+               tier="fast", out=data)
+    _write_item(store.fast, torch.where(insert, victim, neg), data,
+                tier="fast")
+    return (TieredStore(policy=policy, fast=store.fast, slow=store.slow,
+                        hits=store.hits + hit.sum(dtype=torch.int32),
+                        accesses=store.accesses + k),
+            data, hit)
 
 
 def write_many(store: TieredStore, item_ids, data: torch.Tensor
                ) -> TieredStore:
-    """Batched :func:`write`, in order (later duplicates win)."""
+    """Batched :func:`write`, in order (later duplicates win): one K1 into
+    the slow pool and one into the fast slots of the resident items, as
+    wide as the wave."""
     items = _items(store.slow, item_ids).reshape(-1)
-    for i in range(items.numel()):
-        store = write(store, items[i], data[i])
+    if items.numel() == 0:
+        return store
+    _write_item(store.slow, items, data, tier="slow")
+    resident = store.policy.tags[None, :] == items[:, None]
+    slot = torch.where(resident.any(dim=1),
+                       torch.argmax(resident.to(torch.int32), dim=1).to(
+                           torch.int32), torch.full_like(items, -1))
+    _write_item(store.fast, slot, data, tier="fast")
+    return store
+
+
+def update_in_place(store: TieredStore, new: TieredStore) -> TieredStore:
+    """Write ``new``'s policy state and counters into ``store``'s own
+    tensors and return ``store``: the state a resume updates stays in the
+    tensors it had, as the reference's donated store does (``new`` shares
+    ``store``'s pools already)."""
+    if new.fast is not store.fast or new.slow is not store.slow:
+        raise ValueError("update_in_place takes a store and its own "
+                         "successor: the pools must be the same tensors")
+    for old, cur in zip(tuple(store.policy) + (store.hits, store.accesses),
+                        tuple(new.policy) + (new.hits, new.accesses)):
+        if cur is not old:
+            old.copy_(cur)
     return store
 
 

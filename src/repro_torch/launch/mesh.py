@@ -1,6 +1,6 @@
-# Port of src/repro/launch/mesh.py:29-36 (make_local_mesh) in torch, and
-# the axis objects that take the place of a named mesh axis.  The
-# production mesh (make_production_mesh, :9-26) comes with ROADMAP item 18.
+# Port of src/repro/launch/mesh.py in torch: make_local_mesh (:29-36), the
+# production mesh as a layout with no devices (make_production_mesh,
+# :9-26), and the axis objects that take the place of a named mesh axis.
 """Meshes and their axes for the LISA hop substrate: ranks, or a stack.
 
 The reference runs its hop chains inside ``shard_map`` over a named mesh
@@ -36,7 +36,9 @@ is the axis object that :mod:`repro_torch.core.lisa.rbm` takes.
 ``ppermute`` has ``jax.lax.ppermute``'s semantics: ``out[dst] = x[src]``
 for each pair, zeros where a device receives nothing.  Each axis counts
 its hops and its reductions in plain integers (``hops``, ``reductions``;
-``reset_counts()`` zeroes them).  The split compute's collectives,
+``reset_counts()`` zeroes them), and their bytes (``hop_bytes``,
+``reduction_bytes``: one device's shard a hop, one device's operand a
+reduction).  The split compute's collectives,
 ``all_reduce``, and the all-gather and reduce-scatter along a tensor dim
 ``gather_along`` and ``scatter_along``,
 run under autograd (each backward the other's collective) and count as
@@ -108,9 +110,23 @@ class _Axis:
     name: str
 
     def reset_counts(self) -> None:
-        """Set the hop and reduction counters to 0."""
+        """Set the hop and reduction counters, and their byte counters, to
+        0."""
         self.hops = 0
         self.reductions = 0
+        self.hop_bytes = 0
+        self.reduction_bytes = 0
+
+    def _count(self, x: torch.Tensor, hop: bool) -> None:
+        """Count one hop or reduction of ``x``: its bytes are one device's
+        shard (what one device sends a hop, or reduces)."""
+        nbytes = x.numel() // max(x.shape[0], 1) * x.element_size()
+        if hop:
+            self.hops += 1
+            self.hop_bytes += nbytes
+        else:
+            self.reductions += 1
+            self.reduction_bytes += nbytes
 
     def index(self) -> torch.Tensor:
         """``(n_local,)`` int64: this process's device positions (copied
@@ -200,12 +216,12 @@ class StackedAxis(_Axis):
     def ppermute_start(self, x: torch.Tensor, pairs: Pairs) -> _Done:
         self.check(x)
         pairs = _check_pairs(pairs, self.size)
-        self.hops += 1
+        self._count(x, hop=True)
         return _Done(stacked_hop(x, self._stack_pairs(pairs)))
 
     def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         self.check(x)
-        self.reductions += 1
+        self._count(x, hop=False)
         g = x.reshape(self.mesh_shape + tuple(x.shape[1:]))
         return op(g, self.dim).expand(g.shape).reshape(x.shape).contiguous()
 
@@ -219,7 +235,7 @@ class StackedAxis(_Axis):
         """The all-gather along ``dim`` without autograd: a copy of the
         group's chunks for every device of it."""
         self.check(x)
-        self.reductions += 1
+        self._count(x, hop=False)
         nd = len(self.mesh_shape)
         g = x.reshape(self.mesh_shape + tuple(x.shape[1:]))
         c = torch.cat(g.unbind(self.dim), dim=nd - 2 + dim)
@@ -231,7 +247,7 @@ class StackedAxis(_Axis):
         """The reduce-scatter along ``dim`` without autograd: the group's
         sum, device p keeping chunk p."""
         self.check(x)
-        self.reductions += 1
+        self._count(x, hop=False)
         nd = len(self.mesh_shape)
         s = x.reshape(self.mesh_shape + tuple(x.shape[1:])).sum(self.dim)
         k = nd - 2 + dim
@@ -377,7 +393,7 @@ class GroupAxis(_Axis):
         talk, and a rank that receives nothing gets zeros at once."""
         self.check(x)
         pairs = _check_pairs(pairs, self.size)
-        self.hops += 1
+        self._count(x, hop=True)
         x = x.contiguous()
         out = torch.zeros_like(x)
         p2p = []
@@ -394,7 +410,7 @@ class GroupAxis(_Axis):
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         self.check(x)
-        self.reductions += 1
+        self._count(x, hop=False)
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=op, group=self.group)
         return out
@@ -407,7 +423,7 @@ class GroupAxis(_Axis):
 
     def gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         self.check(x)
-        self.reductions += 1
+        self._count(x, hop=False)
         x = x.contiguous()
         bufs = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(bufs, x, group=self.group)
@@ -417,7 +433,7 @@ class GroupAxis(_Axis):
         """The group's sum by ``dist.all_reduce`` (gloo has no
         reduce-scatter), this rank keeping its chunk."""
         self.check(x)
-        self.reductions += 1
+        self._count(x, hop=False)
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out.chunk(self.size, dim)[self.rank].contiguous()
@@ -473,6 +489,12 @@ class Mesh:
         """``{axis name: (hops, reductions)}``."""
         return {n: (a.hops, a.reductions) for n, a in self._axes.items()}
 
+    def byte_counts(self) -> Dict[str, Tuple[int, int]]:
+        """``{axis name: (hop bytes, reduction bytes)}``: the bytes one
+        device sent over the hops, and reduced, since the last reset."""
+        return {n: (a.hop_bytes, a.reduction_bytes)
+                for n, a in self._axes.items()}
+
     def __repr__(self) -> str:
         kind = "stacked" if self.stacked else "ranks"
         return f"Mesh({self.shape}, {kind}, {self.device})"
@@ -515,3 +537,61 @@ def make_local_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
             for d, (name, n) in enumerate(zip(("data", "model"), shape))}
     return Mesh(shape, ("data", "model"), axes, range(data * model), dev,
                 stacked=True)
+
+
+class LayoutAxis:
+    """An axis of a :class:`LayoutMesh`: its ``name`` and ``size``, no
+    local devices; every operation raises."""
+
+    n_local = 0
+    positions: Tuple[int, ...] = ()
+
+    def __init__(self, name: str, size: int):
+        self.name, self.size = name, size
+
+    def _refuse(self, *args, **kwargs):
+        raise RuntimeError(f"axis {self.name!r} of a layout-only mesh has no "
+                           f"devices: it cannot move or reduce a tensor")
+
+    ppermute = ppermute_start = psum = pmax = gather_dim = scatter_dim = \
+        all_reduce = gather_along = scatter_along = index = mask = \
+        reset_counts = _refuse
+
+
+class LayoutMesh(Mesh):
+    """A mesh that is a layout only: axis names and sizes, no devices.
+    ``train/shardings.py``'s specs and local shapes, and the sharding
+    context's rules, read only ``axis_names``, ``shape`` and
+    ``devices.shape``; it has no local devices (``coords()`` is empty), and
+    every operation of its axes (:class:`LayoutAxis`) raises, as do its
+    counters."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        axes = {a: LayoutAxis(a, int(n)) for a, n in zip(axis_names, shape)}
+        super().__init__(shape, axis_names, axes, (), torch.device("meta"),
+                         stacked=False)
+
+    def coords(self) -> np.ndarray:
+        return np.zeros((0, len(self.axis_names)), np.int64)
+
+    def reset_counts(self) -> None:
+        raise RuntimeError("a layout-only mesh has no axis counters")
+
+    def counts(self) -> Dict[str, Tuple[int, int]]:
+        raise RuntimeError("a layout-only mesh has no axis counters")
+
+    def byte_counts(self) -> Dict[str, Tuple[int, int]]:
+        raise RuntimeError("a layout-only mesh has no axis counters")
+
+    def __repr__(self) -> str:
+        return f"LayoutMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LayoutMesh:
+    """The reference's production mesh as a layout: 16 x 16 over (data,
+    model) for one pod, 2 x 16 x 16 over (pod, data, model) across pods.
+    It holds no devices (the dry run lays out each cell without them) and
+    any axis operation on it raises."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return LayoutMesh(shape, axes)

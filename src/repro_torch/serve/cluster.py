@@ -30,8 +30,9 @@ narrow channel:
 The cluster is single-process: the replicas' pools are separate tensors on
 one device, so the hop-chain leg executes as the priced route
 (``local_fabric`` mode, an identity on the bytes) while the gather and
-scatter legs carry them.  A mesh's ppermute chain is ROADMAP item 16.  The
-cluster exposes an engine-shaped surface over *global* slot ids
+scatter legs carry them; over a mesh the hop-chain leg runs in the
+backend's mesh mode (``movement/backends.py``).  The cluster exposes an
+engine-shaped surface over *global* slot ids
 (``replica * slots_per_replica + local_slot``) — the scheduler
 (:class:`repro_torch.sched.scheduler.ClusterScheduler`) drives it exactly
 like an engine, plus the placement axis.
@@ -156,6 +157,14 @@ class Cluster:
             for k, v in eng.stats.items():
                 out[k] = out.get(k, 0) + v
         return out
+
+    @property
+    def move_dispatches(self) -> Dict[str, int]:
+        """The replicas' suspend and resume movement dispatches, summed
+        (``Engine.move_dispatches``; migration routes are counted by
+        ``cluster_stats``' waves)."""
+        return {k: sum(e.move_dispatches[k] for e in self.replicas)
+                for k in ("suspend", "resume")}
 
     def attach_tracer(self, tracer) -> None:
         """Attach a :class:`repro_torch.obs.Tracer` fleet-wide: replica

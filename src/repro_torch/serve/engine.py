@@ -51,7 +51,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dram.spec import DDR3_1600, DramSpec
 from repro_torch.core.dram.villa import VillaConfig
 from repro_torch.core.lisa import villa_cache as VC
-from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.serve import paged_store as PS
 
@@ -161,6 +160,10 @@ class Engine:
                       "forks": 0, "bytes_not_copied": 0,
                       "modeled_move_ns_lisa": 0.0,
                       "modeled_move_ns_memcpy": 0.0}
+        # movement dispatches by direction, a single session's or a wave's
+        # each one (port only: the page kernels launch a dispatch, however
+        # wide; ``stats`` stays the reference's)
+        self.move_dispatches = {"suspend": 0, "resume": 0}
         # observability (repro_torch.obs): fork/CoW/demotion/eviction events
         # are marked as trace instants when a tracer is attached — host
         # bookkeeping only, zero device launches
@@ -180,21 +183,23 @@ class Engine:
 
     # ---- device bodies (in-place updates of cache, pools and sidecar) -----
     def _prefill_insert(self, tokens: np.ndarray, positions: np.ndarray,
-                        true_len: int, slot: int) -> int:
+                        true_len: int, slot: int) -> torch.Tensor:
         """Prefill one request straight into ``slot`` (reset to init values
         first, as the reference's whole-slot insert leaves it) and return
-        its next token — the one sync of a submit, as in the reference.
-        Under M-RoPE the model's default (3, 1, n) positions take the place
-        of ``positions`` (an exact-length prompt's are ``arange(n)``), as
-        the reference's submit passes none."""
+        its next token ON THE DEVICE (0-d): :meth:`submit` reads it, the
+        one sync of a submit, as the reference's does after its jitted
+        prefill.  Under M-RoPE the model's default (3, 1, n) positions take
+        the place of ``positions`` (an exact-length prompt's are
+        ``arange(n)``), as the reference's submit passes none."""
         lm.reset_slot(self.cache, slot)
         logits, _ = lm.prefill(self.cfg, self.params,
                                self._dev(tokens)[None], self.cache,
                                positions=None if self.cfg.mrope else
                                self._dev(positions)[None], slot=slot)
-        return int(torch.argmax(logits[0, true_len - 1]))
+        return torch.argmax(logits[0, true_len - 1])
 
     def _suspend_fn(self, slot: int, idx: int) -> None:
+        self.move_dispatches["suspend"] += 1
         env = MV.execute(self.plan_suspend, cache=self.cache, slot=slot,
                          store=self.sessions, item=self._dev(idx))
         self.sessions = env["store"]
@@ -203,10 +208,11 @@ class Engine:
         self.session_sums[idx] = env["sums"]
 
     def _resume_fn(self, slot: int, idx: int) -> None:
+        self.move_dispatches["resume"] += 1
         env = MV.execute(self.plan_resume, cache=self.cache,
                          store=self.sessions, slot=slot, item=self._dev(idx),
                          sums=self.session_sums[idx])
-        self.sessions = env["store"]
+        self.sessions = VC.update_in_place(self.sessions, env["store"])
         self.verify_failed += env["verify_fail"]
 
     def _wave_plan(self, single: MV.MovementPlan, k: int) -> MV.MovementPlan:
@@ -217,6 +223,7 @@ class Engine:
         return self._wave_plans[key]
 
     def _suspend_many_fn(self, slots: List[int], idxs: List[int]) -> None:
+        self.move_dispatches["suspend"] += 1
         env = MV.execute(self._wave_plan(self.plan_suspend, len(slots)),
                          cache=self.cache, slots=slots, store=self.sessions,
                          items=self._dev(idxs))
@@ -224,11 +231,12 @@ class Engine:
         self.session_sums[self._dev(idxs, torch.long)] = env["sums"]
 
     def _resume_many_fn(self, slots: List[int], idxs: List[int]) -> None:
+        self.move_dispatches["resume"] += 1
         ii = self._dev(idxs, torch.long)
         env = MV.execute(self._wave_plan(self.plan_resume, len(slots)),
                          cache=self.cache, store=self.sessions, slots=slots,
                          items=ii, sums=self.session_sums.index_select(0, ii))
-        self.sessions = env["store"]
+        self.sessions = VC.update_in_place(self.sessions, env["store"])
         self.verify_failed += env["verify_fail"]
 
     def _clone_fn(self, src: int, dst: int) -> None:
@@ -267,8 +275,9 @@ class Engine:
         toks[:n] = req.prompt
         pos_arr = np.full(lb, POS_SENTINEL, np.int32)
         pos_arr[:n] = np.arange(n)
-        nxt = self._prefill_insert(toks, pos_arr, n, slot)
-        req.generated.append(nxt)
+        # the submit's one device->host read: the first token
+        req.generated.append(int(self._prefill_insert(toks, pos_arr, n,
+                                                      slot)))
         self.stats["prefills"] += 1
         self.active[slot] = req
         self.pos[slot] = n
@@ -708,22 +717,18 @@ class Engine:
     def verify_store(self) -> torch.Tensor:
         """Scrub: recompute every LIVE suspended snapshot's checksums
         against the sidecar; returns the ON-DEVICE int32 count of corrupt
-        PHYSICAL rows (a shared row is checked once).  The pages are read
-        with the gather kernel."""
+        PHYSICAL rows (a shared row is checked once).  A scrub moves no
+        session: it reads the rows by plain indexing, as the reference's
+        does, not through the movement kernels."""
         idxs = sorted(i for i, u in self.store_uid.items()
                       if u in self.session_pos
                       or any(a in self.session_pos
                              for a in self.forks.aliases(i)))
         if not idxs:
             return torch.zeros((), dtype=torch.int32, device=self.device)
-        spec = self.page_spec
-        table = torch.cat([PS.row_page_table(spec, i) for i in idxs])
-        slow = self.sessions.slow
-        pages = ops.villa_gather(
-            slow.view(-1, spec.page_rows, spec.page_lanes), table).view(
-                len(idxs), spec.n_pages, spec.page_rows, spec.page_lanes)
-        cs = PS.page_checksums(pages)
-        want = self.session_sums.index_select(0, self._dev(idxs, torch.long))
+        ii = self._dev(idxs, torch.long)
+        cs = PS.page_checksums(self.sessions.slow.index_select(0, ii))
+        want = self.session_sums.index_select(0, ii)
         return torch.sum((cs != want).any(dim=-1)).to(torch.int32)
 
     def verify_failure_count(self) -> int:

@@ -38,7 +38,8 @@ REF = ROOT / "src" / "repro"
 
 # modules the port holds as copies of the reference: the text after the
 # two-line header is the reference's, with ``repro`` renamed ``repro_torch``
-COPIES = ["configs/__init__.py", "configs/base.py",
+COPIES = ["analysis/findings.py", "analysis/testlib.py",
+          "configs/__init__.py", "configs/base.py",
           "configs/deepseek_v2_236b.py", "configs/gemma3_27b.py",
           "configs/gemma_7b.py", "configs/jamba_v01_52b.py",
           "configs/olmoe_1b_7b.py", "configs/qwen15_110b.py",
@@ -48,7 +49,7 @@ COPIES = ["configs/__init__.py", "configs/base.py",
           "faults/spec.py", "fork/__init__.py", "fork/table.py",
           "movement/plan.py",
           "obs/__init__.py", "obs/export.py", "obs/tracer.py",
-          "sched/__init__.py", "sched/metrics.py", "sched/policy.py",
+          "roofline/report.py", "sched/__init__.py", "sched/metrics.py", "sched/policy.py",
           "sched/queue.py", "sched/workload.py"]
 
 

@@ -14,7 +14,9 @@ rule, int8 K/V with their scales on the decode route (K3d) at every
 instantiated head dim and group, and the Engine on the card against the
 Engine on the CPU (the dense, sliding-window, MoE, MLA and recurrent
 families), and the mesh's split train, prefill and decode steps (MLA's
-and rwkv's among them) on the card against the CPU.
+and rwkv's among them) on the card against the CPU, and the entry-point
+audit's card checks (syncs, launches, allocations), and the roofline's
+profile capture (every launch of its region recorded).
 """
 import numpy as np
 import pytest
@@ -1616,3 +1618,127 @@ def test_split_families_serve_steps_on_card_match_cpu(dev, arch):
         assert float((a - b).abs().max()) <= 1e-4
     for a, b in zip(tg, tc):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the entry-point audit on the card (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def test_card_audit_counts_syncs_launches_and_allocations(dev):
+    """On the card the audit counts each synchronising call (the sync
+    debug mode's warnings, not the one that says the mode is a
+    prototype), each kernel's launches and what a call allocates."""
+    from repro_torch.analysis import dispatch as D
+    from repro_torch.analysis.dispatch import AuditTarget, EntryContract
+
+    pool = torch.zeros((64, 8, 128), dtype=torch.uint8, device=dev)
+    table = torch.arange(8, dtype=torch.int32, device=dev)
+    state = {"pool": pool}
+
+    def target(fn, **contract):
+        return AuditTarget("fixture", fn, (), EntryContract(**contract),
+                           state=lambda: state)
+
+    rec, findings = D.audit_target(target(
+        lambda: ops.villa_gather(pool, table),
+        launches={"villa_gather": 1}), dev)
+    assert findings == [] and rec["syncs"] == 0
+    assert rec["launches"]["villa_gather"] == 1
+    for leak in (lambda: pool.sum().item(), lambda: pool[:1].cpu(),
+                 lambda: pool.nonzero()):
+        rec, findings = D.audit_target(target(leak), dev)
+        assert [f.rule for f in findings] == ["audit-host-transfer"]
+        assert rec["syncs"] >= 1
+    rec, findings = D.audit_target(target(
+        lambda: state.__setitem__("pool", pool.clone()),
+        inplace=frozenset({"pool"})), dev)
+    assert sorted(f.rule for f in findings) == ["audit-alloc",
+                                                "audit-inplace"]
+    assert rec["alloc_bytes"] >= pool.numel()
+
+
+def test_card_audit_of_the_default_targets_is_clean(dev):
+    """Every registered entry point at reduced geometry on the card:
+    launches as its contract says (a wave's as one call's), no sync, state
+    in place (its tensors kept), no uint8 page widened.  The allocation
+    bound (``audit-alloc``) is left to chip_smoke phase 25 at serving
+    geometry: the reduced store of 4 snapshots is smaller than a suspend's
+    int32 widening of one snapshot for its checksums."""
+    from repro_torch.analysis import dispatch as D
+    from repro_torch.analysis import entrypoints as E
+
+    targets, engine = E.default_targets(device=dev)
+    audit = D.run_audit(targets, device=dev, extra_findings=(
+        D.audit_bucket_stability(engine, E.prefill_buckets(engine))))
+    assert [f for f in audit["findings"] if f["rule"] != "audit-alloc"] \
+        == []
+    by = {t["name"]: t for t in audit["targets"]}
+    assert by["suspend_many"]["launches"] == by["suspend"]["launches"]
+    assert by["resume_many"]["launches"] == by["resume"]["launches"]
+    assert all(t["syncs"] == 0 for t in audit["targets"])
+
+
+# ---------------------------------------------------------------------------
+# the tiered store's waves on the card (one launch set a wave)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", range(3))
+def test_store_waves_on_card_match_the_loop_on_cpu(dev, seed):
+    """access_many/write_many on the card (K2 and K1 for the whole wave)
+    against a loop of access/write on the CPU over random waves of 1-6
+    items, with duplicates and evictions inside a wave: data, hits and
+    the whole store agree after every wave.  The CPU loop is held to the
+    reference in tests/test_torch_villa.py."""
+    from repro_torch.core.dram.villa import VillaConfig
+    from repro_torch.core.lisa import villa_cache as PC
+
+    cfg = VillaConfig(n_counters=8, n_hot=2, n_slots=3, epoch_len=5)
+    rng = np.random.default_rng(200 + seed)
+    slow0 = torch.from_numpy(rng.integers(0, 256, (6, 3, 8, 128),
+                                          dtype=np.uint8))
+    card = PC.make_store(slow0.to(dev), cfg)
+    host = PC.make_store(slow0.clone(), cfg)
+
+    def same():
+        for a, b in zip(tuple(card.policy) + (card.fast, card.slow,
+                                              card.hits, card.accesses),
+                        tuple(host.policy) + (host.fast, host.slow,
+                                              host.hits, host.accesses)):
+            assert torch.equal(a.cpu(), b)
+
+    for _ in range(30):
+        k = int(rng.integers(1, 7))
+        items = rng.integers(0, 6, k).astype(np.int32)
+        if rng.random() < 0.7:
+            card, data, hits = PC.access_many(card, items, cfg)
+            want_d, want_h = [], []
+            for item in items:
+                host, d, h = PC.access(host, int(item), cfg)
+                want_d.append(d.clone())
+                want_h.append(bool(h))
+            assert torch.equal(data.cpu(), torch.stack(want_d))
+            assert hits.cpu().tolist() == want_h
+        else:
+            data = torch.from_numpy(rng.integers(0, 256, (k, 3, 8, 128),
+                                                 dtype=np.uint8))
+            card = PC.write_many(card, items, data.to(dev))
+            for item, d in zip(items, data):
+                host = PC.write(host, int(item), d)
+        same()
+
+
+def test_capture_attributes_the_region_whole(dev):
+    """``roofline.attribution.capture``: the region's launches each have
+    their device record (the lead-in takes what the session drops), and
+    only the region's are counted."""
+    from repro_torch.roofline import attribution as AT
+    x = torch.ones(1 << 20, device=dev)
+
+    def region():
+        for _ in range(5):
+            x.mul_(1.0)
+        x.cpu()
+    _, att = AT.capture(region)
+    assert att["unrecorded"] == 0
+    assert (att["launches"], att["copies"]) == (5, 1)
+    assert att["kernel_ms"] > 0 and att["lead_in_unrecorded"] >= 0

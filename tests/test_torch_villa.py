@@ -116,3 +116,54 @@ def test_tiered_store_bit_exact(r_fns):
     p = PC.clone_item(p, src, dst)
     _same_store(p, r)
     assert float(PC.hit_rate(p)) == pytest.approx(float(RC.hit_rate(r)))
+
+
+def _wave_events(policy, items):
+    """What a wave asks of the batched path, from the policy alone: hits
+    on items resident before it, evictions of a resident item inside it,
+    and hits on a slot that an earlier item of the same wave filled."""
+    ev = {"resident_hits": 0, "evictions": 0, "filled_hits": 0}
+    filled = set()
+    for item in items:
+        before = policy.tags.clone()
+        policy, hit, insert, victim = PV.villa_access(policy, int(item),
+                                                      P_CFG)
+        slot = int(torch.argmax((policy.tags == int(item)).to(torch.int32)))
+        if bool(hit):
+            ev["filled_hits" if slot in filled else "resident_hits"] += 1
+        if bool(insert):
+            ev["evictions"] += int(before[int(victim)] >= 0)
+            filled.add(int(victim))
+    return ev
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_waves_bit_exact(r_fns, seed):
+    """access_many/write_many against the reference's over random waves of
+    1-6 items: duplicates, evictions inside a wave, items resident before
+    it and hits on a slot the wave itself filled.  Data, hits and the
+    whole store agree after every wave."""
+    _, _, r_access_many, r_write_many, _ = r_fns
+    rng = np.random.default_rng(100 + seed)
+    slow0 = rng.integers(0, 256, (N_ITEMS, SPP, 8, 128), dtype=np.uint8)
+    r = RC.make_store(jnp.asarray(slow0), R_CFG)
+    p = PC.make_store(torch.from_numpy(slow0.copy()), P_CFG)
+    seen = {"duplicates": 0, "resident_hits": 0, "evictions": 0,
+            "filled_hits": 0}
+    for _ in range(40):
+        k = int(rng.integers(1, 7))
+        items = rng.integers(0, N_ITEMS, k).astype(np.int32)
+        seen["duplicates"] += k - len(set(items.tolist()))
+        if rng.random() < 0.7:
+            for key, n in _wave_events(p.policy, items).items():
+                seen[key] += n
+            r, rd, rh = r_access_many(r, jnp.asarray(items), R_CFG)
+            p, pd, ph = PC.access_many(p, items, P_CFG)
+            np.testing.assert_array_equal(pd.numpy(), np.asarray(rd))
+            np.testing.assert_array_equal(ph.numpy(), np.asarray(rh))
+        else:
+            data = rng.integers(0, 256, (k, SPP, 8, 128), dtype=np.uint8)
+            r = r_write_many(r, jnp.asarray(items), jnp.asarray(data))
+            p = PC.write_many(p, items, torch.from_numpy(data))
+        _same_store(p, r)
+    assert all(n > 0 for n in seen.values()), seen
