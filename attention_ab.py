@@ -1,0 +1,177 @@
+"""K3's device time in two checkouts of the port, in alternating windows.
+
+    python3 attention_ab.py A_DIR B_DIR [--pairs 4]
+
+Needs one CUDA card.  The shapes (:func:`shapes`) are those whose device ms
+``chip_smoke.py``'s phase 2 keeps in PERF.md, built from its constants and
+the port's configs: tinyllama's decode and prefill buckets, gemma3's,
+gemma-7b's, deepseek-v2's MLA, jamba's and qwen2-vl's prefills, and the
+published head shapes of phase 26.  Starts one worker process per
+checkout; each imports that checkout's ``chip_smoke`` (and so its own
+``repro_torch``, which builds and runs its own kernels) and draws the same
+inputs from a seed.  The workers then time each shape in turn, one window
+at a time while the other waits: ``--pairs`` pairs a shape, the first of
+each pair alternating (A B, B A, ...).  A window is chip_smoke's
+``timed(device=True)`` of 20 calls after an L2 flush.  A shape a checkout
+refuses (its wrapper raises ``ValueError``) times as NaN there.  Prints
+each shape's windows, each side's median and B over A; the last line is
+that as one JSON object.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def shapes() -> dict:
+    """``{name: (B, S, T, H, K, Dk, Dv, window, q dtype, k/v dtype)}`` of
+    phase 2's attention rows, from chip_smoke's constants."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+
+    def bucket(n, cap):
+        return min(max(16, 1 << (n - 1).bit_length()), cap)
+
+    tl, g3, g7 = (get_config(a) for a in ("tinyllama-1.1b", "gemma3-27b",
+                                          "gemma-7b"))
+    ds, jb, vl = (get_config(a) for a in ("deepseek-v2-236b",
+                                          "jamba-v0.1-52b", "qwen2-vl-72b"))
+    out = {f"tinyllama_decode_{cs.SLOTS}x{cs.MAX_LEN}": (
+        cs.SLOTS, 1, cs.MAX_LEN, tl.n_heads, tl.n_kv_heads, tl.head_dim,
+        tl.head_dim, 0, "f32", "f32")}
+    for b in cs.PREFILL_BUCKETS:
+        out[f"tinyllama_prefill_{b}"] = (1, b, b, tl.n_heads, tl.n_kv_heads,
+                                         tl.head_dim, tl.head_dim, 0, "f32",
+                                         "f32")
+    P, W = max(cs.G_PROMPTS), g3.window
+    g3h = (g3.n_heads, g3.n_kv_heads, g3.head_dim, g3.head_dim)
+    out[f"gemma3_prefill_{P}_w{W}"] = (1, P, P, *g3h, W, "f32", "f32")
+    out[f"gemma3_prefill_{P}_w{W}_bf16"] = (1, P, P, *g3h, W, "bf16", "bf16")
+    out["gemma3_decode_ring_bf16_q"] = (len(cs.G_PROMPTS), 1, W, *g3h, W,
+                                        "bf16", "f32")
+    g7h = (g7.n_heads, g7.n_kv_heads, g7.head_dim, g7.head_dim)
+    for n in (max(cs.D7_PROMPTS), min(cs.D7_PROMPTS)):
+        b = bucket(n, cs.D7_MAX_LEN)
+        for dt in ("f32", "bf16"):
+            out[f"gemma7b_prefill_{b}_{dt}"] = (1, b, b, *g7h, 0, dt, dt)
+    out[f"gemma7b_decode_{len(cs.D7_PROMPTS)}x{cs.D7_MAX_LEN}"] = (
+        len(cs.D7_PROMPTS), 1, cs.D7_MAX_LEN, *g7h, 0, "f32", "f32")
+    for b, _ in cs.MLA_BUCKETS:
+        out[f"mla_prefill_{b}_bf16"] = (
+            1, b, b, ds.n_heads, ds.n_heads, ds.qk_nope_dim + ds.qk_rope_dim,
+            ds.v_head_dim, 0, "bf16", "bf16")
+    P = max(cs.J_PROMPTS)
+    out[f"jamba_prefill_{P}_bf16"] = (1, P, P, jb.n_heads, jb.n_kv_heads,
+                                      jb.head_dim, jb.head_dim, 0, "bf16",
+                                      "bf16")
+    out[f"qwen2vl_prefill_{cs.V_IMG_LEN}_bf16"] = (
+        1, cs.V_IMG_LEN, cs.V_IMG_LEN, vl.n_heads, vl.n_kv_heads,
+        vl.head_dim, vl.head_dim, 0, "bf16", "bf16")
+    for name, (H, K, D, W) in cs.HS_SHAPES.items():
+        out[f"{name}_prefill_{cs.HS_MAX_LEN}_bf16"] = (
+            1, cs.HS_MAX_LEN, cs.HS_MAX_LEN, H, K, D, D, W, "bf16", "bf16")
+    return out
+
+
+def worker(tree: str, table: dict) -> None:
+    """Answer each stdin line "<shape> <reps>" with the median device ms
+    of that many calls of K3 at the shape, in checkout ``tree``."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import chip_smoke as cs
+    import torch
+    from repro_torch.kernels import _build, ops
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    cases = {}
+    for i, (name, (B, S, T, H, K, dk, dv, w, qd, kd)) in enumerate(
+            table.items()):
+        g = torch.Generator(device=dev).manual_seed(cs.SEED + i)
+        q = torch.randn((B, S, H, dk), device=dev, generator=g).to(dts[qd])
+        k = torch.randn((B, T, K, dk), device=dev, generator=g).to(dts[kd])
+        v = torch.randn((B, T, K, dv), device=dev, generator=g).to(dts[kd])
+        kp = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+        if S == 1:                   # ragged rows: row b holds T - 97 b keys
+            kp = kp.clone()
+            for b in range(B):
+                kp[b, T - 97 * b:] = 2**30
+            qp = (T - 1 - 97 * torch.arange(B, device=dev)).to(
+                torch.int32)[:, None]
+        else:
+            qp = kp[:, T - S:].contiguous()
+        cases[name] = (q, k, v, qp, kp.contiguous(), w)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    print("ready", flush=True)
+    for line in sys.stdin:
+        name, reps = line.split()
+        q, k, v, qp, kp, w = cases[name]
+
+        def call():
+            ops.chunked_attention(q, k, v, qp, kp, window=w)
+        try:
+            call()
+        except ValueError:
+            print(math.nan, flush=True)
+            continue
+        print(cs.timed(call, int(reps), lambda: scratch.fill_(1),
+                       device=True), flush=True)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("a")
+    p.add_argument("b")
+    p.add_argument("--pairs", type=int, default=4)
+    p.add_argument("--worker", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.worker:
+        worker(args.a, json.loads(args.worker))
+        return 0
+    table = shapes()
+    procs = {}
+    for side, tree in (("A", args.a), ("B", args.b)):
+        procs[side] = subprocess.Popen(
+            [sys.executable, __file__, tree, tree, "--worker",
+             json.dumps(table)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    for side, proc in procs.items():
+        if proc.stdout.readline().strip() != "ready":
+            raise RuntimeError(f"worker {side} did not start")
+
+    def window(side, name):
+        proc = procs[side]
+        proc.stdin.write(f"{name} 20\n")
+        proc.stdin.flush()
+        return float(proc.stdout.readline())
+
+    out = {}
+    try:
+        for name in table:
+            got = {"A": [], "B": []}
+            for i in range(args.pairs):
+                for side in (("A", "B") if i % 2 == 0 else ("B", "A")):
+                    got[side].append(window(side, name))
+            a, b = (statistics.median(got[s]) for s in ("A", "B"))
+            out[name] = {"a_ms": a, "b_ms": b, "b_over_a": b / a,
+                         "a_windows": got["A"], "b_windows": got["B"]}
+            print(f"{name}: A {a:.4f} ms, B {b:.4f} ms, B/A {b / a:.4f} "
+                  f"(A {got['A']}, B {got['B']})", flush=True)
+    finally:
+        for proc in procs.values():
+            proc.stdin.close()
+            proc.wait(timeout=60)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

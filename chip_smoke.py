@@ -36,7 +36,12 @@ nvcc (sm_90a), then:
                 temporal ids repeat over an image; at training's, B 8 x
                 S 512 at tinyllama's heads in f32 under autograd (K3e:
                 the forward within 3e-5, dq/dk/dv equal to the plain
-                twin's), timed forward plus backward beside SDPA's), the
+                twin's), timed forward plus backward beside SDPA's; at
+                the three published attention shapes of phase 26 (head
+                dims 224 and 512, groups 1, 64 and 128) a prefill of
+                bucket 1024 and a decode of 8 rows over T 1024, each in
+                bf16 and in f32, and the decode also with bf16 q over
+                f32 K/V (every dtype pair phase 26 launches)), the
                 tile copy also on odd shapes, dtypes and sizes, and times
                 kernel, plain version and one library call for the same
                 function;
@@ -81,17 +86,18 @@ nvcc (sm_90a), then:
                 prompts past the window (every job completes, resumes equal
                 the resume waves' widths, the counters add up, K4 is not
                 launched);
-  7. gemma-7b — full width and depth (28 layers, head dim 256, f32, 34.2
-                GB), K3 at head dim 256: the Engine and the Scheduler, held
-                as in phase 6;
+  7. gemma-7b — full width, 14 of its 28 layers (head dim 256, f32; cut to
+                pay for phase 26), K3 at head dim 256: the Engine and the
+                Scheduler, held as in phase 6;
   8. gemma3 62 layers — all of gemma3-27b with bf16 weights (54 GB) over
                 the Engine's f32 cache: bf16 prefill, decode with bf16 q
                 over f32 K/V; the Engine and the Scheduler, as in phase 6;
   9. qwen1.5  — qwen1.5-110b at full width with bf16 weights, cut to 8 of
                 its 80 layers (26.8 GB; 80 are 222 GB): the Engine with one
                 suspend and one resume wave;
-  10. olmoe   — olmoe-1b-7b at full width and depth (16 layers of attn_full
-                + MoE, 64 experts top-8; f32, 27.7 GB): the Engine (8
+  10. olmoe   — olmoe-1b-7b at full width, 8 of its 16 layers of attn_full
+                + MoE (64 experts top-8; f32; cut to pay for phase 26):
+                the Engine (8
                 slots, prompts 16-700) and the Scheduler, as in phase 7;
                 one decode batch run twice, each from its own copy of the
                 same cache, must give bit-equal logits (the MoE combine is
@@ -108,9 +114,10 @@ nvcc (sm_90a), then:
                 steps from an empty cache, over an int8 cache (K3d, 22 x
                 256 launches) and over an f32 one: each within 0.05 of the
                 port's ``forward``, relative to its largest logit;
-  13. rwkv6-7b — full width and depth (32 layers, f32, 30.1 GB): the
+  13. rwkv6-7b — full width, 16 of its 32 layers (f32; cut to pay for
+                phase 26): the
                 Engine (4 slots, exact-length prompts of 16-500, a suspend
-                and a resume wave of 34.6 MB state snapshots) and the
+                and a resume wave of 17.3 MB state snapshots) and the
                 Scheduler, as in phase 7; no K3;
   14. jamba   — jamba-v0.1-52b at full width with bf16 weights over the
                 Engine's f32 cache, cut to 16 of its 32 layers (two periods
@@ -149,15 +156,18 @@ nvcc (sm_90a), then:
                 ``execute_copy`` on a full-geometry DDR3_1600 bank (rows
                 bit-equal, costs the spec's), bench_fig3_fig4's grid of 6
                 configs x 50 workloads x 4096 requests as 300 lanes of one
-                ``simulate_grid``, and the demo's 16,384-request trace:
+                ``simulate_grid``, and the demo's trace cut to 8,192
+                requests (to keep the run inside its time):
                 VILLA hits and accesses equal to the CPU's, floats within
                 1e-6, the paper's orderings;
   19. training — reduced tinyllama with tests/test_train_loop.py's recipe
                 (40 steps, the loss falls, the first 10 losses those of the
                 CPU port), then full-width tinyllama-1.1b in f32 through
-                ``python -m repro_torch.launch.train`` for 20 steps of 8 x
-                512 tokens, and a run checkpointed at step 10 and resumed
-                whose params end bit-equal to the uninterrupted run's; K3's
+                ``python -m repro_torch.launch.train`` (its state donated,
+                updated in place) for 10 steps of 8 x 512 tokens, its peak
+                memory, and a run
+                checkpointed at step 5 and resumed whose params end
+                bit-equal to the uninterrupted run's; K3's
                 prefill launches layers x forward passes (K3e), again in
                 each rep's recompute under the config's remat, its
                 backward none.
@@ -257,6 +267,18 @@ nvcc (sm_90a), then:
                 a launch of the region without its device record fails
                 the run; each profile prints how many lead-in records
                 were dropped.
+  26. head shapes — tinyllama-1.1b at full width cut to HS_LAYERS layers
+                with the attention of Zyphra/Zamba2-7B-Instruct (32 heads
+                over 32 kv heads, head dim 224), deepseek-ai/
+                DeepSeek-V4-Flash (64 over 1, head dim 512, window 128:
+                layer 0 local, layer 1 global) and DeepSeek-V4-Pro (128
+                over 1, head dim 512), each in f32 and in bf16 weights,
+                through ``Engine`` (a suspend and a resume wave, tokens
+                equal to the uninterrupted run's) and the Scheduler: every
+                prefill and decode through K3 (head dim 224 padded into
+                width 256; 512 at its own width, the prefill's groups cut
+                into head slices), the launch counters equal to what the
+                stats call for.
 
 Each phase prints its wall time.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -285,17 +307,20 @@ from repro_torch.roofline.cost import attention_bound, tc_bound  # noqa: E402
 SLEEP_CYCLES = 400_000           # ~0.2 ms of GPU sleep ahead of a timing
 SLOTS, MAX_LEN, N_SESSIONS, SEED = 8, 1024, 32, 0
 SERVE_LEN = 256                  # the launcher's --max-len in phase 5
+PREFILL_BUCKETS = (16, 512)      # phase 2's tinyllama prefill rows
+# phase 2's MLA rows: (bucket, prompt length) of deepseek-v2's prefill
+MLA_BUCKETS = ((1024, 700), (64, 40))
 # phase 6: gemma3-27b at full width, cut to 14 layers (two 6-layer periods
 # and the 2-layer local tail, so both stages run): 7.19 B f32 parameters,
 # 28.8 GB, where all 62 layers (27.0 B, 108 GB) do not fit in 80 GB
 G_LAYERS, G_SLOTS, G_MAX_LEN, G_SESSIONS = 14, 4, 2048, 16
 G_PROMPTS, G_MAX_NEW, G_FIRST = (96, 700, 1010, 1500), 48, 24
 G_SCHED_LENS = (300, 1100)       # the Scheduler run's prompt lengths
-# phase 7: gemma-7b at full width and depth (28 layers, head dim 256, MHA):
-# 8.54 B f32 parameters, 34.2 GB; K/V take 32 KB a token a layer, so 4
-# slots at max_len 1024 hold 3.8 GB and a store of 8 sessions (and its fast
-# tier of 2) 9.4 GB
-D7_SLOTS, D7_MAX_LEN, D7_SESSIONS = 4, 1024, 8
+# phase 7: gemma-7b at full width (head dim 256, MHA), cut to D7_LAYERS of
+# its 28 layers (to pay for phase 26; at full depth 8.54 B f32 parameters,
+# 34.2 GB); K/V take 32 KB a token a layer, so 4 slots at max_len 1024 hold
+# 1.9 GB and a store of 8 sessions (and its fast tier of 2) 4.7 GB
+D7_LAYERS, D7_SLOTS, D7_MAX_LEN, D7_SESSIONS = 14, 4, 1024, 8
 D7_PROMPTS, D7_MAX_NEW, D7_FIRST = (40, 200, 333, 700), 48, 24
 D7_SCHED_LENS = (100, 600)
 # phase 8: gemma3-27b at all 62 layers, bf16 weights (54 GB) over the
@@ -307,11 +332,12 @@ G62_SESSIONS = 6
 # (13.4 B parameters, 26.8 GB)
 Q_LAYERS, Q_SLOTS, Q_MAX_LEN, Q_SESSIONS = 8, 4, 1024, 8
 Q_PROMPTS, Q_MAX_NEW, Q_FIRST = (24, 150, 400, 800), 24, 12
-# phase 10: olmoe-1b-7b at full width and depth (16 layers, 64 experts of
-# which 8 a token, MHA 16/16, head dim 128), f32: 6.92 B parameters, 27.7
-# GB; K/V take 16 KB a token a layer, so 8 slots at max_len 1024 hold 2.1
-# GB and a store of 16 sessions (and its fast tier of 4) 5.4 GB
-O_SLOTS, O_MAX_LEN, O_SESSIONS = 8, 1024, 16
+# phase 10: olmoe-1b-7b at full width (64 experts of which 8 a token, MHA
+# 16/16, head dim 128), f32, cut to O_LAYERS of its 16 layers (to pay for
+# phase 26; at full depth 6.92 B parameters, 27.7 GB); K/V take 16 KB a
+# token a layer, so 8 slots at max_len 1024 hold 1.1 GB and a store of 16
+# sessions (and its fast tier of 4) 2.7 GB
+O_LAYERS, O_SLOTS, O_MAX_LEN, O_SESSIONS = 8, 8, 1024, 16
 O_PROMPTS = (16, 40, 90, 150, 260, 380, 520, 700)
 O_MAX_NEW, O_FIRST = 32, 16
 O_SCHED_LENS = (100, 600)
@@ -326,9 +352,10 @@ DS_PROMPTS, DS_MAX_NEW, DS_FIRST = (24, 150, 400, 800), 24, 12
 # (f32), I8_B rows decoded token by token for I8_STEPS teacher-forced steps
 # from an empty cache, over an int8 cache and over an f32 one
 I8_B, I8_STEPS = 4, 256
-# phase 13: rwkv6-7b at full width and depth (32 layers, f32: 7.53 B
-# parameters, 30.1 GB); its state is 34.6 MB a session, whatever the length
-R_SLOTS, R_MAX_LEN, R_SESSIONS = 4, 1024, 8
+# phase 13: rwkv6-7b at full width, f32, cut to R_LAYERS of its 32 layers
+# (to pay for phase 26; at full depth 7.53 B parameters, 30.1 GB); its
+# state is 1.08 MB a session a layer, whatever the length
+R_LAYERS, R_SLOTS, R_MAX_LEN, R_SESSIONS = 16, 4, 1024, 8
 R_PROMPTS, R_MAX_NEW, R_FIRST = (16, 120, 300, 500), 24, 12
 R_SCHED_LENS = (100, 400)
 # phase 14: jamba-v0.1-52b at full width, bf16 weights, cut to 16 of its 32
@@ -375,6 +402,9 @@ F_CHAOS_ARGV = ("--arch", "tinyllama-1.1b", "--replicas", "2", "--slots",
 # DRAM_GRID_REQUESTS requests, and the demo's trace
 # (repro_torch.examples.lisa_dram_demo: 16,384 requests, six configs)
 DRAM_GRID_REQUESTS = 4096
+# (c)'s trace: half the demo's 16,384 requests (to keep the whole run
+# inside its time with phase 26)
+DRAM_DEMO_REQUESTS = 8192
 DRAM_COPY_PROBS = (0.002, 0.005, 0.01, 0.02, 0.04)
 DRAM_ZIPFS = (1.0, 1.2, 1.4, 1.6, 1.8)
 DRAM_SEEDS = (1, 2)
@@ -391,8 +421,22 @@ DRAM_COPIES = {"memcpy": ("memcpy", 0, 1, 7, 2),
 # phase 2's flash_attention_train row and phase 19 (b): tinyllama-1.1b at
 # full width and depth in f32 trained on T_BATCH x T_SEQ tokens a step for
 # T_STEPS steps through the launcher, checkpointed at T_CKPT and resumed
-T_BATCH, T_SEQ, T_STEPS, T_CKPT = 8, 512, 20, 10
+# (the steps cut to keep the whole run inside its time with phase 26)
+T_BATCH, T_SEQ, T_STEPS, T_CKPT = 8, 512, 10, 5
 T_LR = 3e-4        # at this width the launcher's default 3e-3 raises the loss
+# phase 2's flash_attention_heads row and phase 26: tinyllama-1.1b at full
+# width cut to HS_LAYERS layers, its attention replaced by a published one,
+# (n_heads, n_kv_heads, head_dim, window): Zyphra/Zamba2-7B-Instruct's
+# config.json (attention_head_dim 224, 32 heads over 32 kv heads),
+# deepseek-ai/DeepSeek-V4-Flash's (head_dim 512, 64 heads over 1,
+# sliding_window 128) and DeepSeek-V4-Pro's (head_dim 512, 128 over 1)
+HS_SHAPES = {"zamba2-7b": (32, 32, 224, 0),
+             "deepseek-v4-flash": (64, 1, 512, 128),
+             "deepseek-v4-pro": (128, 1, 512, 0)}
+HS_LAYERS, HS_SLOTS, HS_MAX_LEN, HS_SESSIONS = 2, 4, 1024, 8
+HS_PROMPTS, HS_MAX_NEW, HS_FIRST = (40, 300, 700), 16, 8
+HS_SCHED_LENS = (100, 600)
+HS_ROWS = 8                      # phase 2: decode rows over HS_MAX_LEN
 # phase 19 (a): tests/test_train_loop.py's recipe on reduced tinyllama
 # (lr 8e-3, warmup 2, B 4, S 64, repeat 8) for TL_STEPS steps; the first
 # TL_MATCH losses within TL_BAR of the CPU port's run
@@ -423,7 +467,7 @@ M_NCCL_TIMEOUT = 300             # s: the NCCL ranks, where cards allow
 # the launcher on reduced tinyllama at MT_ARGV's recipe (that of
 # tests/test_train_loop.py, at 8 rows so that 4 data devices split them),
 # checkpointed at MT_LAUNCH_CKPT
-MT_MESHES, MT_STEPS, MT_SAVE = ((2, 2), (4, 1)), 5, 3
+MT_MESHES, MT_STEPS, MT_SAVE = ((2, 2), (4, 1)), 4, 3
 MT_STEP_BAR, MT_LOSS_BAR = 1e-5, 1e-4
 MT_ARGV = ("--arch", "tinyllama-1.1b", "--reduced", "--steps", "12",
            "--batch", "8", "--seq", "64", "--lr", "8e-3", "--log-every",
@@ -435,7 +479,7 @@ MT_LAUNCH_CKPT = 6
 # device (22 layers do not divide 4): the 1 x 4 state alone is 40.6 GB;
 # without remat its step of T_BATCH rows ran out of the card's memory in
 # the backward; with remat (the config's) it holds one rep's activations
-SP_STEPS = 3
+SP_STEPS = 2
 SP_RUNS = (((1, 4), {}, T_BATCH),
            ((2, 2), {"sequence_parallel": True}, T_BATCH))
 # phase 23: SV_BATCH prompts of SV_PROMPT random tokens prefilled into a
@@ -754,6 +798,7 @@ def main() -> int:
     rows["flash_attention_encdec"], rows["flash_attention_mrope"] = \
         encdec_and_mrope_rows(dev, gen, flush, tag)
     rows["flash_attention_train"] = train_attention_row(dev, gen, flush, tag)
+    rows["flash_attention_heads"] = head_shape_rows(dev, gen, flush, tag)
     # phase 24's local-head shapes, beside each path's rows
     for entry, extra in split_family_rows(dev, gen, flush, tag).items():
         row = rows[entry]
@@ -1032,6 +1077,10 @@ def main() -> int:
     for name, n in audit_phase(tag).items():
         counts[name] += n
     wall(25)
+    # the published attention shapes: their K3 launches count on their
+    # own row, by route
+    add(head_shape_phase(tag), "flash_attention_heads")
+    wall(26)
     routes = {"flash_attention": {"prefill": counts["flash_attention_prefill"],
                                   "decode": counts["flash_attention_decode"]},
               **paths, "flash_attention_train": train}
@@ -1055,6 +1104,7 @@ def main() -> int:
         "flash_attention_encdec": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_mrope": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_train": "src/repro/kernels/flash_attention.py:81",
+        "flash_attention_heads": "src/repro/kernels/flash_attention.py:81",
         "rbm_copy": "src/repro/kernels/rbm_copy.py:27"}
     csrc = "src/repro_torch/kernels/csrc/"
     decode_src = csrc + "flash_decode.cu"
@@ -1072,6 +1122,7 @@ def main() -> int:
                "flash_attention_encdec": decode_src,
                "flash_attention_mrope": csrc + "flash_attention.cu",
                "flash_attention_train": csrc + "flash_attention.cu",
+               "flash_attention_heads": csrc + "flash_attention.cu",
                "rbm_copy": csrc + "rbm_copy.cu"}
     # flash_attention counts K3's decode kernel on the tinyllama paths
     # (phases 3 and 5), flash_attention_prefill its prefill kernel there;
@@ -1096,7 +1147,8 @@ def main() -> int:
     # olmoe's (flash_attention_moe); villa_gather_hop counts the K2
     # launches of phases 20-23's hops (each also in villa_gather), timed
     # at the shift of every shard of tinyllama's weights over 8 stacked
-    # devices
+    # devices; flash_attention_heads both routes at the published attention
+    # shapes of phase 26 (head dims 224 and 512, groups 1, 64 and 128)
     kernels = []
     for name in ("villa_scatter", "villa_gather", "villa_gather_hop",
                  "flash_attention",
@@ -1105,7 +1157,7 @@ def main() -> int:
                  "flash_attention_moe", "flash_attention_mla",
                  "flash_attention_int8", "flash_attention_encdec",
                  "flash_attention_mrope", "flash_attention_train",
-                 "rbm_copy"):
+                 "flash_attention_heads", "rbm_copy"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],
@@ -1131,6 +1183,12 @@ def main() -> int:
                            f"jamba_prefill_{max(J_PROMPTS)}_bf16)",
                 "decode": "q bfloat16, k/v float32 (shapes: decode_ring, "
                           "decode_global, qwen_decode, jamba_decode)"}
+        if name == "flash_attention_heads":
+            kernels[-1]["route_dtypes"] = {
+                route: "q, k/v float32 (f32 weights); q bfloat16 over k/v "
+                       + ("bfloat16" if route == "prefill" else "float32")
+                       + " (bf16 weights over the Engine's f32 cache)"
+                for route in ("prefill", "decode")}
         if name == "flash_attention_int8":
             kernels[-1]["route_dtypes"] = {
                 "decode": "q float32, k/v int8 with float32 scales"}
@@ -1224,7 +1282,7 @@ def prefill_rows(attn_case, flush, tag) -> dict:
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for bucket in (16, 512):
+    for bucket in PREFILL_BUCKETS:
         q, k, v, qp, kp, _ = attn_case(1, bucket, bucket, [bucket])
         got = ops.chunked_attention(q, k, v, qp, kp)
         want = ref.chunked_attention_ref(q, k, v, qp, kp)
@@ -1246,7 +1304,7 @@ def prefill_rows(attn_case, flush, tag) -> dict:
               f"{r['tc_bound_ms']:.5f} ms; device time: kernel "
               f"{r['device_ms']:.4f} ms, SDPA {r['library_device_ms']:.4f} ms;"
               f" max_abs_err {err:.3g} [{tag}]")
-    row = dict(out["bucket_512"])
+    row = dict(out[f"bucket_{max(PREFILL_BUCKETS)}"])
     row["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
     row["shapes"] = out
     return row
@@ -1255,10 +1313,16 @@ def prefill_rows(attn_case, flush, tag) -> dict:
 def check_sass(built) -> None:
     """The compiled code shows the design: every kernel of the prefill
     library is an instantiation of the prefill kernel running tensor-core
-    MMAs (HMMA); every kernel of the decode library one of the split-KV
+    MMAs (HMMA), four (q, K/V dtype pairs) at each unpadded width of
+    ``flash_attention.TILE_WIDTHS`` (512 among them), four more at each of
+    ``PADDED_WIDTHS`` (the general template: masked past the head dim, and
+    taking head slices) and two of each at Dk 192 / Dv 128; every kernel
+    of the decode library one of the split-KV
     kernel; K4 issues bulk copies (UBLKCP).  Prints how many instantiations
     each library holds.  Reads the SASS with the toolkit's cuobjdump."""
     import shutil
+
+    from repro_torch.kernels import flash_attention as FA
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
@@ -1281,6 +1345,16 @@ def check_sass(built) -> None:
                           for k, c in prefill.items()),
           f"prefill kernels without tensor-core MMAs or outside the design: "
           f"{prefill}")
+    widths = {}
+    for k in prefill:
+        dims = tuple(int(x) for x in re.search(
+            r"Li(\d+)ELi(\d+)ELb([01])E", k).groups())
+        widths[dims] = widths.get(dims, 0) + 1
+    want = {(w, w, 0): 4 for w in FA.TILE_WIDTHS}
+    want.update({(w, w, 1): 4 for w in FA.PADDED_WIDTHS})
+    want[FA.MLA_DIMS + (0,)] = want[FA.MLA_DIMS + (1,)] = 2
+    check(widths == want, f"prefill instantiations by (Dk, Dv, general) "
+                          f"{widths}, {want} due")
     check(decode and all("decode_split_kernel" in k for k in decode),
           f"decode library outside the design: {sorted(decode)}")
     bulk = [c["UBLKCP"] for k, c in counts["rbm_copy"].items()
@@ -1576,6 +1650,111 @@ def wide_and_mixed_rows(dev, gen, flush, tag):
     return out
 
 
+def head_shape_rows(dev, gen, flush, tag) -> dict:
+    """Phase 2 at the published attention shapes phase 26 serves
+    (HS_SHAPES), at every (q, K/V) dtype pair phase 26 launches there: for
+    each, a prefill of bucket HS_MAX_LEN (B 1, every query valid; under
+    DeepSeek-V4-Flash's window 128, its local layer's) in bf16 and in f32,
+    and a ragged decode of HS_ROWS rows over T HS_MAX_LEN (its global
+    layer's) in bf16, in f32 and with bf16 q over f32 K/V (bf16 weights
+    over the Engine's f32 cache); each held to ``ref.attention_bar`` and
+    timed beside its plain version and SDPA with its bounds.  Returns the
+    ``kernels`` entry: DeepSeek-V4-Pro's bf16 prefill's numbers (128 heads
+    over one kv head at width 512, four head slices a query), every row in
+    ``shapes``."""
+    import numpy as np
+    import torch
+
+    def case(B, S, H, K, D, qp, kp, qdt, kvdt):
+        T = kp.shape[1]
+        q = torch.randn((B, S, H, D), device=dev, generator=gen).to(qdt)
+        k = torch.randn((B, T, K, D), device=dev, generator=gen).to(kvdt)
+        v = torch.randn((B, T, K, D), device=dev, generator=gen).to(kvdt)
+        return (q, k, v, torch.from_numpy(qp).to(dev),
+                torch.from_numpy(kp).to(dev))
+
+    pos = np.arange(HS_MAX_LEN, dtype=np.int32)[None]
+    lens = np.random.default_rng(SEED + 26).integers(HS_MAX_LEN // 4,
+                                                     HS_MAX_LEN + 1,
+                                                     HS_ROWS)
+    kp = np.full((HS_ROWS, HS_MAX_LEN), 2**30, np.int32)
+    for b, n in enumerate(lens):
+        kp[b, :n] = np.arange(n)
+    qp = (lens - 1)[:, None].astype(np.int32)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+    for name, (H, K, D, W) in HS_SHAPES.items():
+        for dt in (bf16, f32):
+            d = str(dt)[6:]
+            rows[f"{name}_prefill_{HS_MAX_LEN}_{d}"] = attention_row(
+                f"{name} prefill bucket {HS_MAX_LEN} ({H}/{K} heads, D {D})",
+                *case(1, HS_MAX_LEN, H, K, D, pos, pos, dt, dt), W, flush,
+                tag)
+        for qdt, kvdt, d in ((bf16, bf16, "bfloat16"), (f32, f32, "float32"),
+                             (bf16, f32, "mixed")):
+            rows[f"{name}_decode_{HS_ROWS}x{HS_MAX_LEN}_{d}"] = attention_row(
+                f"{name} decode ({H}/{K} heads, D {D})",
+                *case(HS_ROWS, 1, H, K, D, qp, kp, qdt, kvdt), 0, flush, tag)
+    head = rows[f"deepseek-v4-pro_prefill_{HS_MAX_LEN}_bfloat16"]
+    row = dict(head)
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values()
+                             if r["dtypes"] == head["dtypes"])
+    row["shapes"] = rows
+    return row
+
+
+def head_shape_config(name):
+    """tinyllama-1.1b at full width, HS_LAYERS layers, with the attention
+    of HS_SHAPES[name] (under a window, layer 0 local and layer 1 global),
+    by ``dataclasses.replace`` as the reference's frozen config takes it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    H, K, D, W = HS_SHAPES[name]
+    return dataclasses.replace(
+        get_config("tinyllama-1.1b"), n_layers=HS_LAYERS, n_heads=H,
+        n_kv_heads=K, head_dim=D, window=W, swa_period=2 if W else 0)
+
+
+def head_shape_phase(tag) -> dict:
+    """Phase 26: each published attention shape of HS_SHAPES on
+    tinyllama-1.1b's full width (HS_LAYERS layers, random weights from
+    SEED), in f32 and in bf16 weights over the Engine's f32 cache, through
+    the Engine (a suspend and a resume wave; tokens equal to the
+    uninterrupted run's; the launch counters equal to what the stats call
+    for) and the Scheduler.  Returns the launch counts, summed."""
+    import torch
+    from repro_torch import sched
+
+    total = {}
+    for name in HS_SHAPES:
+        cfg = head_shape_config(name)
+        for dt in (torch.float32, torch.bfloat16):
+            label = f"{name} {str(dt)[6:]}"
+            params = model_params(
+                cfg, dt, label,
+                f"{HS_LAYERS} layers of tinyllama-1.1b's width with "
+                f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads of "
+                f"head dim {cfg.head_dim}"
+                + (f", window {cfg.window} (layer 0)" if cfg.window else ""))
+            wl = sched.WorkloadConfig(n_fresh=4, n_followups=4,
+                                      arrival="bursty",
+                                      prompt_lens=HS_SCHED_LENS,
+                                      new_tokens=(8, 16))
+            counts = serve_phase(label, cfg, params,
+                                 _prompts(cfg, HS_PROMPTS, SEED + 26), tag,
+                                 slots=HS_SLOTS, max_len=HS_MAX_LEN,
+                                 n_sessions=HS_SESSIONS,
+                                 max_new=HS_MAX_NEW, first=HS_FIRST,
+                                 sched_wl=wl, profile=False)
+            for key, n in counts.items():
+                total[key] = total.get(key, 0) + n
+            del params
+            torch.cuda.empty_cache()
+    return total
+
+
 def model_params(cfg, dtype, label, why) -> dict:
     """Random weights for ``cfg`` from a CUDA generator seeded with SEED, in
     ``dtype`` (the norms stay f32, as the reference's); prints their size
@@ -1793,17 +1972,22 @@ def gemma3_phase(tag) -> dict:
 
 
 def gemma7b_phase(tag) -> dict:
-    """Phase 7: gemma-7b at full width and depth (28 layers, head dim 256,
-    MHA, GeGLU, tied embeddings; f32, the reference's serving precision)
+    """Phase 7: gemma-7b at full width, D7_LAYERS of its 28 layers (head dim
+    256, MHA, GeGLU, tied embeddings; f32, the reference's serving precision)
     through the Engine and the Scheduler: K3 at head dim 256 on both
     routes."""
+    import dataclasses
+
     import torch
     from repro_torch import sched
     from repro_torch.configs import get_config
 
-    cfg = get_config("gemma-7b")
+    full = get_config("gemma-7b")
+    cfg = dataclasses.replace(full, n_layers=D7_LAYERS)
     params = model_params(cfg, torch.float32, "gemma-7b",
-                          "full depth: the f32 weights fit")
+                          f"{D7_LAYERS} of {full.n_layers} layers (the f32 "
+                          f"weights fit at full depth; cut to pay for "
+                          f"phase 26)")
     wl = sched.WorkloadConfig(n_fresh=6, n_followups=12, arrival="bursty",
                               prompt_lens=D7_SCHED_LENS, new_tokens=(8, 16))
     counts = serve_phase("gemma-7b", cfg, params,
@@ -1898,7 +2082,7 @@ def mla_and_moe_rows(dev, gen, flush, tag):
     ds = get_config("deepseek-v2-236b")
     dk, dv = ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim
     mla = {}
-    for bucket, n in ((1024, 700), (64, 40)):
+    for bucket, n in MLA_BUCKETS:
         for dt in (torch.bfloat16, torch.float32):
             mla[f"prefill_{bucket}_{str(dt)[6:]}"] = attention_row(
                 f"deepseek-v2 MLA prefill bucket {bucket} ({n} tokens)",
@@ -2232,16 +2416,22 @@ def repeat_decode(label, cfg, params, prompts, slots, max_len) -> None:
 
 
 def olmoe_phase(tag) -> dict:
-    """Phase 10: olmoe-1b-7b at full width and depth (attn_full + MoE, f32)
+    """Phase 10: olmoe-1b-7b at full width, O_LAYERS of its 16 layers
+    (attn_full + MoE, f32)
     through the Engine and the Scheduler, K3 on both routes at head dim 128
     and G 1; one decode batch run twice must give bit-equal logits."""
+    import dataclasses
+
     import torch
     from repro_torch import sched
     from repro_torch.configs import get_config
 
-    cfg = get_config("olmoe-1b-7b")
+    full = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(full, n_layers=O_LAYERS)
     params = model_params(cfg, torch.float32, "olmoe-1b-7b",
-                          "full depth: the f32 weights fit")
+                          f"{O_LAYERS} of {full.n_layers} layers (the f32 "
+                          f"weights fit at full depth; cut to pay for "
+                          f"phase 26)")
     prompts = _prompts(cfg, O_PROMPTS, SEED + 10)
     repeat_decode("olmoe", cfg, params, prompts, O_SLOTS, O_MAX_LEN)
     wl = sched.WorkloadConfig(n_fresh=6, n_followups=12, arrival="bursty",
@@ -2399,17 +2589,22 @@ def hold_int8_cache(cfg, cache, dev, tag) -> None:
 
 
 def rwkv_phase(tag) -> dict:
-    """Phase 13: rwkv6-7b at full width and depth (32 rwkv layers, f32)
+    """Phase 13: rwkv6-7b at full width, R_LAYERS of its 32 rwkv layers (f32)
     through the Engine (4 slots, exact-length prompts of 16-500, a suspend
     and a resume wave of the 34.6 MB state snapshots) and the Scheduler;
     it launches no K3."""
+    import dataclasses
+
     import torch
     from repro_torch import sched
     from repro_torch.configs import get_config
 
-    cfg = get_config("rwkv6-7b")
+    full = get_config("rwkv6-7b")
+    cfg = dataclasses.replace(full, n_layers=R_LAYERS)
     params = model_params(cfg, torch.float32, "rwkv6-7b",
-                          "full depth: the f32 weights fit")
+                          f"{R_LAYERS} of {full.n_layers} layers (the f32 "
+                          f"weights fit at full depth; cut to pay for "
+                          f"phase 26)")
     wl = sched.WorkloadConfig(n_fresh=6, n_followups=12, arrival="bursty",
                               prompt_lens=R_SCHED_LENS, new_tokens=(8, 16))
     counts = serve_phase("rwkv6-7b", cfg, params,
@@ -2739,7 +2934,8 @@ def dram_phase(tag) -> dict:
         of DRAM_GRID_REQUESTS requests, as 300 lanes of one
         ``controller.simulate_grid``; its wall seconds and requests a
         second;
-    (c) the demo's 16,384-request trace under its six configs.
+    (c) the demo's trace, cut to DRAM_DEMO_REQUESTS requests, under its
+        six configs.
     For (b) and (c): VILLA hits and accesses equal to the CPU's, the
     floats within DRAM_FLOAT_BAR (rtol; it prints whether they are
     bit-equal), and the orderings tests/test_dram_controller.py asserts.
@@ -2869,11 +3065,11 @@ def dram_phase(tag) -> dict:
     # (c) the demo's trace under its six configs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, grid = demo.system_eval(dev)
+    _, grid = demo.system_eval(dev, n_requests=DRAM_DEMO_REQUESTS)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _, cgrid = demo.system_eval("cpu")
+    _, cgrid = demo.system_eval("cpu", n_requests=DRAM_DEMO_REQUESTS)
     cpu_s = time.perf_counter() - t0
     exact = held("the demo's trace", grid, cgrid)
     stall = grid["core_stall"].cpu()[:, 0]
@@ -2888,7 +3084,7 @@ def dram_phase(tag) -> dict:
           f"reduction {red}, hit rate {hit}")
     out["demo"] = {"card_s": card_s, "cpu_s": cpu_s, "ws": ws,
                    "energy_reduction": red, "hit_rate": hit, "exact": exact}
-    print(f"demo trace ({demo.N_REQUESTS} requests x {len(demo.CONFIGS)} "
+    print(f"demo trace ({DRAM_DEMO_REQUESTS} requests x {len(demo.CONFIGS)} "
           f"configs): card {card_s:.3f} s wall, CPU {cpu_s:.3f} s; WS "
           f"{[round(w, 4) for w in ws]}, combined energy -{red * 100:.1f}%, "
           f"villa hit rate {hit:.3f}; against the CPU: hits and accesses "
@@ -2948,12 +3144,16 @@ def train_phase(tag) -> tuple:
                       repeat_len=8)
     params = lm.init_lm(cfg, torch.Generator().manual_seed(SEED),
                         device="cpu")
+    # the card's state first: the CPU's steps (donated, as the reference's
+    # make_train_step) update params in place
+    card = TS.state_from_params(
+        tree_map(lambda p: p.to(dev, copy=True), params), pcfg)
     st = TS.state_from_params(params, pcfg)
     cpu_losses = []
     for i in range(TL_MATCH):
         st, m = step(st, batch_at(dcfg, i, device="cpu"))
         cpu_losses.append(float(m["loss"]))
-    st = TS.state_from_params(tree_map(lambda p: p.to(dev), params), pcfg)
+    st = card
     ops.reset_launch_counts()
     losses, ces = [], []
     for i in range(TL_STEPS):
@@ -2971,7 +3171,7 @@ def train_phase(tag) -> tuple:
           f"over {TL_STEPS} steps (the last 4 {drop:.4f} below the first "
           f"4), first {TL_MATCH} losses within {diff:.3g} of the CPU "
           f"port's [{tag}]")
-    del st, params
+    del st, card, params
 
     # (b) full width, uninterrupted; then checkpointed, crashed, resumed
     full = get_config("tinyllama-1.1b")

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch_kernels/<name>-<hash>.so``
 at the root of the checkout (a directory ``.gitignore`` lists), compiled for
 Hopper only (``sm_90a``) with a plain C interface — no PyTorch headers, so a
-build takes seconds.  The file name carries a hash of the source and of the
-headers beside it, so an edited source or header is rebuilt and a stale
-library is never loaded.  Nothing is built at
+build takes seconds.  The file name carries a hash of the source, of the
+headers beside it and of the compiler flags, so an edited source, header or
+flag is rebuilt and a stale library is never loaded.  Nothing is built at
 import: the first launch builds (``library``), or ``build_all`` builds every
 source at once, one nvcc per source, all started together.
 """
@@ -21,8 +21,13 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+# --split-compile=0: the device code's optimisation runs on as many threads
+# as the machine has (the attention libraries, some 50 and 90 instantiations,
+# build in about half the time; the code it makes times the same on the
+# card: attention_ab.py)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -36,9 +41,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    """The library's path, named by a hash of its source and of every
-    header in ``csrc/`` (a source may include any of them)."""
+    """The library's path, named by a hash of its source, of every
+    header in ``csrc/`` (a source may include any of them) and of
+    :data:`NVCC_FLAGS`."""
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"

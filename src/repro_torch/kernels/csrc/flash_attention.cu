@@ -8,11 +8,24 @@
 // kv_pos[t] <= q_pos[s] when causal and, with a sliding window W > 0, also
 // kv_pos[t] > q_pos[s] - W.  Running max, sum and accumulator are f32; a
 // masked score is -1e30 and the sum is floored at 1e-30, so a row with no
-// valid key gives 0.  Head dims: Dk = Dv in 16/32/64/128/256, and here in
-// the prefill also Dk 192 / Dv 128 (MLA's expanded K and V: deepseek-v2).
-// Not taken yet: int8 scales (no entry), and, raising in the wrapper, any
-// other (Dk, Dv) and Dv != Dk in decode; ROADMAP Queue 2 lists them under
-// K3.
+// valid key gives 0.  Head dims: Dk = Dv any multiple of 8 from 8 to 512,
+// and here in the prefill also Dk 192 / Dv 128 (MLA's expanded K and V:
+// deepseek-v2).  A head dim D that is an unpadded width (16, 32, 64, 128,
+// 256, 512) runs in that width's template as it is, a CTA holding a whole
+// group; any other, or a group cut into head slices (below), runs in the
+// general template (kGen) of the smallest of 64, 96, 128, 256, 512 at or
+// above it (the wrapper's tile_width): the true D is a runtime argument,
+// columns D..DP of the Q and K tiles are zero-filled in shared memory
+// (cp.async's src-size operand, or a zero where a load is widened), V's
+// extra output columns are computed from zeros and never stored, and the
+// caches are read where they lie, at their true row length.  At a named
+// shape the zero columns are at most a quarter of the tile (72 -> 96, 224
+// -> 256).  The general template is apart so that the unpadded ones keep
+// their unmasked loads and stores and the row math of a whole group (on
+// an H100 the masks cost them 3-14% of device time: attention_ab.py).  Not
+// taken yet: int8 scales (no entry), and, raising in the wrapper, any
+// other (Dk, Dv), a head dim above 512 or not a multiple of 8, and Dv !=
+// Dk in decode; ROADMAP Queue 2 lists them under K3.
 //
 // q and k/v may differ in dtype (bf16 weights over the Engine's f32 cache
 // give bf16 q over f32 K/V); k and v share one.  The kernels follow the
@@ -47,7 +60,7 @@
 // head dim 256, below), so the GQA routing is
 // index math and each K/V tile is read once per head group
 // (kernels/flash_attention.py::prefill_plan lays out the grid).  The CTA
-// first lists its live tiles of kBN = 64 keys: those holding a key that
+// first lists its live tiles of BN = 64 keys (32 at width 512): those holding a key that
 // some row can see (kv_pos <= the largest row bound and > the smallest
 // q_pos - W, 64-bit), so fully masked tiles are never loaded.  K, V and
 // kv_pos of the live tiles stream through a two-stage ring (one stage for
@@ -93,6 +106,15 @@
 // after the last warp is done with this one); bf16 keeps two stages and
 // reads Q's fragments from shared memory with ldmatrix instead of holding
 // them in registers.
+// Tile width 512 (DeepSeek-V4).  Four warps share each 16-row block, each
+// computing its scores in full and keeping 128 output columns, so a CTA
+// holds 32 rows.  A 64-key K and V tile in f32 (263 KB) does not fit a
+// CTA's 227 KB, so tiles hold 32 keys: f32 with one stage (198 KB with Q),
+// bf16 with two (167 KB with Q in shared memory).
+// Groups larger than a CTA's rows (G = 128 over one kv head at width 512,
+// say) are cut into slices of `heads` = min(G, rows) heads: the grid's x
+// is (query block, head slice), and a CTA holds rows / heads queries of
+// one slice, in the general template.  One launch either way.
 // mma.sync, not wgmma: TF32 wgmma reads B, and A unless it sits in
 // registers, as K-major tiles in shared memory, so 3xTF32 would need the
 // hi and lo halves of K, of a transposed V and (for want of registers) of
@@ -126,8 +148,6 @@ namespace pf {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBN = 64;              // keys a tile
-constexpr int kNT = kBN / 8;         // n-tiles of 8 keys in a tile
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -211,9 +231,9 @@ template <> struct Path<__nv_bfloat16, __nv_bfloat16> {
 // Rows by V's head dim DV: WPR warps share each 16-row block, each
 // computing its scores and DO = DV / WPR output columns; a CTA holds ROWS
 // (query, head) rows.  Two warps a block at DV = 256 (the accumulator of
-// 256 columns does not fit a warp's registers), one below.
+// 256 columns does not fit a warp's registers), four at 512, one below.
 template <int DV> struct Geom {
-  static constexpr int WPR = DV > 128 ? 2 : 1;
+  static constexpr int WPR = DV > 256 ? 4 : DV > 128 ? 2 : 1;
   static constexpr int ROWS = 16 * kWarps / WPR;
   static constexpr int DO = DV / WPR;
 };
@@ -224,15 +244,17 @@ template <int DV> struct Geom {
 //         loads of 8 lanes fall on 8 distinct bank groups; V rows unpadded
 //         with their 16-byte chunks XOR-swizzled by vswz (below).  Q is
 //         staged here; above DK = 128 the ring has one stage (194 KB with
-//         Q at 256, 184 KB at 192 / 128).
+//         Q at 256, 184 KB at 192 / 128, 198 KB at 512 with 32-key tiles).
 //   bf16: K and V rows padded to DK + 8 and DV + 8, so the 8 rows of an
 //         ldmatrix fall on 8 distinct bank groups; Q in registers, or
 //         above DK = 128 here, padded the same way.
+// BN keys a tile: 64, or 32 at DK = 512, where a 64-key tile does not fit.
 template <typename T, int DK_, int DV_> struct Layout;
 template <int DK_, int DV_> struct Layout<float, DK_, DV_> {
   static constexpr int DK = DK_, DV = DV_;
   static constexpr int KS = DK + 4, VS = DV, QS = DK + 4;
   static constexpr int KPB = DK >= 32 ? 4 : DK / 8;  // k-steps a K load
+  static constexpr int BN = DK > 256 ? 32 : 64;
   static constexpr int STAGES = DK > 128 ? 1 : 2;     // K/V tiles in flight
   static constexpr int q_elems = Geom<DV>::ROWS * QS;
 };
@@ -240,15 +262,16 @@ template <int DK_, int DV_> struct Layout<__nv_bfloat16, DK_, DV_> {
   static constexpr int DK = DK_, DV = DV_;
   static constexpr int KS = DK + 8, VS = DV + 8, QS = DK > 128 ? DK + 8 : 0;
   static constexpr int KPB = 0;
+  static constexpr int BN = DK > 256 ? 32 : 64;
   static constexpr int STAGES = 2;
   static constexpr int q_elems = Geom<DV>::ROWS * QS;
 };
 
 template <typename T, int DK, int DV> struct Smem {
   using L = Layout<T, DK, DV>;
-  static constexpr int k_elems = kBN * L::KS, v_elems = kBN * L::VS;
+  static constexpr int k_elems = L::BN * L::KS, v_elems = L::BN * L::VS;
   static constexpr size_t stage_bytes =
-      sizeof(T) * (k_elems + v_elems) + sizeof(int) * kBN;
+      sizeof(T) * (k_elems + v_elems) + sizeof(int) * L::BN;
   static constexpr size_t q_bytes = sizeof(T) * L::q_elems;
   // the ring, then Q, then the CTA's live-tile list
   static size_t bytes(int n_tiles) {
@@ -260,13 +283,14 @@ template <typename T, int DK, int DV> struct Smem {
 // at chunk c ^ vswz(r).  A lane of the PV product reads rows 2t and 2t + 1
 // (t its quad index) at chunks (D/32)*g + j; the swizzle spreads t over the
 // chunk bits that g does not use, so the 8 lanes of a phase hit 8 distinct
-// bank groups.
+// bank groups (at D = 96, whose lanes read 3 chunks, it only keeps the
+// chunks inside their row: 24 chunks, a multiple of 4).
 template <int D> __device__ __forceinline__ int vswz(int r) {
   const int t = (r >> 1) & 3;
   if constexpr (D >= 128) return t;
   else if constexpr (D == 64) return (t & 1) | ((t & 2) << 1);
   else if constexpr (D == 32) return t << 1;
-  else return t;                                  // D = 16: 4 chunks a row
+  else return t;                          // D = 16 (4 chunks a row), 96
 }
 
 // ---- the two products of a tile, per warp --------------------------------
@@ -305,6 +329,7 @@ __device__ __forceinline__ void qk_tile(float (*s)[4], const float* Qw,
                                         const float* Ks, int g, int t,
                                         unsigned long long live) {
   constexpr int KPB = L::KPB, RL = 2 * KPB, NB = L::DK / (8 * KPB);
+  constexpr int kNT = L::BN / 8;
 #pragma unroll
   for (int blk = 0; blk < NB; ++blk) {
     alignas(16) float a0[RL];
@@ -356,11 +381,12 @@ __device__ __forceinline__ void qk_tile(float (*s)[4], const float* Qw,
 // t + 4 key 8jj + 2t + 1.  Output column n of n-tile nt is physical column
 // half*DO + (DO/8)*n + nt, so a lane reads the DO/8 contiguous floats
 // half*DO + (DO/8)*g.. of its two key rows, and writes DO/4 contiguous
-// output floats a row.
-template <int D, int DO>
+// output floats a row.  L is the f32 Layout; D its DV.
+template <class L, int DO>
 __device__ __forceinline__ void pv_tile(float (*o)[4], const float (*p)[4],
                                         const float* Vs, int g, int t,
                                         unsigned long long live, int half) {
+  constexpr int D = L::DV, kNT = L::BN / 8;
   constexpr int W = DO / 8;                    // floats a lane reads a row
   constexpr int NG = W < kJG ? W : kJG;        // accumulators a group
 #pragma unroll
@@ -416,7 +442,7 @@ __device__ __forceinline__ void qk_tile_bf16(float (*s)[4],
                                              const __nv_bfloat16* Ks,
                                              int lane,
                                              unsigned long long live) {
-  constexpr int D = L::DK, KS = L::KS;
+  constexpr int D = L::DK, KS = L::KS, kNT = L::BN / 8;
   const __nv_bfloat16* row = Ks + (lane & 7) * KS;
   if constexpr (D >= 32) {
 #pragma unroll
@@ -471,7 +497,7 @@ __device__ __forceinline__ void pv_tile_bf16(float (*o)[4],
                                              int half) {
   constexpr int VS = L::VS;
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
+  for (int kk = 0; kk < L::BN / 16; ++kk) {
     if (!((live >> (16 * kk)) & 0xffffull)) continue;   // P is 0 there
     uint32_t a[4];
     a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
@@ -492,21 +518,29 @@ __device__ __forceinline__ void pv_tile_bf16(float (*o)[4],
 
 // ---- the kernel -------------------------------------------------------
 
-// One CTA: batch row b = blockIdx.z, kv head kvh = blockIdx.y, query block
-// qb = gridDim.x - 1 - blockIdx.x.  Row r < BQ*G of the CTA is query
-// s = qb*BQ + r / G of head kvh*G + r % G
+// One CTA: batch row b = blockIdx.z, kv head kvh = blockIdx.y, and x =
+// gridDim.x - 1 - blockIdx.x = qb * NHS + hs: query block qb, slice hs of
+// NHS = ceil(G / GS) slices of GS heads.  Row r < BQ*GS of the CTA is query
+// s = qb*BQ + r / GS of head kvh*G + hs*GS + r % GS, where that head is < G
 // (kernels/flash_attention.py::prefill_plan and prefill_row).  Warp w owns
 // rows 16rb..16rb+15 of row block rb = w / WPR and the output columns
 // half*DO.. (half = w % WPR); its lane (g = lane / 4, t = lane % 4) holds
-// rows 16rb + g and 16rb + g + 8 of every fragment.  D is q's and K's head
-// dim, DV V's and the output's (DV <= D).
-template <typename TQ, typename TKV, int D, int DV>
+// rows 16rb + g and 16rb + g + 8 of every fragment.  D is the tile width of
+// q's and K's head dim, DV of V's and the output's (DV <= D).  With kGen
+// the true head dims dk <= D and dv <= DV (multiples of 8, the length of
+// the rows of q, k, v and out in memory) are the arguments dk_arg and
+// dv_arg, every load and store past them is masked, and a CTA may hold a
+// slice of GS < G heads; without it they are D and DV, nothing is masked,
+// GS = G and NHS = 1 (a head dim equal to its width, its group in one
+// CTA, runs the unpadded instantiation, with the row math of a whole
+// group).
+template <typename TQ, typename TKV, int D, int DV, bool kGen>
 __global__ void __launch_bounds__(kThreads, 1)
 prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                const TKV* __restrict__ v, const int* __restrict__ q_pos,
                const int* __restrict__ kv_pos, TQ* __restrict__ out, int S,
-               int T_, int H, int K, int G, int BQ, int causal, int window,
-               float scale) {
+               int T_, int H, int K, int G, int GS, int BQ, int dk_arg,
+               int dv_arg, int causal, int window, float scale) {
   static_assert(DV <= D, "V's head dim is at most q's and K's");
   using C = typename Path<TQ, TKV>::T;         // the products' type
   using L = Layout<C, D, DV>;
@@ -515,6 +549,8 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   constexpr int WPR = Geom<DV>::WPR, DO = Geom<DV>::DO;
   constexpr int ROWS = Geom<DV>::ROWS;
   constexpr int NO = DO / 8;                   // output n-tiles
+  constexpr int BN = L::BN, kNT = BN / 8;      // keys, n-tiles a tile
+  const int dk = kGen ? dk_arg : D, dv = kGen ? dv_arg : DV;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int w_hi[kWarps];
   __shared__ long long w_lo[kWarps];
@@ -524,8 +560,13 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int rb = warp / WPR, half = warp % WPR;
   // the last query blocks, which see the most keys, start first
-  const int qb = gridDim.x - 1 - blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (T_ + kBN - 1) / kBN;
+  const int gs = kGen ? GS : G;
+  const int nhs = kGen ? (G + gs - 1) / gs : 1;
+  const int xb = gridDim.x - 1 - blockIdx.x;
+  const int qb = kGen ? xb / nhs : xb;
+  const int h0 = kGen ? xb % nhs * gs : 0;      // the slice's first head
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (T_ + BN - 1) / BN;
   C* Qs = reinterpret_cast<C*>(smem + L::STAGES * SM::stage_bytes);
   int* tiles = reinterpret_cast<int*>(smem + L::STAGES * SM::stage_bytes +
                                       SM::q_bytes);
@@ -539,10 +580,10 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = rb * 16 + g + 8 * i;
-    const int s = qb * BQ + r / G;
-    row_ok[i] = r < BQ * G && s < S;
+    const int s = qb * BQ + r / gs, gh = h0 + r % gs;
+    row_ok[i] = r < BQ * gs && s < S && (!kGen || gh < G);
     row_s[i] = s;
-    row_h[i] = kvh * G + r % G;
+    row_h[i] = kvh * G + gh;
     const int qp = row_ok[i] ? q_pos[static_cast<long long>(b) * S + s] : 0;
     hi[i] = !row_ok[i] ? INT_MIN : (causal ? qp : INT_MAX);
     lo[i] = !row_ok[i] ? LLONG_MAX
@@ -566,18 +607,22 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 
   // Q, scaled in its own dtype (as the reference scales it): into shared
-  // memory in the products' type (f32; bf16 at D = 256), or as bf16
-  // fragments into registers
+  // memory in the products' type (f32; bf16 above D = 128), or as bf16
+  // fragments into registers; zero past dk
   uint32_t qa[kF32 || L::QS > 0 ? 1 : D / 16][4];
   if constexpr (L::QS > 0) {
     constexpr int EPC = 16 / sizeof(C);        // elements a 16-byte chunk
     for (int idx = tid; idx < ROWS * (D / EPC); idx += kThreads) {
       const int r = idx / (D / EPC), c = idx % (D / EPC);
-      const int s = qb * BQ + r / G;
+      const int s = qb * BQ + r / gs, gh = h0 + r % gs;
       alignas(16) C x[EPC];
-      const bool ok = r < BQ * G && s < S;
+      const bool ok = r < BQ * gs && s < S &&
+                      (!kGen || (gh < G && EPC * c < dk));
+      // an address for every row, read only where ok: the loads of
+      // successive chunks then issue together
       const TQ* src = q + ((static_cast<long long>(b) * S + (ok ? s : 0)) *
-                           H + kvh * G + r % G) * D + EPC * c;
+                           H + kvh * G + (!kGen || ok ? gh : 0)) * dk +
+                      EPC * c;
 #pragma unroll
       for (int e = 0; e < EPC; ++e)
         x[e] = from_f<C>(ok ? scaled(src[e], scale) : 0.f);
@@ -592,10 +637,10 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         const int i = e & 1;                    // row g or g + 8
         const int d = 16 * kk + 8 * (e >> 1) + 2 * t;
         uint32_t w = 0;
-        if (row_ok[i]) {
+        if (row_ok[i] && (!kGen || d < dk)) {
           const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
               q + ((static_cast<long long>(b) * S + row_s[i]) * H +
-                   row_h[i]) * D + d);
+                   row_h[i]) * dk + d);
           w = pack_bf16(
               __bfloat162float(__float2bfloat16(__low2float(x) * scale)),
               __bfloat162float(__float2bfloat16(__high2float(x) * scale)));
@@ -618,8 +663,8 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     for (int i = warp; i < n_tiles; i += kWarps) {
       bool live = false;
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int col = i * kBN + lane + 32 * h2;
+      for (int h2 = 0; h2 < BN / 32; ++h2) {
+        const int col = i * BN + lane + 32 * h2;
         if (col < T_) {
           const int p = __ldg(kv_pos + kv_base + col);
           live |= p <= chi && static_cast<long long>(p) > clo;
@@ -644,10 +689,13 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
   const int n_live = n_live_s;
 
-  // one tile's K, V and kv_pos into ring stage st, zero-filled past T:
+  // one tile's K, V and kv_pos into ring stage st, zero-filled past T and
+  // past the true head dims (chunks ck.. of a K row, cv.. of a V row):
   // cp.async when K/V are already in the products' type; bf16 K/V on the
   // f32 path are widened on the way (plain loads: the copy engine cannot
   // convert), each 16-byte chunk of 8 values into two f32 chunks
+  const int ck = dk * static_cast<int>(sizeof(TKV)) / 16;
+  const int cv = dv * static_cast<int>(sizeof(TKV)) / 16;
   auto load_tile = [&](int tile, int st) {
     unsigned char* base = smem + st * SM::stage_bytes;
     C* Ks = reinterpret_cast<C*>(base);
@@ -656,26 +704,25 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     constexpr int CPR = D * sizeof(TKV) / 16;  // 16-byte chunks a K row
     constexpr int CPV = DV * sizeof(TKV) / 16;  // and a V row (<= CPR)
     constexpr int EPC = 16 / sizeof(TKV);      // elements a chunk
-    const int t0 = tile * kBN;
-    for (int idx = tid; idx < kBN * CPR; idx += kThreads) {
+    const int t0 = tile * BN;
+    for (int idx = tid; idx < BN * CPR; idx += kThreads) {
       const int r = idx / CPR, c = idx % CPR;
       const int key = t0 + r;
-      const bool ok = key < T_;
       const long long row = (static_cast<long long>(b) * T_ + key) * K + kvh;
-      const long long off = ok ? row * D + c * EPC : 0;
-      const long long voff = ok ? row * DV + c * EPC : 0;
+      const bool ok = key < T_ && (!kGen || c < ck);
+      const bool vok = key < T_ && (!kGen || c < cv);
+      const long long off = ok ? row * dk + c * EPC : 0;
+      const long long voff = vok ? row * dv + c * EPC : 0;
       const bool has_v = CPV == CPR || c < CPV;  // chunk c of a V row
       if constexpr (std::is_same<C, TKV>::value) {
         cp_async16(Ks + r * L::KS + c * EPC, k + off, ok);
         int vc = c;
         if constexpr (kF32) vc = c ^ vswz<DV>(r);
-        if (has_v) cp_async16(Vs + r * L::VS + vc * EPC, v + voff, ok);
+        if (has_v) cp_async16(Vs + r * L::VS + vc * EPC, v + voff, vok);
       } else {
         uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
-        if (ok) {
-          kr = __ldg(reinterpret_cast<const uint4*>(k + off));
-          if (has_v) vr = __ldg(reinterpret_cast<const uint4*>(v + voff));
-        }
+        if (ok) kr = __ldg(reinterpret_cast<const uint4*>(k + off));
+        if (has_v && vok) vr = __ldg(reinterpret_cast<const uint4*>(v + voff));
         alignas(16) float kf[8];
         alignas(16) float vf[8];
         Vec16<__nv_bfloat16>::widen(kr, kf);
@@ -691,7 +738,7 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         }
       }
     }
-    if (tid < kBN) {
+    if (tid < BN) {
       const int key = t0 + tid;
       const bool ok = key < T_;
       cp_async4(Ps + tid,
@@ -719,7 +766,7 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       cp_commit();
     }
 
-    const int t0 = tiles[it] * kBN;
+    const int t0 = tiles[it] * BN;
     const unsigned char* base = smem + st * SM::stage_bytes;
     const C* Ks = reinterpret_cast<const C*>(base);
     const C* Vs = Ks + SM::k_elems;
@@ -727,9 +774,9 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     // bit c of `live`: some row of this warp sees key c; the products skip
     // the 8-key n-tiles no row sees (all of them when live is 0), and the
     // masks are skipped when every row sees every key (`full`)
-    bool seen[2], all = true;
+    bool seen[2] = {false, false}, all = true;
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
+    for (int h2 = 0; h2 < BN / 32; ++h2) {
       const int c = lane + 32 * h2;
       const int p = Ps[c];
       seen[h2] = t0 + c < T_ && p <= whi && static_cast<long long>(p) > wlo;
@@ -823,8 +870,8 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         }
       }
       if constexpr (kF32)
-        pv_tile<DV, DO>(o, s, reinterpret_cast<const float*>(Vs), g, t, live,
-                        half);
+        pv_tile<L, DO>(o, s, reinterpret_cast<const float*>(Vs), g, t, live,
+                       half);
       else
         pv_tile_bf16<L, DO>(o, s,
                             reinterpret_cast<const __nv_bfloat16*>(Vs), lane,
@@ -837,7 +884,8 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     }
   }
 
-  // out = acc / max(l, 1e-30), l summed over the quad, in q's dtype
+  // out = acc / max(l, 1e-30), l summed over the quad, in q's dtype; the
+  // columns past dv (zero V columns) are not stored
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -845,42 +893,54 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     if (!row_ok[i]) continue;
     const float den = fmaxf(l[i], 1e-30f);
     TQ* orow = out + ((static_cast<long long>(b) * S + row_s[i]) * H +
-                      row_h[i]) * DV + half * DO;
+                      row_h[i]) * dv;
     if constexpr (kF32) {
-      // lane t holds columns (DO/4)t.. : o[n][2i] at (DO/8)*2t + n, then
+      // lane t holds columns c0.. : o[n][2i] at (DO/8)*2t + n, then
       // o[n][2i + 1] at (DO/8)*(2t + 1) + n
-      TQ* dst = orow + (DO / 4) * t;
+      const int c0 = half * DO + (DO / 4) * t;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        dst[n] = from_f<TQ>(o[n][2 * i] / den);
-        dst[NO + n] = from_f<TQ>(o[n][2 * i + 1] / den);
+        if (!kGen || c0 + n < dv)
+          orow[c0 + n] = from_f<TQ>(o[n][2 * i] / den);
+        if (!kGen || c0 + NO + n < dv)
+          orow[c0 + NO + n] = from_f<TQ>(o[n][2 * i + 1] / den);
       }
     } else {
 #pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
-            __floats2bfloat162_rn(o[n][2 * i] / den, o[n][2 * i + 1] / den);
+      for (int n = 0; n < NO; ++n) {
+        const int c = half * DO + 8 * n + 2 * t;
+        if (!kGen || c < dv)
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(o[n][2 * i] / den, o[n][2 * i + 1] / den);
+      }
     }
   }
 }
 
-// A launch laid out by prefill_plan: -1 when its rows or stages are not
-// this instantiation's.
-template <typename TQ, typename TKV, int D, int DV>
+// A launch laid out by prefill_plan: -1 when its rows, keys or stages are
+// not this instantiation's, its head dims (dk, dv) exceed its widths, or,
+// unpadded, they are not its widths or a CTA holds a slice of a group.
+template <typename TQ, typename TKV, int D, int DV, bool kGen>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
            const int* kv_pos, void* out, int B, int S, int T_, int H, int K,
-           int causal, int window, float scale, int rows, int stages, int BQ,
-           int n_qblocks, cudaStream_t stream) {
+           int dk, int dv, int causal, int window, float scale, int rows,
+           int keys, int stages, int BQ, int GS, int n_blocks,
+           cudaStream_t stream) {
   using C = typename Path<TQ, TKV>::T;
-  if (rows != Geom<DV>::ROWS || stages != Layout<C, D, DV>::STAGES ||
-      BQ * (H / K) > rows)
+  using L = Layout<C, D, DV>;
+  const int G = H / K;
+  if (rows != Geom<DV>::ROWS || keys != L::BN || stages != L::STAGES ||
+      GS < 1 || GS > G || BQ * GS > rows || dk > D || dv > DV ||
+      (!kGen && (dk != D || dv != DV || GS != G)) ||
+      static_cast<long long>(n_blocks) * BQ < static_cast<long long>(S) *
+          ((G + GS - 1) / GS))
     return -1;
-  const size_t smem = Smem<C, D, DV>::bytes((T_ + kBN - 1) / kBN);
-  dim3 grid(n_qblocks, K, B);
-  prefill_kernel<TQ, TKV, D, DV><<<grid, kThreads, smem, stream>>>(
+  const size_t smem = Smem<C, D, DV>::bytes((T_ + L::BN - 1) / L::BN);
+  dim3 grid(n_blocks, K, B);
+  prefill_kernel<TQ, TKV, D, DV, kGen><<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), q_pos, kv_pos, static_cast<TQ*>(out), S,
-      T_, H, K, H / K, BQ, causal, window, scale);
+      T_, H, K, G, GS, BQ, dk, dv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 }  // namespace pf
@@ -904,63 +964,99 @@ int flash_attention_prepare() {
                                device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaFuncAttributes attr;
-#define OPT_IN(TQ, TKV, DD, DV)                                             \
+#define OPT_IN(TQ, TKV, DD, DV, P)                                          \
   if (cudaError_t err = cudaFuncGetAttributes(                              \
-          &attr, pf::prefill_kernel<TQ, TKV, DD, DV>))                      \
+          &attr, pf::prefill_kernel<TQ, TKV, DD, DV, P>))                   \
     return static_cast<int>(err);                                           \
   if (cudaError_t err = cudaFuncSetAttribute(                               \
-          pf::prefill_kernel<TQ, TKV, DD, DV>,                              \
+          pf::prefill_kernel<TQ, TKV, DD, DV, P>,                           \
           cudaFuncAttributeMaxDynamicSharedMemorySize,                      \
           max_smem - static_cast<int>(attr.sharedSizeBytes)))               \
     return static_cast<int>(err);
-#define OPT_IN_D(DD)                                                        \
-  OPT_IN(float, float, DD, DD) OPT_IN(__nv_bfloat16, __nv_bfloat16, DD, DD) \
-  OPT_IN(__nv_bfloat16, float, DD, DD) OPT_IN(float, __nv_bfloat16, DD, DD)
-  OPT_IN_D(16) OPT_IN_D(32) OPT_IN_D(64) OPT_IN_D(128) OPT_IN_D(256)
-  OPT_IN(float, float, 192, 128) OPT_IN(__nv_bfloat16, __nv_bfloat16, 192, 128)
+#define OPT_IN_D(DD, P)                                                     \
+  OPT_IN(float, float, DD, DD, P)                                           \
+  OPT_IN(__nv_bfloat16, __nv_bfloat16, DD, DD, P)                           \
+  OPT_IN(__nv_bfloat16, float, DD, DD, P)                                   \
+  OPT_IN(float, __nv_bfloat16, DD, DD, P)
+  OPT_IN_D(16, false) OPT_IN_D(32, false) OPT_IN_D(64, false)
+  OPT_IN_D(128, false) OPT_IN_D(256, false) OPT_IN_D(512, false)
+  OPT_IN_D(64, true) OPT_IN_D(96, true) OPT_IN_D(128, true)
+  OPT_IN_D(256, true) OPT_IN_D(512, true)
+  OPT_IN(float, float, 192, 128, false)
+  OPT_IN(__nv_bfloat16, __nv_bfloat16, 192, 128, false)
+  OPT_IN(float, float, 192, 128, true)
+  OPT_IN(__nv_bfloat16, __nv_bfloat16, 192, 128, true)
 #undef OPT_IN_D
 #undef OPT_IN
   return 0;
 }
 
-// S > 1, laid out by prefill_plan: `rows` (query, head) rows a CTA and
-// `stages` tiles in flight must be the instantiation's (128 and 2 up to
-// head dim 128; 64 at 256, with one stage on the f32 path; 128 at Dk 192 /
-// Dv 128, one stage on the f32 path), `keys` keys a tile 64; BQ queries a
-// CTA with BQ*G <= rows, n_qblocks*BQ >= S.  D is q's and k's head dim, Dv
-// v's and out's: D = Dv in 16/32/64/128/256, or 192 / 128 with q and k/v
-// both f32 or both bf16.  q/k/v start on 16-byte boundaries.  dtype_q,
-// dtype_kv: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched; an invalid-value
-// error when T needs more shared memory than the device has); -1 for a
-// shape or plan this kernel does not take.
+// S > 1, laid out by prefill_plan: `width` is the tile width of the
+// instantiation: D itself where D = Dv is one of 16, 32, 64, 96, 128, 256,
+// 512 (or Dk 192 / Dv 128, q and k/v both f32 or both bf16: width 192),
+// else, for D = Dv another multiple of 8 below 512, the smallest of the
+// padded widths 64, 96, 128, 256, 512 above D.  A head dim at its width
+// whose group fits a CTA (heads = G) runs the unpadded instantiation,
+// where there is one (not at 96); any other call the general one, which
+// masks its loads and stores past D and takes head slices.  `rows`
+// (query, head) rows a CTA, `keys` keys a tile and `stages` tiles in
+// flight must be the instantiation's (128 rows up to width 128, 64 at
+// 256, 32 at 512; 64 keys, 32 at 512; one stage on the f32 path above
+// width 128, else 2); `heads` (GS) heads of one kv head a CTA, BQ queries
+// a CTA with BQ*GS <= rows, n_blocks = ceil(S/BQ) * ceil(G/GS).  q/k/v
+// start on 16-byte boundaries.  dtype_q, dtype_kv: 0 = float32, 1 =
+// bfloat16.  Returns a cudaError_t (0 = launched; an invalid-value error
+// when T needs more shared memory than the device has); -1 for a shape or
+// plan this kernel does not take.
 int flash_prefill_launch(const void* q, const void* k, const void* v,
                          const int* q_pos, const int* kv_pos, void* out,
                          int B, int S, int T_, int H, int K, int D, int Dv,
                          int causal, int window, float scale, int dtype_q,
-                         int dtype_kv, int rows, int keys, int stages, int BQ,
-                         int n_qblocks, void* stream) {
+                         int dtype_kv, int width, int rows, int keys,
+                         int stages, int BQ, int heads, int n_blocks,
+                         void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (K <= 0 || H % K != 0 || keys != pf::kBN || BQ < 1 ||
-      static_cast<long long>(n_qblocks) * BQ < S || T_ < 1)
+  const bool mla = width == 192 && D == 192 && Dv == 128;
+  if (K <= 0 || H % K != 0 || BQ < 1 || T_ < 1 || D < 8 || D % 8 != 0 ||
+      (Dv != D && !mla))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PREFILL(TQ, TKV, CQ, CKV, DD, DV)                                   \
-  if (D == DD && Dv == DV && dtype_q == CQ && dtype_kv == CKV)              \
-    return pf::launch<TQ, TKV, DD, DV>(q, k, v, q_pos, kv_pos, out, B, S,   \
-                                       T_, H, K, causal, window, scale,     \
-                                       rows, stages, BQ, n_qblocks, s);
-#define PREFILL_D(DD)                                                       \
-  PREFILL(float, float, 0, 0, DD, DD)                                       \
-  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, DD, DD)                       \
-  PREFILL(__nv_bfloat16, float, 1, 0, DD, DD)                               \
-  PREFILL(float, __nv_bfloat16, 0, 1, DD, DD)
-  PREFILL_D(16)
-  PREFILL_D(32)
-  PREFILL_D(64)
-  PREFILL_D(128)
-  PREFILL_D(256)
-  PREFILL(float, float, 0, 0, 192, 128)
-  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, 192, 128)
+#define PREFILL(TQ, TKV, CQ, CKV, DD, DV, P)                                \
+  if (width == DD && dtype_q == CQ && dtype_kv == CKV)                      \
+    return pf::launch<TQ, TKV, DD, DV, P>(q, k, v, q_pos, kv_pos, out, B,   \
+                                          S, T_, H, K, D, Dv, causal,       \
+                                          window, scale, rows, keys,        \
+                                          stages, BQ, heads, n_blocks, s);
+#define PREFILL_D(DD, P)                                                    \
+  PREFILL(float, float, 0, 0, DD, DD, P)                                    \
+  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, DD, DD, P)                    \
+  PREFILL(__nv_bfloat16, float, 1, 0, DD, DD, P)                            \
+  PREFILL(float, __nv_bfloat16, 0, 1, DD, DD, P)
+  // an unpadded instantiation returns where one matches; the general
+  // ones take the rest
+  const bool whole = D == width && heads == H / K;
+  if (mla) {
+    if (whole) {
+      PREFILL(float, float, 0, 0, 192, 128, false)
+      PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, 192, 128, false)
+    }
+    PREFILL(float, float, 0, 0, 192, 128, true)
+    PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, 192, 128, true)
+    return -1;
+  }
+  if (whole) {
+    PREFILL_D(16, false)
+    PREFILL_D(32, false)
+    PREFILL_D(64, false)
+    PREFILL_D(128, false)
+    PREFILL_D(256, false)
+    PREFILL_D(512, false)
+  }
+  PREFILL_D(64, true)
+  PREFILL_D(96, true)
+  PREFILL_D(128, true)
+  PREFILL_D(256, true)
+  PREFILL_D(512, true)
 #undef PREFILL_D
 #undef PREFILL
   return -1;

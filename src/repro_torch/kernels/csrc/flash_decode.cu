@@ -8,12 +8,20 @@
 // kernels/flash_attention.py::decode_plan picks the number of splits from
 // B*K, T and the SM count so that the grid holds about four CTAs per SM.  A
 // CTA computes only the query heads that exist: a group of GC of the G heads
-// of its kv head (GC*F floats of q and of accumulator a lane, F = 4 or 8).
-// Its four warps split the keys of the range; within a warp, D/VEC lanes
-// (at most 32) hold one key row in 16-byte vectors (one row a warp
-// instruction at D = 128 f32, several at smaller D, and at D = 256 one row
-// a warp in two chunks a lane in f32, one in bf16), and each lane keeps its
-// slice of the GC query vectors and accumulators in registers.  A warp
+// of its kv head (GC*F floats of q and of accumulator a lane, F = 4 to 24).
+// Its four warps split the keys of the range; within a warp, LPK lanes
+// hold one key row in 16-byte vectors, LPK the largest power of two (at
+// most 32) that divides the row's D/VEC chunks, CH = D/(VEC*LPK) chunks a
+// lane (one row a warp instruction at D = 128 f32, several at smaller D; at
+// D = 256 one row a warp in two chunks a lane in f32, one in bf16; at D =
+// 96, 8 lanes of 3 chunks in f32, 4 in bf16), and each lane keeps its slice
+// of the GC query vectors and accumulators in registers.
+// D is the tile width (16, 32, 64, 96, 128, 256, 512).  With kPad (the
+// padded widths 64, 96, 128, 256, 512) the true head dim d <= D, a multiple
+// of 8, is a runtime argument: the rows of q, k, v and out are d long in
+// memory, a lane's chunks past d are neither loaded nor stored (q and K
+// read zeros there), and the partials keep D columns; without it d = D and
+// nothing is masked.  A warp
 // loads U key rows of K and V before it uses any, scores them with a
 // shuffle reduction over the lanes of a row, and folds them into its
 // running max, sum and accumulator once per chunk.  The CTA stages the
@@ -86,7 +94,7 @@ constexpr int kMaxSplits = 512;  // splits a combine weighs at once
 // part: m at [row], l at [BH*NS + row], acc at [2*BH*NS + row*D], with row =
 // (b*H + h)*NS + split.  q and out are TQ, K and V TKV; an int8 TKV comes
 // with k_scale/v_scale (B,T,K) f32, which are null otherwise.
-template <typename TQ, typename TKV, int D, int GC>
+template <typename TQ, typename TKV, int D, int GC, bool kPad>
 __global__ void __launch_bounds__(kDecThreads)
 decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const TKV* __restrict__ v,
@@ -95,14 +103,17 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const int* __restrict__ q_pos,
                     const int* __restrict__ kv_pos, TQ* __restrict__ out,
                     float* part, int* counters, int T_, int H, int K, int G,
-                    int NS, int split_len, int causal, int window,
+                    int d_arg, int NS, int split_len, int causal, int window,
                     float scale) {
+  const int d = kPad ? d_arg : D;
   using Load = KvLoad<TKV>;
   using Raw = typename Load::Raw;
   constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
   constexpr int VEC = Load::N;
-  constexpr int LPK = D / VEC < 32 ? D / VEC : 32;  // lanes holding a key row
-  constexpr int CH = D / (VEC * LPK);        // 16-byte chunks a lane of a row
+  constexpr int NCH = D / VEC;               // 16-byte chunks a row
+  constexpr int LOW = NCH & -NCH;            // its largest power-of-two factor
+  constexpr int LPK = LOW < 32 ? LOW : 32;   // lanes holding a key row
+  constexpr int CH = NCH / LPK;              // 16-byte chunks a lane of a row
   constexpr int F = CH * VEC;                // floats of a head a lane holds
   constexpr int KPW = 32 / LPK;              // key rows a warp loads at once
   constexpr int U = (GC >= 8 ? 2 : 4) / CH;  // loads in flight per lane
@@ -133,9 +144,10 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         float x = 0.f;
-        if (g < ng)    // the reference scales q in its own dtype, then widens
-          x = scaled(q[(static_cast<long long>(b) * H + h0 + g) * D +
-                       (ch * LPK + dl) * VEC + e], scale);
+        const int dim = (ch * LPK + dl) * VEC + e;
+        if (g < ng && (!kPad || dim < d))  // q scaled in its own dtype
+          x = scaled(q[(static_cast<long long>(b) * H + h0 + g) * d + dim],
+                     scale);
         qv[g][ch * VEC + e] = x;
       }
   float m[GC], l[GC], acc[GC][F];
@@ -182,9 +194,9 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
         for (int ch = 0; ch < CH; ++ch) {
           kr[u][ch] = vr[u][ch] = Raw{};
-          if (ok[u]) {
-            const long long off = ((kv_row + s0 + i) * K + kvh) * D +
-                                  (ch * LPK + dl) * VEC;
+          const int dim = (ch * LPK + dl) * VEC;
+          if (ok[u] && (!kPad || dim < d)) {
+            const long long off = ((kv_row + s0 + i) * K + kvh) * d + dim;
             kr[u][ch] = Load::load(k + off);
             vr[u][ch] = Load::load(v + off);
           }
@@ -288,20 +300,20 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     }
     __syncthreads();
     for (int idx = threadIdx.x; idx < ng * D; idx += kDecThreads) {
-      const int g = idx / D, d = idx % D;
+      const int g = idx / D, c = idx % D;
       float mx = kNegInf;
 #pragma unroll
       for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, red_m[w][g]);
       float a = 0.f, ls = 0.f;
 #pragma unroll
       for (int w = 0; w < kDecWarps; ++w) {
-        const float c = expf(red_m[w][g] - mx);
-        a = fmaf(red_acc[w][g][d], c, a);
-        ls = fmaf(red_l[w][g], c, ls);
+        const float cw = expf(red_m[w][g] - mx);
+        a = fmaf(red_acc[w][g][c], cw, a);
+        ls = fmaf(red_l[w][g], cw, ls);
       }
       const long long row = row0 + static_cast<long long>(g) * NS;
-      part[2 * BH * NS + row * D + d] = a;
-      if (d == 0) {
+      part[2 * BH * NS + row * D + c] = a;
+      if (c == 0) {
         part[row] = mx;
         part[BH * NS + row] = ls;
       }
@@ -348,9 +360,10 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < ng * D; idx += kDecThreads) {
-    const int g = idx / D, d = idx % D;
+    const int g = idx / D, c = idx % D;
+    if (kPad && c >= d) continue;             // a zero column of the tile
     const long long r = static_cast<long long>(b) * H + h0 + g;
-    const float* pa = part + 2 * BH * NS + r * NS * D + d;
+    const float* pa = part + 2 * BH * NS + r * NS * D + c;
     float a = 0.f;
 #pragma unroll 4
     for (int i = 0; i < NS; ++i) {   // in split order
@@ -358,23 +371,25 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       const float w = w_s[g][i];
       a = w != 0.f ? fmaf(x, w, a) : a;  // an empty split wrote no x
     }
-    out[r * D + d] = from_f<TQ>(a / fmaxf(l_s[g], 1e-30f));
+    out[r * d + c] = from_f<TQ>(a / fmaxf(l_s[g], 1e-30f));
   }
 }
 
-template <typename TQ, typename TKV, int D, int GC>
+template <typename TQ, typename TKV, int D, int GC, bool kPad>
 int launch_decode(const void* q, const void* k, const void* v,
                   const float* k_scale, const float* v_scale,
                   const int* q_pos, const int* kv_pos, void* out, float* part,
-                  int* counters, int B, int T_, int H, int K, int causal,
-                  int window, float scale, int NS, int split_len,
+                  int* counters, int B, int T_, int H, int K, int d,
+                  int causal, int window, float scale, int NS, int split_len,
                   cudaStream_t stream) {
   const int G = H / K;
+  if (d > D || (!kPad && d != D)) return -1;
   dim3 grid(NS, K * ((G + GC - 1) / GC), B);
-  decode_split_kernel<TQ, TKV, D, GC><<<grid, kDecThreads, 0, stream>>>(
+  decode_split_kernel<TQ, TKV, D, GC, kPad><<<grid, kDecThreads, 0,
+                                               stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), k_scale, v_scale, q_pos, kv_pos,
-      static_cast<TQ*>(out), part, counters, T_, H, K, G, NS, split_len,
+      static_cast<TQ*>(out), part, counters, T_, H, K, G, d, NS, split_len,
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -384,69 +399,106 @@ int launch_decode(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// S = 1.  part: B*H*n_split*(D + 2) floats of scratch; counters:
+// S = 1.  D is the head dim of q, k, v and out (a multiple of 8 from 8 to
+// 512) and `width` the tile width of the instantiation: D where D is one of
+// 16, 32, 64, 96, 128, 256, 512, else the smallest of the padded widths
+// 64, 96, 128, 256, 512 above D; D = width runs the unpadded
+// instantiation where there is one (not at 96), any other D the padded
+// one.  part:
+// B*H*n_split*(width + 2) floats of scratch; counters:
 // B*K*ceil(G/head_group) int32, zero before the launch and zero after it;
 // head_group GC is 2, 4 or 8, with GC times the floats a lane holds of a
-// head (4 for an f32 cache up to head dim 128, else 8) at most 32;
+// head (F = 4 to 24: decode_plan) at most 32, or 2 where F is larger;
 // n_split <= 512 and n_split*split_len >= T, as decode_plan chooses them.
 // K and V start on 16-byte boundaries.  dtype_q: 0 = float32, 1 =
 // bfloat16; dtype_kv: those, or 2 = int8, which takes k_scale and v_scale
-// ((B,T,K) f32; null for a float cache) and is instantiated for the
-// (q dtype, D, head group) triples the int8 decode paths launch only.
+// ((B,T,K) f32; null for a float cache) and is instantiated for the (q
+// dtype, D, head group) triples the int8 decode paths launch only.
 // Returns a cudaError_t (0 = launched); -1 for a shape this kernel does not
 // take.
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const float* k_scale, const float* v_scale,
                         const int* q_pos, const int* kv_pos, void* out,
                         float* part, int* counters, int B, int T_, int H,
-                        int K, int D,
+                        int K, int D, int width,
                         int causal, int window, float scale, int dtype_q,
                         int dtype_kv, int head_group, int n_split,
                         int split_len, void* stream) {
   if (B == 0) return 0;
   if (K <= 0 || H % K != 0 || n_split < 1 || n_split > kMaxSplits ||
-      split_len < 1 ||
+      split_len < 1 || D < 8 || D % 8 != 0 ||
       static_cast<long long>(n_split) * split_len < T_)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DECODE(TQ, TKV, DD, GG)                                             \
-  if (D == DD && head_group == GG)                                          \
-    return launch_decode<TQ, TKV, DD, GG>(q, k, v, k_scale, v_scale,      \
-                                          q_pos, kv_pos, out, part,         \
-                                          counters, B, T_, H, K, causal,    \
-                                          window, scale, n_split,           \
-                                          split_len, s);
-  // an f32 cache: 4 floats a lane a head up to D = 128, 8 at 256; a bf16
-  // cache: 8
+#define DECODE(TQ, TKV, DD, GG, P)                                          \
+  if (width == DD && head_group == GG)                                      \
+    return launch_decode<TQ, TKV, DD, GG, P>(q, k, v, k_scale, v_scale,   \
+                                             q_pos, kv_pos, out, part,      \
+                                             counters, B, T_, H, K, D,      \
+                                             causal, window, scale,         \
+                                             n_split, split_len, s);
+  // an f32 cache: 4 floats a lane a head up to D = 128 (12 at 96), 8 at
+  // 256, 16 at 512; a bf16 cache: 8 (24 at 96), 16 at 512
+#define DECODE_F32_AT(TQ, P)                                                \
+  DECODE(TQ, float, 64, 2, P) DECODE(TQ, float, 64, 4, P)                   \
+  DECODE(TQ, float, 64, 8, P) DECODE(TQ, float, 128, 2, P)                  \
+  DECODE(TQ, float, 128, 4, P) DECODE(TQ, float, 128, 8, P)                 \
+  DECODE(TQ, float, 256, 2, P) DECODE(TQ, float, 256, 4, P)                 \
+  DECODE(TQ, float, 512, 2, P)
 #define DECODE_F32(TQ)                                                      \
-  DECODE(TQ, float, 16, 2) DECODE(TQ, float, 16, 4) DECODE(TQ, float, 16, 8)\
-  DECODE(TQ, float, 32, 2) DECODE(TQ, float, 32, 4) DECODE(TQ, float, 32, 8)\
-  DECODE(TQ, float, 64, 2) DECODE(TQ, float, 64, 4) DECODE(TQ, float, 64, 8)\
-  DECODE(TQ, float, 128, 2) DECODE(TQ, float, 128, 4)                       \
-  DECODE(TQ, float, 128, 8)                                                 \
-  DECODE(TQ, float, 256, 2) DECODE(TQ, float, 256, 4)
+  DECODE(TQ, float, 16, 2, false) DECODE(TQ, float, 16, 4, false)           \
+  DECODE(TQ, float, 16, 8, false) DECODE(TQ, float, 32, 2, false)           \
+  DECODE(TQ, float, 32, 4, false) DECODE(TQ, float, 32, 8, false)           \
+  DECODE_F32_AT(TQ, false)
+#define DECODE_F32_PAD(TQ)                                                  \
+  DECODE_F32_AT(TQ, true) DECODE(TQ, float, 96, 2, true)
+#define DECODE_BF16_AT(TQ, P)                                               \
+  DECODE(TQ, __nv_bfloat16, 64, 2, P) DECODE(TQ, __nv_bfloat16, 64, 4, P)   \
+  DECODE(TQ, __nv_bfloat16, 128, 2, P)                                      \
+  DECODE(TQ, __nv_bfloat16, 128, 4, P) DECODE(TQ, __nv_bfloat16, 256, 2, P) \
+  DECODE(TQ, __nv_bfloat16, 256, 4, P) DECODE(TQ, __nv_bfloat16, 512, 2, P)
 #define DECODE_BF16(TQ)                                                     \
-  DECODE(TQ, __nv_bfloat16, 16, 2) DECODE(TQ, __nv_bfloat16, 16, 4)         \
-  DECODE(TQ, __nv_bfloat16, 32, 2) DECODE(TQ, __nv_bfloat16, 32, 4)         \
-  DECODE(TQ, __nv_bfloat16, 64, 2) DECODE(TQ, __nv_bfloat16, 64, 4)         \
-  DECODE(TQ, __nv_bfloat16, 128, 2) DECODE(TQ, __nv_bfloat16, 128, 4)       \
-  DECODE(TQ, __nv_bfloat16, 256, 2) DECODE(TQ, __nv_bfloat16, 256, 4)
+  DECODE(TQ, __nv_bfloat16, 16, 2, false)                                   \
+  DECODE(TQ, __nv_bfloat16, 16, 4, false)                                   \
+  DECODE(TQ, __nv_bfloat16, 32, 2, false)                                   \
+  DECODE(TQ, __nv_bfloat16, 32, 4, false)                                   \
+  DECODE_BF16_AT(TQ, false)
+#define DECODE_BF16_PAD(TQ)                                                 \
+  DECODE_BF16_AT(TQ, true) DECODE(TQ, __nv_bfloat16, 96, 2, true)
   // an int8 cache (4 values a lane, laid out as f32): tinyllama (D 64,
   // group 8), gemma3's ring and global layers (D 128, group 2) and jamba's
   // attention layers (D 128, group 4), f32 q
-  if (dtype_kv == 2 && (k_scale == nullptr || v_scale == nullptr)) return -1;
+  if (dtype_kv == 2 && (k_scale == nullptr || v_scale == nullptr ||
+                        D != width)) return -1;
+  // an unpadded instantiation returns where one matches; the padded ones
+  // take the rest
+  const bool whole = D == width;
   if (dtype_kv == 0) {
-    if (dtype_q == 0) { DECODE_F32(float) }
-    else { DECODE_F32(__nv_bfloat16) }
+    if (dtype_q == 0) {
+      if (whole) { DECODE_F32(float) }
+      DECODE_F32_PAD(float)
+    } else {
+      if (whole) { DECODE_F32(__nv_bfloat16) }
+      DECODE_F32_PAD(__nv_bfloat16)
+    }
   } else if (dtype_kv == 1) {
-    if (dtype_q == 0) { DECODE_BF16(float) }
-    else { DECODE_BF16(__nv_bfloat16) }
+    if (dtype_q == 0) {
+      if (whole) { DECODE_BF16(float) }
+      DECODE_BF16_PAD(float)
+    } else {
+      if (whole) { DECODE_BF16(__nv_bfloat16) }
+      DECODE_BF16_PAD(__nv_bfloat16)
+    }
   } else if (dtype_kv == 2 && dtype_q == 0) {
-    DECODE(float, int8_t, 64, 8) DECODE(float, int8_t, 128, 2)
-    DECODE(float, int8_t, 128, 4)
+    DECODE(float, int8_t, 64, 8, false) DECODE(float, int8_t, 128, 2, false)
+    DECODE(float, int8_t, 128, 4, false)
   }
+#undef DECODE_BF16_PAD
 #undef DECODE_BF16
+#undef DECODE_BF16_AT
+#undef DECODE_F32_PAD
 #undef DECODE_F32
+#undef DECODE_F32_AT
 #undef DECODE
   return -1;
 }

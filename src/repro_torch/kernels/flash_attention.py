@@ -18,16 +18,21 @@ partials and tickets in a workspace kept per device and stream
 out by :func:`prefill_plan`.  q/k/v that do not start on a 16-byte
 boundary, which both kernels' vector loads need, are copied first.  It
 takes the reference's causal and sliding-window masks (``window > 0``, the
-``attn_local`` layers), head dims 16, 32, 64, 128 and 256, and q in another
-float dtype than k/v (bf16 weights over an f32 cache): the kernels read each
-in its own dtype and promote as the reference does, so nothing is cast
-here.  On the prefill route it also takes Dk 192 / Dv 128 (MLA's expanded
-K and V), with q and k/v both f32 or both bf16.  It raises
-``NotImplementedError`` on Dv != Dk in decode (S = 1: no path launches it,
-MLA decodes through its absorbed einsums) and ``ValueError`` on another
-pair of head dims, on k and v of different dtypes, on mixed dtypes at
-Dv != Dk and on groups of more than 64 heads: ROADMAP Queue 2 lists them
-under K3.  int8 K/V come with the reference's per-token, per-head f32
+``attn_local`` layers), any GQA group, every head dim that is a multiple of
+8 from 8 to 512 (each runs in the kernels' template of its
+:func:`tile_width`, reading q, K and V where they lie at their true head
+dim: nothing is padded or copied), and q in another float dtype than k/v
+(bf16 weights over an f32 cache): the kernels read each in its own dtype
+and promote as the reference does, so nothing is cast here.  On the
+prefill route it also takes Dk 192 / Dv 128 (MLA's expanded K and V), with
+q and k/v both f32 or both bf16.  What it refuses, in ROADMAP Queue 2's
+order: a head dim above 512 or not a multiple of 8 (``ValueError``, K3f),
+float16 (``ValueError``, K3g), Dv != Dk in decode (S = 1:
+``NotImplementedError``, K3c; MLA decodes through its absorbed einsums),
+int8 K/V at S > 1 (``NotImplementedError``, K3d) and int8 decode outside
+:data:`INT8_DECODE` (``ValueError``, K3d); also another pair of head dims,
+k and v of different dtypes and mixed dtypes at Dv != Dk
+(``ValueError``).  int8 K/V come with the reference's per-token, per-head f32
 scales, ``k_scale``/``v_scale`` (B,T,K), on the decode route (K3d): the
 decode kernel dequantises each key and value as it loads them, for the (q
 dtype, head dim, head group) triples of :data:`INT8_DECODE`, the ones the
@@ -73,13 +78,43 @@ INT8_DECODE = ((torch.float32, 64, 8), (torch.float32, 128, 2),
 DECODE_CTAS_PER_SM = 4      # the grid aims at this many CTAs an SM
 SPLIT_ALIGN = 16            # a split's length is a multiple of this
 MAX_SPLITS = 512            # the most splits the kernel's combine takes
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the head dims both kernels take
+# the kernels' tile widths: a head dim that is one of TILE_WIDTHS runs in
+# that width's unpadded template; any other in the padded template (its
+# loads and stores masked past the head dim, the tile's other columns zero
+# in shared memory) of the smallest of PADDED_WIDTHS at or above it
+TILE_WIDTHS = (16, 32, 64, 128, 256, 512)
+PADDED_WIDTHS = (64, 96, 128, 256, 512)
+MAX_HEAD_DIM = TILE_WIDTHS[-1]
 MLA_DIMS = (192, 128)       # (Dk, Dv) the prefill kernel also takes
 # the prefill kernel's layout (csrc/flash_attention.cu, namespace pf)
 PREFILL_ROWS = 128          # (query, head) rows a CTA: 8 warps of 16
-PREFILL_KEYS = 64           # keys a K/V tile
+PREFILL_KEYS = 64           # keys a K/V tile (32 above width 256)
 PREFILL_STAGES = 2          # K/V tiles in flight (cp.async ring)
-WIDE_D = 128                # above it two warps share a row block: 64 rows
+WIDE_D = 128                # above it 2 warps share a row block (4 above 256)
+
+
+def tile_width(head_dim: int) -> int:
+    """The tile width the kernels run ``head_dim`` in: itself where it is
+    one of :data:`TILE_WIDTHS`, else the smallest of :data:`PADDED_WIDTHS`
+    at or above it (zero columns at most a quarter of the tile at 72 -> 96
+    and 224 -> 256; none at 96, which has no unpadded template).  Raises
+    ``ValueError`` for a head dim the kernels do not take."""
+    if head_dim % 8 or not 8 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"head_dim {head_dim}: the kernels take a multiple of 8 from 8 to "
+            f"{MAX_HEAD_DIM} (ROADMAP Queue 2 K3f: a head dim above 512 or "
+            f"not a multiple of 8 is not ported)")
+    if head_dim in TILE_WIDTHS:
+        return head_dim
+    return next(w for w in PADDED_WIDTHS if w >= head_dim)
+
+
+def _lanes(width: int, vec: int) -> int:
+    """Floats of a head a decode lane holds at tile ``width``: a row's
+    ``width // vec`` chunks go to the largest power of two of lanes (at
+    most 32) that divides them."""
+    n = width // vec
+    return width // min(32, n & -n)
 
 
 def _lib() -> ctypes.CDLL:
@@ -89,7 +124,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library("flash_attention")
         lib.flash_prefill_launch.argtypes = (
-            [_P] * 6 + [_I] * 9 + [ctypes.c_float] + [_I] * 7 + [_P])
+            [_P] * 6 + [_I] * 9 + [ctypes.c_float] + [_I] * 9 + [_P])
         lib.flash_attention_prepare.argtypes = []
         for fn in (lib.flash_prefill_launch, lib.flash_attention_prepare):
             fn.restype = ctypes.c_int
@@ -103,7 +138,7 @@ def _decode_lib() -> ctypes.CDLL:
     if _DECODE_LIB is None:
         lib = _build.library("flash_decode")
         lib.flash_decode_launch.argtypes = (
-            [_P] * 10 + [_I] * 7 + [ctypes.c_float] + [_I] * 5 + [_P])
+            [_P] * 10 + [_I] * 8 + [ctypes.c_float] + [_I] * 5 + [_P])
         lib.flash_decode_launch.restype = ctypes.c_int
         _DECODE_LIB = lib
     return _DECODE_LIB
@@ -117,21 +152,23 @@ def decode_plan(B: int, K: int, G: int, T: int, itemsize: int, n_sm: int,
     cache slots of ``itemsize``-byte elements (the cache's: q may be
     another dtype) and ``head_dim`` on ``n_sm`` SMs.
 
-    A lane holds ``max(vec, head_dim // 32)`` floats of a head's q and
-    accumulator, ``vec`` the values of one load: a 16-byte K/V chunk of a
-    row (``16 // itemsize``), or 4 int8 values (4 bytes) for an int8
-    cache; two loads at head dim 256 in f32, where the 32 lanes of a warp
-    share one row.  A CTA holds
+    The kernel runs at ``tile_width(head_dim)``.  A lane holds F floats of
+    a head's q and accumulator (:func:`_lanes`), in loads of ``vec``
+    values: a 16-byte K/V chunk of a row (``16 // itemsize``), or 4 int8
+    values (4 bytes) for an int8 cache; F is ``max(vec, width // 32)`` at
+    a power-of-two width (two loads at 256 in f32, where the 32 lanes of a
+    warp share one row), 12 (f32) or 24 (bf16) at 96.  A CTA holds
     ``head_group`` query heads (2, 4 or 8: the smallest power of two >= G,
     at most 32 floats of q and of accumulator a lane, so 8 in f32 up to head
-    dim 128, else 4), so a kv head needs ``n_groups`` CTAs.  The slots
+    dim 128, else 4; 2 where F is above 16), so a kv head needs ``n_groups``
+    CTAs, whatever G.  The slots
     are cut into ``n_split`` contiguous splits of ``split_len`` (a multiple
     of SPLIT_ALIGN), enough that the grid ``n_split * K * n_groups * B``
     reaches DECODE_CTAS_PER_SM CTAs an SM where T allows, at most
     MAX_SPLITS; n_split = ceil(T / split_len), so no split is empty and
     there is at least one."""
     vec = 4 if itemsize == 1 else 16 // itemsize
-    cap = 32 // max(vec, head_dim // 32)
+    cap = max(2, 32 // _lanes(tile_width(head_dim), vec))
     head_group = min(cap, max(2, 1 << max(0, G - 1).bit_length()))
     n_groups = -(-G // head_group)
     want = min(MAX_SPLITS,
@@ -146,40 +183,60 @@ class PrefillPlan(NamedTuple):
     keys: int                    # keys a tile
     stages: int                  # tiles in flight
     bq: int                      # queries a CTA
-    grid: Tuple[int, int, int]   # (query blocks, kv heads, batch rows)
+    grid: Tuple[int, int, int]   # (query blocks x head slices, kv heads,
+                                 #  batch rows)
+    heads: int                   # heads of one kv head a CTA (a slice)
+    width: int                   # the instantiation's tile width of Dk
 
 
 @functools.lru_cache(maxsize=None)
 def prefill_plan(B: int, S: int, H: int, K: int, head_dim: int,
                  f32: bool, v_dim: int) -> PrefillPlan:
     """The prefill kernel's layout for q (B,S,H,Dk) over K kv heads, Dk =
-    ``head_dim`` and Dv = ``v_dim``: a CTA
-    holds ``bq = rows // G`` queries of all G = H / K heads of one kv head
-    (:func:`prefill_row`), and walks the keys in tiles of PREFILL_KEYS
-    through a ring of ``stages``; the grid is one CTA per (query block, kv
-    head, batch row).  ``rows`` is PREFILL_ROWS up to Dv = WIDE_D and half
-    that above it, where two warps share each 16-row block.  Above Dk =
-    WIDE_D the f32 path (``f32``: q or K/V is f32) has one stage, since its
-    Q and one K/V tile fill the CTA's shared memory."""
-    rows = PREFILL_ROWS // 2 if v_dim > WIDE_D else PREFILL_ROWS
+    ``head_dim`` and Dv = ``v_dim``, run at tile width ``width`` =
+    ``tile_width(Dk)`` (192 for MLA's Dk 192 / Dv 128): a CTA holds ``bq =
+    rows // heads`` queries of ``heads = min(G, rows)`` of the G = H / K
+    heads of one kv head (:func:`prefill_row`): all of them where they fit
+    a CTA's rows, else one slice of ceil(G / heads) slices (in the
+    kernel's general template, which also runs the padded head dims: a
+    whole group at a width of :data:`TILE_WIDTHS` runs its unpadded one,
+    with no slice math).  It walks the keys in tiles of ``keys`` through a ring of ``stages``; the grid is one
+    CTA per (query block, head slice), kv head and batch row.  ``rows`` is
+    PREFILL_ROWS up to a Dv width of WIDE_D, half that up to 256, where two
+    warps share each 16-row block, and a quarter at 512 (four warps).
+    Tiles hold PREFILL_KEYS keys, half that at width 512.  Above a Dk width
+    of WIDE_D the f32 path (``f32``: q or K/V is f32) has one stage, since
+    its Q and one K/V tile fill the CTA's shared memory."""
+    if (head_dim, v_dim) == MLA_DIMS:
+        width, v_width = MLA_DIMS[0], MLA_DIMS[1]
+    else:
+        width = v_width = tile_width(head_dim)
+    rows = PREFILL_ROWS // (4 if v_width > 256 else
+                            2 if v_width > WIDE_D else 1)
     G = H // K
-    if G < 1 or H % K or G > rows:
-        raise ValueError(f"{H} heads over {K} kv heads: groups of 1 to "
-                         f"{rows} heads only")
-    bq = rows // G
-    stages = 1 if head_dim > WIDE_D and f32 else PREFILL_STAGES
-    return PrefillPlan(rows, PREFILL_KEYS, stages, bq, (-(-S // bq), K, B))
+    if G < 1 or H % K:
+        raise ValueError(f"{H} heads over {K} kv heads: H must be a "
+                         f"multiple of K")
+    heads = min(G, rows)
+    bq = rows // heads
+    keys = PREFILL_KEYS // 2 if width > 256 else PREFILL_KEYS
+    stages = 1 if width > WIDE_D and f32 else PREFILL_STAGES
+    return PrefillPlan(rows, keys, stages, bq,
+                       (-(-S // bq) * -(-G // heads), K, B), heads, width)
 
 
-def prefill_row(plan: PrefillPlan, S: int, G: int, qb: int, kvh: int,
+def prefill_row(plan: PrefillPlan, S: int, G: int, x: int, kvh: int,
                 r: int) -> Tuple[int, int] | None:
-    """``(query, head)`` of row ``r`` of the CTA of query block ``qb`` and kv
-    head ``kvh``, as the kernel computes it, or None for a row it leaves
-    empty."""
-    s = qb * plan.bq + r // G
-    if r >= plan.bq * G or s >= S:
+    """``(query, head)`` of row ``r`` of the CTA at ``x`` of the grid's
+    first dim (in the kernel's order: query block ``x // n_slices``, head
+    slice ``x % n_slices``) and kv head ``kvh``, as the kernel computes it,
+    or None for a row it leaves empty."""
+    qb, hs = divmod(x, -(-G // plan.heads))
+    s = qb * plan.bq + r // plan.heads
+    gh = hs * plan.heads + r % plan.heads
+    if r >= plan.bq * plan.heads or s >= S or gh >= G:
         return None
-    return s, kvh * G + r % G
+    return s, kvh * G + gh
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,7 +289,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or v.dtype != k.dtype):
         raise ValueError(f"q must be float32 or bfloat16 and k/v share "
                          f"float32, bfloat16 or int8 (got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype})")
+                         f"{k.dtype}, {v.dtype}; ROADMAP Queue 2 K3g: "
+                         f"float16 is not ported)")
     check_scales(k, k_scale, v_scale)
     B, S, H, D = q.shape
     T, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -244,12 +302,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"kv_pos {tuple(kv_pos.shape)} do not fit "
                          f"(B,S,H,Dk) / (B,T,K,Dk) / (B,T,K,Dv) with "
                          f"H % K == 0")
-    if H // K > 64 or ((D, Dv) != MLA_DIMS and
-                       (D != Dv or D not in HEAD_DIMS)):
-        raise ValueError(f"head_dim {D} / {Dv} / group {H // K}: the kernel "
-                         f"takes head_dim 16, 32, 64, 128 or 256 for q, k "
-                         f"and v, or Dk 192 / Dv 128 in prefill, and groups "
-                         f"of at most 64")
+    if (D, Dv) != MLA_DIMS and D != Dv:
+        raise ValueError(f"head_dim {D} / {Dv}: the kernels take one head "
+                         f"dim for q, k and v, or Dk 192 / Dv 128 in "
+                         f"prefill")
+    width = MLA_DIMS[0] if (D, Dv) == MLA_DIMS else tile_width(D)
     if D != Dv and S == 1:
         raise NotImplementedError(
             f"Dv != Dk ({D} / {Dv}) in decode (S = 1) is not ported: ROADMAP "
@@ -283,15 +340,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
     if S == 1:
         part, tickets = _workspace(q.device, stream,
-                                   B * H * n_split * (D + 2), B * K * groups)
+                                   B * H * n_split * (width + 2),
+                                   B * K * groups)
         err = _decode_lib().flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if int8 else None,
             v_scale.data_ptr() if int8 else None, q_pos.data_ptr(),
             kv_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
-            tickets.data_ptr(), B, T, H, K, D, int(causal), int(window),
-            D ** -0.5, _DTYPES[q.dtype], _KV_DTYPES[k.dtype], gc, n_split,
-            split_len, stream)
+            tickets.data_ptr(), B, T, H, K, D, width, int(causal),
+            int(window), D ** -0.5, _DTYPES[q.dtype], _KV_DTYPES[k.dtype],
+            gc, n_split, split_len, stream)
     else:
         plan = prefill_plan(B, S, H, K, D,
                             torch.float32 in (q.dtype, k.dtype), Dv)
@@ -299,8 +357,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, Dv,
             int(causal), int(window), D ** -0.5, _DTYPES[q.dtype],
-            _DTYPES[k.dtype], plan.rows, plan.keys, plan.stages, plan.bq,
-            plan.grid[0], stream)
+            _DTYPES[k.dtype], plan.width, plan.rows, plan.keys, plan.stages,
+            plan.bq, plan.heads, plan.grid[0], stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     chunked_attention.launches += 1

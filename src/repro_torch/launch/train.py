@@ -6,7 +6,9 @@
 
 Crash-and-rerun resumes from the newest intact checkpoint with the data
 pipeline replaying the exact token stream (stateless ``batch_at(step)``),
-onto whatever mesh the rerun asks for (the elastic restore).
+onto whatever mesh the rerun asks for (the elastic restore).  The step is
+``make_train_step``'s at its default ``donate=True`` on both forms, as the
+reference's launcher compiles it: the state is updated in place.
 
   # on the card: one device, then a 2 x 2 mesh stacked on it
   python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 20 \

@@ -84,14 +84,14 @@ def update(cfg: OptConfig, grads, state: OptState, params, gnorm=None,
     moment and ``count`` carries its local devices on dim 0, and ``gnorm``
     (n_local,) is the whole tree's norm, which the caller reduces over the
     mesh's axes; by default it is :func:`global_norm` of ``grads``.
-    ``inplace`` writes the new params and moments into the given ones (the
-    same values, bit for bit): a donated state, whose old and new copies
-    never coexist."""
+    ``inplace`` writes the new params, moments and ``count`` into the given
+    ones (the same values, bit for bit): a donated state, whose old and new
+    copies never coexist."""
     if gnorm is None:
         gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    count = state.count + 1
+    count = state.count.add_(1) if inplace else state.count + 1
     lr = schedule(cfg, count)
     b1c = 1 - cfg.beta1 ** count.to(torch.float32)
     b2c = 1 - cfg.beta2 ** count.to(torch.float32)

@@ -7,13 +7,11 @@
 
 ``make_train_step`` has two forms, told apart by its second argument:
 
-  make_train_step(cfg, pcfg, ocfg=None)
+  make_train_step(cfg, pcfg, ocfg=None, donate=True)
       one device: ``step_fn(state, batch) -> (state, metrics)``;
-  make_train_step(cfg, mesh, pcfg, ocfg=None, donate=False)
+  make_train_step(cfg, mesh, pcfg, ocfg=None, donate=True)
       a :class:`~repro_torch.launch.mesh.Mesh`: the reference's
-      ``(step_fn, compile_step, state_shardings)``; ``donate`` (the
-      reference's keyword, whose default there is True) lets the compiled
-      step update the laid-out state in place.  ``state_shardings`` lays
+      ``(step_fn, compile_step, state_shardings)``.  ``state_shardings`` lays
       out params, moments and error feedback by ``param_spec`` and
       ``count``/``step`` replicated; ``compile_step(state_shapes,
       batch_shapes)`` returns the step over a state laid out so
@@ -54,11 +52,18 @@ encoder (heads), mamba (inner channels), rwkv (heads and ``ff``), dense
 and MoE MLPs; a layer stays whole only where its axis does not divide the
 model axis (the reference's fit rule).
 
+``donate`` is the reference's keyword with the reference's default, True
+(its ``compile_step`` jits with ``donate_argnums=(0,)``): the step writes
+the new params, moments, ``count``, ``step`` and error feedback into the
+state it was given (the laid-out one on a mesh) and returns that state,
+so the old and new copies never coexist; its numbers are the undonated
+step's, bit for bit.  With ``donate=False`` a step returns a new state and
+leaves its input as it was, so a caller may step one state twice.  The
+mesh form's ``step_fn`` lays its full state out (a copy) and steps that.
+
 On the card the forward's attention runs K3's prefill kernel under
 autograd (K3e, ``kernels/flash_attention.py::train_attention``), the
-decode step K3's split-KV kernel.  A train step returns a new state and
-leaves its input as it was, as the reference's (undonated) step does, so
-a caller may step one state twice.
+decode step K3's split-KV kernel.
 """
 from __future__ import annotations
 
@@ -200,9 +205,10 @@ def grads_of(cfg: ModelConfig, pcfg: ParallelConfig, params, batch
 
 
 def make_train_step(cfg: ModelConfig, *args, **kw):
-    """One device: ``make_train_step(cfg, pcfg, ocfg=None) -> step_fn``.
-    A mesh: ``make_train_step(cfg, mesh, pcfg, ocfg=None, donate=False)
-    -> (step_fn, compile_step, state_shardings)`` (module docstring).  A
+    """One device: ``make_train_step(cfg, pcfg, ocfg=None, donate=True)
+    -> step_fn``.  A mesh: ``make_train_step(cfg, mesh, pcfg, ocfg=None,
+    donate=True) -> (step_fn, compile_step, state_shardings)`` (module
+    docstring: ``donate`` updates the state in place).  A
     ``mesh`` as the second argument selects the second form."""
     if args and isinstance(args[0], Mesh):
         return _mesh_train_step(cfg, *args, **kw)
@@ -226,9 +232,20 @@ def _mesh_compressed(grads, err_fb, shardings, amax):
             adamw.tree_map(lambda t: t[1], pairs))
 
 
+def _donated(state: TrainState, err_fb, donate: bool):
+    """The step counter and error feedback of the next state: written
+    into ``state``'s own tensors when ``donate``."""
+    if not donate:
+        return state.step + 1, err_fb
+    if err_fb is not state.err_fb:
+        adamw.tree_map(lambda old, new: old.copy_(new), state.err_fb, err_fb)
+    return state.step.add_(1), state.err_fb
+
+
 def _train_step(cfg: ModelConfig, pcfg: ParallelConfig,
-                ocfg: Optional[adamw.OptConfig] = None):
-    """The single-device ``step_fn(state, batch) -> (state, metrics)``."""
+                ocfg: Optional[adamw.OptConfig] = None, donate: bool = True):
+    """The single-device ``step_fn(state, batch) -> (state, metrics)``;
+    ``donate`` updates ``state`` in place (module docstring)."""
     ocfg = ocfg or adamw.OptConfig()
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -244,9 +261,11 @@ def _train_step(cfg: ModelConfig, pcfg: ParallelConfig,
             err_fb = adamw.tree_map(lambda t: t[1], pairs)
         else:
             err_fb = state.err_fb
-        params, opt, om = adamw.update(ocfg, grads, state.opt, state.params)
+        params, opt, om = adamw.update(ocfg, grads, state.opt, state.params,
+                                       inplace=donate)
         metrics = dict(metrics, loss=loss, **om)
-        return TrainState(params, opt, state.step + 1, err_fb), metrics
+        return TrainState(params, opt, *_donated(state, err_fb, donate)), \
+            metrics
 
     return step_fn
 
@@ -348,7 +367,7 @@ def compute_params(cfg: ModelConfig, mesh: Mesh, params, shardings,
 
 def _mesh_train_step(cfg: ModelConfig, mesh: Mesh, pcfg: ParallelConfig,
                      ocfg: Optional[adamw.OptConfig] = None,
-                     donate: bool = False):
+                     donate: bool = True):
     ocfg = ocfg or adamw.OptConfig()
 
     def state_shardings(state_shapes: TrainState) -> TrainState:
@@ -440,7 +459,7 @@ def _mesh_step(cfg, pcfg, ocfg, mesh, ss, want, bs, batch_axes, donate,
                                    gnorm=gnorm, lead=1, inplace=donate)
     metrics = {k: met[0, j] for j, k in enumerate(_METRICS)}
     metrics.update(grad_norm=om["grad_norm"][0], lr=om["lr"][0])
-    return TrainState(params, opt, state.step + 1, err_fb), metrics
+    return TrainState(params, opt, *_donated(state, err_fb, donate)), metrics
 
 
 # ---------------------------------------------------------------------------

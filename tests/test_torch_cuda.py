@@ -290,10 +290,23 @@ def test_decode_of_k_v_off_16_byte_boundaries(dev):
 
 
 def test_attention_still_raises_outside_its_shapes(dev):
-    q = torch.zeros((1, 4, 2, 512), device=dev)
+    """What K3 refuses on the card, each naming its ROADMAP Queue 2 row: a
+    head dim above 512 or not a multiple of 8 (K3f), float16 (K3g), Dv !=
+    Dk in decode (K3c), int8 K/V in prefill (K3d); also another (Dk, Dv)
+    pair and mixed dtypes at Dk 192 / Dv 128."""
     pos = torch.zeros((1, 4), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head_dim 512"):
-        ops.chunked_attention(q, q, q, pos, pos, window=2)
+    for d in (520, 100):
+        q = torch.zeros((1, 4, 2, d), device=dev)
+        with pytest.raises(ValueError, match=f"head_dim {d}.*K3f"):
+            ops.chunked_attention(q, q, q, pos, pos, window=2)
+    q = torch.zeros((1, 4, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="K3g"):
+        ops.chunked_attention(q, q, q, pos, pos)
+    ki = torch.zeros((1, 4, 2, 64), device=dev, dtype=torch.int8)
+    sc = torch.ones((1, 4, 2), device=dev)
+    with pytest.raises(NotImplementedError, match="Queue 2 K3d"):
+        ops.chunked_attention(q.float(), ki, ki, pos, pos, k_scale=sc,
+                              v_scale=sc)
     q = torch.zeros((1, 4, 2, 64), device=dev)
     with pytest.raises(ValueError, match="head_dim 64 / 32"):
         ops.chunked_attention(q, q, q[..., :32].contiguous(), pos, pos)
@@ -694,6 +707,116 @@ def test_wide_and_mixed_attention_match_plain(dev, B, S, T, H, K, D, window,
     _assert_within_bar(out, want, q, k, v, qp, kp, window=window)
 
 
+PAIRS = [(F32, F32), (BF16, BF16), (BF16, F32), (F32, BF16)]
+
+
+@pytest.mark.parametrize("qdt,kvdt", PAIRS)
+@pytest.mark.parametrize("B,S,T,H,K,D,window", [
+    (3, 1, 1024, 64, 1, 512, 128),   # DeepSeek-V4-Flash decode: width 512
+    (2, 1, 777, 128, 1, 512, 0),     # DeepSeek-V4-Pro: 64 head groups
+    (2, 1, 500, 32, 32, 224, 0),     # Zamba2 decode: 224 in width 256
+    (2, 1, 300, 71, 1, 72, 40),      # width 96, G 71
+    (2, 1, 200, 8, 2, 96, 0),        # 96 padded at its own width
+    (2, 1, 130, 6, 2, 264, 0),       # 264 in width 512
+    (2, 1, 90, 4, 1, 8, 0),          # 8 in width 64
+    (1, 300, 300, 64, 1, 512, 128),  # Flash prefill: two head slices
+    (1, 77, 200, 128, 1, 512, 0),    # Pro prefill: four head slices
+    (2, 70, 90, 8, 2, 512, 0),       # width 512 unpadded: G 4 in a CTA
+    (2, 130, 130, 32, 32, 224, 0),   # Zamba2 prefill
+    (2, 100, 160, 71, 1, 72, 30),    # width 96, G 71: one query a CTA
+    (2, 90, 90, 8, 2, 96, 0),        # 96 padded at its own width
+    (1, 70, 100, 4, 2, 264, 16),
+    (2, 50, 50, 8, 4, 40, 0),        # 40 in width 64
+    (2, 33, 33, 4, 4, 8, 0),         # 8 in width 64
+])
+def test_every_head_dim_and_group_matches_plain(dev, B, S, T, H, K, D,
+                                                window, qdt, kvdt):
+    """Head dims past the old five and groups past a CTA's rows, on both
+    routes and the four (q, K/V) dtype pairs, at the new tile widths (96,
+    512) and padded into the old ones, against the plain chunked attention
+    under ref.attention_bar: the cache read at its true head dim, batch row
+    0 with no valid key exactly 0, the output in q's dtype, one launch a
+    call on its route, two calls giving the same bits."""
+    if S == 1:
+        q, k, v, qp, kp = _decode_case(dev, B, T, H, K, D, F32, window,
+                                       window > 0, seed=B * T + H + D)
+    else:
+        q, k, v, qp, kp = _prefill_case(dev, B, S, T, H, K, D, F32,
+                                        seed=S * 7 + T + H + D,
+                                        empty_row=True)
+    q, k, v = q.to(qdt), k.to(kvdt), v.to(kvdt)
+    fn = ops.KERNELS["flash_attention"]
+    n, n_pre, n_dec = fn.launches, fn.prefill, fn.decode
+    out = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    again = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    torch.cuda.synchronize()
+    step = (2, 0) if S > 1 else (0, 2)
+    assert (fn.launches, fn.prefill, fn.decode) == (n + 2, n_pre + step[0],
+                                                    n_dec + step[1])
+    assert out.dtype == qdt and out.shape == q.shape
+    assert torch.equal(_bytes(out), _bytes(again))
+    assert not out[0].float().any()
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
+    _assert_within_bar(out, want, q, k, v, qp, kp, window=window)
+
+
+@pytest.mark.parametrize("qdt,kvdt", PAIRS)
+@pytest.mark.parametrize("B,S,H,K,D,window", [
+    (1, 130, 32, 32, 224, 0),     # Zamba2's heads
+    (1, 100, 64, 1, 512, 64),     # width 512, two head slices, a window
+    (2, 45, 128, 1, 512, 0),      # four head slices
+    (2, 77, 71, 1, 72, 0),        # width 96
+])
+def test_train_attention_at_every_head_dim_and_group(dev, B, S, H, K, D,
+                                                     window, qdt, kvdt):
+    """K3e at the new tile widths and groups: the forward is one launch of
+    the prefill kernel within the bar of the plain twin, and dq/dk/dv
+    equal the twin's autograd gradients (the backward recomputes it)."""
+    g = torch.Generator(device=dev).manual_seed(D + H)
+    q = torch.randn((B, S, H, D), device=dev, generator=g).to(qdt)
+    k = torch.randn((B, S, K, D), device=dev, generator=g).to(kvdt)
+    v = torch.randn((B, S, K, D), device=dev, generator=g).to(kvdt)
+    pos = torch.arange(S, device=dev, dtype=torch.int32).expand(B, S)
+    up = torch.randn((B, S, H, D), device=dev, generator=g).to(qdt)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    twins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = ops.FA.chunked_attention.prefill
+    out = ops.chunked_attention(*leaves, pos, pos, window=window)
+    assert out.grad_fn is not None and out.dtype == qdt
+    assert ops.FA.chunked_attention.prefill == before + 1
+    want = ref.chunked_attention_ref(*twins, pos, pos, window=window)
+    _assert_within_bar(out.detach(), want.detach(), q, k, v, pos, pos,
+                       window=window)
+    got = torch.autograd.grad(out, leaves, up)
+    exp = torch.autograd.grad(want, twins, up)
+    assert ops.FA.chunked_attention.prefill == before + 1
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S", [1, 64])
+@pytest.mark.parametrize("qdt,kvdt", [(F32, F32), (BF16, BF16)])
+def test_kv_views_off_16_byte_boundaries_at_head_dim_224(dev, S, qdt, kvdt):
+    """K/V views at head dim 224 (a row of 896 or 448 bytes) that do not
+    start on a 16-byte boundary: the wrapper's one copy, then the kernel
+    reads them at width 256; the result within the bar."""
+    T = 100
+    q, k, v, qp, kp = (_decode_case(dev, 2, T, 32, 32, 224, F32, 0, False,
+                                    seed=23) if S == 1 else
+                       _prefill_case(dev, 2, S, T, 32, 32, 224, F32,
+                                     seed=23))
+    q, k, v = q.to(qdt), k.to(kvdt), v.to(kvdt)
+    flat = torch.empty(2 * k.numel() + 2, device=dev, dtype=kvdt)
+    off_k = flat[1:k.numel() + 1].view(k.shape)
+    off_v = flat[k.numel() + 2:].view(v.shape)
+    off_k.copy_(k)
+    off_v.copy_(v)
+    assert off_k.data_ptr() % 16 and off_v.data_ptr() % 16
+    out = ops.chunked_attention(q, off_k, off_v, qp, kp)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp)
+    _assert_within_bar(out, want, q, k, v, qp, kp)
+
+
 @pytest.mark.parametrize("S", [1, 90])
 @pytest.mark.parametrize("qdt,kvdt", [(F32, F32), (BF16, F32)])
 def test_wide_attention_of_a_q_off_16_byte_boundaries(dev, S, qdt, kvdt):
@@ -737,12 +860,15 @@ def test_mixed_k_and_v_raise(dev, S):
     (2, 90, 150, 8, 8, 0, BF16),
     (2, 77, 77, 8, 2, 20, F32),           # G = 4 and a window
     (2, 77, 77, 8, 2, 20, BF16),
+    (2, 40, 60, 130, 1, 0, F32),          # G 130: two head slices
+    (2, 40, 60, 130, 1, 0, BF16),
 ])
 def test_mla_prefill_matches_plain(dev, B, S, T, H, K, window, dt):
     """The prefill kernel at Dk 192 / Dv 128 (MLA's expanded K and V)
     against the plain chunked attention: ragged prompt ends padded at
     2**30, batch row 0 with no valid key (exactly 0), S and T off the
-    tiles, f32 and bf16; the output (B,S,H,128) in q's dtype, one prefill
+    tiles, a group past a CTA's 128 rows (the general instantiation's head
+    slices), f32 and bf16; the output (B,S,H,128) in q's dtype, one prefill
     launch a call, two calls giving the same bits."""
     q, k, v, qp, kp = _prefill_case(dev, B, S, T, H, K, 192, dt,
                                     seed=S + T + H + 192, empty_row=B > 1)

@@ -41,7 +41,7 @@ def _coverage(B, S, H, K, head_dim=128, f32=True):
     plan = FA.prefill_plan(B, S, H, K, head_dim, f32, head_dim)
     G = H // K
     nq, nk, nb = plan.grid
-    assert (nk, nb) == (K, B) and plan.bq * G <= plan.rows
+    assert (nk, nb) == (K, B) and plan.bq * plan.heads <= plan.rows
     seen = np.zeros((B, S, H), np.int64)
     for qb in range(nq):
         for kvh in range(K):
@@ -112,9 +112,18 @@ def test_prefill_plan_covers_gemma_7b_buckets(S):
         -(-S // 64), 16, 1)
 
 
-def test_prefill_plan_refuses_groups_past_its_rows():
-    with pytest.raises(ValueError, match="groups of 1 to 64"):
-        FA.prefill_plan(1, 8, 128, 1, 256, True, 256)
+@pytest.mark.parametrize("G,D", [(65, 256), (128, 256), (129, 128),
+                                 (300, 64)])
+def test_prefill_plan_slices_groups_past_its_rows(G, D):
+    """A group larger than a CTA's rows (64 at head dim 256, 128 below) is
+    cut into ceil(G / rows) slices of ``heads`` = rows heads, one query a
+    CTA: every (query, head) row once, on one grid (one launch)."""
+    K, S = 2, 37
+    plan, seen = _coverage(2, S, K * G, K, D)
+    assert (seen == 1).all()
+    rows = 64 if D > 128 else 128
+    assert (plan.rows, plan.heads, plan.bq) == (rows, rows, 1)
+    assert plan.grid == (S * -(-G // rows), K, 2)
     assert FA.prefill_plan(1, 8, 128, 1, 128, True, 128).bq == 1
 
 

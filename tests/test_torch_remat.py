@@ -58,7 +58,7 @@ def _step(cfg, params, batch, mesh=None):
     ocfg = adamw.OptConfig(**RECIPE)
     if mesh is None:
         pcfg = TS.ParallelConfig(fsdp=False)
-        st, m = TS.make_train_step(cfg, pcfg, ocfg)(
+        st, m = TS.make_train_step(cfg, pcfg, ocfg, donate=False)(
             TS.state_from_params(params, pcfg), batch)
         return m, st.params
     pcfg = TS.ParallelConfig()

@@ -218,7 +218,8 @@ def parity(request):
     pparams = params_from_jax(_np_tree(rstate.params), device="cpu")
     ppcfg = P_step.ParallelConfig(fsdp=False)
     pstate = P_step.state_from_params(pparams, ppcfg)
-    pstep = P_step.make_train_step(cfg, ppcfg, P_opt.OptConfig(**RECIPE))
+    pstep = P_step.make_train_step(cfg, ppcfg, P_opt.OptConfig(**RECIPE),
+                                   donate=False)
     return cfg, pcfg, rstate, rstep, dcfg, ppcfg, pstate, pstep
 
 
@@ -419,7 +420,8 @@ def test_mesh_knobs_raise():
             bar = max(1e-5 * float(np.abs(r).max()), 1e-7)
             np.testing.assert_allclose(p.numpy(), r, rtol=0, atol=bar,
                                        err_msg=path)
-        _, m = P_step.make_train_step(cfg, pp, P_opt.OptConfig(**RECIPE))(
+        _, m = P_step.make_train_step(cfg, pp, P_opt.OptConfig(**RECIPE),
+                                      donate=False)(
             P_step.state_from_params(pparams, pp), _port_batch(rb))
         assert float(m["loss"]) == pytest.approx(float(ploss), rel=1e-6)
 
@@ -479,6 +481,98 @@ def test_launcher_runs_resumes_and_refuses_a_mesh(tmp_path, monkeypatch):
     assert len(two) == 2
     for a, b in zip(two, one):
         assert a == pytest.approx(b, rel=1e-5)
+
+
+def _state_leaves(state):
+    return P_opt.tree_leaves(state.params) + P_opt.tree_leaves(
+        state.opt.m) + P_opt.tree_leaves(state.opt.v) + [
+        state.opt.count, state.step] + (
+        [] if state.err_fb is None else P_opt.tree_leaves(state.err_fb))
+
+
+@pytest.mark.parametrize("arch,grad_compress", [
+    ("tinyllama-1.1b", False), ("tinyllama-1.1b", True),
+    ("olmoe-1b-7b", False), ("gemma3-27b", False)])
+def test_donated_step_is_the_undonated_step_in_place(arch, grad_compress):
+    """F7: ``make_train_step(cfg, pcfg, ocfg)`` donates by default, as the
+    reference's ``make_train_step`` (``donate=True``): three steps write
+    every leaf of the state (params, moments, count, step, error feedback)
+    into the tensors it was given, and their numbers and metrics equal the
+    undonated step's bit for bit; ``donate=False`` leaves its input as it
+    was."""
+    cfg = get_reduced(arch)
+    pcfg = P_step.ParallelConfig(fsdp=False, grad_compress=grad_compress)
+    ocfg = P_opt.OptConfig(**RECIPE)
+    dcfg = P_data.DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                             global_batch=2, repeat_len=8)
+
+    def fresh():
+        return P_step.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                       pcfg, device="cpu")
+
+    donated, kept = fresh(), fresh()
+    ptrs = [t.data_ptr() for t in _state_leaves(donated)]
+    step, plain = (P_step.make_train_step(cfg, pcfg, ocfg),
+                   P_step.make_train_step(cfg, pcfg, ocfg, donate=False))
+    for i in range(3):
+        b = P_data.batch_at(dcfg, i, device="cpu")
+        before = [t.clone() for t in _state_leaves(kept)]
+        new, m = step(donated, b)
+        new_kept, mk = plain(kept, b)
+        assert [t.data_ptr() for t in _state_leaves(new)] == ptrs, i
+        assert all(torch.equal(a, c) for a, c in
+                   zip(_state_leaves(kept), before)), i
+        for a, c in zip(_state_leaves(new), _state_leaves(new_kept)):
+            assert torch.equal(a, c), i
+        assert {k: float(v) for k, v in m.items()} == \
+            {k: float(v) for k, v in mk.items()}, i
+        donated, kept = new, new_kept
+    assert int(donated.step) == 3 and int(donated.opt.count) == 3
+
+
+@pytest.mark.parametrize("mesh", [[], ["--data", "2", "--model", "2"]])
+def test_launcher_donates_its_state(monkeypatch, mesh):
+    """F7: the launcher compiles its step donated on both forms, as the
+    reference's launcher does (``launch/train.py:63`` at
+    ``make_train_step``'s default ``donate=True``): after every step each
+    leaf of the state keeps its data pointer, and the run's losses and
+    final params equal an undonated run's bit for bit."""
+    real = P_launch.make_train_step
+    seen = []
+
+    def watch(fn, state, batch):
+        ptrs = [t.data_ptr() for t in _state_leaves(state)]
+        new, m = fn(state, batch)
+        seen.append([t.data_ptr() for t in _state_leaves(new)] == ptrs)
+        return new, m
+
+    def watched(donate):
+        """The launcher's make_train_step, its steps watched; ``donate``
+        forced unless None."""
+        def make(*a, **kw):
+            if donate is not None:
+                kw["donate"] = donate
+            made = real(*a, **kw)
+            if not mesh:
+                return lambda s, b: watch(made, s, b)
+            step_fn, compile_step, state_shardings = made
+
+            def compile_watched(*shapes):
+                inner = compile_step(*shapes)
+                return lambda s, b: watch(inner, s, b)
+            return step_fn, compile_watched, state_shardings
+        return make
+
+    monkeypatch.setattr(P_launch, "make_train_step", watched(None))
+    res, state, hist = P_launch.run(ARGV + mesh)
+    assert len(seen) == 6 and all(seen)
+    monkeypatch.setattr(P_launch, "make_train_step", watched(False))
+    seen.clear()
+    res2, state2, hist2 = P_launch.run(ARGV + mesh)
+    assert len(seen) == 6 and not any(seen)
+    assert hist["losses"] == hist2["losses"]
+    for a, b in zip(_state_leaves(state), _state_leaves(state2)):
+        assert torch.equal(a, b)
 
 
 def test_launcher_as_a_module_prints_the_reference_json(tmp_path):
