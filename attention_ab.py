@@ -1,4 +1,5 @@
-"""K3's device time in two checkouts of the port, in alternating windows.
+"""K3's and K2's device time in two checkouts of the port, in alternating
+windows.
 
     python3 attention_ab.py A_DIR B_DIR [--pairs 4]
 
@@ -6,16 +7,23 @@ Needs one CUDA card.  The shapes (:func:`shapes`) are those whose device ms
 ``chip_smoke.py``'s phase 2 keeps in PERF.md, built from its constants and
 the port's configs: tinyllama's decode and prefill buckets, gemma3's,
 gemma-7b's, deepseek-v2's MLA, jamba's and qwen2-vl's prefills, and the
-published head shapes of phase 26.  Starts one worker process per
-checkout; each imports that checkout's ``chip_smoke`` (and so its own
-``repro_torch``, which builds and runs its own kernels) and draws the same
-inputs from a seed.  The workers then time each shape in turn, one window
-at a time while the other waits: ``--pairs`` pairs a shape, the first of
-each pair alternating (A B, B A, ...).  A window is chip_smoke's
-``timed(device=True)`` of 20 calls after an L2 flush.  A shape a checkout
-refuses (its wrapper raises ``ValueError``) times as NaN there.  Prints
-each shape's windows, each side's median and B over A; the last line is
-that as one JSON object.
+published head shapes of phase 26; and K2's three rows: the paging gather
+of phase 2 (45,144 pages of 1 KiB, every entry live), and phase 20's
+hops over 8 stacked shards of 549,978,112 B, the shift (every shard
+moves, through ``StackedAxis.ppermute``, its table built in the window)
+and the one-pair hop (K2 alone into a zeroed stack), each at its own
+checkout's hop rows (``launch/mesh.py::hop_rows``).  Starts one worker
+process per checkout; each imports that checkout's ``chip_smoke`` (and so
+its own ``repro_torch``, which builds and runs its own kernels) and draws
+the same inputs from a seed.  The workers then time each shape in turn,
+one window at a time while the other waits: ``--pairs`` pairs a shape,
+the first of each pair alternating (A B, B A, ...).  A window is
+chip_smoke's ``timed(device=True)`` of 20 calls after an L2 flush; then
+each side's host us to queue a call of a K3 shape (chip_smoke's
+``enqueue_us``), A first.  A shape a checkout refuses (its wrapper raises
+``ValueError``) times as NaN there.  Prints each shape's windows, each
+side's median and B over A, and the host us; the last line is that as
+one JSON object.
 """
 from __future__ import annotations
 
@@ -28,11 +36,15 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# K2's rows: tinyllama's snapshot at MAX_LEN (phase 2's paging gather), and
+# phase 20's stack of one eighth of tinyllama's f32 weights a shard
+K2_PAGES, K2_SHARDS, K2_SHARD_BYTES = 45_144, 8, 549_978_112
 
 
 def shapes() -> dict:
     """``{name: (B, S, T, H, K, Dk, Dv, window, q dtype, k/v dtype)}`` of
-    phase 2's attention rows, from chip_smoke's constants."""
+    phase 2's attention rows, from chip_smoke's constants, and K2's rows
+    (``{name: ("paging", pages)}`` or ``(kind, shards, shard bytes)``)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from repro_torch.configs import get_config
@@ -78,6 +90,10 @@ def shapes() -> dict:
     for name, (H, K, D, W) in cs.HS_SHAPES.items():
         out[f"{name}_prefill_{cs.HS_MAX_LEN}_bf16"] = (
             1, cs.HS_MAX_LEN, cs.HS_MAX_LEN, H, K, D, D, W, "bf16", "bf16")
+    out[f"k2_paging_{K2_PAGES}x1KiB"] = ("paging", K2_PAGES)
+    for kind in ("shift", "pair"):
+        out[f"k2_{kind}_hop_{K2_SHARDS}x{K2_SHARD_BYTES}"] = (
+            kind, K2_SHARDS, K2_SHARD_BYTES)
     return out
 
 
@@ -93,9 +109,12 @@ def worker(tree: str, table: dict) -> None:
     dev = torch.device("cuda")
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
     cases = {}
-    for i, (name, (B, S, T, H, K, dk, dv, w, qd, kd)) in enumerate(
-            table.items()):
+    for i, (name, spec) in enumerate(table.items()):
         g = torch.Generator(device=dev).manual_seed(cs.SEED + i)
+        if name.startswith("k2_"):
+            cases[name] = copy_case(spec, g, dev)
+            continue
+        B, S, T, H, K, dk, dv, w, qd, kd = spec
         q = torch.randn((B, S, H, dk), device=dev, generator=g).to(dts[qd])
         k = torch.randn((B, T, K, dk), device=dev, generator=g).to(dts[kd])
         v = torch.randn((B, T, K, dv), device=dev, generator=g).to(dts[kd])
@@ -113,6 +132,19 @@ def worker(tree: str, table: dict) -> None:
     print("ready", flush=True)
     for line in sys.stdin:
         name, reps = line.split()
+        if reps == "enqueue":
+            q, k, v, qp, kp, w = cases[name]
+            try:
+                print(cs.enqueue_us(lambda: ops.chunked_attention(
+                    q, k, v, qp, kp, window=w)), flush=True)
+            except ValueError:
+                print(math.nan, flush=True)
+            continue
+        if name.startswith("k2_"):
+            call = cases[name]
+            print(cs.timed(call, int(reps), lambda: scratch.fill_(1),
+                           device=True), flush=True)
+            continue
         q, k, v, qp, kp, w = cases[name]
 
         def call():
@@ -124,6 +156,35 @@ def worker(tree: str, table: dict) -> None:
             continue
         print(cs.timed(call, int(reps), lambda: scratch.fill_(1),
                        device=True), flush=True)
+
+
+def copy_case(spec, g, dev):
+    """A K2 row's call in this worker's checkout: the paging gather of a
+    random permutation of ``pages`` pages out of 32 sessions' pool, or a
+    hop over ``n`` stacked shards at this checkout's hop rows."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import StackedAxis, hop_rows, hop_table
+
+    if spec[0] == "paging":
+        n = spec[1]
+        pool = torch.randint(0, 256, (32 * n, 8, 128), dtype=torch.uint8,
+                             device=dev, generator=g)
+        table = torch.randperm(32 * n, device=dev, generator=g)[:n].to(
+            torch.int32)
+        return lambda: ops.villa_gather(pool, table)
+    kind, n, shard = spec
+    x = torch.randint(0, 256, (n, shard), dtype=torch.uint8, device=dev,
+                      generator=g)
+    if kind == "shift":
+        ax = StackedAxis(n, device=dev)
+        pairs = [(i, (i + 1) % n) for i in range(n)]
+        return lambda: ax.ppermute(x, pairs)
+    rows = x.view(-1, hop_rows(shard))
+    per = rows.shape[0] // n
+    pair = hop_table([-1, -1, -1, 2] + [-1] * (n - 4), per, dev)
+    out = torch.zeros_like(rows)
+    return lambda: ops.villa_gather(rows, pair, out)
 
 
 def main(argv=None) -> int:
@@ -163,8 +224,17 @@ def main(argv=None) -> int:
             a, b = (statistics.median(got[s]) for s in ("A", "B"))
             out[name] = {"a_ms": a, "b_ms": b, "b_over_a": b / a,
                          "a_windows": got["A"], "b_windows": got["B"]}
+            host = ""
+            if not name.startswith("k2_"):
+                for side in ("A", "B"):
+                    procs[side].stdin.write(f"{name} enqueue\n")
+                    procs[side].stdin.flush()
+                    out[name][f"{side.lower()}_enqueue_us"] = float(
+                        procs[side].stdout.readline())
+                host = (f"; host us a call A {out[name]['a_enqueue_us']:.1f},"
+                        f" B {out[name]['b_enqueue_us']:.1f}")
             print(f"{name}: A {a:.4f} ms, B {b:.4f} ms, B/A {b / a:.4f} "
-                  f"(A {got['A']}, B {got['B']})", flush=True)
+                  f"(A {got['A']}, B {got['B']}){host}", flush=True)
     finally:
         for proc in procs.values():
             proc.stdin.close()

@@ -546,6 +546,12 @@ SS_RATIO = 2.0
 # phase 25: a roofline share (bound / device ms) above this fails the run;
 # each entry point's profile holds this many calls (device ms a call)
 SHARE_LIMIT = 1.05
+# K3's routes (kernels/flash_attention.py::prefill_route), by the source
+# each runs
+ROUTE_SOURCES = {
+    "wgmma": "wgmma: csrc/flash_prefill_wgmma.cu (all-bf16 prefill)",
+    "mma": "mma: csrc/flash_attention.cu (prefill)",
+    "decode": "decode: csrc/flash_decode.cu"}
 ROOFLINE_CALLS = 3
 
 
@@ -979,6 +985,8 @@ def main() -> int:
     def add(run, entry):
         for name in ("villa_scatter", "villa_gather", "rbm_copy"):
             counts[name] += run[name]
+        counts["flash_attention_prefill_wgmma"] += run.get(
+            "flash_attention_prefill_wgmma", 0)
         k3 = paths.setdefault(entry, {"prefill": 0, "decode": 0})
         k3["prefill"] += run["flash_attention_prefill"]
         k3["decode"] += run["flash_attention_decode"]
@@ -1071,6 +1079,8 @@ def main() -> int:
                         ("seamless", "flash_attention_encdec")):
         for route in ("prefill", "decode"):
             paths[entry][route] += split_served[name][route]
+        counts["flash_attention_prefill_wgmma"] += \
+            split_served[name]["wgmma"]
     wall(24)
     # the entry points' audit and live roofline: tinyllama's K1, K2 and K3
     # launches count on its rows
@@ -1105,6 +1115,8 @@ def main() -> int:
         "flash_attention_mrope": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_train": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_heads": "src/repro/kernels/flash_attention.py:81",
+        "flash_attention_prefill_wgmma":
+            "src/repro/kernels/flash_attention.py:81",
         "rbm_copy": "src/repro/kernels/rbm_copy.py:27"}
     csrc = "src/repro_torch/kernels/csrc/"
     decode_src = csrc + "flash_decode.cu"
@@ -1123,7 +1135,28 @@ def main() -> int:
                "flash_attention_mrope": csrc + "flash_attention.cu",
                "flash_attention_train": csrc + "flash_attention.cu",
                "flash_attention_heads": csrc + "flash_attention.cu",
+               "flash_attention_prefill_wgmma":
+                   csrc + "flash_prefill_wgmma.cu",
                "rbm_copy": csrc + "rbm_copy.cu"}
+    # a row whose headline shape is a prefill names its route's source
+    for name, r in rows.items():
+        if str(r.get("route", "")).split(":")[0] in ("wgmma", "mma"):
+            sources[name] = csrc + r["route"].split(": ")[1].split()[0] \
+                .removeprefix("csrc/")
+    # the wgmma route's row: gemma3's bf16 prefill under its window (the
+    # bf16-weight paths launch it), and every phase-2 shape on the route
+    wg_shapes = {f"{entry}.{shape}": r for entry, row in rows.items()
+                 for shape, r in row.get("shapes", {}).items()
+                 if isinstance(r, dict)
+                 and str(r.get("route", "")).startswith("wgmma")}
+    head = rows["flash_attention_mixed"]["shapes"]["prefill_local_bf16"]
+    rows["flash_attention_prefill_wgmma"] = dict(
+        head, shapes=wg_shapes,
+        max_abs_err=max(r["max_abs_err"] for r in wg_shapes.values()))
+    routes["flash_attention_prefill_wgmma"] = {
+        "prefill": counts["flash_attention_prefill_wgmma"]}
+    check(counts["flash_attention_prefill_wgmma"] > 0,
+          "the wgmma prefill route was launched no time on the paths")
     # flash_attention counts K3's decode kernel on the tinyllama paths
     # (phases 3 and 5), flash_attention_prefill its prefill kernel there;
     # flash_attention_window both on gemma3's 14-layer f32 path (phase 6),
@@ -1148,7 +1181,12 @@ def main() -> int:
     # launches of phases 20-23's hops (each also in villa_gather), timed
     # at the shift of every shard of tinyllama's weights over 8 stacked
     # devices; flash_attention_heads both routes at the published attention
-    # shapes of phase 26 (head dims 224 and 512, groups 1, 64 and 128)
+    # shapes of phase 26 (head dims 224 and 512, groups 1, 64 and 128);
+    # flash_attention_prefill_wgmma K3's all-bf16 prefill route (its own
+    # kernel, csrc/flash_prefill_wgmma.cu, also counted in each path's
+    # prefill launches) on the bf16-weight paths (phases 8, 9, 11, 14, 16,
+    # 24 and 26), timed at gemma3's bf16 prefill under its window, every
+    # phase-2 shape on the route in its shapes
     kernels = []
     for name in ("villa_scatter", "villa_gather", "villa_gather_hop",
                  "flash_attention",
@@ -1157,7 +1195,8 @@ def main() -> int:
                  "flash_attention_moe", "flash_attention_mla",
                  "flash_attention_int8", "flash_attention_encdec",
                  "flash_attention_mrope", "flash_attention_train",
-                 "flash_attention_heads", "rbm_copy"):
+                 "flash_attention_heads", "flash_attention_prefill_wgmma",
+                 "rbm_copy"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],
@@ -1169,7 +1208,7 @@ def main() -> int:
         kernels[-1].update({key: r[key] for key in
                             ("device_ms", "library_device_ms", "enqueue_us",
                              "library_enqueue_us", "tc_bound_ms", "dtypes",
-                             "library_operands", "shapes", "timed",
+                             "library_operands", "shapes", "timed", "route",
                              "forward_ms", "forward_device_ms",
                              "forward_bound_ms", "forward_tc_bound_ms",
                              "grads_bit_equal")
@@ -1278,6 +1317,7 @@ def prefill_rows(attn_case, flush, tag) -> dict:
     tensor-core bounds.  Returns the ``kernels`` entry: bucket 512's
     numbers, both buckets' in ``shapes``."""
     import torch
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1297,7 +1337,8 @@ def prefill_rows(attn_case, flush, tag) -> dict:
                            lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                         enable_gqa=True), flush),
             bound_ms=bound, bound_by=by, tc_bound_ms=tc_bound(q, k, qp, kp, 0),
-            max_abs_err=err)
+            max_abs_err=err, route=ROUTE_SOURCES[FA.prefill_route(
+                q.dtype, k.dtype, q.shape[-1], v.shape[-1])])
         print(f"attention prefill bucket {bucket}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
               f"bound {bound:.5f} ms ({by}), tensor-core bound "
@@ -1311,22 +1352,30 @@ def prefill_rows(attn_case, flush, tag) -> dict:
 
 
 def check_sass(built) -> None:
-    """The compiled code shows the design: every kernel of the prefill
-    library is an instantiation of the prefill kernel running tensor-core
-    MMAs (HMMA), four (q, K/V dtype pairs) at each unpadded width of
-    ``flash_attention.TILE_WIDTHS`` (512 among them), four more at each of
-    ``PADDED_WIDTHS`` (the general template: masked past the head dim, and
-    taking head slices) and two of each at Dk 192 / Dv 128; every kernel
-    of the decode library one of the split-KV
-    kernel; K4 issues bulk copies (UBLKCP).  Prints how many instantiations
-    each library holds.  Reads the SASS with the toolkit's cuobjdump."""
+    """The compiled code shows the design: every kernel of the mma.sync
+    prefill library is an instantiation of the prefill kernel running
+    tensor-core MMAs (HMMA): three (the f32 and the two mixed q, K/V dtype
+    pairs) at each unpadded width of ``flash_attention.TILE_WIDTHS`` and
+    at each of ``PADDED_WIDTHS`` (the general template: masked past the
+    head dim, and taking head slices), a fourth, all-bf16, at the widths
+    the wgmma route leaves it (16, 32 and 512 unpadded; 96 and 512
+    padded), and one f32 of each at Dk 192 / Dv 128; every kernel of the
+    wgmma library one of the all-bf16 prefill at each of its widths
+    (``WGMMA_WIDTHS``), with warpgroup MMAs (HGMMA: at least Dk/16 for
+    QK^T and BN/16 for PV) and TMA tensor loads (UTMALDG: at least one a
+    64-column panel of K and of V); every kernel of the decode library one
+    of the split-KV kernel; K4 issues bulk copies (UBLKCP).  Prints how
+    many instantiations each library holds.  Reads the SASS with the
+    toolkit's cuobjdump."""
     import shutil
 
     from repro_torch.kernels import flash_attention as FA
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    ops_ = ("HMMA", "HGMMA", "UTMALDG", "UBLKCP")
     counts = {}
-    for name in ("flash_attention", "flash_decode", "rbm_copy"):
+    for name in ("flash_attention", "flash_prefill_wgmma", "flash_decode",
+                 "rbm_copy"):
         sass = subprocess.run([tool, "-sass", str(built[name])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -1336,10 +1385,10 @@ def check_sass(built) -> None:
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = kernel_name(m.group(1))
-                lib[fn] = {"HMMA": 0, "UBLKCP": 0}
+                lib[fn] = dict.fromkeys(ops_, 0)
             elif fn is not None:
-                for op in ("HMMA", "UBLKCP"):
-                    lib[fn][op] += op in line
+                for op in ops_:
+                    lib[fn][op] += re.search(rf"\b{op}\b", line) is not None
     prefill, decode = counts["flash_attention"], counts["flash_decode"]
     check(prefill and all("prefill_kernel" in k and c["HMMA"] > 0
                           for k, c in prefill.items()),
@@ -1350,11 +1399,26 @@ def check_sass(built) -> None:
         dims = tuple(int(x) for x in re.search(
             r"Li(\d+)ELi(\d+)ELb([01])E", k).groups())
         widths[dims] = widths.get(dims, 0) + 1
-    want = {(w, w, 0): 4 for w in FA.TILE_WIDTHS}
-    want.update({(w, w, 1): 4 for w in FA.PADDED_WIDTHS})
-    want[FA.MLA_DIMS + (0,)] = want[FA.MLA_DIMS + (1,)] = 2
+    want = {(w, w, 0): 3 + (w in (16, 32, 512)) for w in FA.TILE_WIDTHS}
+    want.update({(w, w, 1): 3 + (w in (96, 512)) for w in FA.PADDED_WIDTHS})
+    want[FA.MLA_DIMS + (0,)] = want[FA.MLA_DIMS + (1,)] = 1
     check(widths == want, f"prefill instantiations by (Dk, Dv, general) "
                           f"{widths}, {want} due")
+    wg = counts["flash_prefill_wgmma"]
+    due = {(w, w) if w != FA.MLA_DIMS[0] else FA.MLA_DIMS: w
+           for w in FA.WGMMA_WIDTHS}
+    got = {}
+    for k, c in wg.items():
+        dk, dv = (int(x) for x in re.search(r"Li(\d+)ELi(\d+)E", k).groups())
+        keys = FA.WGMMA_KEYS[dk]
+        check("prefill_wgmma_kernel" in k
+              and c["HGMMA"] >= dk // 16 + keys // 16
+              and c["UTMALDG"] >= dk // 64 + dv // 64 and c["HMMA"] == 0,
+              f"wgmma prefill {k}: {c}, at least {dk // 16 + keys // 16} "
+              f"HGMMA and {dk // 64 + dv // 64} UTMALDG due, no HMMA")
+        got[(dk, dv)] = c
+    check(set(got) == set(due), f"wgmma prefill instantiations {sorted(got)}"
+                                f", {sorted(due)} due")
     check(decode and all("decode_split_kernel" in k for k in decode),
           f"decode library outside the design: {sorted(decode)}")
     bulk = [c["UBLKCP"] for k, c in counts["rbm_copy"].items()
@@ -1362,7 +1426,11 @@ def check_sass(built) -> None:
     check(bulk and all(n > 0 for n in bulk), "K4 issues no bulk copies")
     for k in sorted(prefill):
         print(f"  sass {k}: {prefill[k]['HMMA']} HMMA")
-    print(f"  sass: {len(prefill)} prefill kernels, all with HMMA; "
+    for (dk, dv), c in sorted(got.items()):
+        print(f"  sass prefill_wgmma_kernel<{dk}, {dv}>: {c['HGMMA']} "
+              f"HGMMA, {c['UTMALDG']} UTMALDG")
+    print(f"  sass: {len(prefill)} mma.sync prefill kernels, all with HMMA; "
+          f"{len(wg)} wgmma prefill kernels, all with HGMMA and UTMALDG; "
           f"{len(decode)} split-KV decode kernels; bulk_copy_kernel: "
           f"{bulk[0]} UBLKCP")
 
@@ -1497,10 +1565,17 @@ def attention_row(label, q, k, v, qp, kp, window, flush, tag,
     prefill, its tensor-core bound.  SDPA takes one dtype: a mixed row's
     operands are promoted to f32 before its timed window."""
     import torch
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
 
     kw = dict(window=window, causal=causal)
+    route = ("decode" if q.shape[1] == 1 else
+             FA.prefill_route(q.dtype, k.dtype, q.shape[-1], v.shape[-1]))
+    n0 = FA.chunked_attention.prefill_wgmma
     got = ops.chunked_attention(q, k, v, qp, kp, **kw)
+    check(FA.chunked_attention.prefill_wgmma - n0 == (route == "wgmma"),
+          f"attention {label}: the {route} route's launch was not counted "
+          f"as such")
     err, share = attention_err(label, got, q, k, v, qp, kp, **kw)
     mixed = q.dtype != k.dtype
     lq, lk, lv = ((x.float() if mixed else x).transpose(1, 2)
@@ -1521,12 +1596,14 @@ def attention_row(label, q, k, v, qp, kp, window, flush, tag,
         lambda: ref.chunked_attention_ref(q, k, v, qp, kp, **kw),
         lambda: sdpa(lq, lk, lv, attn_mask=mask, enable_gqa=True), flush),
         bound_ms=bound, bound_by=by, max_abs_err=err, err_share_of_bar=share,
-        dtypes=f"q {str(q.dtype)[6:]}, k/v {str(k.dtype)[6:]}")
+        dtypes=f"q {str(q.dtype)[6:]}, k/v {str(k.dtype)[6:]}",
+        route=ROUTE_SOURCES[route])
     if mixed:
         r["library_operands"] = "promoted to float32 outside its timed window"
     if q.shape[1] > 1:
         r["tc_bound_ms"] = tc_bound(q, k, qp, kp, window, dv, causal)
-    print(f"attention {label} ({r['dtypes']}) S={q.shape[1]} T={k.shape[1]} "
+    print(f"attention {label} ({r['dtypes']}; {r['route']}) "
+          f"S={q.shape[1]} T={k.shape[1]} "
           f"B={q.shape[0]} window {window}"
           f"{'' if causal else ' non-causal'}: max_abs_err {err:.3g} "
           f"({share:.3g} of its bar); kernel "
@@ -2809,7 +2886,8 @@ def qwen2vl_phase(tag) -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     image = ops.launch_counts()
-    check_counts(image, {"flash_attention": n, "flash_attention_prefill": n},
+    check_counts(image, {"flash_attention": n, "flash_attention_prefill": n,
+                         "flash_attention_prefill_wgmma": n},
                  "qwen2-vl's image prefill")
     want, _, _ = lm.forward(cfg, params, toks, positions=pos)
     err = float((got.float() - want.float()).abs().max())
@@ -3615,7 +3693,9 @@ def serving_launches(cfg, eng) -> dict:
     attention layer per prefill (its prefill kernel: every prompt is longer
     than one token) and, in a GQA layer, per decode dispatch (its decode
     kernel; an MLA layer decodes through its absorbed einsums, without K3;
-    a mamba or rwkv layer runs no K3); a suspend dispatch (one session or
+    a mamba or rwkv layer runs no K3; an Engine of bf16 weights prefills
+    on the wgmma route where ``wgmma_prefill`` says so); a suspend
+    dispatch (one session or
     a wave) writes the slow rows and their fast copies (two K1), a resume
     dispatch reads the slow rows and the fast slots (two K2) and inserts
     into the fast tier (one K1), a demotion clones a row (one K2, one K1);
@@ -3627,8 +3707,11 @@ def serving_launches(cfg, eng) -> dict:
     n_dec = sum(kind in ("attn_full", "attn_local") for kind in kinds)
     prefill = n_pre * st["prefills"]
     decode = n_dec * st["decode_dispatches"]
+    params = getattr(eng, "params", None)
+    wgmma = params is not None and wgmma_prefill(cfg, params["embed"].dtype)
     due = {"flash_attention": prefill + decode,
            "flash_attention_prefill": prefill,
+           "flash_attention_prefill_wgmma": prefill if wgmma else 0,
            "flash_attention_decode": decode,
            "villa_scatter": 2 * moves["suspend"] + moves["resume"]
            + st["demotions"],
@@ -3674,7 +3757,7 @@ def mesh_phase(tag) -> dict:
     from repro_torch.core.lisa.ring_attention import ring_attention
     from repro_torch.core.lisa.topology import MeshTopology
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.mesh import StackedAxis, hop_table
+    from repro_torch.launch.mesh import StackedAxis, hop_rows, hop_table
     from repro_torch.models import lm
     from repro_torch.movement import paging
     from repro_torch.train.pipeline import pipeline_transformer
@@ -3742,14 +3825,16 @@ def mesh_phase(tag) -> dict:
         hop_s[label] = (hop_s[label], ax.hops - before)
         del got
     shift = [(i, (i + 1) % n) for i in range(n)]
-    rows = x.view(torch.uint8).view(-1, 1024)
+    row_bytes = hop_rows(nbytes // n)
+    rows = x.view(torch.uint8).view(-1, row_bytes)
     per = rows.shape[0] // n
     table = hop_table([(d - 1) % n for d in range(n)], per, dev)
-    check(torch.equal(ax.ppermute(x, shift).view(torch.uint8).view(-1, 1024),
-                      ref.villa_gather_ref(rows, table)),
+    check(torch.equal(ax.ppermute(x, shift).view(torch.uint8)
+                      .view(-1, row_bytes), ref.villa_gather_ref(rows, table)),
           "mesh: the shift hop differs from the plain gather of its table")
     print(f"mesh hops: {n} shards of {nbytes // n:,} B ({nbytes:,} B of "
-          f"tinyllama's f32 weights), as {per:,} rows of 1 KiB a shard, "
+          f"tinyllama's f32 weights), as {per:,} rows of {row_bytes:,} B a "
+          f"shard, "
           f"bit-equal to their oracles: " + "; ".join(
               f"{k} {h} hops {t * 1e3:.3f} ms" for k, (t, h)
               in hop_s.items()) + f" (host clock) [{tag}]")
@@ -5196,11 +5281,14 @@ def split_serve_phase(tag) -> dict:
             due.update(flash_attention=pre + dec)
         if pre:
             due["flash_attention_prefill"] = pre
+        wgmma = pre if wgmma_prefill(cfg, getattr(torch, dtype)) else 0
+        if wgmma:
+            due["flash_attention_prefill_wgmma"] = wgmma
         if dec:
             due["flash_attention_decode"] = dec
         check_counts(counts, due, f"mesh serving {label}")
         out["villa_gather"] += hops
-        out[name] = {"prefill": pre, "decode": dec}
+        out[name] = {"prefill": pre, "decode": dec, "wgmma": wgmma}
         print(f"mesh serving {label} ({dtype} weights, f32 cache; stacked, "
               f"tensor_parallel): prefill of {SS_BATCH} x {SS_PROMPT}"
               f"{f' over {SS_FRAMES} frames' if enc is not None else ''} "
@@ -5322,6 +5410,22 @@ def audit_phase(tag) -> dict:
     return {name: counts[name] for name in
             ("villa_scatter", "villa_gather", "flash_attention_prefill",
              "flash_attention_decode")}
+
+
+def wgmma_prefill(cfg, dtype) -> bool:
+    """Whether ``cfg``'s attention prefills at weights of ``dtype`` take
+    K3's wgmma route: all-bf16 q, k and v (bf16 weights) at the head dims
+    ``flash_attention.prefill_route`` sends there (MLA's expanded Dk / Dv
+    among them)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+
+    if "mla" in cfg.layer_kinds():
+        dk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    else:
+        dk = dv = cfg.head_dim
+    return dtype == torch.bfloat16 and FA.prefill_route(
+        dtype, dtype, dk, dv) == "wgmma"
 
 
 def check_counts(counts, due, path) -> None:

@@ -36,11 +36,16 @@
 // wrapper casts nothing.  A product with an f32 operand takes the f32 path
 // (3xTF32 in the prefill); only all-bf16 inputs run bf16 products.
 //
-// Two kernels share that contract: the tensor-core prefill kernel here and
-// the split-KV decode kernel in flash_decode.cu (the two build in parallel;
-// flash_common.cuh holds what they share).  The wrapper launches decode
-// when S = 1 and prefill otherwise; it copies q/k/v that do not start on a
-// 16-byte boundary first.
+// Three kernels share that contract: the tensor-core prefill kernel here,
+// the all-bf16 prefill on warpgroup MMAs and TMA in flash_prefill_wgmma.cu
+// (q, k and v all bf16 at tile widths 64, 128 and 256 and at Dk 192 / Dv
+// 128: kernels/flash_attention.py::prefill_route), and the split-KV decode
+// kernel in flash_decode.cu (the three build in parallel;
+// flash_common.cuh holds what two share).  The wrapper launches decode
+// when S = 1 and a prefill kernel otherwise, picked by shape; it copies
+// q/k/v that do not start on a 16-byte boundary first.  Here the prefill
+// runs f32 and mixed-dtype inputs at every width, and all-bf16 inputs at
+// widths 16, 32, 96 and 512.
 //
 // Bounds on the H100.  Decode (S = 1) is bound by bytes: it reads each
 // valid K/V row once for 2*G*D FMAs per key and head group, 8 FLOP per
@@ -84,9 +89,10 @@
 //         accumulator fragment is its A fragment, and the output columns so
 //         that a lane reads contiguous V and writes D/4 contiguous floats;
 //         V's 16-byte chunks are XOR-swizzled instead of padded.
-//   bf16: m16n8k16 bf16 MMAs with f32 accumulators: Q's fragments (scaled
-//         in bf16) in registers, K from ldmatrix, V from ldmatrix.trans,
-//         P rounded to bf16 for PV; K/V rows padded to D + 8.
+//   bf16 (widths 16, 32, 96 and 512 here): m16n8k16 bf16 MMAs with f32
+//         accumulators: Q's fragments (scaled in bf16) in registers, K
+//         from ldmatrix, V from ldmatrix.trans, P rounded to bf16 for PV;
+//         K/V rows padded to D + 8.
 //   mixed: bf16 q over f32 K/V stages Q as f32 after its bf16 rounding;
 //         f32 q over bf16 K/V widens each bf16 K/V chunk to f32 on its way
 //         into shared memory (plain loads: cp.async cannot convert), whose
@@ -115,22 +121,27 @@
 // say) are cut into slices of `heads` = min(G, rows) heads: the grid's x
 // is (query block, head slice), and a CTA holds rows / heads queries of
 // one slice, in the general template.  One launch either way.
-// mma.sync, not wgmma: TF32 wgmma reads B, and A unless it sits in
-// registers, as K-major tiles in shared memory, so 3xTF32 would need the
-// hi and lo halves of K, of a transposed V and (for want of registers) of
-// Q there: at D = 128 in f32 that is more than the 227 KB a CTA has.  The
-// warp-level MMAs take both halves from registers, split where they are
-// loaded.
+// mma.sync, not wgmma, for f32 and mixed inputs: TF32 wgmma reads B, and
+// A unless it sits in registers, as K-major tiles in shared memory, so
+// 3xTF32 would need the hi and lo halves of K, of a transposed V and (for
+// want of registers) of Q there: at D = 128 in f32 that is more than the
+// 227 KB a CTA has.  The warp-level MMAs take both halves from registers,
+// split where they are loaded.  A bf16 wgmma reads B either K-major or
+// MN-major, so all-bf16 inputs take flash_prefill_wgmma.cu instead (K and
+// V as they lie, P from registers); its widths 16, 32 and 96 stay here
+// (no wgmma tile below 64 columns: a padded 64 would multiply mostly
+// zeros; no config has a head dim from 72 to 96), and 512, whose 256-wide
+// output tile is the most a wgmma takes.
 // The scores' masks come from each key's staged kv_pos, never from the
 // slot index (a ring cache holds token t in slot t % W), and the row max
 // and sum from the quad of lanes that share a row of the accumulator
 // fragment; e^x is exp2f(x log2 e) (one FFMA, then 2^x to 2 ulp), and the
 // accumulator is rescaled only in the tiles where some row's max moved.
 //
-// Later work: wgmma (warpgroup MMAs from shared memory; TF32 wgmma takes
-// K-major operands only, so V needs a transposed copy) and TMA tensor-map
-// loads, which would free the registers and the issue slots the fragment
-// loads and splits take; at head dim 256, a second stage (32-key tiles).
+// Later work: the f32 small buckets (one tile and a grid below one wave:
+// gemma-7b's and MLA's bucket 64), TMA tensor-map loads for the f32 and
+// mixed routes, which would free the registers and issue slots the loads
+// take; at head dim 256 in f32, a second stage (32-key tiles).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -975,17 +986,18 @@ int flash_attention_prepare() {
     return static_cast<int>(err);
 #define OPT_IN_D(DD, P)                                                     \
   OPT_IN(float, float, DD, DD, P)                                           \
-  OPT_IN(__nv_bfloat16, __nv_bfloat16, DD, DD, P)                           \
   OPT_IN(__nv_bfloat16, float, DD, DD, P)                                   \
   OPT_IN(float, __nv_bfloat16, DD, DD, P)
+#define OPT_IN_BF16(DD, P) OPT_IN(__nv_bfloat16, __nv_bfloat16, DD, DD, P)
   OPT_IN_D(16, false) OPT_IN_D(32, false) OPT_IN_D(64, false)
   OPT_IN_D(128, false) OPT_IN_D(256, false) OPT_IN_D(512, false)
   OPT_IN_D(64, true) OPT_IN_D(96, true) OPT_IN_D(128, true)
   OPT_IN_D(256, true) OPT_IN_D(512, true)
+  OPT_IN_BF16(16, false) OPT_IN_BF16(32, false) OPT_IN_BF16(512, false)
+  OPT_IN_BF16(96, true) OPT_IN_BF16(512, true)
   OPT_IN(float, float, 192, 128, false)
-  OPT_IN(__nv_bfloat16, __nv_bfloat16, 192, 128, false)
   OPT_IN(float, float, 192, 128, true)
-  OPT_IN(__nv_bfloat16, __nv_bfloat16, 192, 128, true)
+#undef OPT_IN_BF16
 #undef OPT_IN_D
 #undef OPT_IN
   return 0;
@@ -993,11 +1005,13 @@ int flash_attention_prepare() {
 
 // S > 1, laid out by prefill_plan: `width` is the tile width of the
 // instantiation: D itself where D = Dv is one of 16, 32, 64, 96, 128, 256,
-// 512 (or Dk 192 / Dv 128, q and k/v both f32 or both bf16: width 192),
-// else, for D = Dv another multiple of 8 below 512, the smallest of the
-// padded widths 64, 96, 128, 256, 512 above D.  A head dim at its width
-// whose group fits a CTA (heads = G) runs the unpadded instantiation,
-// where there is one (not at 96); any other call the general one, which
+// 512 (or Dk 192 / Dv 128, q and k/v both f32: width 192), else, for D =
+// Dv another multiple of 8 below 512, the smallest of the padded widths
+// 64, 96, 128, 256, 512 above D; q and k/v both bf16 only at widths 16,
+// 32, 96 and 512 (the others are flash_prefill_wgmma.cu's).  A head dim
+// at its width whose group fits a CTA (heads = G) runs the unpadded
+// instantiation, where there is one (not at 96); any other call the
+// general one, which
 // masks its loads and stores past D and takes head slices.  `rows`
 // (query, head) rows a CTA, `keys` keys a tile and `stages` tiles in
 // flight must be the instantiation's (128 rows up to width 128, 64 at
@@ -1029,19 +1043,17 @@ int flash_prefill_launch(const void* q, const void* k, const void* v,
                                           stages, BQ, heads, n_blocks, s);
 #define PREFILL_D(DD, P)                                                    \
   PREFILL(float, float, 0, 0, DD, DD, P)                                    \
-  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, DD, DD, P)                    \
   PREFILL(__nv_bfloat16, float, 1, 0, DD, DD, P)                            \
   PREFILL(float, __nv_bfloat16, 0, 1, DD, DD, P)
+#define PREFILL_BF16(DD, P)                                                 \
+  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, DD, DD, P)
   // an unpadded instantiation returns where one matches; the general
-  // ones take the rest
+  // ones take the rest.  All-bf16 inputs at widths 64, 128, 256 and 192
+  // run csrc/flash_prefill_wgmma.cu instead (prefill_route).
   const bool whole = D == width && heads == H / K;
   if (mla) {
-    if (whole) {
-      PREFILL(float, float, 0, 0, 192, 128, false)
-      PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, 192, 128, false)
-    }
+    if (whole) PREFILL(float, float, 0, 0, 192, 128, false)
     PREFILL(float, float, 0, 0, 192, 128, true)
-    PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, 192, 128, true)
     return -1;
   }
   if (whole) {
@@ -1051,12 +1063,18 @@ int flash_prefill_launch(const void* q, const void* k, const void* v,
     PREFILL_D(128, false)
     PREFILL_D(256, false)
     PREFILL_D(512, false)
+    PREFILL_BF16(16, false)
+    PREFILL_BF16(32, false)
+    PREFILL_BF16(512, false)
   }
   PREFILL_D(64, true)
   PREFILL_D(96, true)
   PREFILL_D(128, true)
   PREFILL_D(256, true)
   PREFILL_D(512, true)
+  PREFILL_BF16(96, true)
+  PREFILL_BF16(512, true)
+#undef PREFILL_BF16
 #undef PREFILL_D
 #undef PREFILL
   return -1;

@@ -1,7 +1,8 @@
 # Port of src/repro/kernels/flash_attention.py::flash_attention (:81-131) as
-# the CUDA kernels of csrc/flash_attention.cu (prefill) and
-# csrc/flash_decode.cu (decode), in the contract of
-# src/repro/models/attention.py::chunked_attention (:37-126).
+# the CUDA kernels of csrc/flash_prefill_wgmma.cu (all-bf16 prefill),
+# csrc/flash_attention.cu (the other prefills) and csrc/flash_decode.cu
+# (decode), in the contract of src/repro/models/attention.py::
+# chunked_attention (:37-126).
 """Launch wrapper of the attention kernels (K3) and the (B,H,S,D) layout
 wrapper around them.
 
@@ -14,8 +15,12 @@ raises if the launch reports an error, and counts its calls in
 ``chunked_attention.prefill`` and ``chunked_attention.decode``.  Decode
 (S = 1) runs the split-KV kernel, laid out by :func:`decode_plan`, with its
 partials and tickets in a workspace kept per device and stream
-(:func:`_workspace`).  Prefill (S > 1) runs the tensor-core kernel, laid
-out by :func:`prefill_plan`.  q/k/v that do not start on a 16-byte
+(:func:`_workspace`).  Prefill (S > 1) runs one of two tensor-core kernels,
+picked by shape (:func:`prefill_route`) and laid out by
+:func:`prefill_plan`: q, k and v all bf16 at tile widths 64, 128 and 256
+or at Dk 192 / Dv 128 the warpgroup-MMA kernel fed by TMA (``"wgmma"``,
+also counted in ``chunked_attention.prefill_wgmma``), every other the
+warp-level MMA kernel (``"mma"``).  q/k/v that do not start on a 16-byte
 boundary, which both kernels' vector loads need, are copied first.  It
 takes the reference's causal and sliding-window masks (``window > 0``, the
 ``attn_local`` layers), any GQA group, every head dim that is a multiple of
@@ -67,6 +72,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LIB = None
 _DECODE_LIB = None
+_WGMMA_LIB = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {**_DTYPES, torch.int8: 2}
 # (q dtype, head dim, head group) of the int8 decode instantiations
@@ -91,6 +97,15 @@ PREFILL_ROWS = 128          # (query, head) rows a CTA: 8 warps of 16
 PREFILL_KEYS = 64           # keys a K/V tile (32 above width 256)
 PREFILL_STAGES = 2          # K/V tiles in flight (cp.async ring)
 WIDE_D = 128                # above it 2 warps share a row block (4 above 256)
+# the all-bf16 prefill on warpgroup MMAs and TMA (csrc/flash_prefill_wgmma.cu):
+# its tile widths of Dk (192: MLA's Dk 192 / Dv 128), 128 rows a CTA (two
+# consumer warpgroups of 64), and keys a tile and tiles in flight by width.
+# Width 96 keeps the mma.sync template: no config has a head dim from 72
+# to 96, and at 128 such a head would multiply 25-44% zero columns.
+WGMMA_WIDTHS = (64, 128, 256, 192)
+WGMMA_ROWS = 128
+WGMMA_KEYS = {64: 128, 128: 128, 256: 64, 192: 128}
+WGMMA_STAGES = {64: 4, 128: 2, 256: 2, 192: 2}
 
 
 def tile_width(head_dim: int) -> int:
@@ -130,6 +145,22 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _wgmma_lib() -> ctypes.CDLL:
+    """The all-bf16 prefill kernel's library
+    (``csrc/flash_prefill_wgmma.cu``)."""
+    global _WGMMA_LIB
+    if _WGMMA_LIB is None:
+        lib = _build.library("flash_prefill_wgmma")
+        lib.flash_prefill_wgmma_launch.argtypes = (
+            [_P] * 6 + [_I] * 9 + [ctypes.c_float] + [_I] * 7 + [_P])
+        lib.flash_prefill_wgmma_prepare.argtypes = []
+        for fn in (lib.flash_prefill_wgmma_launch,
+                   lib.flash_prefill_wgmma_prepare):
+            fn.restype = ctypes.c_int
+        _WGMMA_LIB = lib
+    return _WGMMA_LIB
 
 
 def _decode_lib() -> ctypes.CDLL:
@@ -178,6 +209,23 @@ def decode_plan(B: int, K: int, G: int, T: int, itemsize: int, n_sm: int,
     return head_group, n_groups, -(-max(T, 1) // split_len), split_len
 
 
+def prefill_route(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                  head_dim: int, v_dim: int) -> str:
+    """The prefill kernel a call runs, by its dtypes and head dims:
+    ``"wgmma"`` (csrc/flash_prefill_wgmma.cu) where q and k/v are all bf16
+    and Dk = Dv has a tile width of 64, 128 or 256, or (Dk, Dv) is
+    :data:`MLA_DIMS`; ``"mma"`` (csrc/flash_attention.cu) for every other
+    shape it takes: f32, mixed dtypes, widths 16, 32, 96 and 512.  Raises
+    ``ValueError`` for head dims the kernels do not take."""
+    mla = (head_dim, v_dim) == MLA_DIMS
+    if not mla and head_dim != v_dim:
+        raise ValueError(f"head_dim {head_dim} / {v_dim}: the prefill takes "
+                         f"Dk = Dv or Dk {MLA_DIMS[0]} / Dv {MLA_DIMS[1]}")
+    width = MLA_DIMS[0] if mla else tile_width(head_dim)
+    bf16 = q_dtype == kv_dtype == torch.bfloat16
+    return "wgmma" if bf16 and width in WGMMA_WIDTHS else "mma"
+
+
 class PrefillPlan(NamedTuple):
     rows: int                    # (query, head) rows a CTA
     keys: int                    # keys a tile
@@ -187,6 +235,7 @@ class PrefillPlan(NamedTuple):
                                  #  batch rows)
     heads: int                   # heads of one kv head a CTA (a slice)
     width: int                   # the instantiation's tile width of Dk
+    route: str                   # the kernel (prefill_route)
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,23 +255,34 @@ def prefill_plan(B: int, S: int, H: int, K: int, head_dim: int,
     warps share each 16-row block, and a quarter at 512 (four warps).
     Tiles hold PREFILL_KEYS keys, half that at width 512.  Above a Dk width
     of WIDE_D the f32 path (``f32``: q or K/V is f32) has one stage, since
-    its Q and one K/V tile fill the CTA's shared memory."""
+    its Q and one K/V tile fill the CTA's shared memory.  All-bf16 inputs
+    (``f32`` False) at a width of :data:`WGMMA_WIDTHS` take the ``"wgmma"``
+    route (:func:`prefill_route`): WGMMA_ROWS rows at every width, keys
+    and stages from WGMMA_KEYS and WGMMA_STAGES, the same rows and grid
+    otherwise."""
     if (head_dim, v_dim) == MLA_DIMS:
         width, v_width = MLA_DIMS[0], MLA_DIMS[1]
     else:
         width = v_width = tile_width(head_dim)
-    rows = PREFILL_ROWS // (4 if v_width > 256 else
-                            2 if v_width > WIDE_D else 1)
     G = H // K
     if G < 1 or H % K:
         raise ValueError(f"{H} heads over {K} kv heads: H must be a "
                          f"multiple of K")
+    route = prefill_route(torch.float32 if f32 else torch.bfloat16,
+                          torch.bfloat16, head_dim, v_dim)
+    if route == "wgmma":
+        rows, keys = WGMMA_ROWS, WGMMA_KEYS[width]
+        stages = WGMMA_STAGES[width]
+    else:
+        rows = PREFILL_ROWS // (4 if v_width > 256 else
+                                2 if v_width > WIDE_D else 1)
+        keys = PREFILL_KEYS // 2 if width > 256 else PREFILL_KEYS
+        stages = 1 if width > WIDE_D and f32 else PREFILL_STAGES
     heads = min(G, rows)
     bq = rows // heads
-    keys = PREFILL_KEYS // 2 if width > 256 else PREFILL_KEYS
-    stages = 1 if width > WIDE_D and f32 else PREFILL_STAGES
     return PrefillPlan(rows, keys, stages, bq,
-                       (-(-S // bq) * -(-G // heads), K, B), heads, width)
+                       (-(-S // bq) * -(-G // heads), K, B), heads, width,
+                       route)
 
 
 def prefill_row(plan: PrefillPlan, S: int, G: int, x: int, kvh: int,
@@ -248,6 +308,18 @@ def _device(index: int) -> int:
     if err:
         raise RuntimeError(f"attention kernel opt-in failed: error {err}")
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_ready(index: int) -> ctypes.CDLL:
+    """The all-bf16 prefill's library, after its shared-memory opt-in on
+    CUDA device ``index`` (once a device)."""
+    lib = _wgmma_lib()
+    with torch.cuda.device(index):
+        err = lib.flash_prefill_wgmma_prepare()
+    if err:
+        raise RuntimeError(f"wgmma prefill opt-in failed: error {err}")
+    return lib
 
 
 _WORKSPACE = {}
@@ -353,12 +425,20 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         plan = prefill_plan(B, S, H, K, D,
                             torch.float32 in (q.dtype, k.dtype), Dv)
-        err = _lib().flash_prefill_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, Dv,
-            int(causal), int(window), D ** -0.5, _DTYPES[q.dtype],
-            _DTYPES[k.dtype], plan.width, plan.rows, plan.keys, plan.stages,
-            plan.bq, plan.heads, plan.grid[0], stream)
+        if plan.route == "wgmma":
+            err = _wgmma_ready(q.device.index).flash_prefill_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+                kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, Dv,
+                int(causal), int(window), D ** -0.5, plan.width, plan.rows,
+                plan.keys, plan.stages, plan.bq, plan.heads, plan.grid[0],
+                stream)
+        else:
+            err = _lib().flash_prefill_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+                kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, Dv,
+                int(causal), int(window), D ** -0.5, _DTYPES[q.dtype],
+                _DTYPES[k.dtype], plan.width, plan.rows, plan.keys,
+                plan.stages, plan.bq, plan.heads, plan.grid[0], stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: error {err}")
     chunked_attention.launches += 1
@@ -367,11 +447,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         chunked_attention.decode_int8 += int8
     else:
         chunked_attention.prefill += 1
+        chunked_attention.prefill_wgmma += plan.route == "wgmma"
     return out
 
 
 chunked_attention.launches = 0
 chunked_attention.prefill = 0
+chunked_attention.prefill_wgmma = 0
 chunked_attention.decode = 0
 chunked_attention.decode_int8 = 0
 

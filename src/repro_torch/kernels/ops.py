@@ -24,9 +24,12 @@ KERNELS = {"villa_scatter": RC.villa_scatter,
            "rbm_copy": RC.rbm_copy}
 
 
-# K3's launches by route: the tensor-core prefill kernel and the split-KV
+# K3's launches by route: the tensor-core prefill kernels and the split-KV
 # decode kernel, whose sum is ``flash_attention``
 ROUTES = {"flash_attention_prefill": (FA.chunked_attention, "prefill"),
+          # of the prefill route, the all-bf16 launches on warpgroup MMAs
+          "flash_attention_prefill_wgmma": (FA.chunked_attention,
+                                            "prefill_wgmma"),
           "flash_attention_decode": (FA.chunked_attention, "decode"),
           # of the decode route, the launches over an int8 cache (K3d)
           "flash_attention_decode_int8": (FA.chunked_attention,

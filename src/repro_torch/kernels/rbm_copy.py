@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -85,9 +86,74 @@ def _stream(device: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+# K2's work split (csrc/page_copy.cu): a copy unit is at most UNIT_VECS
+# 16-byte vectors of a page; a CTA holds GATHER_WARPS warps, each moving
+# the live units of a batch of 32 through two halves of HALF_BYTES
+UNIT_VECS = 512
+GATHER_WARPS = 6
+HALF_BYTES = 16384
+
+
+class GatherPlan(NamedTuple):
+    page_vecs: int      # 16-byte vectors a page
+    unit_vecs: int      # vectors a unit (the last unit of a page may be less)
+    spp: int            # units a page
+    n_units: int
+    n_batches: int      # batches of 32 units, one table load a lane
+    per_half: int       # units a half-buffer holds
+    blocks: int         # CTAs launched
+
+
+def gather_plan(n: int, page_bytes: int, grid: int) -> GatherPlan:
+    """K2's split of ``n`` pages of ``page_bytes`` over at most ``grid``
+    CTAs, as ``villa_gather_launch`` computes it."""
+    page_vecs = page_bytes // 16
+    unit_vecs = min(page_vecs, UNIT_VECS)
+    spp = -(-page_vecs // unit_vecs)
+    n_units = n * spp
+    n_batches = -(-n_units // 32)
+    return GatherPlan(page_vecs, unit_vecs, spp, n_units, n_batches,
+                      min(32, HALF_BYTES // (16 * unit_vecs)),
+                      min(grid, -(-n_batches // GATHER_WARPS)))
+
+
+def gather_copies(table, n_pool: int, page_bytes: int, grid: int
+                  ) -> List[Tuple[int, int, int]]:
+    """``(warp, source vector, destination vector)`` of every 16-byte
+    vector K2 moves for ``table``, by the kernel's own index math: warp w
+    (CTA-fastest numbering) takes batches w, w + warps, ...; a batch's
+    lanes each read one unit's entry, a ballot keeps those in [0, n_pool)
+    in lane order, and each fill of a half-buffer gives lane i the live
+    unit g0 + i, which it moves whole.  A host model for the tests; the
+    card runs the kernel."""
+    table = [int(e) for e in table]
+    p = gather_plan(len(table), page_bytes, grid)
+    warps = p.blocks * GATHER_WARPS
+    copies = []
+    for w in range(warps):
+        for b in range(w, p.n_batches, warps):
+            live = []
+            for lane in range(32):
+                u = b * 32 + lane
+                if u >= p.n_units:
+                    continue
+                j, part = divmod(u, p.spp)
+                if 0 <= table[j] < n_pool:
+                    off = part * p.unit_vecs
+                    live.append((table[j] * p.page_vecs + off,
+                                 j * p.page_vecs + off,
+                                 min(p.unit_vecs, p.page_vecs - off)))
+            for g0 in range(0, len(live), p.per_half):
+                for lane in range(min(p.per_half, len(live) - g0)):
+                    src, dst, n = live[g0 + lane]
+                    copies.extend((w, src + i, dst + i) for i in range(n))
+    return copies
+
+
 @functools.lru_cache(maxsize=None)
 def _gather_grid(index: int) -> int:
-    """K2's persistent grid on CUDA device ``index``, read once a device."""
+    """K2's persistent grid on CUDA device ``index``, read once a device
+    (the query also opts the kernel in to its shared memory there)."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
         err = _lib("page_copy").villa_gather_grid(ctypes.byref(blocks))

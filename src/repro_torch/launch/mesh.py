@@ -59,10 +59,11 @@ import torch.distributed as dist
 from repro_torch import resolve_device, to_device
 from repro_torch.kernels import ops
 
-# the largest row a StackedAxis views a shard as: K2 runs one warp a row
-# and was tuned on 1 KiB pages (csrc/page_copy.cu), so a 550 MB shard is
-# 537k rows, never one page
-HOP_ROW_BYTES = 1024
+# the largest row a StackedAxis views a shard as: K2 copies a row in units
+# of at most 8 KiB spread over its warps (csrc/page_copy.cu), so a row's
+# size sets only the table's length (a 550 MB shard is 8,392 rows of 64
+# KiB), never how the copy is split
+HOP_ROW_BYTES = 64 * 1024
 _ALIGN = 16                        # K2's row size and alignment (_check_pool)
 
 Pairs = Sequence[Tuple[int, int]]

@@ -44,6 +44,7 @@ from repro.models import layers as R_layers
 from repro.models import lm as R_lm
 from repro.serve.engine import Engine as REngine
 from repro.serve.engine import Request as RRequest
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as P_ops
 from repro_torch.kernels import ref as P_ref
 from repro_torch.models import lm as P_lm
@@ -234,8 +235,10 @@ def test_attention_bar_takes_the_twin_and_fails_a_dropped_split(qdt, kvdt,
                                       split_len=64)
     else:             # q scaled in its own dtype first, as the kernel does
         qs = (q * D ** -0.5).float() * D ** 0.5
-        twin = P_ref.prefill_tc_ref(qs, k.float(), v.float(), qp,
-                                    kp).to(q.dtype)
+        plan = FA.prefill_plan(B, S, H, K, D, torch.float32 in (q.dtype,
+                                                                 k.dtype), D)
+        twin = P_ref.prefill_tc_ref(qs, k.float(), v.float(), qp, kp,
+                                    keys=plan.keys).to(q.dtype)
     bar = P_ref.attention_bar(twin, want, q, k, v, qp, kp)
     assert bool(((twin.float() - want.float()).abs() < bar).all())
     dropped = kp.clone()

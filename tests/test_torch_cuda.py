@@ -7,7 +7,9 @@ run time).  On a machine with one, run them with
 
 They cover shapes the smoke run does not: odd page counts, masked and
 out-of-range page tables, tables longer than the page gather's persistent
-grid, other head dims (256 included), group sizes and dtypes (q over k/v
+grid and mostly -1 (a hop's), pages of 16 B to 64 KiB, the all-bf16
+prefill route (csrc/flash_prefill_wgmma.cu) at each of its widths, other
+head dims (256 included), group sizes and dtypes (q over k/v
 of another dtype included), sequence lengths that are not multiples of the
 kernels' tiles or splits, the decode kernel's dispatch
 rule, int8 K/V with their scales on the decode route (K3d) at every
@@ -18,6 +20,8 @@ and rwkv's among them) on the card against the CPU, and the entry-point
 audit's card checks (syncs, launches, allocations), and the roofline's
 profile capture (every launch of its region recorded).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -194,8 +198,8 @@ def test_gather_never_reads_out_of_range_device_entries(dev, dt):
 
 @pytest.mark.parametrize("dt", DTYPES)
 def test_gather_table_longer_than_the_persistent_grid(dev, dt):
-    """More entries than the resident warps take in one pass (132 SMs x at
-    most 64 warps x 4 pages), 16-byte pages and 1 KiB pages."""
+    """More batches of 32 entries than the persistent grid's warps take in
+    one pass, 16-byte pages and 1 KiB pages."""
     g = torch.Generator(device=dev).manual_seed(13)
     for shape, n in (((5000, 16 // torch.empty(0, dtype=dt).element_size()),
                       200_003), ((2000, 8, 128), 70_001)):
@@ -1868,3 +1872,171 @@ def test_capture_attributes_the_region_whole(dev):
     assert att["unrecorded"] == 0
     assert (att["launches"], att["copies"]) == (5, 1)
     assert att["kernel_ms"] > 0 and att["lead_in_unrecorded"] >= 0
+
+
+# ---- K2 over sparse tables; the all-bf16 prefill route --------------------
+
+def _sparse_tables(dev, g, n, n_pool):
+    """Tables of ``n`` entries over ``n_pool`` pages: every entry live,
+    none, one live run of n / 8 at a random offset (a one-pair hop's),
+    and scattered live entries (one in ten)."""
+    live = torch.randint(0, n_pool, (n,), device=dev, generator=g,
+                         dtype=torch.int32)
+    run = torch.full_like(live, -1)
+    m = max(1, n // 8)
+    off = int(torch.randint(0, n - m + 1, (1,), device=dev, generator=g))
+    run[off:off + m] = live[off:off + m]
+    scattered = torch.where(torch.rand(n, device=dev, generator=g) < 0.1,
+                            live, torch.full_like(live, -1))
+    return {"all": live, "dead": torch.full_like(live, -1), "run": run,
+            "scattered": scattered}
+
+
+@pytest.mark.parametrize("page_bytes", [16, 48, 1024, 4096, 4112, 8208,
+                                        65536])
+def test_gather_sparse_tables_bit_exact(dev, page_bytes):
+    """K2 bit-exact against villa_gather_ref over tables mostly -1 (one
+    live run at a random offset, scattered live entries), all live and all
+    -1, at pages of 16 B to 64 KiB (8208 B: an 8 KiB unit and a 16-byte
+    tail): a masked read leaves out[j] as it was where the entry is -1."""
+    g = torch.Generator(device=dev).manual_seed(page_bytes)
+    n_pool = max(16, (16 << 20) // page_bytes)
+    pages = torch.randint(0, 256, (n_pool, page_bytes), dtype=torch.uint8,
+                          device=dev, generator=g)
+    for n in (1, 33, 3001 if page_bytes <= 8208 else 257):
+        for name, table in _sparse_tables(dev, g, n, n_pool).items():
+            out = torch.randint(0, 256, (n, page_bytes), dtype=torch.uint8,
+                                device=dev, generator=g)
+            got = ops.villa_gather(pages, table, out=out.clone())
+            want = ref.villa_gather_ref(pages, table, out.clone())
+            assert torch.equal(got, want), (n, name)
+            dead = table < 0
+            assert torch.equal(got[dead], out[dead]), (n, name)
+            if name == "all":
+                assert torch.equal(ops.villa_gather(pages, table),
+                                   pages[table.long()]), n
+
+
+def test_gather_sparse_table_longer_than_the_grid(dev):
+    """A hop's table shape: 1 KiB and 64 KiB rows, far more batches than
+    the persistent grid takes in one pass, most entries -1."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    for page_bytes, n in ((1024, 400_003), (65536, 6_007)):
+        n_pool = (64 << 20) // page_bytes
+        pages = torch.randint(0, 256, (n_pool, page_bytes),
+                              dtype=torch.uint8, device=dev, generator=g)
+        for name, table in _sparse_tables(dev, g, n, n_pool).items():
+            if name == "all":
+                continue
+            out = torch.zeros((n, page_bytes), dtype=torch.uint8,
+                              device=dev)
+            got = ops.villa_gather(pages, table, out=out.clone())
+            assert torch.equal(got, ref.villa_gather_ref(pages, table,
+                                                         out.clone())), name
+
+
+def _bf16_case(dev, seed, B, S, T, H, K, dk, dv, ragged=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, dk), device=dev, generator=g).to(BF16)
+    k = torch.randn((B, T, K, dk), device=dev, generator=g).to(BF16)
+    v = torch.randn((B, T, K, dv), device=dev, generator=g).to(BF16)
+    kp = torch.arange(T, dtype=torch.int32, device=dev).repeat(B, 1)
+    qp = kp[:, T - S:].clone()
+    if ragged:                       # row b holds T - 37 b - 5 tokens
+        for b in range(B):
+            n = T - 37 * b - 5
+            kp[b, n:] = 2**30
+            qp[b] = torch.arange(n - S, n, device=dev, dtype=torch.int32)
+        qp[:, -3:] = 2**30           # and its last 3 queries are pads
+    return q, k, v, qp.contiguous(), kp.contiguous()
+
+
+@pytest.mark.parametrize("B,S,T,H,K,dk,dv,window,causal", [
+    (1, 300, 300, 32, 4, 64, 64, 0, True),          # width 64, G 8
+    (2, 77, 150, 12, 4, 56, 56, 0, True),           # 56 in width 64, G 3
+    (1, 300, 400, 8, 2, 120, 120, 50, True),        # 120 in 128, window
+    (1, 1500, 1500, 32, 16, 128, 128, 1024, True),  # gemma3's window
+    (1, 1024, 1024, 16, 16, 256, 256, 0, True),     # gemma-7b
+    (1, 333, 333, 32, 32, 224, 224, 0, True),       # Zamba2: 224 in 256
+    (2, 300, 400, 8, 2, 256, 256, 100, True),       # width 256, window
+    (1, 1024, 1024, 16, 16, 192, 128, 0, True),     # MLA's Dk / Dv
+    (2, 40, 64, 64, 64, 192, 128, 0, True),         # MLA, S below a CTA
+    (2, 37, 200, 64, 2, 128, 128, 0, True),         # G 32
+    (1, 9, 50, 400, 2, 128, 128, 0, True),          # G 200: head slices
+    (2, 200, 512, 8, 8, 64, 64, 0, False),          # non-causal
+    (1, 33, 1024, 16, 4, 128, 128, 0, False),       # non-causal, G 4
+])
+def test_wgmma_prefill_matches_plain(dev, B, S, T, H, K, dk, dv, window,
+                                     causal):
+    """All-bf16 prefill runs the wgmma route (its counter, inside the
+    prefill route's) and stays within ref.attention_bar of the plain
+    version: each width (64, 128, 256, padded head dims in them) and MLA,
+    S and T off the 128-key tiles, windows, G 1 to 200, non-causal (at T
+    up to or a multiple of the reference's 512-key blocks, whose padding
+    it counts as keys in non-causal attention)."""
+    q, k, v, qp, kp = _bf16_case(dev, dk + H + S, B, S, T, H, K, dk, dv)
+    before = (ops.FA.chunked_attention.prefill,
+              ops.FA.chunked_attention.prefill_wgmma)
+    out = ops.chunked_attention(q, k, v, qp, kp, window=window,
+                                causal=causal)
+    torch.cuda.synchronize()
+    assert (ops.FA.chunked_attention.prefill,
+            ops.FA.chunked_attention.prefill_wgmma) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window,
+                                     causal=causal)
+    _assert_within_bar(out, want, q, k, v, qp, kp, window=window,
+                       causal=causal)
+
+
+@pytest.mark.parametrize("dk,dv,G", [(64, 64, 8), (128, 128, 4),
+                                     (224, 224, 1), (192, 128, 1)])
+def test_wgmma_prefill_ragged_rows_and_pads(dev, dk, dv, G):
+    """B = 3 rows of different lengths (2**30 past each row's tokens) and
+    query pads at 2**30, on the wgmma route, within the bar."""
+    q, k, v, qp, kp = _bf16_case(dev, dk + G, 3, 64, 300, 4 * G, 4, dk, dv,
+                                 ragged=True)
+    n = ops.FA.chunked_attention.prefill_wgmma
+    out = ops.chunked_attention(q, k, v, qp, kp)
+    assert ops.FA.chunked_attention.prefill_wgmma == n + 1
+    want = ref.chunked_attention_ref(q, k, v, qp, kp)
+    _assert_within_bar(out, want, q, k, v, qp, kp)
+
+
+@pytest.mark.parametrize("off", [1, 3])
+def test_wgmma_prefill_of_views_off_16_byte_boundaries(dev, off):
+    """q, k and v views that start off a 16-byte boundary: the wrapper
+    copies them, and the route's TMA maps read the copies."""
+    g = torch.Generator(device=dev).manual_seed(off)
+    shapes = ((1, 100, 8, 64), (1, 100, 2, 64), (1, 100, 2, 64))
+    q, k, v = (torch.randn((math.prod(s) + off,), device=dev,
+                           generator=g).to(BF16)[off:].view(s)
+               for s in shapes)
+    pos = torch.arange(100, dtype=torch.int32, device=dev)[None]
+    n = ops.FA.chunked_attention.prefill_wgmma
+    out = ops.chunked_attention(q, k, v, pos, pos)
+    assert ops.FA.chunked_attention.prefill_wgmma == n + 1
+    want = ref.chunked_attention_ref(q, k, v, pos, pos)
+    _assert_within_bar(out, want, q, k, v, pos, pos)
+
+
+@pytest.mark.parametrize("B,S,H,K,D", [(2, 77, 8, 8, 64), (1, 130, 16, 4, 128),
+                                       (1, 90, 8, 8, 224)])
+def test_train_attention_on_the_wgmma_route(dev, B, S, H, K, D):
+    """K3e over bf16 q, k, v: the forward is one launch of the wgmma route
+    within the bar of the plain twin, and dq/dk/dv equal the twin's
+    autograd gradients (the backward recomputes it)."""
+    q, k, v, pos, _ = _bf16_case(dev, D + S, B, S, S, H, K, D, D)
+    up = torch.randn((B, S, H, D), device=dev).to(BF16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    twins = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = ops.FA.chunked_attention.prefill_wgmma
+    out = ops.chunked_attention(*leaves, pos, pos)
+    assert out.grad_fn is not None and out.dtype == BF16
+    assert ops.FA.chunked_attention.prefill_wgmma == n + 1
+    want = ref.chunked_attention_ref(*twins, pos, pos)
+    _assert_within_bar(out.detach(), want.detach(), q, k, v, pos, pos)
+    got = torch.autograd.grad(out, leaves, up)
+    exp = torch.autograd.grad(want, twins, up)
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)

@@ -190,9 +190,12 @@ def test_prefill_plan_covers_every_row_once(S, G, D, f32):
     plan, seen = _prefill_coverage(1, S, K * G, K, D, f32)
     assert (seen == 1).all()
     width = FA.tile_width(D)
-    rows = {512: 32, 256: 64}.get(width, 128)
+    wgmma = not f32 and width in (64, 128, 256)       # the all-bf16 route
+    rows = 128 if wgmma else {512: 32, 256: 64}.get(width, 128)
     assert (plan.rows, plan.width, plan.heads) == (rows, width, min(G, rows))
-    assert plan.keys == (32 if width == 512 else 64)
+    assert plan.route == ("wgmma" if wgmma else "mma")
+    assert plan.keys == (FA.WGMMA_KEYS[width] if wgmma
+                         else 32 if width == 512 else 64)
     assert plan.stages == (1 if f32 and width > 128 else 2)
     n_slices = -(-G // plan.heads)
     assert plan.grid[0] == -(-S // plan.bq) * n_slices

@@ -338,10 +338,14 @@ def test_deepseek_bf16_weights_over_f32_cache_match_reference(monkeypatch):
 def test_prefill_plan_at_mla_head_dims(f32, stages):
     """Dk 192 / Dv 128: rows by Dv (128, one warp a 16-row block, as at
     128), stages by Dk (one in f32, whose 128-row Q and one tile fill the
-    CTA's shared memory; two in bf16); head dim 256 keeps its 64 rows."""
+    CTA's shared memory; two in bf16, the wgmma route's 128-key tiles);
+    head dim 256 keeps its 64 rows in f32 (128 on the bf16 route)."""
     from repro_torch.kernels import flash_attention as FA
     plan = FA.prefill_plan(1, 1024, 128, 128, 192, f32, 128)
     assert (plan.rows, plan.stages, plan.bq) == (128, stages, 128)
     assert plan.grid == (8, 128, 1)
-    assert FA.prefill_plan(1, 1024, 16, 16, 256, f32, 256).rows == 64
+    assert plan.route == ("mma" if f32 else "wgmma")
+    assert plan.keys == (64 if f32 else 128)
+    assert FA.prefill_plan(1, 1024, 16, 16, 256, f32, 256).rows == (
+        64 if f32 else 128)
     assert FA.prefill_plan(1, 1024, 16, 16, 128, f32, 128).rows == 128

@@ -89,15 +89,19 @@ def test_prefill_plan_covers_ragged_shapes(S, G, D):
 @pytest.mark.parametrize("G", [1, 2, 8, 64])
 @pytest.mark.parametrize("S", [1, 37, 300, 1024])
 def test_prefill_plan_at_head_dim_256(S, G, f32):
-    """Head dim 256 (gemma-7b): two warps share each 16-row block, so a CTA
-    holds 64 rows; the f32 path (q or K/V f32) has one K/V stage, bf16 two.
-    Every (query, head) row once, G = 64 at one query a CTA, and the head
-    dim read once by the f32 fragment order (eight k-blocks)."""
+    """Head dim 256 (gemma-7b): on the f32 path (q or K/V f32) two warps
+    share each 16-row block, so a CTA holds 64 rows, with one K/V stage;
+    all-bf16 runs the wgmma route: 128 rows (two warpgroups of 64), 64-key
+    tiles, two stages.  Every (query, head) row once, G = 64 at one or two
+    queries a CTA, and the head dim read once by the f32 fragment order
+    (eight k-blocks)."""
     K = 2
     plan, seen = _coverage(2, S, K * G, K, 256, f32)
     assert (seen == 1).all()
-    assert (plan.rows, plan.keys, plan.stages) == (64, 64, 1 if f32 else 2)
-    assert plan.bq == 64 // G
+    rows = 64 if f32 else 128
+    assert (plan.rows, plan.keys, plan.stages) == (rows, 64, 1 if f32 else 2)
+    assert plan.route == ("mma" if f32 else "wgmma")
+    assert plan.bq == rows // G
     dims = sorted(blk * 32 + 8 * t + 2 * kk + e for blk in range(8)
                   for t in range(4) for kk in range(4) for e in range(2))
     assert dims == list(range(256))
@@ -200,3 +204,87 @@ def test_empty_row_gives_zero():
     assert not out[1].any()
     plain = P_ref.chunked_attention_ref(*args)
     assert float((out - plain).abs().max()) < TOL
+
+
+# ---- the all-bf16 route (csrc/flash_prefill_wgmma.cu) ---------------------
+
+DTYPE_PAIRS = [(torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32),
+               (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("qd,kd", DTYPE_PAIRS)
+def test_prefill_route_by_dtypes_and_head_dims(qd, kd):
+    """The route table: all-bf16 q, k and v at tile widths 64, 128 and 256
+    (Zamba2's 224, and 8 or 24, padded to 64, among them) and at MLA's Dk 192
+    / Dv 128 run the wgmma kernel; f32, mixed dtypes and widths 16, 32, 96
+    and 512 keep the mma.sync kernel; other head dims raise."""
+    bf16 = qd == kd == torch.bfloat16
+    for D in range(8, 513, 8):
+        wg = bf16 and FA.tile_width(D) in (64, 128, 256)
+        assert FA.prefill_route(qd, kd, D, D) == ("wgmma" if wg else "mma")
+    assert FA.prefill_route(qd, kd, 192, 128) == (
+        "wgmma" if bf16 else "mma")
+    for D in (8, 24, 56, 64, 120, 128, 136, 224, 256):
+        assert FA.prefill_route(qd, kd, D, D) == ("wgmma" if bf16 else "mma")
+    for D in (16, 32, 72, 96, 264, 512):
+        assert FA.prefill_route(qd, kd, D, D) == "mma"
+    for dk, dv in ((192, 64), (128, 64), (520, 520), (12, 12)):
+        with pytest.raises(ValueError):
+            FA.prefill_route(qd, kd, dk, dv)
+
+
+def _wgmma_coverage(B, S, H, K, dk, dv):
+    plan = FA.prefill_plan(B, S, H, K, dk, False, dv)
+    G = H // K
+    nx, nk, nb = plan.grid
+    assert (nk, nb) == (K, B) and plan.bq * plan.heads <= plan.rows
+    seen = np.zeros((B, S, H), np.int64)
+    for x in range(nx):
+        for kvh in range(K):
+            for r in range(plan.rows):
+                got = FA.prefill_row(plan, S, G, x, kvh, r)
+                if got is not None:
+                    s, h = got
+                    assert h // G == kvh
+                    seen[:, s, h] += 1
+    return plan, seen
+
+
+@pytest.mark.parametrize("D", [56, 64, 120, 128, 224, 256, "mla"])
+@pytest.mark.parametrize("G", [1, 2, 3, 8, 16, 32])
+@pytest.mark.parametrize("S", [2, 37, 300, 1025])
+def test_wgmma_plan_covers_every_row_once(S, G, D):
+    """The wgmma route's layout: 128 rows a CTA (two warpgroups of 64),
+    ``heads`` = min(G, 128) heads of one kv head a CTA, BQ = 128 // heads
+    queries; every (query, head) row of q to exactly one CTA row for S not
+    a multiple of BQ and G that does not divide 128; every key in one tile
+    of its width's keys (64 at 256, else 128)."""
+    dk, dv = FA.MLA_DIMS if D == "mla" else (D, D)
+    K = 2
+    plan, seen = _wgmma_coverage(2, S, K * G, K, dk, dv)
+    assert (seen == 1).all()
+    width = FA.MLA_DIMS[0] if D == "mla" else FA.tile_width(D)
+    assert plan.route == "wgmma" and plan.width == width
+    assert (plan.rows, plan.heads, plan.bq) == (128, G, 128 // G)
+    assert plan.keys == FA.WGMMA_KEYS[width] == (64 if width == 256
+                                                 else 128)
+    assert plan.stages == FA.WGMMA_STAGES[width]
+    assert plan.grid == (-(-S // plan.bq), K, 2)
+    T = S + 5
+    keys = np.zeros(T, np.int64)
+    for t0 in range(0, T, plan.keys):
+        keys[t0:min(T, t0 + plan.keys)] += 1
+    assert (keys == 1).all()
+
+
+@pytest.mark.parametrize("G,D", [(129, 128), (200, 64), (300, 256)])
+def test_wgmma_plan_slices_groups_past_its_rows(G, D):
+    """A group past 128 heads is cut into ceil(G / 128) slices of 128 heads,
+    one query a CTA, on one grid; every row once."""
+    K, S = 2, 9
+    plan, seen = _wgmma_coverage(1, S, K * G, K, D, D)
+    assert (seen == 1).all()
+    assert (plan.rows, plan.heads, plan.bq) == (128, 128, 1)
+    assert plan.grid == (S * -(-G // 128), K, 1)

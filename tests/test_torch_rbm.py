@@ -209,3 +209,42 @@ def test_ppermute_pairs_are_checked():
         ax.ppermute(x[:3], [(0, 1)])
     got = ax.ppermute(x, [(2, 0)])
     assert torch.equal(got, torch.stack([x[2]] + [torch.zeros(2)] * 3))
+
+
+def test_hop_rows_take_the_largest_power_of_two_up_to_64_kib():
+    """A shard is viewed as rows of the largest power of two that divides
+    its bytes, at most HOP_ROW_BYTES (64 KiB): a 549,978,112-byte shard (one
+    eighth of tinyllama's f32 weights) is 8,392 rows, not 537,088 of 1 KiB;
+    a shard that is no multiple of 16 bytes has to be padded (0)."""
+    from repro_torch.launch.mesh import HOP_ROW_BYTES, hop_rows
+    assert HOP_ROW_BYTES == 64 * 1024
+    assert hop_rows(549_978_112) == 64 * 1024
+    assert 549_978_112 // hop_rows(549_978_112) == 8392
+    for nbytes, want in ((2**30, 2**16), (3 * 1024, 1024), (48, 16),
+                         (16, 16), (65536 * 3, 65536), (36, 0), (5, 0)):
+        assert hop_rows(nbytes) == want, nbytes
+
+
+@pytest.mark.parametrize("shape,dt,pairs", [
+    ((8, 5), torch.uint8, [(i, (i + 1) % 8) for i in range(8)]),
+    ((4, 3, 3), torch.float32, [(0, 2), (3, 1)]),
+    ((1, 1000), torch.float32, [(0, 0)]),
+    ((4, 64, 32), torch.bfloat16, [(2, 2), (0, 1)]),
+    ((8, 4096), torch.int32, [(7, 0)]),
+    ((8, 3 * 65536), torch.uint8, [(2, 3)]),                 # 64 KiB rows
+    ((8, 2 * 65536 + 1024), torch.uint8, [(i, (i + 1) % 8)
+                                          for i in range(8)]),
+])
+def test_stacked_hop_on_cpu_is_the_plain_gather(shape, dt, pairs):
+    """stacked_hop on the CPU (the plain gather of the hop's table, at
+    the rows hop_rows gives) against the hop written out: out[d] = x[s]
+    for each pair, zeros where a device receives nothing."""
+    from repro_torch.launch.mesh import stacked_hop
+    g = torch.Generator().manual_seed(41)
+    x = torch.randn(shape, generator=g).mul(50).to(dt)
+    got = stacked_hop(x, tuple(pairs))
+    want = torch.zeros_like(x)
+    for s, d in pairs:
+        want[d] = x[s]
+    assert got.dtype == dt and got.shape == x.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
