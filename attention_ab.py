@@ -6,8 +6,9 @@ windows.
 Needs one CUDA card.  The shapes (:func:`shapes`) are those whose device ms
 ``chip_smoke.py``'s phase 2 keeps in PERF.md, built from its constants and
 the port's configs: tinyllama's decode and prefill buckets, gemma3's,
-gemma-7b's, deepseek-v2's MLA, jamba's and qwen2-vl's prefills, and the
-published head shapes of phase 26; and K2's three rows: the paging gather
+gemma-7b's, deepseek-v2's MLA (bf16 and f32), jamba's and qwen2-vl's
+prefills, and the published head shapes of phase 26 (bf16 and f32); and
+K2's three rows: the paging gather
 of phase 2 (45,144 pages of 1 KiB, every entry live), and phase 20's
 hops over 8 stacked shards of 549,978,112 B, the shift (every shard
 moves, through ``StackedAxis.ppermute``, its table built in the window)
@@ -15,7 +16,16 @@ and the one-pair hop (K2 alone into a zeroed stack), each at its own
 checkout's hop rows (``launch/mesh.py::hop_rows``).  Starts one worker
 process per checkout; each imports that checkout's ``chip_smoke`` (and so
 its own ``repro_torch``, which builds and runs its own kernels) and draws
-the same inputs from a seed.  The workers then time each shape in turn,
+the same inputs from a seed.  K3e's two rows, at phase 2's training
+shape (tinyllama's heads, B T_BATCH x S T_SEQ, f32): forward plus backward
+under autograd, and the backward alone (the gradients of one recorded
+output, its graph kept), whatever backward each checkout runs.  Last,
+phase 19 (b)'s uninterrupted training run (full-width tinyllama-1.1b
+f32 through ``launch.train.run`` with chip_smoke's argv): a window is one
+run in a process of its own, started for it in that checkout, its median
+host ms a step over steps 2 on, printed with the run's peak memory (GiB,
+the process's own: nothing else is on the card).  The workers time each
+shape in turn,
 one window at a time while the other waits: ``--pairs`` pairs a shape,
 the first of each pair alternating (A B, B A, ...).  A window is
 chip_smoke's ``timed(device=True)`` of 20 calls after an L2 flush; then
@@ -28,6 +38,7 @@ one JSON object.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -77,9 +88,10 @@ def shapes() -> dict:
     out[f"gemma7b_decode_{len(cs.D7_PROMPTS)}x{cs.D7_MAX_LEN}"] = (
         len(cs.D7_PROMPTS), 1, cs.D7_MAX_LEN, *g7h, 0, "f32", "f32")
     for b, _ in cs.MLA_BUCKETS:
-        out[f"mla_prefill_{b}_bf16"] = (
-            1, b, b, ds.n_heads, ds.n_heads, ds.qk_nope_dim + ds.qk_rope_dim,
-            ds.v_head_dim, 0, "bf16", "bf16")
+        for dt in ("bf16", "f32"):
+            out[f"mla_prefill_{b}_{dt}"] = (
+                1, b, b, ds.n_heads, ds.n_heads,
+                ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim, 0, dt, dt)
     P = max(cs.J_PROMPTS)
     out[f"jamba_prefill_{P}_bf16"] = (1, P, P, jb.n_heads, jb.n_kv_heads,
                                       jb.head_dim, jb.head_dim, 0, "bf16",
@@ -88,12 +100,19 @@ def shapes() -> dict:
         1, cs.V_IMG_LEN, cs.V_IMG_LEN, vl.n_heads, vl.n_kv_heads,
         vl.head_dim, vl.head_dim, 0, "bf16", "bf16")
     for name, (H, K, D, W) in cs.HS_SHAPES.items():
-        out[f"{name}_prefill_{cs.HS_MAX_LEN}_bf16"] = (
-            1, cs.HS_MAX_LEN, cs.HS_MAX_LEN, H, K, D, D, W, "bf16", "bf16")
+        for dt in ("bf16", "f32"):
+            out[f"{name}_prefill_{cs.HS_MAX_LEN}_{dt}"] = (
+                1, cs.HS_MAX_LEN, cs.HS_MAX_LEN, H, K, D, D, W, dt, dt)
+    for kind in ("train", "backward"):
+        out[f"k3e_{kind}_{cs.T_BATCH}x{cs.T_SEQ}"] = (
+            kind, cs.T_BATCH, cs.T_SEQ, tl.n_heads, tl.n_kv_heads,
+            tl.head_dim)
     out[f"k2_paging_{K2_PAGES}x1KiB"] = ("paging", K2_PAGES)
     for kind in ("shift", "pair"):
         out[f"k2_{kind}_hop_{K2_SHARDS}x{K2_SHARD_BYTES}"] = (
             kind, K2_SHARDS, K2_SHARD_BYTES)
+    out[f"train_phase19_{cs.T_BATCH}x{cs.T_SEQ}"] = (
+        "train", cs.T_STEPS, cs.T_BATCH, cs.T_SEQ)
     return out
 
 
@@ -114,6 +133,11 @@ def worker(tree: str, table: dict) -> None:
         if name.startswith("k2_"):
             cases[name] = copy_case(spec, g, dev)
             continue
+        if name.startswith("k3e_"):
+            cases[name] = train_case(spec, g, dev)
+            continue
+        if name.startswith("train_"):       # run by main in its own process
+            continue
         B, S, T, H, K, dk, dv, w, qd, kd = spec
         q = torch.randn((B, S, H, dk), device=dev, generator=g).to(dts[qd])
         k = torch.randn((B, T, K, dk), device=dev, generator=g).to(dts[kd])
@@ -132,6 +156,9 @@ def worker(tree: str, table: dict) -> None:
     print("ready", flush=True)
     for line in sys.stdin:
         name, reps = line.split()
+        if reps == "enqueue" and callable(cases[name]):
+            print(cs.enqueue_us(cases[name]), flush=True)
+            continue
         if reps == "enqueue":
             q, k, v, qp, kp, w = cases[name]
             try:
@@ -140,7 +167,7 @@ def worker(tree: str, table: dict) -> None:
             except ValueError:
                 print(math.nan, flush=True)
             continue
-        if name.startswith("k2_"):
+        if name.startswith(("k2_", "k3e_")):
             call = cases[name]
             print(cs.timed(call, int(reps), lambda: scratch.fill_(1),
                            device=True), flush=True)
@@ -156,6 +183,44 @@ def worker(tree: str, table: dict) -> None:
             continue
         print(cs.timed(call, int(reps), lambda: scratch.fill_(1),
                        device=True), flush=True)
+
+
+def train_run(tree: str) -> None:
+    """Phase 19 (b)'s uninterrupted run in checkout ``tree``, in this
+    process: prints the median host ms a step over steps 2 on and the
+    peak GiB."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import chip_smoke as cs
+    import torch
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--arch", "tinyllama-1.1b", "--steps", str(cs.T_STEPS), "--lr",
+            str(cs.T_LR), "--batch", str(cs.T_BATCH), "--seq",
+            str(cs.T_SEQ), "--seed", str(cs.SEED), "--log-every", "5"]
+    with contextlib.redirect_stdout(sys.stderr):    # stdout answers the parent
+        _, _, hist = launch_train.run(argv)
+    print(statistics.median(hist["step_s"][1:]) * 1e3,
+          torch.cuda.max_memory_allocated() / 2**30, flush=True)
+
+
+def train_case(spec, g, dev):
+    """A K3e row's call in this worker's checkout: forward plus backward
+    under autograd (``train``), or the backward alone, the gradients of one
+    recorded output with its graph kept (``backward``)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    kind, B, S, H, K, D = spec
+    leaves = [torch.randn(shape, device=dev, generator=g).requires_grad_()
+              for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D))]
+    up = torch.randn((B, S, H, D), device=dev, generator=g)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    pos = pos.contiguous()
+    if kind == "train":
+        return lambda: torch.autograd.grad(
+            ops.chunked_attention(*leaves, pos, pos), leaves, up)
+    out = ops.chunked_attention(*leaves, pos, pos)
+    return lambda: torch.autograd.grad(out, leaves, up, retain_graph=True)
 
 
 def copy_case(spec, g, dev):
@@ -193,9 +258,13 @@ def main(argv=None) -> int:
     p.add_argument("b")
     p.add_argument("--pairs", type=int, default=4)
     p.add_argument("--worker", help=argparse.SUPPRESS)
+    p.add_argument("--train", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.worker:
         worker(args.a, json.loads(args.worker))
+        return 0
+    if args.train:
+        train_run(args.a)
         return 0
     table = shapes()
     procs = {}
@@ -208,7 +277,17 @@ def main(argv=None) -> int:
         if proc.stdout.readline().strip() != "ready":
             raise RuntimeError(f"worker {side} did not start")
 
+    peaks = {"A": [], "B": []}
+
     def window(side, name):
+        if name.startswith("train_"):        # a run of its own: ms, peak GiB
+            tree = args.a if side == "A" else args.b
+            ms, peak = subprocess.run(
+                [sys.executable, __file__, tree, tree, "--train"],
+                stdout=subprocess.PIPE, text=True,
+                check=True).stdout.split()[-2:]
+            peaks[side].append(float(peak))
+            return float(ms)
         proc = procs[side]
         proc.stdin.write(f"{name} 20\n")
         proc.stdin.flush()
@@ -225,7 +304,13 @@ def main(argv=None) -> int:
             out[name] = {"a_ms": a, "b_ms": b, "b_over_a": b / a,
                          "a_windows": got["A"], "b_windows": got["B"]}
             host = ""
-            if not name.startswith("k2_"):
+            if name.startswith("train_"):
+                for side in ("A", "B"):
+                    out[name][f"{side.lower()}_peak_gib"] = max(peaks[side])
+                    peaks[side].clear()
+                host = (f"; peak GiB A {out[name]['a_peak_gib']:.2f}, B "
+                        f"{out[name]['b_peak_gib']:.2f}")
+            elif not name.startswith("k2_"):
                 for side in ("A", "B"):
                     procs[side].stdin.write(f"{name} enqueue\n")
                     procs[side].stdin.flush()

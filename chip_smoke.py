@@ -35,8 +35,10 @@ nvcc (sm_90a), then:
                 G 1; at qwen2-vl's, an exact-length bf16 prefill whose
                 temporal ids repeat over an image; at training's, B 8 x
                 S 512 at tinyllama's heads in f32 under autograd (K3e:
-                the forward within 3e-5, dq/dk/dv equal to the plain
-                twin's), timed forward plus backward beside SDPA's; at
+                the forward within 3e-5; the backward kernel's dq/dk/dv
+                each within 2x the f32 twin's own relative L2 gap to the
+                twin in f64, bit-equal call to call), timed forward plus
+                backward and the backward alone beside SDPA's; at
                 the three published attention shapes of phase 26 (head
                 dims 224 and 512, groups 1, 64 and 128) a prefill of
                 bucket 1024 and a decode of 8 rows over T 1024, each in
@@ -170,7 +172,7 @@ nvcc (sm_90a), then:
                 bit-equal to the uninterrupted run's; K3's
                 prefill launches layers x forward passes (K3e), again in
                 each rep's recompute under the config's remat, its
-                backward none.
+                backward kernel layers x steps.
   20. mesh    — LISA's hop chains over a ``StackedAxis`` on the card, a
                 hop one K2 launch over the stack viewed as 1 KiB rows:
                 rbm_hop, lisa_copy (both ways, ring and linear chain) and
@@ -203,7 +205,8 @@ nvcc (sm_90a), then:
                 ``mesh_step_counts`` a step (the split compute's:
                 model-split leaves gathered over data only, the model
                 axis's reductions), K3 prefill == layers a step for
-                the whole stack; ms a step, the collectives' device ms
+                the whole stack, K3e's backward kernel == layers a step;
+                ms a step, the collectives' device ms
                 beside their byte bound, peak memory; the NCCL route with
                 two cards or more, else a line saying it did not run.
                 With the config's remat: a stacked leaf gathered a rep at
@@ -217,7 +220,8 @@ nvcc (sm_90a), then:
                 step 1's loss and grad norm within rel 1e-5 of the single
                 device's over the same rows, every loss within rel 1e-4;
                 hops and reductions == ``mesh_step_counts``, K2 == the
-                hops, K3e launches 44 a step for the whole stack; ms a
+                hops, K3e launches 44 a step for the whole stack and its
+                backward kernel 22; ms a
                 step, peak memory, one step profiled by op.
   23. mesh serving — ``make_prefill_step`` + SV_STEPS greedy
                 ``make_serve_step`` decode steps over a laid-out cache:
@@ -302,7 +306,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # (repro_torch/roofline/analysis.py, the one home of the H100's peaks)
 from repro_torch.roofline.analysis import (  # noqa: E402
     HBM_BW as HBM_BYTES_PER_S, PEAK_BF16_FLOPS as BF16_FLOP_PER_S,
-    PEAK_F32_FLOPS as F32_FLOP_PER_S)
+    PEAK_F32_FLOPS as F32_FLOP_PER_S, PEAK_TF32_FLOPS)
 from repro_torch.roofline.cost import attention_bound, tc_bound  # noqa: E402
 SLEEP_CYCLES = 400_000           # ~0.2 ms of GPU sleep ahead of a timing
 SLOTS, MAX_LEN, N_SESSIONS, SEED = 8, 1024, 32, 0
@@ -424,6 +428,9 @@ DRAM_COPIES = {"memcpy": ("memcpy", 0, 1, 7, 2),
 # (the steps cut to keep the whole run inside its time with phase 26)
 T_BATCH, T_SEQ, T_STEPS, T_CKPT = 8, 512, 10, 5
 T_LR = 3e-4        # at this width the launcher's default 3e-3 raises the loss
+# K3e's backward kernel: each of dq, dk and dv within BW_RATIO times the f32
+# twin's own relative L2 gap to the twin in f64 (suspects_f64.py's RATIO)
+BW_RATIO = 2.0
 # phase 2's flash_attention_heads row and phase 26: tinyllama-1.1b at full
 # width cut to HS_LAYERS layers, its attention replaced by a published one,
 # (n_heads, n_kv_heads, head_dim, window): Zyphra/Zamba2-7B-Instruct's
@@ -803,7 +810,8 @@ def main() -> int:
     rows["flash_attention_int8"] = int8_rows(dev, gen, flush, tag)
     rows["flash_attention_encdec"], rows["flash_attention_mrope"] = \
         encdec_and_mrope_rows(dev, gen, flush, tag)
-    rows["flash_attention_train"] = train_attention_row(dev, gen, flush, tag)
+    rows["flash_attention_train"], rows["flash_attention_backward"] = \
+        train_attention_row(dev, gen, flush, tag)
     rows["flash_attention_heads"] = head_shape_rows(dev, gen, flush, tag)
     # phase 24's local-head shapes, beside each path's rows
     for entry, extra in split_family_rows(dev, gen, flush, tag).items():
@@ -1050,13 +1058,16 @@ def main() -> int:
     counts["villa_gather"] += sharded["villa_gather"]
     counts["villa_gather_hop"] += sharded["villa_gather"]
     train["prefill"] += sharded["flash_attention_prefill"]
+    train["backward"] += sharded["flash_attention_backward"]
     wall(21)
     # the split compute: its hops are K2 launches, its forwards K3e
     split = split_train_phase(tag, train_hist)
     counts["villa_gather"] += split["villa_gather"]
     counts["villa_gather_hop"] += split["villa_gather"]
     train["prefill"] += split["flash_attention_prefill"]
+    train["backward"] += split["flash_attention_backward"]
     counts["flash_attention_train"] = train["prefill"] + train["decode"]
+    counts["flash_attention_backward"] = train.pop("backward")
     wall(22)
     # the prefill and decode steps over a mesh: tinyllama's K3 launches
     # count on tinyllama's rows, olmoe's on its own
@@ -1117,6 +1128,8 @@ def main() -> int:
         "flash_attention_heads": "src/repro/kernels/flash_attention.py:81",
         "flash_attention_prefill_wgmma":
             "src/repro/kernels/flash_attention.py:81",
+        # the reference's _flash_bwd, which reaches no pallas_call
+        "flash_attention_backward": "src/repro/kernels/ops.py:31",
         "rbm_copy": "src/repro/kernels/rbm_copy.py:27"}
     csrc = "src/repro_torch/kernels/csrc/"
     decode_src = csrc + "flash_decode.cu"
@@ -1137,6 +1150,7 @@ def main() -> int:
                "flash_attention_heads": csrc + "flash_attention.cu",
                "flash_attention_prefill_wgmma":
                    csrc + "flash_prefill_wgmma.cu",
+               "flash_attention_backward": csrc + "flash_backward.cu",
                "rbm_copy": csrc + "rbm_copy.cu"}
     # a row whose headline shape is a prefill names its route's source
     for name, r in rows.items():
@@ -1157,6 +1171,8 @@ def main() -> int:
         "prefill": counts["flash_attention_prefill_wgmma"]}
     check(counts["flash_attention_prefill_wgmma"] > 0,
           "the wgmma prefill route was launched no time on the paths")
+    check(counts["flash_attention_backward"] > 0,
+          "K3e's backward kernel was launched no time on the paths")
     # flash_attention counts K3's decode kernel on the tinyllama paths
     # (phases 3 and 5), flash_attention_prefill its prefill kernel there;
     # flash_attention_window both on gemma3's 14-layer f32 path (phase 6),
@@ -1172,7 +1188,8 @@ def main() -> int:
     # routes on seamless's enc-dec path (phase 15: encoder, self and cross
     # attention), flash_attention_mrope both on qwen2-vl's (phase 16),
     # flash_attention_train the prefill kernel under autograd (K3e) on the
-    # training path (phase 19; its backward launches no K3); a row's
+    # training path (phase 19), flash_attention_backward K3e's backward
+    # kernel there (one call a layer a step: phases 19, 21 and 22); a row's
     # source is its headline route's (the prefill kernel is
     # csrc/flash_attention.cu), and of the split compute's training
     # (phases 21-22, K3e once a layer for the whole stack); phase 23's
@@ -1196,7 +1213,7 @@ def main() -> int:
                  "flash_attention_int8", "flash_attention_encdec",
                  "flash_attention_mrope", "flash_attention_train",
                  "flash_attention_heads", "flash_attention_prefill_wgmma",
-                 "rbm_copy"):
+                 "flash_attention_backward", "rbm_copy"):
         r = rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name], "replaces": replaces[name],
@@ -1211,7 +1228,8 @@ def main() -> int:
                              "library_operands", "shapes", "timed", "route",
                              "forward_ms", "forward_device_ms",
                              "forward_bound_ms", "forward_tc_bound_ms",
-                             "grads_bit_equal")
+                             "grads_rel_l2", "twin_rel_l2",
+                             "grads_bit_equal_call_to_call")
                             if key in r})
         if name in routes:
             kernels[-1]["launches_by_route"] = routes[name]
@@ -1359,9 +1377,14 @@ def check_sass(built) -> None:
     at each of ``PADDED_WIDTHS`` (the general template: masked past the
     head dim, and taking head slices), a fourth, all-bf16, at the widths
     the wgmma route leaves it (16, 32 and 512 unpadded; 96 and 512
-    padded), and one f32 of each at Dk 192 / Dv 128; every kernel of the
-    wgmma library one of the all-bf16 prefill at each of its widths
-    (``WGMMA_WIDTHS``), with warpgroup MMAs (HGMMA: at least Dk/16 for
+    padded), and one f32 of each at Dk 192 / Dv 128, and again the three
+    of the f32 path at each width up to 256 in their kFresh form (K3e's
+    forward: the row log-sum-exp written, the scores summed a k-step at a
+    time); every kernel of the backward library (csrc/flash_backward.cu) its gradients kernel (the
+    dK/dV and dQ blocks of one launch) running HMMA, one for f32 and one
+    for bf16 at each of ``flash_attention.BACKWARD_WIDTHS``, or its prep
+    or widening kernel; every kernel of the wgmma library one of the
+    all-bf16 prefill at each of its widths (``WGMMA_WIDTHS``), with warpgroup MMAs (HGMMA: at least Dk/16 for
     QK^T and BN/16 for PV) and TMA tensor loads (UTMALDG: at least one a
     64-column panel of K and of V); every kernel of the decode library one
     of the split-KV kernel; K4 issues bulk copies (UBLKCP).  Prints how
@@ -1375,7 +1398,7 @@ def check_sass(built) -> None:
     ops_ = ("HMMA", "HGMMA", "UTMALDG", "UBLKCP")
     counts = {}
     for name in ("flash_attention", "flash_prefill_wgmma", "flash_decode",
-                 "rbm_copy"):
+                 "flash_backward", "rbm_copy"):
         sass = subprocess.run([tool, "-sass", str(built[name])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -1397,13 +1420,29 @@ def check_sass(built) -> None:
     widths = {}
     for k in prefill:
         dims = tuple(int(x) for x in re.search(
-            r"Li(\d+)ELi(\d+)ELb([01])E", k).groups())
+            r"Li(\d+)ELi(\d+)ELb([01])ELb([01])E", k).groups())
         widths[dims] = widths.get(dims, 0) + 1
-    want = {(w, w, 0): 3 + (w in (16, 32, 512)) for w in FA.TILE_WIDTHS}
-    want.update({(w, w, 1): 3 + (w in (96, 512)) for w in FA.PADDED_WIDTHS})
-    want[FA.MLA_DIMS + (0,)] = want[FA.MLA_DIMS + (1,)] = 1
-    check(widths == want, f"prefill instantiations by (Dk, Dv, general) "
-                          f"{widths}, {want} due")
+    want = {(w, w, 0, 0): 3 + (w in (16, 32, 512)) for w in FA.TILE_WIDTHS}
+    want.update({(w, w, 1, 0): 3 + (w in (96, 512))
+                 for w in FA.PADDED_WIDTHS})
+    want.update({(w, w, 0, 1): 3 for w in FA.TILE_WIDTHS if w <= 256})
+    want.update({(w, w, 1, 1): 3 for w in FA.PADDED_WIDTHS if w <= 256})
+    want[FA.MLA_DIMS + (0, 0)] = want[FA.MLA_DIMS + (1, 0)] = 1
+    check(widths == want, f"prefill instantiations by (Dk, Dv, general, "
+                          f"kFresh) {widths}, {want} due")
+    back = counts["flash_backward"]
+    grads = {}
+    for k, c in back.items():
+        m = re.search(r"(grads)_kernelI(f|13__nv_bfloat16)Li(\d+)E", k)
+        check(m is not None or re.search(r"(prep|widen)_kernel", k),
+              f"backward library kernel outside the design: {k}")
+        if m:
+            check(c["HMMA"] > 0, f"backward kernel {k} runs no HMMA: {c}")
+            key = (m.group(1), m.group(2)[:1], int(m.group(3)))
+            grads[key] = c["HMMA"]
+    due = {("grads", t, w) for t in ("f", "1") for w in FA.BACKWARD_WIDTHS}
+    check(set(grads) == due, f"backward instantiations {sorted(grads)}, "
+                             f"{sorted(due)} due")
     wg = counts["flash_prefill_wgmma"]
     due = {(w, w) if w != FA.MLA_DIMS[0] else FA.MLA_DIMS: w
            for w in FA.WGMMA_WIDTHS}
@@ -1429,7 +1468,11 @@ def check_sass(built) -> None:
     for (dk, dv), c in sorted(got.items()):
         print(f"  sass prefill_wgmma_kernel<{dk}, {dv}>: {c['HGMMA']} "
               f"HGMMA, {c['UTMALDG']} UTMALDG")
+    for kind, t, w in sorted(grads):
+        print(f"  sass {kind}_kernel<{'float' if t == 'f' else 'bf16'}, "
+              f"{w}>: {grads[(kind, t, w)]} HMMA")
     print(f"  sass: {len(prefill)} mma.sync prefill kernels, all with HMMA; "
+          f"{len(grads)} backward kernels, all with HMMA; "
           f"{len(wg)} wgmma prefill kernels, all with HGMMA and UTMALDG; "
           f"{len(decode)} split-KV decode kernels; bulk_copy_kernel: "
           f"{bulk[0]} UBLKCP")
@@ -2912,20 +2955,29 @@ def qwen2vl_phase(tag) -> dict:
     return {name: counts[name] + image[name] for name in counts}
 
 
-def train_attention_row(dev, gen, flush, tag) -> dict:
-    """Phase 2's K3e row at the training shape of phase 19 (b): f32, B
+def train_attention_row(dev, gen, flush, tag) -> tuple:
+    """Phase 2's K3e rows at the training shape of phase 19 (b): f32, B
     T_BATCH x S T_SEQ, tinyllama's 32 q / 4 kv heads, head dim 64, causal.
     Under grad the forward is the prefill kernel (within 3e-5 of the plain
-    twin) and dq/dk/dv must equal the plain twin's autograd gradients for
-    the same upstream gradient (the backward recomputes that twin).  Times
-    forward plus backward through K3e against the plain twin's and SDPA's
-    (``is_causal``); the bound is that work's: q, k, v and the upstream
-    gradient read, the output and dq/dk/dv written, and 14*H*D FLOP a
-    valid (query, key) pair (4 forward; 10 backward: the scores again,
-    dV, dP, dQ and dK) at the f32 peak.  Beside it the forward alone
-    (the same kernel without grad) with its f32 and tensor-core bounds,
-    worked out as the prefill rows'."""
+    twin, writing each row's log-sum-exp) and the backward one call of the
+    backward kernel (csrc/flash_backward.cu, counted in
+    ``chunked_attention.backward``): for each of dq, dk and dv the relative
+    L2 gap to the twin's autograd gradients in f64 is at most BW_RATIO
+    times the f32 twin's own (its largest gap printed), and two calls give
+    bit-equal gradients.  Returns two rows.  K3e's: forward plus backward
+    timed against the plain twin's and SDPA's (``is_causal``), bound by
+    that work (q, k, v and the upstream gradient read, the output and
+    dq/dk/dv written; 14*H*D FLOP a valid (query, key) pair, 4 forward and
+    10 backward: the scores again, dV, dP, dQ and dK, at the f32 peak),
+    beside the forward alone (the same kernel without grad) with its f32
+    and tensor-core bounds.  The backward kernel's: the backward alone
+    from the saved output and log-sum-exp, against the twin's autograd
+    backward and SDPA's backward (each of a recorded graph), bound by
+    10*H*D FLOP a valid pair at the f32 peak and by the bytes of q, k, v,
+    the output, dO and the log-sum-exp read and dq, dk and dv written; its
+    tensor-core bound three TF32 products each at the TF32 peak."""
     import torch
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
 
     B, S, H, K, D = T_BATCH, T_SEQ, 32, 4, 64
@@ -2944,12 +2996,25 @@ def train_attention_row(dev, gen, flush, tag) -> dict:
           and type(out.grad_fn).__name__ == "TrainAttentionBackward",
           f"K3e forward: error {err} (bar 3e-5) or no K3e grad_fn "
           f"({type(out.grad_fn).__name__})")
+    n0 = FA.chunked_attention.backward
     got = torch.autograd.grad(out, leaves, up)
+    check(FA.chunked_attention.backward == n0 + 1,
+          f"K3e backward: {FA.chunked_attention.backward - n0} kernel "
+          f"calls, 1 due")
+    again = torch.autograd.grad(ops.chunked_attention(*leaves, pos, pos),
+                                leaves, up)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(same, "K3e backward: two calls give different gradients")
     exp = torch.autograd.grad(want, twins, up)
-    same = all(torch.equal(a, b) for a, b in zip(got, exp))
-    grad_err = max(float((a - b).abs().max()) for a, b in zip(got, exp))
-    check(same, f"K3e gradients differ from the plain twin's: {grad_err}")
-    del out, want, got, exp
+    f64 = ref.twin_grads_f64(q, k, v, pos, pos, up)
+    gaps = [ref.rel_l2(a, x) for a, x in zip(got, f64)]
+    twin_gaps = [ref.rel_l2(e, x) for e, x in zip(exp, f64)]
+    grad_err = max(float((a.double() - x).abs().max())
+                   for a, x in zip(got, f64))
+    check(all(g <= BW_RATIO * t for g, t in zip(gaps, twin_gaps)),
+          f"K3e backward: relative L2 gaps of dq, dk, dv to the f64 twin "
+          f"{gaps}, the f32 twin's {twin_gaps} (bar {BW_RATIO}x)")
+    del out, want, got, again, exp, f64
 
     def k3e():
         o = ops.chunked_attention(*leaves, pos, pos)
@@ -2982,9 +3047,32 @@ def train_attention_row(dev, gen, flush, tag) -> dict:
     t_ops = 14 * H * D * pairs / F32_FLOP_PER_S
     r.update(bound_ms=max(t_bytes, t_ops) * 1e3,
              bound_by="bytes" if t_bytes >= t_ops else "operations",
-             max_abs_err=err, grads_bit_equal=same,
+             max_abs_err=err, grads_rel_l2=gaps, twin_rel_l2=twin_gaps,
              timed="forward + backward (dq, dk, dv); library: SDPA "
                    "is_causal forward + backward")
+
+    # the backward alone, from the saved output and log-sum-exp
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        o = FA.chunked_attention(q, k, v, pos, pos, lse=lse)
+    saved = ref.chunked_attention_ref(*twins, pos, pos)
+    lib_out = sdpa(*lib, is_causal=True, enable_gqa=True)
+    rb = kernel_times(
+        lambda: FA.attention_backward(q, k, v, o, lse, up, pos, pos),
+        lambda: torch.autograd.grad(saved, twins, up, retain_graph=True),
+        lambda: torch.autograd.grad(lib_out, lib, up_t, retain_graph=True),
+        flush)
+    b_bytes = 4 * (4 * B * S * H * D + 4 * B * S * K * D + B * H * S
+                   + 2 * pos.numel()) / HBM_BYTES_PER_S
+    b_ops = 10 * H * D * pairs / F32_FLOP_PER_S
+    rb.update(bound_ms=max(b_bytes, b_ops) * 1e3,
+              bound_by="bytes" if b_bytes >= b_ops else "operations",
+              tc_bound_ms=3 * 10 * H * D * pairs / PEAK_TF32_FLOPS * 1e3,
+              max_abs_err=grad_err, grads_rel_l2=gaps,
+              twin_rel_l2=twin_gaps, grads_bit_equal_call_to_call=same,
+              timed="backward alone (dq, dk, dv from the saved output "
+                    "and log-sum-exp); plain: the twin's autograd "
+                    "backward; library: SDPA's autograd backward")
     print(f"attention train (K3e) B {B} S {S} 32/4 heads D 64 f32: forward "
           f"+ backward {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
           f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
@@ -2993,10 +3081,21 @@ def train_attention_row(dev, gen, flush, tag) -> dict:
           f"{r['forward_ms']:.4f} ms (device {r['forward_device_ms']:.4f}),"
           f" bound {r['forward_bound_ms']:.4f} ms ({fwd_by}), tensor-core "
           f"bound {r['forward_tc_bound_ms']:.4f} ms; forward error {err:.3g}"
-          f", gradients bit-equal to the plain twin's [{tag}]")
-    del leaves, twins, lib
+          f" [{tag}]")
+    print(f"attention backward (K3e, csrc/flash_backward.cu) alone: "
+          f"{rb['ms']:.4f} ms (device {rb['device_ms']:.4f}), the twin's "
+          f"backward {rb['plain_ms']:.4f} ms, SDPA's backward "
+          f"{rb['library_ms']:.4f} ms (device "
+          f"{rb['library_device_ms']:.4f}), bound {rb['bound_ms']:.4f} ms "
+          f"({rb['bound_by']}), tensor-core bound {rb['tc_bound_ms']:.4f} "
+          f"ms; dq, dk, dv relative L2 gaps to the f64 twin "
+          f"{', '.join(f'{g:.3g}' for g in gaps)} (the f32 twin's "
+          f"{', '.join(f'{t:.3g}' for t in twin_gaps)}; bar {BW_RATIO}x), "
+          f"largest gap {grad_err:.3g}; bit-equal call to call; one "
+          f"backward call counted [{tag}]")
+    del leaves, twins, lib, saved, lib_out, o, lse
     torch.cuda.empty_cache()
-    return r
+    return r, rb
 
 
 def dram_phase(tag) -> dict:
@@ -3201,17 +3300,21 @@ def train_phase(tag) -> tuple:
     from repro_torch.train import step as TS
 
     dev = torch.device("cuda")
-    total = {"prefill": 0, "decode": 0}
+    total = {"prefill": 0, "decode": 0, "backward": 0}
 
     def counted(n_layers, passes, path, remat=False):
         """K3e forwards: a layer's each forward pass, again in the
-        backward's recompute under remat."""
+        backward's recompute under remat; its backward kernel once a layer
+        a step."""
         counts = ops.launch_counts()
         n = n_layers * passes * (2 if remat else 1)
         check_counts(counts, {"flash_attention": n,
-                              "flash_attention_prefill": n}, path)
+                              "flash_attention_prefill": n,
+                              "flash_attention_backward": n_layers * passes},
+                     path)
         total["prefill"] += counts["flash_attention_prefill"]
         total["decode"] += counts["flash_attention_decode"]
+        total["backward"] += counts["flash_attention_backward"]
 
     # (a)
     cfg = get_reduced("tinyllama-1.1b")
@@ -3329,7 +3432,7 @@ def train_phase(tag) -> tuple:
           f"uninterrupted run's and last_loss {res_c['last_loss']!r}; K3 "
           f"prefill {full.n_layers} x {T_STEPS} launches uninterrupted"
           f"{', twice under remat (the recompute)' if full.remat else ''}"
-          f", none in the backward [{tag}]")
+          f", its backward kernel {full.n_layers} x {T_STEPS} calls [{tag}]")
     del params_a, st_c
     torch.cuda.empty_cache()
     return total, hist_a
@@ -4339,7 +4442,8 @@ def mesh_train_phase(tag, single_hist) -> dict:
     pcfg = TS.ParallelConfig(fsdp=True)
     like = specs.state_specs(cfg, pcfg, torch.float32)
     batches = [batch_at(dcfg, i, device=dev) for i in range(MT_STEPS)]
-    total = {"villa_gather": 0, "flash_attention_prefill": 0}
+    total = {"villa_gather": 0, "flash_attention_prefill": 0,
+             "flash_attention_backward": 0}
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa: E731
 
     def rel(a, b):
@@ -4411,10 +4515,12 @@ def mesh_train_phase(tag, single_hist) -> dict:
                   f"reductions {mesh.counts()}, {want} due")
             check_counts(ops.launch_counts(),
                          {"villa_gather": hops, "flash_attention": layers,
-                          "flash_attention_prefill": layers},
+                          "flash_attention_prefill": layers,
+                          "flash_attention_backward": cfg.n_layers},
                          f"sharded training {label} step {i + 1}")
             total["villa_gather"] += hops
             total["flash_attention_prefill"] += layers
+            total["flash_attention_backward"] += cfg.n_layers
             if i == 0:
                 out["moved"] = same_update(label, state.params, sh.params)
             if save_to is not None and i + 1 == MT_SAVE:
@@ -4718,7 +4824,8 @@ def split_train_phase(tag, single_hist) -> dict:
     cfg = get_config("tinyllama-1.1b")
     ocfg = adamw.OptConfig(lr=T_LR, warmup_steps=max(T_STEPS // 10, 1),
                            total_steps=T_STEPS)
-    total = {"villa_gather": 0, "flash_attention_prefill": 0}
+    total = {"villa_gather": 0, "flash_attention_prefill": 0,
+             "flash_attention_backward": 0}
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa: E731
 
     def rel(a, b):
@@ -4783,10 +4890,12 @@ def split_train_phase(tag, single_hist) -> dict:
             check_counts(ops.launch_counts(),
                          {"villa_gather": hops,
                           "flash_attention": layers,
-                          "flash_attention_prefill": layers},
+                          "flash_attention_prefill": layers,
+                          "flash_attention_backward": cfg.n_layers},
                          f"split training {label} step {i + 1}")
             total["villa_gather"] += hops
             total["flash_attention_prefill"] += layers
+            total["flash_attention_backward"] += cfg.n_layers
         peak = torch.cuda.max_memory_allocated()
         r1 = (rel(losses[0], want["losses"][0]),
               rel(gnorms[0], want["grad_norms"][0]))

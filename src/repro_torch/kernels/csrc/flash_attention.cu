@@ -334,8 +334,14 @@ __device__ __forceinline__ void mma_3xtf32(float (*c)[4], const uint32_t* ahi,
 // Both operands read the head dim in the same permuted order: in k-block
 // `blk` of KPB k-steps, lane t holds dims blk*8*KPB + 2*KPB*t + 2*kk + {0,1}
 // for k-step kk, its slots t and t + 4 of the TF32 fragment, so each row is
-// one 2*KPB-float load.  L is the f32 Layout; D its DK.
-template <class L>
+// one 2*KPB-float load.  L is the f32 Layout; D its DK.  kFresh: each
+// k-step's three products go to a zeroed accumulator, added to s in f32
+// (the MMA aligns its terms to the largest and truncates, so a long chain
+// of MMAs into one accumulator drifts by a few ulps a step: the row
+// log-sum-exp that K3e's backward reads needs the scores at f32 accuracy;
+// serving runs without it: with it, its f32 rows took 3-26% longer,
+// PERF.md, PR 29).
+template <class L, bool kFresh>
 __device__ __forceinline__ void qk_tile(float (*s)[4], const float* Qw,
                                         const float* Ks, int g, int t,
                                         unsigned long long live) {
@@ -380,7 +386,16 @@ __device__ __forceinline__ void qk_tile(float (*s)[4], const float* Qw,
           bk[jj][0] = b[jj][2 * kk];
           bk[jj][1] = b[jj][2 * kk + 1];
         }
-        mma_3xtf32<kJG>(s + j0, ahi[kk], alo[kk], bk);
+        if constexpr (kFresh) {
+          float f[kJG][4] = {};
+          mma_3xtf32<kJG>(f, ahi[kk], alo[kk], bk);
+#pragma unroll
+          for (int jj = 0; jj < kJG; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j0 + jj][e] += f[jj][e];
+        } else {
+          mma_3xtf32<kJG>(s + j0, ahi[kk], alo[kk], bk);
+        }
       }
     }
   }
@@ -544,12 +559,19 @@ __device__ __forceinline__ void pv_tile_bf16(float (*o)[4],
 // slice of GS < G heads; without it they are D and DV, nothing is masked,
 // GS = G and NHS = 1 (a head dim equal to its width, its group in one
 // CTA, runs the unpadded instantiation, with the row math of a whole
-// group).
-template <typename TQ, typename TKV, int D, int DV, bool kGen>
+// group).  Under autograd (K3e) the launch passes `lse`, where each row's
+// statistics go, and on the f32 path may pass `out32`, where the output
+// goes before its rounding to q's dtype (K3e's backward takes Delta =
+// rowsum(dO o O) from it); serving passes neither.  The all-bf16 path
+// writes `lse` where it is not null.  The f32 path (f32 or mixed dtypes)
+// does so in its kFresh instantiations, K3e's, which also add the scores
+// up a k-step at a time (qk_tile); its others, serving's, store neither.
+template <typename TQ, typename TKV, int D, int DV, bool kGen, bool kFresh>
 __global__ void __launch_bounds__(kThreads, 1)
 prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                const TKV* __restrict__ v, const int* __restrict__ q_pos,
-               const int* __restrict__ kv_pos, TQ* __restrict__ out, int S,
+               const int* __restrict__ kv_pos, TQ* __restrict__ out,
+               float* __restrict__ lse, float* __restrict__ out32, int S,
                int T_, int H, int K, int G, int GS, int BQ, int dk_arg,
                int dv_arg, int causal, int window, float scale) {
   static_assert(DV <= D, "V's head dim is at most q's and K's");
@@ -557,6 +579,8 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   using L = Layout<C, D, DV>;
   using SM = Smem<C, D, DV>;
   constexpr bool kF32 = sizeof(C) == 4;
+  static_assert(kF32 || !kFresh, "the all-bf16 path has no kFresh form");
+  constexpr bool kStats = kFresh || !kF32;     // may write lse and out32
   constexpr int WPR = Geom<DV>::WPR, DO = Geom<DV>::DO;
   constexpr int ROWS = Geom<DV>::ROWS;
   constexpr int NO = DO / 8;                   // output n-tiles
@@ -806,7 +830,8 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
       if constexpr (kF32)
-        qk_tile<L>(s, reinterpret_cast<const float*>(Qs) + rb * 16 * L::QS,
+        qk_tile<L, kFresh>(s, reinterpret_cast<const float*>(Qs) +
+                                  rb * 16 * L::QS,
                    reinterpret_cast<const float*>(Ks), g, t, live);
       else
         qk_tile_bf16<L>(s, qa,
@@ -896,12 +921,18 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 
   // out = acc / max(l, 1e-30), l summed over the quad, in q's dtype; the
-  // columns past dv (zero V columns) are not stored
+  // columns past dv (zero V columns) are not stored.  Where `lse` is not
+  // null, the row's m + log(l) into it for the backward
+  // (flash_backward.cu), +inf where the row has no valid key
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     if (!row_ok[i]) continue;
+    if (kStats && lse != nullptr && half == 0 && t == 0)
+      lse[(static_cast<long long>(b) * H + row_h[i]) * S + row_s[i]] =
+          l[i] > 0.f ? m[i] + logf(l[i])
+                     : __int_as_float(0x7f800000);
     const float den = fmaxf(l[i], 1e-30f);
     TQ* orow = out + ((static_cast<long long>(b) * S + row_s[i]) * H +
                       row_h[i]) * dv;
@@ -909,12 +940,21 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       // lane t holds columns c0.. : o[n][2i] at (DO/8)*2t + n, then
       // o[n][2i + 1] at (DO/8)*(2t + 1) + n
       const int c0 = half * DO + (DO / 4) * t;
+      float* o32 = kStats && out32 != nullptr
+                       ? out32 + ((static_cast<long long>(b) * S + row_s[i]) *
+                                      H + row_h[i]) * dv
+                       : nullptr;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
-        if (!kGen || c0 + n < dv)
-          orow[c0 + n] = from_f<TQ>(o[n][2 * i] / den);
-        if (!kGen || c0 + NO + n < dv)
-          orow[c0 + NO + n] = from_f<TQ>(o[n][2 * i + 1] / den);
+        const float x0 = o[n][2 * i] / den, x1 = o[n][2 * i + 1] / den;
+        if (!kGen || c0 + n < dv) {
+          orow[c0 + n] = from_f<TQ>(x0);
+          if (kStats && o32 != nullptr) o32[c0 + n] = x0;
+        }
+        if (!kGen || c0 + NO + n < dv) {
+          orow[c0 + NO + n] = from_f<TQ>(x1);
+          if (kStats && o32 != nullptr) o32[c0 + NO + n] = x1;
+        }
       }
     } else {
 #pragma unroll
@@ -931,11 +971,12 @@ prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 // A launch laid out by prefill_plan: -1 when its rows, keys or stages are
 // not this instantiation's, its head dims (dk, dv) exceed its widths, or,
 // unpadded, they are not its widths or a CTA holds a slice of a group.
-template <typename TQ, typename TKV, int D, int DV, bool kGen>
+template <typename TQ, typename TKV, int D, int DV, bool kGen, bool kFresh>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
-           const int* kv_pos, void* out, int B, int S, int T_, int H, int K,
-           int dk, int dv, int causal, int window, float scale, int rows,
-           int keys, int stages, int BQ, int GS, int n_blocks,
+           const int* kv_pos, void* out, float* lse, float* out32, int B,
+           int S, int T_, int H, int K, int dk, int dv, int causal,
+           int window, float scale, int rows, int keys, int stages, int BQ,
+           int GS, int n_blocks,
            cudaStream_t stream) {
   using C = typename Path<TQ, TKV>::T;
   using L = Layout<C, D, DV>;
@@ -948,10 +989,11 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
     return -1;
   const size_t smem = Smem<C, D, DV>::bytes((T_ + L::BN - 1) / L::BN);
   dim3 grid(n_blocks, K, B);
-  prefill_kernel<TQ, TKV, D, DV, kGen><<<grid, kThreads, smem, stream>>>(
+  prefill_kernel<TQ, TKV, D, DV, kGen, kFresh>
+      <<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), q_pos, kv_pos, static_cast<TQ*>(out), S,
-      T_, H, K, G, GS, BQ, dk, dv, causal, window, scale);
+      static_cast<const TKV*>(v), q_pos, kv_pos, static_cast<TQ*>(out), lse,
+      out32, S, T_, H, K, G, GS, BQ, dk, dv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 }  // namespace pf
@@ -975,28 +1017,36 @@ int flash_attention_prepare() {
                                device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaFuncAttributes attr;
-#define OPT_IN(TQ, TKV, DD, DV, P)                                          \
+#define OPT_IN(TQ, TKV, DD, DV, P, F)                                       \
   if (cudaError_t err = cudaFuncGetAttributes(                              \
-          &attr, pf::prefill_kernel<TQ, TKV, DD, DV, P>))                   \
+          &attr, pf::prefill_kernel<TQ, TKV, DD, DV, P, F>))                \
     return static_cast<int>(err);                                           \
   if (cudaError_t err = cudaFuncSetAttribute(                               \
-          pf::prefill_kernel<TQ, TKV, DD, DV, P>,                           \
+          pf::prefill_kernel<TQ, TKV, DD, DV, P, F>,                        \
           cudaFuncAttributeMaxDynamicSharedMemorySize,                      \
           max_smem - static_cast<int>(attr.sharedSizeBytes)))               \
     return static_cast<int>(err);
-#define OPT_IN_D(DD, P)                                                     \
-  OPT_IN(float, float, DD, DD, P)                                           \
-  OPT_IN(__nv_bfloat16, float, DD, DD, P)                                   \
-  OPT_IN(float, __nv_bfloat16, DD, DD, P)
-#define OPT_IN_BF16(DD, P) OPT_IN(__nv_bfloat16, __nv_bfloat16, DD, DD, P)
-  OPT_IN_D(16, false) OPT_IN_D(32, false) OPT_IN_D(64, false)
-  OPT_IN_D(128, false) OPT_IN_D(256, false) OPT_IN_D(512, false)
-  OPT_IN_D(64, true) OPT_IN_D(96, true) OPT_IN_D(128, true)
-  OPT_IN_D(256, true) OPT_IN_D(512, true)
+#define OPT_IN_D(DD, P, F)                                                  \
+  OPT_IN(float, float, DD, DD, P, F)                                        \
+  OPT_IN(__nv_bfloat16, float, DD, DD, P, F)                                \
+  OPT_IN(float, __nv_bfloat16, DD, DD, P, F)
+#define OPT_IN_BF16(DD, P)                                                  \
+  OPT_IN(__nv_bfloat16, __nv_bfloat16, DD, DD, P, false)
+  OPT_IN_D(16, false, false) OPT_IN_D(32, false, false)
+  OPT_IN_D(64, false, false) OPT_IN_D(128, false, false)
+  OPT_IN_D(256, false, false) OPT_IN_D(512, false, false)
+  OPT_IN_D(64, true, false) OPT_IN_D(96, true, false)
+  OPT_IN_D(128, true, false) OPT_IN_D(256, true, false)
+  OPT_IN_D(512, true, false)
+  OPT_IN_D(16, false, true) OPT_IN_D(32, false, true)
+  OPT_IN_D(64, false, true) OPT_IN_D(128, false, true)
+  OPT_IN_D(256, false, true) OPT_IN_D(64, true, true)
+  OPT_IN_D(96, true, true) OPT_IN_D(128, true, true)
+  OPT_IN_D(256, true, true)
   OPT_IN_BF16(16, false) OPT_IN_BF16(32, false) OPT_IN_BF16(512, false)
   OPT_IN_BF16(96, true) OPT_IN_BF16(512, true)
-  OPT_IN(float, float, 192, 128, false)
-  OPT_IN(float, float, 192, 128, true)
+  OPT_IN(float, float, 192, 128, false, false)
+  OPT_IN(float, float, 192, 128, true, false)
 #undef OPT_IN_BF16
 #undef OPT_IN_D
 #undef OPT_IN
@@ -1019,59 +1069,81 @@ int flash_attention_prepare() {
 // width 128, else 2); `heads` (GS) heads of one kv head a CTA, BQ queries
 // a CTA with BQ*GS <= rows, n_blocks = ceil(S/BQ) * ceil(G/GS).  q/k/v
 // start on 16-byte boundaries.  dtype_q, dtype_kv: 0 = float32, 1 =
-// bfloat16.  Returns a cudaError_t (0 = launched; an invalid-value error
-// when T needs more shared memory than the device has); -1 for a shape or
-// plan this kernel does not take.
+// bfloat16.  `lse`, where not null, (B,H,S) f32 at widths up to 256 (not
+// MLA): each row's log-sum-exp in the scaled-score units, for K3e's
+// backward (flash_backward.cu); `out32`, where not null (with `lse`, on
+// the f32 path), (B,S,H,Dv) f32: the output before its rounding to q's
+// dtype.  With `lse` the f32 path runs its kFresh instantiations.
+// Returns a cudaError_t (0 = launched; an invalid-value error when T
+// needs more shared memory than the device has); -1 for a shape or plan
+// this kernel does not take.
 int flash_prefill_launch(const void* q, const void* k, const void* v,
                          const int* q_pos, const int* kv_pos, void* out,
-                         int B, int S, int T_, int H, int K, int D, int Dv,
-                         int causal, int window, float scale, int dtype_q,
-                         int dtype_kv, int width, int rows, int keys,
-                         int stages, int BQ, int heads, int n_blocks,
-                         void* stream) {
+                         float* lse, float* out32, int B, int S, int T_,
+                         int H, int K, int D, int Dv, int causal, int window,
+                         float scale, int dtype_q, int dtype_kv, int width,
+                         int rows, int keys, int stages, int BQ, int heads,
+                         int n_blocks, void* stream) {
   if (B == 0 || S == 0) return 0;
   const bool mla = width == 192 && D == 192 && Dv == 128;
   if (K <= 0 || H % K != 0 || BQ < 1 || T_ < 1 || D < 8 || D % 8 != 0 ||
       (Dv != D && !mla))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PREFILL(TQ, TKV, CQ, CKV, DD, DV, P)                                \
+  if ((lse != nullptr && (width > 256 || mla)) ||
+      (out32 != nullptr &&
+       (lse == nullptr || (dtype_q == 1 && dtype_kv == 1))))
+    return -1;
+#define PREFILL(TQ, TKV, CQ, CKV, DD, DV, P, F)                             \
   if (width == DD && dtype_q == CQ && dtype_kv == CKV)                      \
-    return pf::launch<TQ, TKV, DD, DV, P>(q, k, v, q_pos, kv_pos, out, B,   \
-                                          S, T_, H, K, D, Dv, causal,       \
-                                          window, scale, rows, keys,        \
-                                          stages, BQ, heads, n_blocks, s);
-#define PREFILL_D(DD, P)                                                    \
-  PREFILL(float, float, 0, 0, DD, DD, P)                                    \
-  PREFILL(__nv_bfloat16, float, 1, 0, DD, DD, P)                            \
-  PREFILL(float, __nv_bfloat16, 0, 1, DD, DD, P)
+    return pf::launch<TQ, TKV, DD, DV, P, F>(                               \
+        q, k, v, q_pos, kv_pos, out, lse, out32, B, S, T_, H, K, D, Dv,     \
+        causal, window, scale, rows, keys, stages, BQ, heads, n_blocks, s);
+#define PREFILL_D(DD, P, F)                                                 \
+  PREFILL(float, float, 0, 0, DD, DD, P, F)                                 \
+  PREFILL(__nv_bfloat16, float, 1, 0, DD, DD, P, F)                         \
+  PREFILL(float, __nv_bfloat16, 0, 1, DD, DD, P, F)
 #define PREFILL_BF16(DD, P)                                                 \
-  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, DD, DD, P)
+  PREFILL(__nv_bfloat16, __nv_bfloat16, 1, 1, DD, DD, P, false)
   // an unpadded instantiation returns where one matches; the general
   // ones take the rest.  All-bf16 inputs at widths 64, 128, 256 and 192
   // run csrc/flash_prefill_wgmma.cu instead (prefill_route).
   const bool whole = D == width && heads == H / K;
   if (mla) {
-    if (whole) PREFILL(float, float, 0, 0, 192, 128, false)
-    PREFILL(float, float, 0, 0, 192, 128, true)
+    if (whole) PREFILL(float, float, 0, 0, 192, 128, false, false)
+    PREFILL(float, float, 0, 0, 192, 128, true, false)
+    return -1;
+  }
+  if (lse != nullptr && (dtype_q == 0 || dtype_kv == 0)) {
+    if (whole) {
+      PREFILL_D(16, false, true)
+      PREFILL_D(32, false, true)
+      PREFILL_D(64, false, true)
+      PREFILL_D(128, false, true)
+      PREFILL_D(256, false, true)
+    }
+    PREFILL_D(64, true, true)
+    PREFILL_D(96, true, true)
+    PREFILL_D(128, true, true)
+    PREFILL_D(256, true, true)
     return -1;
   }
   if (whole) {
-    PREFILL_D(16, false)
-    PREFILL_D(32, false)
-    PREFILL_D(64, false)
-    PREFILL_D(128, false)
-    PREFILL_D(256, false)
-    PREFILL_D(512, false)
+    PREFILL_D(16, false, false)
+    PREFILL_D(32, false, false)
+    PREFILL_D(64, false, false)
+    PREFILL_D(128, false, false)
+    PREFILL_D(256, false, false)
+    PREFILL_D(512, false, false)
     PREFILL_BF16(16, false)
     PREFILL_BF16(32, false)
     PREFILL_BF16(512, false)
   }
-  PREFILL_D(64, true)
-  PREFILL_D(96, true)
-  PREFILL_D(128, true)
-  PREFILL_D(256, true)
-  PREFILL_D(512, true)
+  PREFILL_D(64, true, false)
+  PREFILL_D(96, true, false)
+  PREFILL_D(128, true, false)
+  PREFILL_D(256, true, false)
+  PREFILL_D(512, true, false)
   PREFILL_BF16(96, true)
   PREFILL_BF16(512, true)
 #undef PREFILL_BF16

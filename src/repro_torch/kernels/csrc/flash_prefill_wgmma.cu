@@ -308,7 +308,8 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap map_k,
                      const __nv_bfloat16* __restrict__ q,
                      const int* __restrict__ q_pos,
                      const int* __restrict__ kv_pos,
-                     __nv_bfloat16* __restrict__ out, int S, int T_, int H,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int S, int T_, int H,
                      int G, int GS, int BQ, int dk, int dv, int causal,
                      int window, float scale) {
   using C = Cfg<DK, DV>;
@@ -595,7 +596,9 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap map_k,
     }
 
     // out = acc / max(l, 1e-30), l summed over the quad; columns past dv
-    // (V's zero-filled columns) are not stored
+    // (V's zero-filled columns) are not stored.  With `lse`, the row's m +
+    // log(l) for the backward (flash_backward.cu), +inf where it has no
+    // valid key
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -603,6 +606,9 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap map_k,
       if (hi[i] == INT_MIN) continue;         // a row that does not exist
       const int r = rr[i];
       const int s = qb * BQ + r / GS, gh = h0 + r % GS;
+      if (lse != nullptr && t == 0)
+        lse[(static_cast<long long>(b) * H + kvh * G + gh) * S + s] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : __int_as_float(0x7f800000);
       const float den = fmaxf(l[i], 1e-30f);
       __nv_bfloat16* orow =
           out + ((static_cast<long long>(b) * S + s) * H + kvh * G + gh) * dv;
@@ -670,9 +676,9 @@ bool cache_map(CUtensorMap* map, const void* base, int d, int K, int T_,
 
 template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
-           const int* kv_pos, void* out, int B, int S, int T_, int H, int K,
-           int dk, int dv, int causal, int window, float scale, int rows,
-           int keys, int stages, int BQ, int GS, int n_blocks,
+           const int* kv_pos, void* out, float* lse, int B, int S, int T_,
+           int H, int K, int dk, int dv, int causal, int window, float scale,
+           int rows, int keys, int stages, int BQ, int GS, int n_blocks,
            cudaStream_t stream) {
   using C = Cfg<DK, DV>;
   const int G = H / K;
@@ -688,8 +694,8 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
   prefill_wgmma_kernel<DK, DV>
       <<<dim3(n_blocks, K, B), kThreads, C::bytes((T_ + C::BN - 1) / C::BN),
          stream>>>(mk, mv, static_cast<const __nv_bfloat16*>(q), q_pos,
-                   kv_pos, static_cast<__nv_bfloat16*>(out), S, T_, H, G, GS,
-                   BQ, dk, dv, causal, window, scale);
+                   kv_pos, static_cast<__nv_bfloat16*>(out), lse, S, T_, H, G,
+                   GS, BQ, dk, dv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -729,10 +735,13 @@ int flash_prefill_wgmma_prepare() {
 // stages at 64, else 2), `heads` (GS) heads of one kv head a CTA, BQ
 // queries with BQ*GS <= rows, n_blocks = ceil(S/BQ) * ceil(G/GS).  Returns
 // a cudaError_t (0 = launched); -1 for a shape or plan it does not take.
+// `lse`, where not null, (B,H,S) f32: each row's log-sum-exp in the
+// scaled-score units, for the backward.
 int flash_prefill_wgmma_launch(const void* q, const void* k, const void* v,
                                const int* q_pos, const int* kv_pos, void* out,
-                               int B, int S, int T_, int H, int K, int D,
-                               int Dv, int causal, int window, float scale,
+                               float* lse, int B, int S, int T_, int H,
+                               int K, int D, int Dv, int causal, int window,
+                               float scale,
                                int width, int rows, int keys, int stages,
                                int BQ, int heads, int n_blocks, void* stream) {
   if (B == 0 || S == 0) return 0;
@@ -741,9 +750,9 @@ int flash_prefill_wgmma_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ROUTE(W, DK, DV)                                                    \
   if (width == W)                                                           \
-    return wg::launch<DK, DV>(q, k, v, q_pos, kv_pos, out, B, S, T_, H, K,  \
-                              D, Dv, causal, window, scale, rows, keys,     \
-                              stages, BQ, heads, n_blocks, s);
+    return wg::launch<DK, DV>(q, k, v, q_pos, kv_pos, out, lse, B, S, T_,  \
+                              H, K, D, Dv, causal, window, scale, rows,     \
+                              keys, stages, BQ, heads, n_blocks, s);
   if (D == Dv) {
     ROUTE(64, 64, 64)
     ROUTE(128, 128, 128)

@@ -55,7 +55,11 @@ same dispatch, so on the card it runs the same kernels.
 
 :func:`train_attention` (K3e) is the prefill kernel under autograd, for
 the training forward: ``kernels/ops.py`` takes it where grad is enabled
-and q, k or v requires grad.
+and q, k or v requires grad.  Its forward also writes each row's
+log-sum-exp, and its backward is the kernel of csrc/flash_backward.cu
+(:func:`attention_backward`: dQ, dK and dV from the saved output and
+log-sum-exp), on every shape :func:`backward_route` gives it: every head
+dim up to 256, in every dtype pair.
 """
 from __future__ import annotations
 
@@ -73,6 +77,7 @@ _I = ctypes.c_int
 _LIB = None
 _DECODE_LIB = None
 _WGMMA_LIB = None
+_BACKWARD_LIB = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {**_DTYPES, torch.int8: 2}
 # (q dtype, head dim, head group) of the int8 decode instantiations
@@ -139,7 +144,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library("flash_attention")
         lib.flash_prefill_launch.argtypes = (
-            [_P] * 6 + [_I] * 9 + [ctypes.c_float] + [_I] * 9 + [_P])
+            [_P] * 8 + [_I] * 9 + [ctypes.c_float] + [_I] * 9 + [_P])
         lib.flash_attention_prepare.argtypes = []
         for fn in (lib.flash_prefill_launch, lib.flash_attention_prepare):
             fn.restype = ctypes.c_int
@@ -154,13 +159,27 @@ def _wgmma_lib() -> ctypes.CDLL:
     if _WGMMA_LIB is None:
         lib = _build.library("flash_prefill_wgmma")
         lib.flash_prefill_wgmma_launch.argtypes = (
-            [_P] * 6 + [_I] * 9 + [ctypes.c_float] + [_I] * 7 + [_P])
+            [_P] * 7 + [_I] * 9 + [ctypes.c_float] + [_I] * 7 + [_P])
         lib.flash_prefill_wgmma_prepare.argtypes = []
         for fn in (lib.flash_prefill_wgmma_launch,
                    lib.flash_prefill_wgmma_prepare):
             fn.restype = ctypes.c_int
         _WGMMA_LIB = lib
     return _WGMMA_LIB
+
+
+def _backward_lib() -> ctypes.CDLL:
+    """K3e's backward kernels' library (``csrc/flash_backward.cu``)."""
+    global _BACKWARD_LIB
+    if _BACKWARD_LIB is None:
+        lib = _build.library("flash_backward")
+        lib.flash_backward_launch.argtypes = (
+            [_P] * 17 + [_I] * 8 + [ctypes.c_float] + [_I] * 3 + [_P])
+        lib.flash_backward_prepare.argtypes = []
+        for fn in (lib.flash_backward_launch, lib.flash_backward_prepare):
+            fn.restype = ctypes.c_int
+        _BACKWARD_LIB = lib
+    return _BACKWARD_LIB
 
 
 def _decode_lib() -> ctypes.CDLL:
@@ -341,16 +360,34 @@ def _workspace(device: torch.device, stream: int, n_part: int,
     return part, tickets
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where it is contiguous and starts on a 16-byte
+    boundary, else a contiguous copy (the kernels' vector loads need
+    both)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
                       k_scale: Optional[torch.Tensor] = None,
-                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      v_scale: Optional[torch.Tensor] = None,
+                      lse: Optional[torch.Tensor] = None,
+                      out32: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3 on the card.  q: (B,S,H,Dk), k: (B,T,K,Dk), v: (B,T,K,Dv),
     q_pos (B,S) and kv_pos (B,T) int32; key t is valid for query s iff
     kv_pos <= q_pos (causal) and kv_pos > q_pos - window (window > 0).  q
     and k/v may differ in dtype where Dk = Dv, k and v may not.  int8 k/v
-    take ``k_scale``/``v_scale`` (B,T,K) f32 (K3d, decode only).  Returns
+    take ``k_scale``/``v_scale`` (B,T,K) f32 (K3d, decode only).  ``lse``,
+    a contiguous (B,H,S) f32 tensor on the prefill route (S > 1) at Dk =
+    Dv and a tile width up to 256 (the shapes ``backward_route`` gives the
+    kernel), receives each row's log-sum-exp of its scaled scores, +inf
+    for a row with no valid key (what K3e's backward reads); on the mma
+    route's f32 path (an f32 operand) the scores are then summed to f32
+    accuracy, and ``out32``, a contiguous (B,S,H,Dv) f32 tensor, may
+    receive the output before its rounding to q's dtype.  Returns
     (B,S,H,Dv) in q's dtype."""
     for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
                     ("kv_pos", kv_pos), ("k_scale", k_scale),
@@ -391,6 +428,24 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             f"int8 K/V at S = {S} is not ported: ROADMAP Queue 2 K3d "
             f"(prefill; the reference cannot prefill an int8 cache)")
+    if lse is not None and (S == 1 or width > 256 or D != Dv
+                            or lse.dtype != torch.float32
+                            or not lse.is_cuda or not lse.is_contiguous()
+                            or tuple(lse.shape) != (B, H, S)):
+        raise ValueError(f"lse takes a contiguous (B,H,S) = {(B, H, S)} "
+                         f"float32 CUDA tensor on the prefill route at Dk = "
+                         f"Dv, tile widths up to 256 (got "
+                         f"{tuple(lse.shape)} {lse.dtype} {lse.device}, S "
+                         f"{S}, head dims {D} / {Dv})")
+    if out32 is not None and (
+            lse is None or torch.float32 not in (q.dtype, k.dtype)
+            or out32.dtype != torch.float32
+            or not out32.is_cuda or not out32.is_contiguous()
+            or tuple(out32.shape) != (B, S, H, Dv)):
+        raise ValueError(f"out32 takes a contiguous (B,S,H,Dv) float32 "
+                         f"CUDA tensor beside lse on the f32 path (got "
+                         f"{tuple(out32.shape)} {out32.dtype}, q "
+                         f"{q.dtype}, k/v {k.dtype})")
     n_sm = _device(q.device.index)
     if S == 1:
         gc, groups, n_split, split_len = decode_plan(
@@ -400,9 +455,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"int8 K/V decode at q {q.dtype}, head_dim {D}, head group "
                 f"{gc} (G {H // K}) is not instantiated: the kernel takes "
                 f"{INT8_DECODE} (ROADMAP Queue 2 K3d)")
-    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-               else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
+    q, k, v = (_aligned(t) for t in (q, k, v))
     if int8:
         k_scale = k_scale.to(torch.float32).contiguous()
         v_scale = v_scale.to(torch.float32).contiguous()
@@ -428,15 +481,18 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if plan.route == "wgmma":
             err = _wgmma_ready(q.device.index).flash_prefill_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-                kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, Dv,
+                kv_pos.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, S, T, H, K, D, Dv,
                 int(causal), int(window), D ** -0.5, plan.width, plan.rows,
                 plan.keys, plan.stages, plan.bq, plan.heads, plan.grid[0],
                 stream)
         else:
             err = _lib().flash_prefill_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-                kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, Dv,
-                int(causal), int(window), D ** -0.5, _DTYPES[q.dtype],
+                kv_pos.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                None if out32 is None else out32.data_ptr(), B, S, T, H, K, D,
+                Dv, int(causal), int(window), D ** -0.5, _DTYPES[q.dtype],
                 _DTYPES[k.dtype], plan.width, plan.rows, plan.keys,
                 plan.stages, plan.bq, plan.heads, plan.grid[0], stream)
     if err:
@@ -456,37 +512,166 @@ chunked_attention.prefill = 0
 chunked_attention.prefill_wgmma = 0
 chunked_attention.decode = 0
 chunked_attention.decode_int8 = 0
+chunked_attention.backward = 0
+
+
+# the tile widths K3e's backward kernel (csrc/flash_backward.cu) takes
+BACKWARD_WIDTHS = (16, 32, 64, 96, 128, 256)
+
+
+def backward_route(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                   head_dim: int, v_dim: int) -> str:
+    """How K3e's backward runs for a shape, decided before any launch:
+    ``"kernel"`` (csrc/flash_backward.cu) where Dk = Dv has a tile width of
+    :data:`BACKWARD_WIDTHS` (every head dim that is a multiple of 8 up to
+    256, q and k/v float32 or bfloat16 in any pair); ``"recompute"`` (the
+    plain chunked twin differentiated under autograd, counted in
+    ``TrainAttention.backward_plain``) at tile width 512 and at MLA's Dk
+    192 / Dv 128, ROADMAP Queue 2's part of K3e still to port.  No training
+    path reaches the recompute.  Raises ``ValueError`` for head dims the
+    forward does not take."""
+    prefill_route(q_dtype, kv_dtype, head_dim, v_dim)
+    if head_dim == v_dim and tile_width(head_dim) in BACKWARD_WIDTHS:
+        return "kernel"
+    return "recompute"
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_ready(index: int) -> ctypes.CDLL:
+    """The backward's library, after its shared-memory opt-in on CUDA
+    device ``index`` (once a device)."""
+    lib = _backward_lib()
+    with torch.cuda.device(index):
+        err = lib.flash_backward_prepare()
+    if err:
+        raise RuntimeError(f"attention backward opt-in failed: error {err}")
+    return lib
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, lse: torch.Tensor,
+                       dout: torch.Tensor, q_pos: torch.Tensor,
+                       kv_pos: torch.Tensor, *, causal: bool = True,
+                       window: int = 0, out32: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3e's backward on the card: (dq, dk, dv) of :func:`chunked_attention`
+    at q (B,S,H,D), k/v (B,T,K,D), whose launch wrote ``out`` and ``lse``
+    (and, for bf16 q over f32 K/V, ``out32``: Delta then reads the output
+    before its rounding to bf16), for the upstream gradient ``dout``
+    (B,S,H,D).  One call launches, from csrc/flash_backward.cu, the prep
+    kernel (Delta = rowsum(dout * out), q scaled in its own dtype), for
+    f32 q over bf16 K/V two widening kernels (K and V to f32), then one
+    gradients kernel, whose grid holds the dK/dV blocks and the dQ blocks,
+    all on q's device's current stream, and counts one in
+    ``chunked_attention.backward``.  dq comes in
+    q's dtype, dk and dv in K/V's.  Raises on a shape
+    :func:`backward_route` does not give the kernel, and if a launch
+    reports an error."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if backward_route(q.dtype, k.dtype, D, v.shape[-1]) != "kernel":
+        raise ValueError(f"head dims {D} / {v.shape[-1]}: the backward "
+                         f"kernel takes Dk = Dv at tile widths "
+                         f"{BACKWARD_WIDTHS}")
+    if (tuple(out.shape) != (B, S, H, D) or tuple(dout.shape) != (B, S, H, D)
+            or tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32
+            or out.dtype != q.dtype or dout.dtype != q.dtype):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype}, dout "
+                         f"{tuple(dout.shape)} {dout.dtype} and lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not fit q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if (out32 is not None) != (q.dtype == torch.bfloat16
+                               and k.dtype == torch.float32):
+        raise ValueError("out32 comes with bf16 q over f32 K/V, and only "
+                         "there")
+    q, k, v, out, dout, lse = (_aligned(t) for t in (q, k, v, out, dout, lse))
+    if out32 is not None:
+        out32 = _aligned(out32)
+    q_pos = q_pos.to(torch.int32).contiguous()
+    kv_pos = kv_pos.to(torch.int32).contiguous()
+    bf16 = q.dtype == k.dtype == torch.bfloat16
+    work = torch.bfloat16 if bf16 else torch.float32
+    qs = torch.empty(q.shape, dtype=work, device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    do_f32 = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              if q.dtype == torch.bfloat16 and not bf16 else None)
+    kv_f32 = ([torch.empty(k.shape, dtype=torch.float32, device=q.device)
+               for _ in range(2)]
+              if k.dtype == torch.bfloat16 and not bf16 else [None, None])
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
+    err = _backward_ready(q.device.index).flash_backward_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ptr(out32), dout.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
+        kv_pos.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), qs.data_ptr(),
+        delta.data_ptr(), ptr(do_f32), ptr(kv_f32[0]), ptr(kv_f32[1]), B, S,
+        T, H, K, D, int(causal), int(window), D ** -0.5, _DTYPES[q.dtype],
+        _DTYPES[k.dtype], tile_width(D), stream)
+    if err:
+        raise RuntimeError(f"attention backward launch failed: error {err}")
+    chunked_attention.backward += 1
+    return dq, dk, dv
 
 
 class TrainAttention(torch.autograd.Function):
     """K3e: K3's prefill kernel under autograd, the reference's
-    ``kernels/ops.py::_flash_vjp`` (:20-44).  The forward launches the
-    kernel through :func:`chunked_attention` (counted on its prefill
-    route) and saves the caller's q, k, v and positions; the backward
-    recomputes the plain chunked twin (``ref.chunked_attention_ref``, the
-    reference's ``_flash_bwd`` recomputes its jnp oracle) under autograd
-    and returns its gradients for q, k and v.  It launches no K3: a
-    dedicated backward kernel is ROADMAP Queue 2's."""
+    ``kernels/ops.py::_flash_vjp`` (:20-44).  Where :func:`backward_route`
+    gives the kernel, the forward launches the prefill through
+    :func:`chunked_attention` (counted on its prefill route) with an ``lse``
+    buffer (and, for bf16 q over f32 K/V, an f32 copy of the output
+    before its rounding) and saves q, k, v, the output, the log-sum-exp
+    and the positions; the backward makes the upstream gradient contiguous and
+    launches :func:`attention_backward` (counted in
+    ``chunked_attention.backward``), which reads them.  On the recompute
+    route (tile width 512, MLA's Dk 192 / Dv 128) the forward saves the
+    caller's q, k, v and positions, and the backward differentiates the
+    plain chunked twin (``ref.chunked_attention_ref``, as the reference's
+    ``_flash_bwd`` differentiates its jnp oracle) under autograd, counted in
+    ``TrainAttention.backward_plain``."""
+
+    backward_plain = 0
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, block):
-        ctx.save_for_backward(q, k, v, q_pos, kv_pos)
         ctx.mask = (causal, window, block)
-        return chunked_attention(q, k, v, q_pos, kv_pos, causal=causal,
-                                 window=window)
+        ctx.route = backward_route(q.dtype, k.dtype, q.shape[-1],
+                                   v.shape[-1])
+        if ctx.route == "recompute":
+            ctx.save_for_backward(q, k, v, q_pos, kv_pos)
+            return chunked_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                     window=window)
+        B, S, H, D = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        out32 = (torch.empty((B, S, H, D), dtype=torch.float32,
+                             device=q.device)
+                 if q.dtype == torch.bfloat16 and k.dtype == torch.float32
+                 else None)
+        out = chunked_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                window=window, lse=lse, out32=out32)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos, out32)
+        return out
 
     @staticmethod
     def backward(ctx, g):
+        causal, window, block = ctx.mask
+        if ctx.route == "kernel":
+            q, k, v, out, lse, q_pos, kv_pos, out32 = ctx.saved_tensors
+            grads = attention_backward(q, k, v, out, lse, g.contiguous(),
+                                       q_pos, kv_pos, causal=causal,
+                                       window=window, out32=out32)
+            return (*grads, None, None, None, None, None)
         from repro_torch.kernels import ref
 
         q, k, v, q_pos, kv_pos = ctx.saved_tensors
-        causal, window, block = ctx.mask
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             out = ref.chunked_attention_ref(*leaves, q_pos, kv_pos,
                                             causal=causal, window=window,
                                             block=block)
             grads = torch.autograd.grad(out, leaves, g)
+        TrainAttention.backward_plain += 1
         return (*grads, None, None, None, None, None)
 
 
@@ -495,7 +680,7 @@ def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     block: int = 512) -> torch.Tensor:
     """K3 where q, k or v requires grad (K3e), on CUDA tensors; ``block``
-    is the backward's plain KV chunk.  Decode (S = 1) and int8 K/V raise
+    is the plain KV chunk of the recompute route (:func:`backward_route`).  Decode (S = 1) and int8 K/V raise
     ``NotImplementedError``: no path trains through them."""
     if q.shape[1] == 1:
         raise NotImplementedError(

@@ -25,7 +25,7 @@ KERNELS = {"villa_scatter": RC.villa_scatter,
 
 
 # K3's launches by route: the tensor-core prefill kernels and the split-KV
-# decode kernel, whose sum is ``flash_attention``
+# decode kernel, whose sum is ``flash_attention``; then K3e's backward
 ROUTES = {"flash_attention_prefill": (FA.chunked_attention, "prefill"),
           # of the prefill route, the all-bf16 launches on warpgroup MMAs
           "flash_attention_prefill_wgmma": (FA.chunked_attention,
@@ -33,7 +33,16 @@ ROUTES = {"flash_attention_prefill": (FA.chunked_attention, "prefill"),
           "flash_attention_decode": (FA.chunked_attention, "decode"),
           # of the decode route, the launches over an int8 cache (K3d)
           "flash_attention_decode_int8": (FA.chunked_attention,
-                                          "decode_int8")}
+                                          "decode_int8"),
+          # K3e's backward: calls of the backward kernel
+          # (csrc/flash_backward.cu, each a prep launch, two widening
+          # launches for f32 q over bf16 K/V, and one gradients launch of
+          # dK/dV and dQ blocks),
+          # and of the plain recompute on the shapes backward_route leaves
+          # it (tile width 512, MLA's Dk 192 / Dv 128)
+          "flash_attention_backward": (FA.chunked_attention, "backward"),
+          "flash_attention_backward_plain": (FA.TrainAttention,
+                                             "backward_plain")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -78,8 +87,8 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     """Attention in the serving layout (K3); ``block`` is the plain
     version's KV chunk (the kernel tiles on its own).  int8 K/V take their
     (B,T,K) f32 ``k_scale``/``v_scale``.  On the card, where grad is
-    enabled and q, k or v requires it (training), K3e: the kernel's
-    forward with a recomputed plain backward."""
+    enabled and q, k or v requires it (training), K3e: the prefill kernel
+    forward and the backward kernel (``FA.TrainAttention``)."""
     if q.is_cuda and torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
         return FA.train_attention(q, k, v, q_pos, kv_pos, causal=causal,

@@ -84,12 +84,14 @@ def villa_scatter_ref(pages: torch.Tensor, table: torch.Tensor,
     return pages
 
 
-def _dequant(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
-    """K or V as f32: an int8 cache's values times their (B,T,K) scales
-    (the reference's ``x.astype(f32) * scale[..., None]``), else widened."""
+def _dequant(x: torch.Tensor, scale: Optional[torch.Tensor],
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K or V as f32 (or ``dtype``): an int8 cache's values times their
+    (B,T,K) scales (the reference's ``x.astype(f32) * scale[..., None]``),
+    else widened."""
     if scale is None:
-        return x.float()
-    return x.float() * scale[..., None]
+        return x.to(dtype)
+    return x.to(dtype) * scale[..., None]
 
 
 def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,14 +99,16 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int = 0,
                           block: int = 512,
                           k_scale: Optional[torch.Tensor] = None,
-                          v_scale: Optional[torch.Tensor] = None
+                          v_scale: Optional[torch.Tensor] = None,
+                          compute_dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
     """q: (B,S,H,Dk), k: (B,T,K,Dk), v: (B,T,K,Dv); H = K*G.  KV blocks are
     scanned with f32 running (max, sum, acc), exactly as the reference's
     jnp body; invalid cache slots carry kv_pos > any real position.  int8
     K/V come with (B,T,K) f32 ``k_scale``/``v_scale`` and are dequantised
     block by block (the reference's ``attention.py:81-97``: padded keys
-    get scale 0 and position 2**30)."""
+    get scale 0 and position 2**30).  ``compute_dtype`` f64 runs every
+    f32 step in f64 instead (:func:`twin_grads_f64`)."""
     check_scales(k, k_scale, v_scale)
     B, S, H, Dk = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -122,15 +126,18 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k_scale = torch.nn.functional.pad(k_scale, (0, 0, 0, pad))
             v_scale = torch.nn.functional.pad(v_scale, (0, 0, 0, pad))
     # the reference scales q in its own dtype, then casts to f32
-    qr = (q.reshape(B, S, K, G, Dk) * scale).float()
-    m = torch.full((B, K, G, S), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, K, G, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, K, G, S, Dv), dtype=torch.float32, device=q.device)
+    cd = compute_dtype
+    qr = (q.reshape(B, S, K, G, Dk) * scale).to(cd)
+    m = torch.full((B, K, G, S), NEG_INF, dtype=cd, device=q.device)
+    l = torch.zeros((B, K, G, S), dtype=cd, device=q.device)
+    acc = torch.zeros((B, K, G, S, Dv), dtype=cd, device=q.device)
     qp = q_pos[:, None, None, :, None]
     for j in range(nb):
         sl = slice(j * block, (j + 1) * block)
-        kj = _dequant(k[:, sl], None if k_scale is None else k_scale[:, sl])
-        vj = _dequant(v[:, sl], None if v_scale is None else v_scale[:, sl])
+        kj = _dequant(k[:, sl], None if k_scale is None else k_scale[:, sl],
+                      cd)
+        vj = _dequant(v[:, sl], None if v_scale is None else v_scale[:, sl],
+                      cd)
         pj = kv_pos[:, sl]
         s = torch.einsum("bskgd,btkd->bkgst", qr, kj)
         valid = torch.ones((B, 1, 1, S, block), dtype=torch.bool,
@@ -151,6 +158,28 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return (out.reshape(B, K * G, S, Dv).transpose(1, 2)
             .reshape(B, S, H, Dv).to(q.dtype))
+
+
+def twin_grads_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                   dout: torch.Tensor, *, causal: bool = True,
+                   window: int = 0) -> tuple:
+    """dq, dk, dv of :func:`chunked_attention_ref` in f64 over one block of
+    all T keys (the exact function), by autograd: the standard K3e's
+    backward is held to, beside the twin's own gradients in the inputs'
+    dtypes (:func:`rel_l2`)."""
+    leaves = [t.detach().double().requires_grad_() for t in (q, k, v)]
+    out = chunked_attention_ref(*leaves, q_pos, kv_pos, causal=causal,
+                                window=window, block=k.shape[1],
+                                compute_dtype=torch.float64)
+    return torch.autograd.grad(out, leaves, dout.double())
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Relative L2 gap of ``a`` to ``b`` (the absolute one where ``b`` is
+    all zero)."""
+    d = (a.double() - b.double()).norm()
+    return float(d / b.double().norm()) if b.any() else float(d)
 
 
 def split_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -299,6 +328,96 @@ def prefill_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dv).to(q.dtype)
+
+
+def _valid(kp: torch.Tensor, qp: torch.Tensor, causal: bool,
+           window: int) -> torch.Tensor:
+    """The masks on broadcast positions: key kp valid for query qp."""
+    valid = torch.ones(torch.broadcast_shapes(kp.shape, qp.shape),
+                       dtype=torch.bool, device=kp.device)
+    if causal:
+        valid = valid & (kp <= qp)
+    if window > 0:
+        valid = valid & (kp > qp - window)
+    return valid
+
+
+def prefill_lse_ref(q: torch.Tensor, k: torch.Tensor, q_pos: torch.Tensor,
+                    kv_pos: torch.Tensor, *, causal: bool = True,
+                    window: int = 0, keys: int = 64,
+                    split: bool = True) -> torch.Tensor:
+    """The log-sum-exp the prefill kernels write for K3e's backward, as
+    :func:`prefill_tc_ref` computes its rows: q scaled in its own dtype,
+    scores through :func:`_tc_dot` in tiles of ``keys``, the running max m
+    and sum l in f32; lse = m + log(l), +inf for a row with no valid key.
+    q: (B,S,H,D), k: (B,T,K,D).  Returns (B,H,S) float32."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qr = (q.reshape(B, S, K, G, D) * D ** -0.5).float()
+    qp = q_pos[:, None, None, :, None]
+    m = torch.full((B, K, G, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, G, S), dtype=torch.float32, device=q.device)
+    for t0 in range(0, T, keys):
+        sl = slice(t0, min(T, t0 + keys))
+        s = _tc_dot(qr, k[:, sl].float(), "bskgd,btkd->bkgst", split)
+        valid = _valid(kv_pos[:, sl][:, None, None, None, :], qp, causal,
+                       window)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        l = l * torch.exp(m - m_new) + p.sum(-1)
+        m = m_new
+    lse = torch.where(l > 0, m + torch.log(l),
+                      torch.full_like(l, float("inf")))
+    return lse.reshape(B, H, S)
+
+
+def attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, out: torch.Tensor,
+                           lse: torch.Tensor, dout: torch.Tensor,
+                           q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                           causal: bool = True, window: int = 0,
+                           keys: int = 64, split: bool = True):
+    """K3e's backward kernel's algorithm (csrc/flash_backward.cu) in plain
+    PyTorch, for the tests: Delta = rowsum(dout * out) in f32; qs = q
+    scaled in its own dtype, widened; then over key blocks of ``keys``, S
+    = qs K^T, P = exp(S - lse) on the valid keys (0 elsewhere, and on a
+    row whose lse is +inf), dV = P^T dO and dK = dS^T qs summed over the
+    group's heads, dP = dO V^T, dS = P (dP - Delta), and dQ += dS K over
+    the blocks, times the scale at the end; every product through
+    :func:`_tc_dot` (3xTF32 with ``split``).  q, out, dout (B,S,H,D), k, v
+    (B,T,K,D), lse (B,H,S).  Returns (dq, dk, dv) in q's and K/V's
+    dtypes."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = D ** -0.5
+    qs = (q.reshape(B, S, K, G, D) * scale).float()
+    do = dout.reshape(B, S, K, G, D).float()
+    delta = (do * out.reshape(B, S, K, G, D).float()).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)[..., None]               # (B,K,G,S,1)
+    lse = lse.reshape(B, K, G, S, 1)
+    qp = q_pos[:, None, None, :, None]
+    dq = torch.zeros((B, S, K, G, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, T, K, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, T, K, D), dtype=torch.float32, device=q.device)
+    for t0 in range(0, T, keys):
+        sl = slice(t0, min(T, t0 + keys))
+        kt, vt = k[:, sl].float(), v[:, sl].float()
+        s = _tc_dot(qs, kt, "bskgd,btkd->bkgst", split)
+        valid = _valid(kv_pos[:, sl][:, None, None, None, :], qp, causal,
+                       window)
+        p = torch.where(valid, torch.exp(s - lse), torch.zeros_like(s))
+        dv[:, sl] = _tc_dot(p, do, "bkgst,bskgd->btkd", split)
+        dp = _tc_dot(do, vt, "bskgd,btkd->bkgst", split)
+        ds = p * (dp - delta)
+        dk[:, sl] = _tc_dot(ds, qs, "bkgst,bskgd->btkd", split)
+        dq = dq + _tc_dot(ds, kt, "bkgst,btkd->bskgd", split)
+    return ((dq * scale).reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 F32_BAR, BF16_CAP = 3e-5, 2e-2      # K3's bars against chunked_attention_ref

@@ -14,7 +14,10 @@ The trace is the Chrome trace JSON ``torch.profiler``'s
 * the port's kernels named as the launch counters name them
   (``kernels/ops.py``): ``villa_scatter`` (K1: ``scatter_kernel`` and its
   ``dedupe_kernel``), ``villa_gather`` (K2: ``gather_kernel``),
-  ``flash_attention`` (K3: ``prefill_kernel``, ``decode_split_kernel``),
+  ``flash_attention`` (K3: ``prefill_kernel``, ``prefill_wgmma_kernel``,
+  ``decode_split_kernel``),
+  ``flash_attention_backward`` (K3e's backward: ``prep_kernel``,
+  ``widen_kernel``, ``grads_kernel``),
   ``rbm_copy`` (K4: ``bulk_copy_kernel``);
 * the device ms under kernels (``kernel_ms``, the union of the kernel
   events: the time a roofline share divides by) and under copies and
@@ -56,7 +59,11 @@ PORT_KERNELS = (("dedupe_kernel", "villa_scatter", "K1"),
                 ("scatter_kernel", "villa_scatter", "K1"),
                 ("gather_kernel", "villa_gather", "K2"),
                 ("prefill_kernel", "flash_attention", "K3"),
+                ("prefill_wgmma_kernel", "flash_attention", "K3"),
                 ("decode_split_kernel", "flash_attention", "K3"),
+                ("prep_kernel", "flash_attention_backward", "K3e"),
+                ("widen_kernel", "flash_attention_backward", "K3e"),
+                ("grads_kernel", "flash_attention_backward", "K3e"),
                 ("bulk_copy_kernel", "rbm_copy", "K4"))
 KERNEL_CAT = "kernel"
 DEVICE_CATS = (KERNEL_CAT, "gpu_memcpy", "gpu_memset")

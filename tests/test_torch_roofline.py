@@ -294,6 +294,27 @@ def test_attribution_parses_a_trace(tmp_path):
     assert AT.main([str(path)]) == 0
 
 
+def test_every_port_kernel_is_named():
+    """Each ``__global__`` function of the port's CUDA sources is one of
+    :data:`attribution.PORT_KERNELS`, so a trace counts every launch of a
+    kernel of ours under its counter (K3e's backward: its prep, widening
+    and gradients kernels)."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(AT.__file__).resolve().parents[1] / "kernels" / "csrc"
+    names = set()
+    for src in csrc.glob("*.cu"):
+        names |= set(re.findall(r"__global__[^{;]*?\b(\w+_kernel)\s*\(",
+                                src.read_text()))
+    assert {"prefill_wgmma_kernel", "prep_kernel", "widen_kernel",
+            "grads_kernel"} <= names
+    for n in names:
+        assert AT.port_kernel(f"void ns::{n}<float, 64>(float const*)"), n
+    assert AT.port_kernel("void ns::prep_kernel<float>(float*)") == (
+        "K3e flash_attention_backward")
+
+
 def _region_trace():
     """Host launches and their device records, paired by correlation id;
     the session dropped the first two records (before the region), and
