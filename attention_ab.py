@@ -5,8 +5,9 @@ windows.
 
 Needs one CUDA card.  The shapes (:func:`shapes`) are those whose device ms
 ``chip_smoke.py``'s phase 2 keeps in PERF.md, built from its constants and
-the port's configs: tinyllama's decode and prefill buckets, gemma3's,
-gemma-7b's, deepseek-v2's MLA (bf16 and f32), jamba's and qwen2-vl's
+the port's configs: tinyllama's decode and prefill buckets, gemma3's
+(and its f32 bucket 128, local and global), gemma-7b's, deepseek-v2's MLA
+(bf16 and f32), olmoe's f32 buckets 1024 and 64, jamba's and qwen2-vl's
 prefills, and the published head shapes of phase 26 (bf16 and f32); and
 K2's three rows: the paging gather
 of phase 2 (45,144 pages of 1 KiB, every entry live), and phase 20's
@@ -63,8 +64,8 @@ def shapes() -> dict:
     def bucket(n, cap):
         return min(max(16, 1 << (n - 1).bit_length()), cap)
 
-    tl, g3, g7 = (get_config(a) for a in ("tinyllama-1.1b", "gemma3-27b",
-                                          "gemma-7b"))
+    tl, g3, g7, om = (get_config(a) for a in (
+        "tinyllama-1.1b", "gemma3-27b", "gemma-7b", "olmoe-1b-7b"))
     ds, jb, vl = (get_config(a) for a in ("deepseek-v2-236b",
                                           "jamba-v0.1-52b", "qwen2-vl-72b"))
     out = {f"tinyllama_decode_{cs.SLOTS}x{cs.MAX_LEN}": (
@@ -80,6 +81,14 @@ def shapes() -> dict:
     out[f"gemma3_prefill_{P}_w{W}_bf16"] = (1, P, P, *g3h, W, "bf16", "bf16")
     out["gemma3_decode_ring_bf16_q"] = (len(cs.G_PROMPTS), 1, W, *g3h, W,
                                         "bf16", "f32")
+    b = bucket(min(cs.G_PROMPTS), cs.G_MAX_LEN)
+    for w in (W, 0):
+        out[f"gemma3_prefill_{b}_w{w}"] = (1, b, b, *g3h, w, "f32", "f32")
+    for n in (max(cs.O_PROMPTS), cs.O_SHORT_PROMPT):
+        b = bucket(n, cs.O_MAX_LEN)
+        out[f"olmoe_prefill_{b}"] = (1, b, b, om.n_heads, om.n_kv_heads,
+                                     om.head_dim, om.head_dim, 0, "f32",
+                                     "f32")
     g7h = (g7.n_heads, g7.n_kv_heads, g7.head_dim, g7.head_dim)
     for n in (max(cs.D7_PROMPTS), min(cs.D7_PROMPTS)):
         b = bucket(n, cs.D7_MAX_LEN)

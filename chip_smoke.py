@@ -14,7 +14,8 @@ nvcc (sm_90a), then:
                 its output is f32, and where it is bf16 within bf16's
                 rounding of the same result (never 2e-2), at max_len
                 1024 and at the launcher's 256; at gemma3's: a 1500-token
-                prefill with window 1024 and without, decode over 1024-slot
+                prefill with window 1024 and without, the same for its
+                96-token prompt's f32 bucket 128, decode over 1024-slot
                 rings whose positions have wrapped and over the 2048-slot
                 global cache, these also with bf16 q over f32 K/V; at
                 jamba's attention layer (32/8 heads), bf16 q over f32 K/V
@@ -23,7 +24,11 @@ nvcc (sm_90a), then:
                 of a long and a short bucket in f32 and bf16; at
                 deepseek-v2's MLA prefill, Dk 192 / Dv 128 over 128 heads,
                 buckets 1024 and 64 in bf16 and f32; at olmoe's, a
-                1024-bucket prefill and a ragged decode of 8 rows; every
+                1024-bucket and a 64-bucket prefill and a ragged decode of
+                8 rows (gemma-7b's, MLA's and olmoe's f32 bucket 64 and
+                gemma3's bucket 128 must take the short form of the f32
+                prefill, ``prefill_plan``'s form "short"; every prefill
+                row prints its plan's form); every
                 decode shape through the split-KV kernel; and the decode
                 kernel over int8 K/V with per-token, per-head scales, K3d,
                 at tinyllama's, gemma3's ring and global and jamba's
@@ -343,6 +348,7 @@ Q_PROMPTS, Q_MAX_NEW, Q_FIRST = (24, 150, 400, 800), 24, 12
 # sessions (and its fast tier of 4) 2.7 GB
 O_LAYERS, O_SLOTS, O_MAX_LEN, O_SESSIONS = 8, 8, 1024, 16
 O_PROMPTS = (16, 40, 90, 150, 260, 380, 520, 700)
+O_SHORT_PROMPT = 40             # phase 2's short-form row: bucket 64
 O_MAX_NEW, O_FIRST = 32, 16
 O_SCHED_LENS = (100, 600)
 # phase 11: deepseek-v2-236b at full width, bf16 weights, cut to 8 of its
@@ -883,6 +889,7 @@ def main() -> int:
 
     # the counters cover the measured engine alone, up to its last step
     ops.reset_launch_counts()
+    short0 = FA.chunked_attention.prefill_short
     eng = Engine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
                  n_sessions=N_SESSIONS, device=dev)
     reqs = [Request(uid, p, max_new) for uid, p in enumerate(prompts)]
@@ -914,6 +921,9 @@ def main() -> int:
     while eng.active:
         eng.step()
     counts = ops.launch_counts()
+    print(f"serving: {FA.chunked_attention.prefill_short - short0} of "
+          f"{counts['flash_attention_prefill']} prefill launches in the "
+          f"short form (buckets {sorted(prefill_ms)})")
 
     for r, s in zip(reqs, solo_reqs):
         got = (r.generated + resumed[r.uid].generated[1:]
@@ -1356,8 +1366,10 @@ def prefill_rows(attn_case, flush, tag) -> dict:
                                         enable_gqa=True), flush),
             bound_ms=bound, bound_by=by, tc_bound_ms=tc_bound(q, k, qp, kp, 0),
             max_abs_err=err, route=ROUTE_SOURCES[FA.prefill_route(
-                q.dtype, k.dtype, q.shape[-1], v.shape[-1])])
-        print(f"attention prefill bucket {bucket}: kernel {r['ms']:.4f} ms, "
+                q.dtype, k.dtype, q.shape[-1], v.shape[-1])],
+            form=FA.launch_plan(q, k, v).form)
+        print(f"attention prefill bucket {bucket} ({r['form']} form): "
+              f"kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
               f"bound {bound:.5f} ms ({by}), tensor-core bound "
               f"{r['tc_bound_ms']:.5f} ms; device time: kernel "
@@ -1380,7 +1392,10 @@ def check_sass(built) -> None:
     padded), and one f32 of each at Dk 192 / Dv 128, and again the three
     of the f32 path at each width up to 256 in their kFresh form (K3e's
     forward: the row log-sum-exp written, the scores summed a k-step at a
-    time); every kernel of the backward library (csrc/flash_backward.cu) its gradients kernel (the
+    time); beside them the short form's kernel (``prefill_short_kernel``,
+    running HMMA), f32 at each (Dk, Dv) of ``flash_attention.SHORT_DIMS``
+    at 16, 32 and 64 rows a CTA; every kernel of the backward library
+    (csrc/flash_backward.cu) its gradients kernel (the
     dK/dV and dQ blocks of one launch) running HMMA, one for f32 and one
     for bf16 at each of ``flash_attention.BACKWARD_WIDTHS``, or its prep
     or widening kernel; every kernel of the wgmma library one of the
@@ -1413,10 +1428,20 @@ def check_sass(built) -> None:
                 for op in ops_:
                     lib[fn][op] += re.search(rf"\b{op}\b", line) is not None
     prefill, decode = counts["flash_attention"], counts["flash_decode"]
-    check(prefill and all("prefill_kernel" in k and c["HMMA"] > 0
+    check(prefill and all(("prefill_kernel" in k
+                           or "prefill_short_kernel" in k) and c["HMMA"] > 0
                           for k, c in prefill.items()),
           f"prefill kernels without tensor-core MMAs or outside the design: "
           f"{prefill}")
+    short = {}
+    for k in [k for k in prefill if "prefill_short_kernel" in k]:
+        m = re.search(r"prefill_short_kernelILi(\d+)ELi(\d+)ELi(\d+)E", k)
+        check(m is not None, f"short-form kernel outside the design: {k}")
+        short[(int(m.group(1)), int(m.group(2)),
+               16 * int(m.group(3)))] = prefill.pop(k)["HMMA"]
+    due = {(dk, dv, r) for dk, dv in FA.SHORT_DIMS for r in FA.SHORT_ROWS}
+    check(set(short) == due, f"short-form instantiations (Dk, Dv, rows) "
+                             f"{sorted(short)}, {sorted(due)} due")
     widths = {}
     for k in prefill:
         dims = tuple(int(x) for x in re.search(
@@ -1465,13 +1490,17 @@ def check_sass(built) -> None:
     check(bulk and all(n > 0 for n in bulk), "K4 issues no bulk copies")
     for k in sorted(prefill):
         print(f"  sass {k}: {prefill[k]['HMMA']} HMMA")
+    for dk, dv, r in sorted(short):
+        print(f"  sass prefill_short_kernel<{dk}, {dv}, {r} rows>: "
+              f"{short[(dk, dv, r)]} HMMA")
     for (dk, dv), c in sorted(got.items()):
         print(f"  sass prefill_wgmma_kernel<{dk}, {dv}>: {c['HGMMA']} "
               f"HGMMA, {c['UTMALDG']} UTMALDG")
     for kind, t, w in sorted(grads):
         print(f"  sass {kind}_kernel<{'float' if t == 'f' else 'bf16'}, "
               f"{w}>: {grads[(kind, t, w)]} HMMA")
-    print(f"  sass: {len(prefill)} mma.sync prefill kernels, all with HMMA; "
+    print(f"  sass: {len(prefill)} mma.sync prefill kernels and "
+          f"{len(short)} of its short form, all with HMMA; "
           f"{len(grads)} backward kernels, all with HMMA; "
           f"{len(wg)} wgmma prefill kernels, all with HGMMA and UTMALDG; "
           f"{len(decode)} split-KV decode kernels; bulk_copy_kernel: "
@@ -1586,6 +1615,22 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
               f"{r['device_ms']:.4f} ms, SDPA {r['library_device_ms']:.4f} ms; "
               f"host to queue a call: kernel {r['enqueue_us']:.1f} us, SDPA "
               f"{r['library_enqueue_us']:.1f} us [{tag}]")
+    # the bucket of the shortest prompt, which phase 6 prefills in the
+    # short form in its windowed and its global layers
+    n = min(G_PROMPTS)
+    S = min(max(16, 1 << (n - 1).bit_length()), G_MAX_LEN)
+    pos = np.full((1, S), 2**30, np.int32)
+    pos[0, :n] = np.arange(n)
+    pos = torch.from_numpy(pos).to(dev)
+    for name, window in ((f"prefill_{S}_local", W), (f"prefill_{S}_global",
+                                                      0)):
+        q, k, v = (torch.randn((1, S, h, D), device=dev, generator=gen)
+                   for h in (H, K, K))
+        out[name] = attention_row(
+            f"gemma3 prefill bucket {S} ({n} tokens)", q, k, v, pos, pos,
+            window, flush, tag)
+        short_due(out[name], f"gemma3 f32 prefill bucket {S}, window "
+                             f"{window}")
     row = {k: v for k, v in out["decode_ring"].items()
            if k != "max_abs_err_bf16"}
     for name in ("prefill_local", "prefill_global"):
@@ -1596,6 +1641,13 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
     row["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
     row["shapes"] = out
     return row
+
+
+def short_due(row, label) -> None:
+    """Fail the run unless phase 2's ``row`` (from :func:`attention_row`)
+    ran the short form of the f32 prefill."""
+    check(row["form"] == "short", f"{label}: the {row['form']} form ran; "
+                                  f"the short form is due")
 
 
 def attention_row(label, q, k, v, qp, kp, window, flush, tag,
@@ -1614,11 +1666,14 @@ def attention_row(label, q, k, v, qp, kp, window, flush, tag,
     kw = dict(window=window, causal=causal)
     route = ("decode" if q.shape[1] == 1 else
              FA.prefill_route(q.dtype, k.dtype, q.shape[-1], v.shape[-1]))
+    form = FA.launch_plan(q, k, v).form if q.shape[1] > 1 else None
     n0 = FA.chunked_attention.prefill_wgmma
+    n1 = FA.chunked_attention.prefill_short
     got = ops.chunked_attention(q, k, v, qp, kp, **kw)
-    check(FA.chunked_attention.prefill_wgmma - n0 == (route == "wgmma"),
-          f"attention {label}: the {route} route's launch was not counted "
-          f"as such")
+    check(FA.chunked_attention.prefill_wgmma - n0 == (route == "wgmma")
+          and FA.chunked_attention.prefill_short - n1 == (form == "short"),
+          f"attention {label}: the {route} route's launch ({form} form) was "
+          f"not counted as such")
     err, share = attention_err(label, got, q, k, v, qp, kp, **kw)
     mixed = q.dtype != k.dtype
     lq, lk, lv = ((x.float() if mixed else x).transpose(1, 2)
@@ -1640,12 +1695,13 @@ def attention_row(label, q, k, v, qp, kp, window, flush, tag,
         lambda: sdpa(lq, lk, lv, attn_mask=mask, enable_gqa=True), flush),
         bound_ms=bound, bound_by=by, max_abs_err=err, err_share_of_bar=share,
         dtypes=f"q {str(q.dtype)[6:]}, k/v {str(k.dtype)[6:]}",
-        route=ROUTE_SOURCES[route])
+        route=ROUTE_SOURCES[route], form=form)
     if mixed:
         r["library_operands"] = "promoted to float32 outside its timed window"
     if q.shape[1] > 1:
         r["tc_bound_ms"] = tc_bound(q, k, qp, kp, window, dv, causal)
-    print(f"attention {label} ({r['dtypes']}; {r['route']}) "
+    print(f"attention {label} ({r['dtypes']}; {r['route']}"
+          + (f", {form} form" if form else "") + f") "
           f"S={q.shape[1]} T={k.shape[1]} "
           f"B={q.shape[0]} window {window}"
           f"{'' if causal else ' non-causal'}: max_abs_err {err:.3g} "
@@ -1707,6 +1763,8 @@ def wide_and_mixed_rows(dev, gen, flush, tag):
             wide[f"prefill_{bucket}_{str(dt)[6:]}"] = attention_row(
                 f"gemma-7b prefill bucket {bucket} ({n} tokens)",
                 *case(1, bucket, H, K, D, pos, pos, dt, dt), 0, flush, tag)
+    short_due(wide[f"prefill_{bucket}_float32"],
+              f"gemma-7b f32 prefill bucket {bucket}")
 
     g3 = get_config("gemma3-27b")
     H, K, D, W = g3.n_heads, g3.n_kv_heads, g3.head_dim, g3.window
@@ -2180,7 +2238,8 @@ def mla_and_moe_rows(dev, gen, flush, tag):
     (pads at 2**30, as the Engine's buckets), in bf16 (phase 11's path)
     and f32 (the other instantiation the wrapper takes).  olmoe-1b-7b's
     (16 heads MHA, head dim 128, f32): the prefill of the 1024 bucket of
-    its longest prompt and a decode over its 1024-slot cache for O_SLOTS
+    its longest prompt and of the 64 bucket of O_SHORT_PROMPT (the short
+    form's), and a decode over its 1024-slot cache for O_SLOTS
     rows with ragged ends.  Each held to ``ref.attention_bar`` and timed
     beside its plain version and SDPA, which takes Dv != Dk.  Returns the
     two ``kernels`` entries: MLA's headline the bf16 bucket-1024 row,
@@ -2207,14 +2266,18 @@ def mla_and_moe_rows(dev, gen, flush, tag):
             mla[f"prefill_{bucket}_{str(dt)[6:]}"] = attention_row(
                 f"deepseek-v2 MLA prefill bucket {bucket} ({n} tokens)",
                 *case(bucket, ds.n_heads, dk, dv, n, dt), 0, flush, tag)
+    bucket = min(b for b, _ in MLA_BUCKETS)
+    short_due(mla[f"prefill_{bucket}_float32"],
+              f"deepseek-v2 MLA f32 prefill bucket {bucket}")
     om = get_config("olmoe-1b-7b")
     H, K, D = om.n_heads, om.n_kv_heads, om.head_dim
     moe = {}
-    n = max(O_PROMPTS)
-    bucket = min(max(16, 1 << (n - 1).bit_length()), O_MAX_LEN)
-    moe[f"prefill_{bucket}"] = attention_row(
-        f"olmoe prefill bucket {bucket} ({n} tokens)",
-        *case(bucket, H, D, D, n, torch.float32), 0, flush, tag)
+    for n in (max(O_PROMPTS), O_SHORT_PROMPT):
+        bucket = min(max(16, 1 << (n - 1).bit_length()), O_MAX_LEN)
+        moe[f"prefill_{bucket}"] = attention_row(
+            f"olmoe prefill bucket {bucket} ({n} tokens)",
+            *case(bucket, H, D, D, n, torch.float32), 0, flush, tag)
+    short_due(moe[f"prefill_{bucket}"], f"olmoe f32 prefill bucket {bucket}")
     ends = np.array(O_PROMPTS) + O_MAX_NEW - 1
     kp_np = np.full((len(ends), O_MAX_LEN), 2**30, np.int32)
     for b, e in enumerate(ends):

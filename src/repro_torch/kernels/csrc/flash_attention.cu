@@ -138,10 +138,32 @@
 // fragment; e^x is exp2f(x log2 e) (one FFMA, then 2^x to 2 ulp), and the
 // accumulator is rescaled only in the tiles where some row's max moved.
 //
-// Later work: the f32 small buckets (one tile and a grid below one wave:
-// gemma-7b's and MLA's bucket 64), TMA tensor-map loads for the f32 and
-// mixed routes, which would free the registers and issue slots the loads
-// take; at head dim 256 in f32, a second stage (32-key tiles).
+// The short form (prefill_short_kernel, below).  At a short bucket the
+// layout above leaves the card idle: gemma-7b's bucket 64 (D 256, G 1) is
+// 16 CTAs of 64 rows on 132 SMs, each walking a serial chain (Q read and
+// scaled with plain loads, the live-tile scan, then one 128 KB tile) and
+// scoring each row block twice; MLA's bucket 64 fills half the rows of
+// its 128 CTAs.  The short form keeps the products and the masks (3xTF32
+// on mma.sync, masks from staged kv_pos, the n-tile skip, 0 for a row
+// with no key, the output in f32) and changes the layout: four
+// warps a CTA holding 16, 32 or 64 rows, the warps of a 16-row block
+// splitting each tile's keys between them (each with its own running max,
+// sum and accumulator, combined in shared memory at the end, in warp
+// order: one launch, no workspace, no atomics); at Dv 256 the two output
+// halves of a row go to two CTAs, each scoring the row once and loading
+// half of V; Q (f32 raw, scaled at its fragment loads) in the cp.async
+// group of the tiles, and where every tile fits the ring all of them
+// loaded at once with no scan.  prefill_plan takes it for f32 q, K and V
+// at (Dk, Dv) = (64, 64), (128, 128), (256, 256) and (192, 128), a whole
+// group, at most 512 keys, no lse, where the full grid is at most half a
+// wave or its rows half empty, with the fewest rows whose grid fits one
+// wave at the card's occupancy.  Every other shape, bf16 q over f32 K/V
+// included (no path prefills it at a short bucket), runs the
+// instantiations above as they were.
+// Later work: TMA tensor-map loads for the f32 and mixed routes, which
+// would free the registers and issue slots the loads take; at head dim
+// 256 in f32, a second stage (32-key tiles); a split over keys across
+// CTAs for short buckets of several tiles (tinyllama's 128-512).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -996,6 +1018,488 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
       out32, S, T_, H, K, G, GS, BQ, dk, dv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---- the short form: f32 prefill of short buckets ----------------------
+//
+// Four warps a CTA.  RB row blocks of 16 (query, head) rows, a CTA holding
+// ROWS = 16 RB rows of one kv head's whole group; each row block is scored
+// by KSPLIT = 4 / RB warps, warp kp taking n-tiles KW kp..KW kp + KW - 1
+// (KW = 8 / KSPLIT) of every 64-key tile, with its own running max, sum and
+// accumulator; at the end the KSPLIT parts of a row are rescaled to their
+// common max and summed in shared memory, in warp order.  At DV = 256 the
+// two output halves of a row go to two CTAs (NH = 2, the grid's x is query
+// block x half), each scoring the row once and loading only its DO = 128
+// columns of V.  Q (copied raw, scaled at its fragment loads) goes in the
+// cp.async group of the first tiles, and where every tile fits the ring
+// (n_tiles <= STAGES) those are all loaded at once, with no scan: one
+// memory latency before the first product.
+constexpr int kShortWarps = 4;
+constexpr int kShortThreads = 32 * kShortWarps;
+
+template <int D, int DV, int RB> struct Short {
+  static constexpr int ROWS = 16 * RB;
+  static constexpr int KSPLIT = kShortWarps / RB;
+  static constexpr int KW = 8 / KSPLIT;           // n-tiles a warp, a tile
+  static constexpr int NH = DV > 128 ? 2 : 1;     // CTAs a row's output
+  static constexpr int DO = DV / NH;              // a CTA's output columns
+  static constexpr int BN = 64;
+  static constexpr int STAGES = D > 128 ? 1 : 2;
+  static constexpr int KS = D + 4, QS = D + 4, OS = DO + 4;
+  static constexpr int k_elems = BN * KS, v_elems = BN * DO;
+  static constexpr size_t stage_bytes =
+      sizeof(float) * (k_elems + v_elems) + sizeof(int) * BN;
+  static constexpr size_t q_bytes = sizeof(float) * ROWS * QS;
+  // the combine's parts (16 rows of OS floats a warp) reuse the ring
+  static_assert(sizeof(float) * kShortWarps * 16 * OS <=
+                    STAGES * stage_bytes, "the combine fits the ring");
+  static size_t bytes(int n_tiles) {
+    return STAGES * stage_bytes + q_bytes + sizeof(int) * n_tiles;
+  }
+};
+
+// A warp's slice of a tile as the products see it: its BN keys (rows of
+// K at stride DK + 4), V's DV columns it loads (row stride DV).  The
+// slices start on multiples of 8 keys, where vswz repeats.
+template <int DK_, int DV_, int BN_> struct Slice {
+  static constexpr int DK = DK_, DV = DV_, BN = BN_;
+  static constexpr int KS = DK + 4, VS = DV, QS = DK + 4;
+  static constexpr int KPB = 4;
+};
+
+// qk_tile for a slice of KW n-tiles, Q (f32, staged raw) scaled at its
+// fragment loads: q * scale, the product the reference takes
+template <class L, int KW>
+__device__ __forceinline__ void qk_short(float (*s)[4], const float* Qw,
+                                         const float* Ks, int g, int t,
+                                         unsigned long long live,
+                                         float scale) {
+  constexpr int KPB = L::KPB, RL = 2 * KPB, NB = L::DK / (8 * KPB);
+  constexpr int JG = KW < kJG ? KW : kJG;
+#pragma unroll
+  for (int blk = 0; blk < NB; ++blk) {
+    alignas(16) float a0[RL];
+    alignas(16) float a1[RL];
+    const int col = blk * 8 * KPB + RL * t;
+#pragma unroll
+    for (int e = 0; e < RL; e += 4) {
+      *reinterpret_cast<float4*>(a0 + e) =
+          *reinterpret_cast<const float4*>(Qw + g * L::QS + col + e);
+      *reinterpret_cast<float4*>(a1 + e) =
+          *reinterpret_cast<const float4*>(Qw + (g + 8) * L::QS + col + e);
+    }
+#pragma unroll
+    for (int e = 0; e < RL; ++e) {
+      a0[e] *= scale;
+      a1[e] *= scale;
+    }
+    uint32_t ahi[KPB][4], alo[KPB][4];
+#pragma unroll
+    for (int kk = 0; kk < KPB; ++kk) {
+      split(a0[2 * kk], ahi[kk][0], alo[kk][0]);       // (g, t)
+      split(a1[2 * kk], ahi[kk][1], alo[kk][1]);       // (g + 8, t)
+      split(a0[2 * kk + 1], ahi[kk][2], alo[kk][2]);   // (g, t + 4)
+      split(a1[2 * kk + 1], ahi[kk][3], alo[kk][3]);   // (g + 8, t + 4)
+    }
+#pragma unroll
+    for (int j0 = 0; j0 < KW; j0 += JG) {
+      if (!((live >> (8 * j0)) & ((1ull << (8 * JG)) - 1))) continue;
+      alignas(16) float b[JG][RL];
+#pragma unroll
+      for (int jj = 0; jj < JG; ++jj)
+#pragma unroll
+        for (int e = 0; e < RL; e += 4)
+          *reinterpret_cast<float4*>(b[jj] + e) =
+              *reinterpret_cast<const float4*>(
+                  Ks + (8 * (j0 + jj) + g) * L::KS + col + e);
+#pragma unroll
+      for (int kk = 0; kk < KPB; ++kk) {
+        float bk[JG][2];
+#pragma unroll
+        for (int jj = 0; jj < JG; ++jj) {
+          bk[jj][0] = b[jj][2 * kk];
+          bk[jj][1] = b[jj][2 * kk + 1];
+        }
+        mma_3xtf32<JG>(s + j0, ahi[kk], alo[kk], bk);
+      }
+    }
+  }
+}
+
+// One CTA: batch row b = blockIdx.z, kv head kvh = blockIdx.y, and x =
+// gridDim.x - 1 - blockIdx.x = qb * NH + half: query block qb, output half
+// `half`.  Row r < BQ*G of the CTA is query s = qb*BQ + r / G of head kvh*G
+// + r % G (kernels/flash_attention.py::prefill_plan's "short" form and
+// prefill_row, prefill_cols); the CTA writes output columns half*DO..
+// of its rows.  Warp w scores row block rb = w / KSPLIT over its part kp =
+// w % KSPLIT of each tile; its lane (g, t) holds rows 16rb + g and 16rb + g
+// + 8 of every fragment.  q, K and V are f32; D is q's and K's head
+// dim, DV V's (both whole: no masked columns, no head slices).
+template <int D, int DV, int RB>
+__global__ void __launch_bounds__(kShortThreads, 1)
+prefill_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int* __restrict__ q_pos,
+                     const int* __restrict__ kv_pos, float* __restrict__ out,
+                     int S, int T_, int H, int K, int G, int BQ, int causal,
+                     int window, float scale) {
+  static_assert(DV <= D, "V's head dim is at most q's and K's");
+  using SH = Short<D, DV, RB>;
+  constexpr int ROWS = SH::ROWS, KSPLIT = SH::KSPLIT, KW = SH::KW;
+  constexpr int NH = SH::NH, DO = SH::DO, NO = DO / 8;
+  constexpr int BN = SH::BN, STAGES = SH::STAGES;
+  constexpr int NK = 8 * KW;                   // keys a warp, a tile
+  constexpr int KL = (NK + 31) / 32;           // of them a lane
+  using LS = Slice<D, DO, NK>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int w_hi[kShortWarps];
+  __shared__ long long w_lo[kShortWarps];
+  __shared__ int n_live_s;
+  __shared__ float m_s[kShortWarps][16], l_s[kShortWarps][16], den_s[ROWS];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rb = warp / KSPLIT, kp = warp % KSPLIT;
+  const int xb = gridDim.x - 1 - blockIdx.x;   // the last blocks first
+  const int qb = xb / NH, half = xb % NH;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (T_ + BN - 1) / BN;
+  const bool all_in = n_tiles <= STAGES;       // every tile in the ring
+  float* Qs = reinterpret_cast<float*>(smem + STAGES * SH::stage_bytes);
+  int* tiles = reinterpret_cast<int*>(smem + STAGES * SH::stage_bytes +
+                                      SH::q_bytes);
+
+  // one tile's K, its DO columns of V (chunks XOR-swizzled by vswz) and
+  // kv_pos into stage st, zero-filled past T
+  auto load_tile = [&](int tile, int st) {
+    unsigned char* base = smem + st * SH::stage_bytes;
+    float* Ks = reinterpret_cast<float*>(base);
+    float* Vs = Ks + SH::k_elems;
+    int* Ps = reinterpret_cast<int*>(Vs + SH::v_elems);
+    constexpr int CPR = D / 4, CPV = DO / 4;   // 16-byte chunks a row
+    const int t0 = tile * BN;
+    for (int idx = tid; idx < BN * CPR; idx += kShortThreads) {
+      const int r = idx / CPR, c = idx % CPR;
+      const int key = t0 + r;
+      const bool ok = key < T_;
+      const long long row =
+          ok ? (static_cast<long long>(b) * T_ + key) * K + kvh : 0;
+      cp_async16(Ks + r * SH::KS + 4 * c, k + row * D + 4 * c, ok);
+      if (c < CPV)
+        cp_async16(Vs + r * DO + 4 * (c ^ vswz<DO>(r)),
+                   v + row * DV + half * DO + 4 * c, ok);
+    }
+    if (tid < BN) {
+      const int key = t0 + tid;
+      const bool ok = key < T_;
+      cp_async4(Ps + tid,
+                kv_pos + (ok ? static_cast<long long>(b) * T_ + key : 0), ok);
+    }
+  };
+
+  // Q (copied raw) and, where they all fit the ring, every tile: one
+  // cp.async group; rows past the block are zero
+  constexpr int CPQ = D / 4;
+  for (int idx = tid; idx < ROWS * CPQ; idx += kShortThreads) {
+    const int r = idx / CPQ, c = idx % CPQ;
+    const int s = qb * BQ + r / G;
+    const bool ok = r < BQ * G && s < S;
+    const long long row =
+        ok ? (static_cast<long long>(b) * S + s) * H + kvh * G + r % G : 0;
+    cp_async16(Qs + r * SH::QS + 4 * c, q + row * D + 4 * c, ok);
+  }
+  if (all_in)
+    for (int i = 0; i < n_tiles; ++i) load_tile(i, i);
+  cp_commit();
+
+  // the lane's two rows' key bounds: key p is valid iff p <= hi and p > lo
+  int hi[2];
+  long long lo[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rb * 16 + g + 8 * i;
+    const int s = qb * BQ + r / G;
+    const bool ok = r < BQ * G && s < S;
+    const int qp = ok ? q_pos[static_cast<long long>(b) * S + s] : 0;
+    hi[i] = !ok ? INT_MIN : (causal ? qp : INT_MAX);
+    lo[i] = !ok ? LLONG_MAX
+                : (window > 0 ? static_cast<long long>(qp) - window
+                              : LLONG_MIN);
+  }
+  int whi = max(hi[0], hi[1]), whi_min = min(hi[0], hi[1]);
+  long long wlo = min(lo[0], lo[1]), wlo_max = max(lo[0], lo[1]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    whi = max(whi, __shfl_xor_sync(0xffffffffu, whi, o));
+    wlo = min(wlo, __shfl_xor_sync(0xffffffffu, wlo, o));
+    whi_min = min(whi_min, __shfl_xor_sync(0xffffffffu, whi_min, o));
+    wlo_max = max(wlo_max, __shfl_xor_sync(0xffffffffu, wlo_max, o));
+  }
+  if (lane == 0) {
+    w_hi[warp] = whi;
+    w_lo[warp] = wlo;
+  }
+  __syncthreads();
+
+  // past the ring: the live tiles, as the full form lists them
+  int n_live = n_tiles;
+  if (!all_in) {
+    int chi = INT_MIN;
+    long long clo = LLONG_MAX;
+#pragma unroll
+    for (int w = 0; w < kShortWarps; ++w) {
+      chi = max(chi, w_hi[w]);
+      clo = min(clo, w_lo[w]);
+    }
+    const long long kv_base = static_cast<long long>(b) * T_;
+    for (int i = warp; i < n_tiles; i += kShortWarps) {
+      bool live = false;
+#pragma unroll
+      for (int h2 = 0; h2 < BN / 32; ++h2) {
+        const int col = i * BN + lane + 32 * h2;
+        if (col < T_) {
+          const int p = __ldg(kv_pos + kv_base + col);
+          live |= p <= chi && static_cast<long long>(p) > clo;
+        }
+      }
+      live = __any_sync(0xffffffffu, live);
+      if (lane == 0) tiles[i] = live;
+    }
+    __syncthreads();
+    if (warp == 0) {                           // compact the flags in place
+      int count = 0;
+      for (int base = 0; base < n_tiles; base += 32) {
+        const bool f = base + lane < n_tiles && tiles[base + lane];
+        const unsigned bal = __ballot_sync(0xffffffffu, f);
+        if (f) tiles[count + __popc(bal & ((1u << lane) - 1))] = base + lane;
+        count += __popc(bal);
+        __syncwarp();
+      }
+      if (lane == 0) n_live_s = count;
+    }
+    __syncthreads();
+    n_live = n_live_s;
+    if (n_live > 0) load_tile(tiles[0], 0);
+    cp_commit();
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // l: lane's part
+
+  for (int it = 0; it < n_live; ++it) {
+    const int tile = all_in ? it : tiles[it];
+    const int st = all_in ? it : it % STAGES;
+    cp_wait_all();                              // tile it has landed
+    __syncthreads();
+    if constexpr (STAGES > 1) {
+      if (!all_in) {
+        if (it + 1 < n_live) load_tile(tiles[it + 1], (it + 1) % STAGES);
+        cp_commit();
+      }
+    }
+    // the warp's part of the tile: keys t0.. of K, V and kv_pos
+    const int t0 = tile * BN + NK * kp;
+    const float* base =
+        reinterpret_cast<const float*>(smem + st * SH::stage_bytes);
+    const float* Ks = base + NK * kp * SH::KS;
+    const float* Vs = base + SH::k_elems + NK * kp * DO;
+    const int* Ps =
+        reinterpret_cast<const int*>(base + SH::k_elems + SH::v_elems) +
+        NK * kp;
+    bool seen[KL], all = true;
+#pragma unroll
+    for (int h2 = 0; h2 < KL; ++h2) {
+      const int c = lane + 32 * h2;
+      seen[h2] = false;
+      if (c < NK) {
+        const int p = Ps[c];
+        const bool in = t0 + c < T_;
+        seen[h2] = in && p <= whi && static_cast<long long>(p) > wlo;
+        all &= in && p <= whi_min && static_cast<long long>(p) > wlo_max;
+      }
+    }
+    const bool full = __all_sync(0xffffffffu, all);
+    unsigned long long live = __ballot_sync(0xffffffffu, seen[0]);
+    if constexpr (KL > 1)
+      live |= static_cast<unsigned long long>(
+                  __ballot_sync(0xffffffffu, seen[KL - 1])) << 32;
+    if (live) {
+      float s[KW][4];
+#pragma unroll
+      for (int j = 0; j < KW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      qk_short<LS, KW>(s, Qs + rb * 16 * SH::QS, Ks, g, t, live, scale);
+      unsigned valid = 0xffffffffu;
+      if (!full) {
+        valid = 0;
+#pragma unroll
+        for (int j = 0; j < KW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * t + (e & 1);
+            const int p = Ps[c];
+            const int i = e >> 1;
+            const bool ok = t0 + c < T_ && p <= hi[i] &&
+                            static_cast<long long>(p) > lo[i];
+            s[j][e] = ok ? s[j][e] : kNegInf;
+            valid |= static_cast<unsigned>(ok) << (4 * j + e);
+          }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < KW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      float corr[2], ml[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mn = fmaxf(m[i], mx[i]);
+        corr[i] = exp2f((m[i] - mn) * kLog2e);
+        m[i] = mn;
+        ml[i] = mn * kLog2e;
+      }
+      float ls[2] = {0.f, 0.f};
+      if (full) {
+#pragma unroll
+        for (int j = 0; j < KW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = exp2f(fmaf(s[j][e], kLog2e, -ml[e >> 1]));
+            ls[e >> 1] += s[j][e];
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < KW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float p = (valid >> (4 * j + e)) & 1u
+                                ? exp2f(fmaf(s[j][e], kLog2e, -ml[i])) : 0.f;
+            s[j][e] = p;
+            ls[i] += p;
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + ls[i];
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          o[n][0] *= corr[0]; o[n][1] *= corr[0];
+          o[n][2] *= corr[1]; o[n][3] *= corr[1];
+        }
+      }
+      pv_tile<LS, DO>(o, s, Vs, g, t, live, 0);
+    }
+    if constexpr (STAGES == 1) {
+      if (!all_in) {
+        __syncthreads();                // every warp is done with the stage
+        if (it + 1 < n_live) load_tile(tiles[it + 1], 0);
+        cp_commit();
+      }
+    }
+  }
+
+  // The combine: each part's accumulator rescaled to the row's largest max
+  // M over the KSPLIT parts, into shared memory (over the ring, 16 rows of
+  // OS floats a warp); the row's sum L = sum of e^(m - M) l; then out =
+  // (parts summed in warp order) / max(L, 1e-30), in q's dtype, each
+  // thread storing 16 bytes of a row at a time.  One part (KSPLIT = 1)
+  // scales by exactly 1.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  cp_wait_all();                        // no copy is left in flight
+  __syncthreads();                      // every warp is done with the ring
+  if (t == 0) {
+    m_s[warp][g] = m[0];
+    m_s[warp][g + 8] = m[1];
+    l_s[warp][g] = l[0];
+    l_s[warp][g + 8] = l[1];
+  }
+  __syncthreads();
+  float* Os = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rr = g + 8 * i, w0 = rb * KSPLIT;
+    float M = m_s[w0][rr];
+#pragma unroll
+    for (int j = 1; j < KSPLIT; ++j) M = fmaxf(M, m_s[w0 + j][rr]);
+    const float f = exp2f((m[i] - M) * kLog2e);
+    if (kp == 0 && t == 0) {
+      float L = 0.f;
+#pragma unroll
+      for (int j = 0; j < KSPLIT; ++j)
+        L += exp2f((m_s[w0 + j][rr] - M) * kLog2e) * l_s[w0 + j][rr];
+      den_s[rb * 16 + rr] = fmaxf(L, 1e-30f);
+    }
+    // lane t holds columns (DO/4) t + n (o[n][2i]) and (DO/4) t + NO + n
+    // (o[n][2i + 1])
+    float* orow = Os + (warp * 16 + rr) * SH::OS + (DO / 4) * t;
+#pragma unroll
+    for (int n = 0; n < NO; n += 4) {
+      *reinterpret_cast<float4*>(orow + n) =
+          make_float4(o[n][2 * i] * f, o[n + 1][2 * i] * f,
+                      o[n + 2][2 * i] * f, o[n + 3][2 * i] * f);
+      *reinterpret_cast<float4*>(orow + NO + n) =
+          make_float4(o[n][2 * i + 1] * f, o[n + 1][2 * i + 1] * f,
+                      o[n + 2][2 * i + 1] * f, o[n + 3][2 * i + 1] * f);
+    }
+  }
+  __syncthreads();
+  constexpr int CPO = DO / 4;
+  for (int idx = tid; idx < ROWS * CPO; idx += kShortThreads) {
+    const int r = idx / CPO, c = idx % CPO;
+    const int s = qb * BQ + r / G;
+    if (r >= BQ * G || s >= S) continue;
+    const float* part = Os + ((r / 16) * KSPLIT * 16 + r % 16) * SH::OS +
+                        4 * c;
+    float4 acc = *reinterpret_cast<const float4*>(part);
+#pragma unroll
+    for (int j = 1; j < KSPLIT; ++j) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(part + j * 16 * SH::OS);
+      acc.x += x.x; acc.y += x.y; acc.z += x.z; acc.w += x.w;
+    }
+    const float den = den_s[r];
+    float* dst = out + ((static_cast<long long>(b) * S + s) * H + kvh * G +
+                        r % G) * DV + half * DO + 4 * c;
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
+  }
+}
+
+// A launch of the short form laid out by prefill_plan: -1 when its keys,
+// stages or halves are not this instantiation's, the group does not fit
+// its rows, or n_blocks is not ceil(S / BQ) x halves.
+template <int D, int DV, int RB>
+int launch_short(const void* q, const void* k, const void* v,
+                 const int* q_pos, const int* kv_pos, void* out, int B,
+                 int S, int T_, int H, int K, int causal, int window,
+                 float scale, int keys, int stages, int halves, int BQ,
+                 int n_blocks, cudaStream_t stream) {
+  using SH = Short<D, DV, RB>;
+  const int G = H / K;
+  if (keys != SH::BN || stages != SH::STAGES || halves != SH::NH ||
+      G > SH::ROWS || BQ < 1 || BQ * G > SH::ROWS ||
+      static_cast<long long>(n_blocks) !=
+          static_cast<long long>((S + BQ - 1) / BQ) * SH::NH)
+    return -1;
+  const size_t smem = SH::bytes((T_ + SH::BN - 1) / SH::BN);
+  dim3 grid(n_blocks, K, B);
+  prefill_short_kernel<D, DV, RB><<<grid, kShortThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), q_pos, kv_pos, static_cast<float*>(out),
+      S, T_, H, K, G, BQ, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
 }  // namespace pf
 
 
@@ -1047,6 +1551,21 @@ int flash_attention_prepare() {
   OPT_IN_BF16(96, true) OPT_IN_BF16(512, true)
   OPT_IN(float, float, 192, 128, false, false)
   OPT_IN(float, float, 192, 128, true, false)
+#define OPT_IN_FN(...)                                                      \
+  if (cudaError_t err = cudaFuncGetAttributes(&attr, __VA_ARGS__))          \
+    return static_cast<int>(err);                                           \
+  if (cudaError_t err = cudaFuncSetAttribute(                               \
+          __VA_ARGS__, cudaFuncAttributeMaxDynamicSharedMemorySize,         \
+          max_smem - static_cast<int>(attr.sharedSizeBytes)))               \
+    return static_cast<int>(err);
+#define OPT_IN_SHORT(DD, DV)                                                \
+  OPT_IN_FN(pf::prefill_short_kernel<DD, DV, 1>)                            \
+  OPT_IN_FN(pf::prefill_short_kernel<DD, DV, 2>)                            \
+  OPT_IN_FN(pf::prefill_short_kernel<DD, DV, 4>)
+  OPT_IN_SHORT(64, 64) OPT_IN_SHORT(128, 128) OPT_IN_SHORT(256, 256)
+  OPT_IN_SHORT(192, 128)
+#undef OPT_IN_SHORT
+#undef OPT_IN_FN
 #undef OPT_IN_BF16
 #undef OPT_IN_D
 #undef OPT_IN
@@ -1149,6 +1668,59 @@ int flash_prefill_launch(const void* q, const void* k, const void* v,
 #undef PREFILL_BF16
 #undef PREFILL_D
 #undef PREFILL
+  return -1;
+}
+
+// S > 1 in the short form (prefill_plan's form "short"; the kernel
+// pf::prefill_short_kernel above): q, K and V f32, (D, Dv) one of (64, 64),
+// (128, 128), (256, 256) and (192, 128), the group whole in a CTA of
+// `rows` = 16, 32 or 64 rows; `keys` (64) and `stages` (1 above D = 128,
+// else 2) the instantiation's, `halves` the CTAs a row's output columns
+// are cut over (2 at Dv = 256, else 1), BQ queries a CTA, n_blocks =
+// ceil(S / BQ) x halves.  q/k/v start on 16-byte boundaries.  Returns a
+// cudaError_t (0 = launched), or -1 for a shape or plan it does not take.
+int flash_prefill_short_launch(const void* q, const void* k, const void* v,
+                               const int* q_pos, const int* kv_pos,
+                               void* out, int B, int S, int T_, int H,
+                               int K, int D, int Dv, int causal, int window,
+                               float scale, int rows, int keys, int stages,
+                               int halves, int BQ, int n_blocks,
+                               void* stream) {
+  if (B == 0 || S == 0) return 0;
+  if (K <= 0 || H % K != 0 || T_ < 1) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PREFILL_SHORT(DD, DV, RB)                                           \
+  if (D == DD && Dv == DV && rows == 16 * RB)                               \
+    return pf::launch_short<DD, DV, RB>(                                    \
+        q, k, v, q_pos, kv_pos, out, B, S, T_, H, K, causal, window, scale, \
+        keys, stages, halves, BQ, n_blocks, s);
+#define SHORT_ROWS(DD, DV)                                                  \
+  PREFILL_SHORT(DD, DV, 1) PREFILL_SHORT(DD, DV, 2) PREFILL_SHORT(DD, DV, 4)
+  SHORT_ROWS(64, 64) SHORT_ROWS(128, 128) SHORT_ROWS(256, 256)
+  SHORT_ROWS(192, 128)
+#undef SHORT_ROWS
+#undef PREFILL_SHORT
+  return -1;
+}
+
+// The CTAs of the short form an SM of the current device holds at once
+// (its registers and shared memory at T keys) at (D, Dv) and `rows` rows a
+// CTA: what prefill_plan fits a wave to.  After flash_attention_prepare.
+// -1 for an instantiation there is not, or a negative cudaError_t.
+int flash_prefill_short_per_sm(int D, int Dv, int rows, int T_) {
+  int n = 0;
+#define PER_SM(DD, DV, RB)                                                  \
+  if (D == DD && Dv == DV && rows == 16 * RB) {                             \
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(    \
+        &n, pf::prefill_short_kernel<DD, DV, RB>, pf::kShortThreads,        \
+        pf::Short<DD, DV, RB>::bytes((T_ + 63) / 64));                      \
+    return e == cudaSuccess ? n : -static_cast<int>(e);                     \
+  }
+#define PER_SM_ROWS(DD, DV) PER_SM(DD, DV, 1) PER_SM(DD, DV, 2) PER_SM(DD, DV, 4)
+  PER_SM_ROWS(64, 64) PER_SM_ROWS(128, 128) PER_SM_ROWS(256, 256)
+  PER_SM_ROWS(192, 128)
+#undef PER_SM_ROWS
+#undef PER_SM
   return -1;
 }
 

@@ -20,7 +20,9 @@ picked by shape (:func:`prefill_route`) and laid out by
 :func:`prefill_plan`: q, k and v all bf16 at tile widths 64, 128 and 256
 or at Dk 192 / Dv 128 the warpgroup-MMA kernel fed by TMA (``"wgmma"``,
 also counted in ``chunked_attention.prefill_wgmma``), every other the
-warp-level MMA kernel (``"mma"``).  q/k/v that do not start on a 16-byte
+warp-level MMA kernel (``"mma"``), whose f32 path has a short form for
+short buckets (``PrefillPlan.form`` "short", also counted in
+``chunked_attention.prefill_short``).  q/k/v that do not start on a 16-byte
 boundary, which both kernels' vector loads need, are copied first.  It
 takes the reference's causal and sliding-window masks (``window > 0``, the
 ``attn_local`` layers), any GQA group, every head dim that is a multiple of
@@ -111,6 +113,13 @@ WGMMA_WIDTHS = (64, 128, 256, 192)
 WGMMA_ROWS = 128
 WGMMA_KEYS = {64: 128, 128: 128, 256: 64, 192: 128}
 WGMMA_STAGES = {64: 4, 128: 2, 256: 2, 192: 2}
+# the short form of the mma route's f32 path (csrc/flash_attention.cu,
+# prefill_short_kernel: four warps a CTA): the (Dk, Dv) it takes, whole
+# groups, q and K/V f32; the rows a CTA it may hold, in the order tried; the
+# most keys it takes (a short bucket: at most 8 tiles)
+SHORT_DIMS = ((64, 64), (128, 128), (256, 256), MLA_DIMS)
+SHORT_ROWS = (64, 32, 16)
+SHORT_MAX_KEYS = 512
 
 
 def tile_width(head_dim: int) -> int:
@@ -145,8 +154,13 @@ def _lib() -> ctypes.CDLL:
         lib = _build.library("flash_attention")
         lib.flash_prefill_launch.argtypes = (
             [_P] * 8 + [_I] * 9 + [ctypes.c_float] + [_I] * 9 + [_P])
+        lib.flash_prefill_short_launch.argtypes = (
+            [_P] * 6 + [_I] * 9 + [ctypes.c_float] + [_I] * 6 + [_P])
+        lib.flash_prefill_short_per_sm.argtypes = [_I] * 4
         lib.flash_attention_prepare.argtypes = []
-        for fn in (lib.flash_prefill_launch, lib.flash_attention_prepare):
+        for fn in (lib.flash_prefill_launch, lib.flash_prefill_short_launch,
+                   lib.flash_prefill_short_per_sm,
+                   lib.flash_attention_prepare):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -255,11 +269,17 @@ class PrefillPlan(NamedTuple):
     heads: int                   # heads of one kv head a CTA (a slice)
     width: int                   # the instantiation's tile width of Dk
     route: str                   # the kernel (prefill_route)
+    form: str = "full"           # the mma route's layout: "full", "short"
+    halves: int = 1              # CTAs a row's output columns are cut over
 
 
 @functools.lru_cache(maxsize=None)
 def prefill_plan(B: int, S: int, H: int, K: int, head_dim: int,
-                 f32: bool, v_dim: int) -> PrefillPlan:
+                 f32: bool, v_dim: int, *, T: Optional[int] = None,
+                 n_sm: Optional[int] = None, lse: bool = False,
+                 mixed: bool = False,
+                 per_sm: Optional[Tuple[int, ...]] = None,
+                 short_rows: Optional[int] = None) -> PrefillPlan:
     """The prefill kernel's layout for q (B,S,H,Dk) over K kv heads, Dk =
     ``head_dim`` and Dv = ``v_dim``, run at tile width ``width`` =
     ``tile_width(Dk)`` (192 for MLA's Dk 192 / Dv 128): a CTA holds ``bq =
@@ -278,7 +298,38 @@ def prefill_plan(B: int, S: int, H: int, K: int, head_dim: int,
     (``f32`` False) at a width of :data:`WGMMA_WIDTHS` take the ``"wgmma"``
     route (:func:`prefill_route`): WGMMA_ROWS rows at every width, keys
     and stages from WGMMA_KEYS and WGMMA_STAGES, the same rows and grid
-    otherwise."""
+    otherwise.  That layout is ``form`` "full".
+
+    Given the keys ``T`` and the card's SM count ``n_sm`` (the wrapper
+    passes the device's), the mma route's f32 path takes the "short" form
+    (csrc/flash_attention.cu, ``prefill_short_kernel``) where the full one
+    would leave the card underused: its grid at most half a wave of
+    ``n_sm`` CTAs, or its CTAs' rows at least half empty (S at most half a
+    block's queries: MLA's 128 rows at S 64). Only for q and K/V all f32
+    (``f32`` and not ``mixed``: bf16 q over f32 K/V, which no path
+    prefills at a short bucket, keeps the full form), a (Dk, Dv) of
+    :data:`SHORT_DIMS` with the whole group in a CTA, at most
+    :data:`SHORT_MAX_KEYS` keys, and never with ``lse`` (K3e's forward
+    keeps its kFresh form): every other shape keeps the full form, bit for
+    bit. Between half a wave and one, and past 512 keys, the full form
+    stays: on an H100 it was the faster at gemma-7b's and gemma3's buckets
+    there and at olmoe's 1024 keys, the short form only at tinyllama's
+    bucket 512 (prefill_forms.py, PERF.md §6). ``short_rows`` lays out a
+    shape the short form takes at that many rows a CTA whatever the
+    criterion says (the tests and prefill_forms.py time and check each
+    instantiation so). A short CTA has four warps and ``rows`` = 16, 32 or 64
+    rows, ``bq = rows // G`` queries of its kv head's G heads; the 64 /
+    rows warps of a 16-row block split each tile's keys between them, so
+    fewer rows a CTA means less work a warp and more CTAs; at Dv 256 the
+    two output halves of a row go to two CTAs (``halves`` 2: the grid's x
+    is query block x half, :func:`prefill_cols`). ``rows`` is the fewest
+    of those whose grid takes the fewest waves, a wave ``n_sm`` times the
+    CTAs an SM holds at that many rows (``per_sm``, aligned with
+    :data:`SHORT_ROWS`: the card's occupancy of each instantiation, which
+    the wrapper asks the card for; 1 where not given): one wave where any
+    fits, since a second costs more than the split saves; past one wave
+    (MLA's bucket 64 at B 2-8) 32 rows at two CTAs an SM beat 64 at one in
+    as many waves (prefill_forms.py, PERF.md §6)."""
     if (head_dim, v_dim) == MLA_DIMS:
         width, v_width = MLA_DIMS[0], MLA_DIMS[1]
     else:
@@ -299,23 +350,85 @@ def prefill_plan(B: int, S: int, H: int, K: int, head_dim: int,
         stages = 1 if width > WIDE_D and f32 else PREFILL_STAGES
     heads = min(G, rows)
     bq = rows // heads
-    return PrefillPlan(rows, keys, stages, bq,
-                       (-(-S // bq) * -(-G // heads), K, B), heads, width,
-                       route)
+    grid = (-(-S // bq) * -(-G // heads), K, B)
+    full = PrefillPlan(rows, keys, stages, bq, grid, heads, width, route)
+    if (T is None or route != "mma" or not f32 or mixed or lse
+            or (head_dim, v_dim) not in SHORT_DIMS or T > SHORT_MAX_KEYS
+            or G > SHORT_ROWS[0]):
+        return full
+    halves = 2 if v_width > WIDE_D else 1
+    if short_rows is None:
+        if n_sm is None or (2 * grid[0] * K * B > n_sm
+                            and 2 * S * heads > rows):
+            return full
+        occ = dict(zip(SHORT_ROWS, per_sm or (1,) * len(SHORT_ROWS)))
+        short_rows = min((-(-(-(-S // (r // G)) * halves * K * B)
+                            // (n_sm * max(1, occ[r]))), r)
+                         for r in SHORT_ROWS if r >= G)[1]
+    elif short_rows not in SHORT_ROWS or short_rows < G:
+        raise ValueError(f"the short form holds {SHORT_ROWS} rows a CTA "
+                         f"and a whole group of {G}: not {short_rows}")
+    rows, bq = short_rows, short_rows // G
+    return PrefillPlan(rows, keys, stages, bq, (-(-S // bq) * halves, K, B),
+                       G, width, route, "short", halves)
 
 
 def prefill_row(plan: PrefillPlan, S: int, G: int, x: int, kvh: int,
                 r: int) -> Tuple[int, int] | None:
     """``(query, head)`` of row ``r`` of the CTA at ``x`` of the grid's
-    first dim (in the kernel's order: query block ``x // n_slices``, head
-    slice ``x % n_slices``) and kv head ``kvh``, as the kernel computes it,
-    or None for a row it leaves empty."""
-    qb, hs = divmod(x, -(-G // plan.heads))
+    first dim (in the kernel's order: query block ``x // plan.halves //
+    n_slices``, head slice ``x // plan.halves % n_slices``; output half
+    ``x % plan.halves``, :func:`prefill_cols`) and kv head ``kvh``, as the
+    kernel computes it, or None for a row it leaves empty."""
+    qb, hs = divmod(x // plan.halves, -(-G // plan.heads))
     s = qb * plan.bq + r // plan.heads
     gh = hs * plan.heads + r % plan.heads
     if r >= plan.bq * plan.heads or s >= S or gh >= G:
         return None
     return s, kvh * G + gh
+
+
+def prefill_cols(plan: PrefillPlan, x: int, v_dim: int) -> Tuple[int, int]:
+    """The output columns ``[lo, hi)`` the CTA at ``x`` of the grid's
+    first dim writes of each of its rows: all ``v_dim`` of them, or, where
+    ``plan.halves`` CTAs share a row (the short form at Dv 256), its
+    half ``x % plan.halves``."""
+    w = v_dim // plan.halves
+    return x % plan.halves * w, x % plan.halves * w + w
+
+
+def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                lse: bool = False) -> PrefillPlan:
+    """The :class:`PrefillPlan` :func:`chunked_attention` launches for
+    CUDA tensors q (B,S,H,Dk), k (B,T,K,Dk), v (B,T,K,Dv) at S > 1 (with
+    ``lse``: K3e's forward), on q's device's SM count."""
+    B, S, H, D = q.shape
+    T, Dv = k.shape[1], v.shape[-1]
+    return prefill_plan(B, S, H, k.shape[2], D,
+                        torch.float32 in (q.dtype, k.dtype), Dv, T=T,
+                        n_sm=_device(q.device.index), lse=lse,
+                        mixed=q.dtype != k.dtype,
+                        per_sm=_short_per_sm(q.device.index, D, Dv,
+                                             -(-T // PREFILL_KEYS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _short_per_sm(index: int, D: int, Dv: int,
+                  n_tiles: int) -> Optional[Tuple[int, ...]]:
+    """The CTAs of the short form an SM of CUDA device ``index`` holds at
+    each of :data:`SHORT_ROWS` rows a CTA (``n_tiles`` tiles of keys, at
+    most :data:`SHORT_MAX_KEYS` keys' worth), as the card's occupancy
+    calculator gives them; None at a (Dk, Dv) it has no instantiation of."""
+    if (D, Dv) not in SHORT_DIMS:
+        return None
+    _device(index)                        # the shared-memory opt-in first
+    n_tiles = min(n_tiles, SHORT_MAX_KEYS // PREFILL_KEYS)
+    with torch.cuda.device(index):
+        got = tuple(_lib().flash_prefill_short_per_sm(
+            D, Dv, rows, n_tiles * PREFILL_KEYS) for rows in SHORT_ROWS)
+    if min(got) < 1:
+        raise RuntimeError(f"short-form occupancy query failed: {got}")
+    return got
 
 
 @functools.lru_cache(maxsize=None)
@@ -476,8 +589,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(window), D ** -0.5, _DTYPES[q.dtype], _KV_DTYPES[k.dtype],
             gc, n_split, split_len, stream)
     else:
-        plan = prefill_plan(B, S, H, K, D,
-                            torch.float32 in (q.dtype, k.dtype), Dv)
+        plan = launch_plan(q, k, v, lse=lse is not None)
         if plan.route == "wgmma":
             err = _wgmma_ready(q.device.index).flash_prefill_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
@@ -486,6 +598,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 int(causal), int(window), D ** -0.5, plan.width, plan.rows,
                 plan.keys, plan.stages, plan.bq, plan.heads, plan.grid[0],
                 stream)
+        elif plan.form == "short":
+            err = _lib().flash_prefill_short_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+                kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, K, D, Dv,
+                int(causal), int(window), D ** -0.5, plan.rows, plan.keys,
+                plan.stages, plan.halves, plan.bq, plan.grid[0], stream)
         else:
             err = _lib().flash_prefill_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
@@ -504,12 +622,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         chunked_attention.prefill += 1
         chunked_attention.prefill_wgmma += plan.route == "wgmma"
+        chunked_attention.prefill_short += plan.form == "short"
     return out
 
 
 chunked_attention.launches = 0
 chunked_attention.prefill = 0
 chunked_attention.prefill_wgmma = 0
+chunked_attention.prefill_short = 0
 chunked_attention.decode = 0
 chunked_attention.decode_int8 = 0
 chunked_attention.backward = 0

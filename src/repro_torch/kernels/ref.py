@@ -330,6 +330,76 @@ def prefill_tc_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dv).to(q.dtype)
 
 
+def prefill_short_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, kv_pos: torch.Tensor, plan, *,
+                      causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The short form of the f32 prefill kernel (``prefill_plan``'s form
+    "short", csrc/flash_attention.cu's ``prefill_short_kernel``) CTA by CTA,
+    for the tests: each CTA of ``plan``'s grid takes its rows
+    (``prefill_row``) and output columns (``prefill_cols``), q * scale as
+    the kernel scales it, and each of its 64 // rows key parts (the warps
+    of a 16-row block: part p the keys 64 p / parts.. of every
+    ``plan.keys``-key tile) runs the
+    online softmax of :func:`prefill_tc_ref` (3xTF32 through
+    :func:`_tc_dot`) over its keys alone; then the parts are rescaled to
+    the row's largest max and summed in order, and out = their sum /
+    max(L, 1e-30), L the rescaled sums.  q: (B,S,H,Dk), k: (B,T,K,Dk), v:
+    (B,T,K,Dv), all f32.  Returns (B,S,H,Dv) f32."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, S, H, D = q.shape
+    T, K, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // K
+    parts = 64 // plan.rows
+    nk = plan.keys // parts
+    qs = q * D ** -0.5
+    out = torch.zeros((B, S, H, Dv), dtype=torch.float32)
+    for b in range(B):
+        for kvh in range(K):
+            for x in range(plan.grid[0]):
+                cells = [FA.prefill_row(plan, S, G, x, kvh, r)
+                         for r in range(plan.rows)]
+                cells = [c for c in cells if c is not None]
+                if not cells:
+                    continue
+                c0, c1 = FA.prefill_cols(plan, x, Dv)
+                s_idx = torch.tensor([s for s, _ in cells])
+                h_idx = torch.tensor([h for _, h in cells])
+                qr = qs[b, s_idx, h_idx]                         # (R, Dk)
+                qp = q_pos[b, s_idx][:, None]
+                R = len(cells)
+                m = torch.full((parts, R), NEG_INF)
+                l = torch.zeros((parts, R))
+                acc = torch.zeros((parts, R, c1 - c0))
+                for t0 in range(0, T, plan.keys):
+                    for p in range(parts):
+                        sl = slice(min(T, t0 + p * nk),
+                                   min(T, t0 + (p + 1) * nk))
+                        if sl.start == sl.stop:
+                            continue
+                        sc = _tc_dot(qr, k[b, sl, kvh].float(), "rd,td->rt",
+                                     True)
+                        valid = _valid(kv_pos[b, sl][None, :], qp, causal,
+                                       window)
+                        sc = torch.where(valid, sc,
+                                         torch.full_like(sc, NEG_INF))
+                        m_new = torch.maximum(m[p], sc.amax(-1))
+                        w = torch.where(valid,
+                                        torch.exp(sc - m_new[:, None]),
+                                        torch.zeros_like(sc))
+                        corr = torch.exp(m[p] - m_new)
+                        l[p] = l[p] * corr + w.sum(-1)
+                        acc[p] = acc[p] * corr[:, None] + _tc_dot(
+                            w, v[b, sl, kvh, c0:c1].float(), "rt,td->rd",
+                            True)
+                        m[p] = m_new
+                f = torch.exp(m - m.amax(0))
+                num = (f[..., None] * acc).sum(0)
+                den = torch.clamp((f * l).sum(0), min=1e-30)
+                out[b, s_idx, h_idx, c0:c1] = num / den[:, None]
+    return out
+
+
 def _valid(kp: torch.Tensor, qp: torch.Tensor, causal: bool,
            window: int) -> torch.Tensor:
     """The masks on broadcast positions: key kp valid for query qp."""

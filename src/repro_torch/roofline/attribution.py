@@ -14,8 +14,8 @@ The trace is the Chrome trace JSON ``torch.profiler``'s
 * the port's kernels named as the launch counters name them
   (``kernels/ops.py``): ``villa_scatter`` (K1: ``scatter_kernel`` and its
   ``dedupe_kernel``), ``villa_gather`` (K2: ``gather_kernel``),
-  ``flash_attention`` (K3: ``prefill_kernel``, ``prefill_wgmma_kernel``,
-  ``decode_split_kernel``),
+  ``flash_attention`` (K3: ``prefill_kernel``, ``prefill_short_kernel``,
+  ``prefill_wgmma_kernel``, ``decode_split_kernel``),
   ``flash_attention_backward`` (K3e's backward: ``prep_kernel``,
   ``widen_kernel``, ``grads_kernel``),
   ``rbm_copy`` (K4: ``bulk_copy_kernel``);
@@ -59,6 +59,7 @@ PORT_KERNELS = (("dedupe_kernel", "villa_scatter", "K1"),
                 ("scatter_kernel", "villa_scatter", "K1"),
                 ("gather_kernel", "villa_gather", "K2"),
                 ("prefill_kernel", "flash_attention", "K3"),
+                ("prefill_short_kernel", "flash_attention", "K3"),
                 ("prefill_wgmma_kernel", "flash_attention", "K3"),
                 ("decode_split_kernel", "flash_attention", "K3"),
                 ("prep_kernel", "flash_attention_backward", "K3e"),

@@ -927,6 +927,123 @@ def test_mla_prefill_matches_plain(dev, B, S, T, H, K, window, dt):
         assert not out[0].float().any()
 
 
+def _short_case(dev, B, S, T, H, K, dk, dv, qdt, n, seed, empty_row):
+    """A prefill case of the f32 path: q in ``qdt`` over f32 K/V at
+    ``dk``/``dv``; the last batch row holds ``n`` tokens, the others fewer,
+    each padded at 2**30 (the Engine's buckets), its queries the last S
+    slots; with ``empty_row`` batch row 0's first query sits at -1, where
+    it sees no key."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, dk), device=dev, generator=g).to(qdt)
+    k = torch.randn((B, T, K, dk), device=dev, generator=g)
+    v = torch.randn((B, T, K, dv), device=dev, generator=g)
+    kv_pos = np.full((B, T), 2**30, np.int32)
+    for b in range(B):
+        kv_pos[b, :max(1, n - 9 * (B - 1 - b))] = np.arange(
+            max(1, n - 9 * (B - 1 - b)))
+    q_pos = kv_pos[:, T - S:].copy()
+    if empty_row:
+        q_pos[0, 0] = -1
+    return (q, k, v, torch.from_numpy(q_pos).to(dev),
+            torch.from_numpy(kv_pos).to(dev))
+
+
+def _hold_short(q, k, v, qp, kp, window=0):
+    """One call of K3 in the short form: counted once as a prefill and a
+    short-form launch, two calls bit-equal, within ``ref.attention_bar`` of
+    the plain version.  Returns the output."""
+    fn = ops.KERNELS["flash_attention"]
+    plan = ops.FA.launch_plan(q, k, v)
+    assert plan.form == "short" and plan.route == "mma"
+    n, n_pre, n_short = fn.launches, fn.prefill, fn.prefill_short
+    out = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    again = ops.chunked_attention(q, k, v, qp, kp, window=window)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.prefill, fn.prefill_short) == (
+        n + 2, n_pre + 2, n_short + 2)
+    assert torch.equal(_bytes(out), _bytes(again))
+    assert out.dtype == q.dtype and out.shape == (*q.shape[:3], v.shape[-1])
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, window=window)
+    _assert_within_bar(out, want, q, k, v, qp, kp, window=window)
+    return out
+
+
+@pytest.mark.parametrize("B,S,T,H,K,dk,dv,window,qdt,n", [
+    (1, 64, 64, 16, 16, 256, 256, 0, F32, 40),     # gemma-7b's bucket 64
+    (2, 64, 64, 128, 128, 192, 128, 0, F32, 40),   # deepseek-v2 MLA's
+    (2, 16, 16, 32, 4, 64, 64, 0, F32, 16),        # G 8, D 64, S 16
+    (1, 128, 128, 32, 16, 128, 128, 0, F32, 96),   # gemma3's bucket 128
+    (1, 128, 128, 32, 16, 128, 128, 1024, F32, 96),  # its window
+    (2, 128, 128, 32, 16, 128, 128, 40, F32, 128),   # a window that cuts
+    (1, 64, 64, 16, 16, 128, 128, 0, F32, 40),     # olmoe's bucket 64
+    (2, 64, 64, 16, 16, 256, 256, 20, F32, 64),    # a window
+    (2, 200, 200, 8, 8, 256, 256, 0, F32, 200),    # T past one tile
+    (2, 150, 150, 16, 16, 192, 128, 30, F32, 150),  # MLA past a tile
+    (1, 300, 300, 8, 4, 64, 64, 100, F32, 300),    # two stages, window
+    (2, 16, 64, 16, 16, 64, 64, 0, F32, 64),       # S < T: 16 over 64
+])
+def test_short_form_prefill_matches_plain(dev, B, S, T, H, K, dk, dv,
+                                          window, qdt, n):
+    """The short form of the f32 prefill (``prefill_short_kernel``): at
+    gemma-7b's and MLA's f32 bucket 64, tinyllama's G 8 bucket 16, gemma3's
+    bucket 128 (96 tokens, global and under its window 1024) and olmoe's
+    bucket 64 at D 128, windows, T past one tile (the live-tile scan and the
+    ring, one stage above D 128) and fewer queries than keys; ragged rows
+    at 2**30 and, in batch row 0, a query with no valid key (exactly 0);
+    one launch a call, two calls bit-equal, within the bar of the plain
+    version."""
+    q, k, v, qp, kp = _short_case(dev, B, S, T, H, K, dk, dv, qdt, n,
+                                  seed=S + T + H + dk + window,
+                                  empty_row=B > 1)
+    out = _hold_short(q, k, v, qp, kp, window)
+    if B > 1:
+        assert not out[0, 0].float().any()
+
+
+@pytest.mark.parametrize("B,S,H,K,D,n", [
+    (2, 32, 64, 8, 128, 24),      # qwen1.5's heads at D 128
+    (2, 16, 8, 1, 64, 13),        # D 64
+    (2, 64, 4, 4, 256, 50),       # D 256
+])
+def test_bf16_q_over_f32_kv_keeps_the_full_form(dev, B, S, H, K, D, n):
+    """bf16 q over f32 K/V at short buckets, which no path prefills (a
+    layer's prefill attends over its own K/V, in the weights' dtype): the
+    full form, as before the short form, one launch a call and no
+    short-form launch, two calls bit-equal, within ``ref.attention_bar``
+    of the plain version; a query with no valid key gives 0."""
+    q, k, v, qp, kp = _short_case(dev, B, S, S, H, K, D, D, BF16, n,
+                                  seed=S + H + D, empty_row=True)
+    assert ops.FA.launch_plan(q, k, v) == ops.FA.prefill_plan(
+        B, S, H, K, D, True, D)
+    fn = ops.KERNELS["flash_attention"]
+    n0, n_short = fn.launches, fn.prefill_short
+    out = ops.chunked_attention(q, k, v, qp, kp)
+    again = ops.chunked_attention(q, k, v, qp, kp)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.prefill_short) == (n0 + 2, n_short)
+    assert torch.equal(_bytes(out), _bytes(again))
+    assert out.dtype == BF16
+    want = ref.chunked_attention_ref(q, k, v, qp, kp)
+    _assert_within_bar(out, want, q, k, v, qp, kp)
+    assert not out[0, 0].float().any()
+
+
+def test_short_form_of_views_off_16_byte_boundaries(dev):
+    """q/k/v views that do not start on a 16-byte boundary at gemma-7b's
+    bucket 64: the wrapper copies them, and the short form runs on the
+    copies."""
+    q, k, v, qp, kp = _short_case(dev, 1, 64, 64, 16, 16, 256, 256, F32, 40,
+                                  seed=31, empty_row=False)
+    views = []
+    for t in (q, k, v):
+        flat = torch.empty(t.numel() + 1, device=dev)
+        views.append(flat[1:].view(t.shape))
+        views[-1].copy_(t)
+        assert views[-1].data_ptr() % 16
+    out = _hold_short(*views, qp, kp)
+    assert torch.equal(out, ops.chunked_attention(q, k, v, qp, kp))
+
+
 # ---- K3d: int8 K/V with per-token, per-head scales, decode route ---------
 
 def _int8_case(dev, B, T, H, K, D, window, ring, seed, zero_scale=False):

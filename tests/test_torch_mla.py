@@ -349,3 +349,50 @@ def test_prefill_plan_at_mla_head_dims(f32, stages):
     assert FA.prefill_plan(1, 1024, 16, 16, 256, f32, 256).rows == (
         64 if f32 else 128)
     assert FA.prefill_plan(1, 1024, 16, 16, 128, f32, 128).rows == 128
+
+
+def test_short_form_at_mla_head_dims():
+    """deepseek-v2's f32 bucket 64 (128 heads over 128 kv heads, Dk 192 /
+    Dv 128) on 132 SMs: the full form's 128-row CTAs would hold 64 rows
+    each, so the plan takes the short form: 32 rows (two row blocks, each
+    scored by two warps over half of each tile's keys), one stage, two
+    query blocks a head: 256 CTAs, one wave at the two CTAs an SM an H100
+    holds at 32 rows (its occupancy at 64, 32 and 16 rows: 1, 2, 2); the
+    bucket 1024 and K3e's forward (``lse``) keep the full form."""
+    from repro_torch.kernels import flash_attention as FA
+    plan = FA.prefill_plan(1, 64, 128, 128, 192, True, 128, T=64, n_sm=132,
+                           per_sm=(1, 2, 2))
+    assert plan.form == "short" and plan.halves == 1
+    assert (plan.rows, plan.heads, plan.bq) == (32, 1, 32)
+    assert (plan.keys, plan.stages, plan.width) == (64, 1, 192)
+    assert plan.grid == (2, 128, 1)
+    full = FA.prefill_plan(1, 1024, 128, 128, 192, True, 128)
+    assert FA.prefill_plan(1, 1024, 128, 128, 192, True, 128, T=1024,
+                           n_sm=132) == full
+    assert FA.prefill_plan(1, 64, 128, 128, 192, True, 128, T=64, n_sm=132,
+                           lse=True) == FA.prefill_plan(1, 64, 128, 128,
+                                                        192, True, 128)
+
+
+@pytest.mark.parametrize("B,S,H,window", [(2, 64, 4, 0), (2, 64, 4, 24),
+                                          (1, 100, 2, 0)])
+def test_short_form_emulation_at_mla_head_dims(B, S, H, window):
+    """``ref.prefill_short_ref`` at Dk 192 / Dv 128 (each CTA's rows, each
+    warp's keys of a tile apart, then combined) against the reference's
+    ``chunked_attention`` within 3e-5: ragged prompts padded at 2**30, a
+    window, T past one tile, and a query (batch row 0's first) at position
+    -1, which sees no key (exactly 0)."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, pos = _mla_case(B, S, H, seed=S + H + window)
+    qp = pos.copy()
+    qp[0, 0] = -1
+    want = np.asarray(RA.chunked_attention(
+        *(jnp.asarray(a) for a in (q, k, v, qp, pos)), window=window))
+    plan = FA.prefill_plan(B, S, H, H, 192, True, 128, T=S, n_sm=132)
+    assert plan.form == "short"
+    got = P_ref.prefill_short_ref(
+        *(torch.from_numpy(a) for a in (q, k, v, qp, pos)), plan,
+        window=window)
+    assert tuple(got.shape) == (B, S, H, 128)
+    assert float(np.abs(got.numpy() - want).max()) < 3e-5
+    assert not got[0, 0].any()

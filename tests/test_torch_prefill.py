@@ -288,3 +288,219 @@ def test_wgmma_plan_slices_groups_past_its_rows(G, D):
     assert (seen == 1).all()
     assert (plan.rows, plan.heads, plan.bq) == (128, 128, 1)
     assert plan.grid == (S * -(-G // 128), K, 1)
+
+
+# ---- the short form of the f32 path (prefill_short_kernel) ----------------
+
+N_SM = 132                        # an H100's SMs (the wrapper asks the card)
+# the CTAs of the short form an H100 80GB HBM3 holds an SM at 64, 32 and 16
+# rows a CTA (FA.SHORT_ROWS), by (Dk, Dv), as its occupancy calculator gave
+# them (flash_prefill_short_per_sm, T 64 to 512): the shared memory binds,
+# 2-3 CTAs at D 64 and MLA's 32 or 16 rows, else 1
+H100_PER_SM = {(64, 64): (2, 2, 3), (128, 128): (1, 1, 1),
+               (256, 256): (1, 1, 1), (192, 128): (1, 2, 2)}
+# name: (S, T, H, K, Dk, Dv, the form prefill_plan takes on N_SM SMs): the
+# serving paths' f32 and mixed prefills, by bucket; bf16 q over f32 K/V
+# (a name with "mixed") keeps the full form at every bucket
+SHORT_SHAPES = {
+    **{f"tinyllama-{s}": (s, s, 32, 4, 64, 64, "short" if s < 512 else "full")
+       for s in (16, 32, 64, 128, 256, 512)},
+    **{f"gemma-7b-{s}": (s, s, 16, 16, 256, 256,
+                         "short" if s <= 256 else "full")
+       for s in (16, 64, 128, 256, 512, 1024)},
+    "olmoe-1024": (1024, 1024, 16, 16, 128, 128, "full"),
+    "olmoe-64": (64, 64, 16, 16, 128, 128, "short"),
+    "gemma3-1500": (1500, 1500, 32, 16, 128, 128, "full"),
+    "gemma3-128": (128, 128, 32, 16, 128, 128, "short"),
+    "mla-64": (64, 64, 128, 128, 192, 128, "short"),
+    "mla-1024": (1024, 1024, 128, 128, 192, 128, "full"),
+    "qwen1.5-mixed-32": (32, 32, 64, 8, 128, 128, "full"),
+    "qwen1.5-mixed-256": (256, 256, 64, 8, 128, 128, "full"),
+    "seamless-cross-16x4096": (16, 4096, 16, 16, 64, 64, "full"),
+}
+
+
+def _short_plan(S, T, H, K, dk, dv, B=1, lse=False, mixed=False,
+                rows=None):
+    return FA.prefill_plan(B, S, H, K, dk, True, dv, T=T, n_sm=N_SM,
+                           lse=lse, mixed=mixed,
+                           per_sm=H100_PER_SM.get((dk, dv)), short_rows=rows)
+
+
+def _cell_coverage(plan, B, S, H, K, dv):
+    """How many CTA rows compute each (batch, query, head, output column):
+    the grid walked through ``prefill_row`` and ``prefill_cols``."""
+    G = H // K
+    nx, nk, nb = plan.grid
+    assert (nk, nb) == (K, B) and plan.bq * plan.heads <= plan.rows
+    seen = np.zeros((B, S, H, dv), np.int64)
+    for x in range(nx):
+        lo, hi = FA.prefill_cols(plan, x, dv)
+        for kvh in range(K):
+            for r in range(plan.rows):
+                got = FA.prefill_row(plan, S, G, x, kvh, r)
+                if got is not None:
+                    s, h = got
+                    assert h // G == kvh
+                    seen[:, s, h, lo:hi] += 1
+    return seen
+
+
+@pytest.mark.parametrize("name", sorted(SHORT_SHAPES))
+def test_short_form_covers_every_cell_once(name):
+    """At the serving paths' shapes, the plan on an H100's 132 SMs takes
+    the short form where its criterion says (the full grid at most half a
+    wave, or its rows half empty; at most 512 keys), and either form gives
+    every (query, head, output column) to exactly one CTA row: at Dv 256
+    the short form's two CTAs of a query block each write one half."""
+    S, T, H, K, dk, dv, form = SHORT_SHAPES[name]
+    plan = _short_plan(S, T, H, K, dk, dv, mixed="mixed" in name)
+    assert plan.form == form and plan.route == "mma"
+    assert (_cell_coverage(plan, 1, S, H, K, dv) == 1).all()
+    if form == "short":
+        G = H // K
+        assert plan.rows in FA.SHORT_ROWS and plan.heads == G
+        assert plan.bq == plan.rows // G
+        assert plan.halves == (2 if dv == 256 else 1)
+        assert plan.grid[0] == -(-S // plan.bq) * plan.halves
+        assert (plan.keys, plan.stages) == (64, 1 if dk > 128 else 2)
+
+
+@pytest.mark.parametrize("name", sorted(SHORT_SHAPES))
+def test_full_form_kept_outside_the_criterion_and_with_lse(name):
+    """Where the criterion does not take a shape, and for every shape when
+    ``lse`` is asked for (K3e's forward), the plan is the one laid out
+    without the SM count, bit for bit; so is every plan of bf16 q over f32
+    K/V (``mixed``), even at a forced row count, and every all-bf16
+    (wgmma) plan."""
+    S, T, H, K, dk, dv, form = SHORT_SHAPES[name]
+    today = FA.prefill_plan(1, S, H, K, dk, True, dv)
+    assert today.form == "full" and today.halves == 1
+    if form == "full":
+        assert _short_plan(S, T, H, K, dk, dv, mixed="mixed" in name) == today
+    assert _short_plan(S, T, H, K, dk, dv, lse=True) == today
+    assert _short_plan(S, T, H, K, dk, dv, mixed=True) == today
+    assert _short_plan(S, T, H, K, dk, dv, mixed=True, rows=64) == today
+    assert FA.prefill_plan(1, S, H, K, dk, False, dv, T=T,
+                           n_sm=N_SM) == FA.prefill_plan(1, S, H, K, dk,
+                                                         False, dv)
+
+
+@pytest.mark.parametrize("G,D", [(65, 128), (1, 96), (2, 224), (4, 32)])
+def test_short_form_only_whole_groups_at_its_widths(G, D):
+    """A group past 64 heads, a padded head dim (96, Zamba2's 224) and a
+    width the short form has no template of keep the full form."""
+    plan = _short_plan(16, 16, 2 * G, 2, D, D)
+    assert plan == FA.prefill_plan(1, 16, 2 * G, 2, D, True, D)
+
+
+@pytest.mark.parametrize("B,S,H,K,D", [
+    (1, 64, 16, 16, 256), (1, 128, 16, 16, 256), (1, 256, 16, 16, 256),
+    (3, 40, 16, 16, 256), (1, 16, 32, 4, 64), (1, 256, 32, 4, 64),
+    (2, 16, 32, 4, 64), (1, 200, 24, 3, 64), (1, 64, 128, 128, 192),
+    (1, 128, 32, 16, 128), (2, 64, 128, 128, 192), (4, 64, 128, 128, 192),
+    (8, 64, 128, 128, 192)])
+def test_short_form_rows_per_cta(B, S, H, K, D):
+    """The rows a CTA: the fewest of 16, 32, 64 among those whose grid
+    takes the fewest waves (a wave 132 SMs times the CTAs an SM holds at
+    that many rows): the fewest whose grid fits one wave where any does.  On
+    an H100: gemma-7b's bucket 64, 16 rows, 4 query blocks x 2 halves x 16
+    heads = 128 CTAs (the full form's 16); its bucket 128, 32 rows (16
+    would take two waves); its bucket 256, 64 rows; MLA's bucket 64, 32
+    rows, two CTAs an SM, and at B 2-8, where no count fits a wave, 32
+    rows still (as many waves as 64 rows, at two CTAs an SM); tinyllama's
+    bucket 256, 32 rows."""
+    dv = 128 if D == 192 else D
+    plan = _short_plan(S, S, H, K, D, dv, B=B)
+    G, halves = H // K, 2 if dv == 256 else 1
+    occ = dict(zip(FA.SHORT_ROWS, H100_PER_SM[(D, dv)]))
+    fits = sorted(r for r in FA.SHORT_ROWS if r >= G)
+
+    def waves(r, per):
+        return -(-(-(-S // (r // G)) * halves * K * B) // (N_SM * per))
+    least = min(waves(r, occ[r]) for r in fits)
+    want = next(r for r in fits if waves(r, occ[r]) == least)
+    assert plan.form == "short" and plan.rows == want
+    named = {(1, 64, 16, 16, 256): (16, (8, 16, 1)),
+             (1, 128, 16, 16, 256): (32, (8, 16, 1)),
+             (1, 256, 16, 16, 256): (64, (8, 16, 1)),
+             (1, 64, 128, 128, 192): (32, (2, 128, 1)),
+             (2, 64, 128, 128, 192): (32, (2, 128, 2)),
+             (8, 64, 128, 128, 192): (32, (2, 128, 8)),
+             (1, 256, 32, 4, 64): (32, (64, 4, 1))}
+    if (B, S, H, K, D) in named:
+        assert (plan.rows, plan.grid) == named[(B, S, H, K, D)]
+    # without the card's occupancy, one CTA an SM
+    one = FA.prefill_plan(B, S, H, K, D, True, dv, T=S, n_sm=N_SM)
+    least = min(waves(r, 1) for r in fits)
+    want = next(r for r in fits if waves(r, 1) == least)
+    assert one.form == "short" and one.rows == want
+
+
+def _short_inputs(seed, B, S, T, H, K, dk, dv, ends, qdt=np.float32):
+    """q/k/v from numpy normals at ``dk``/``dv``; batch row b holds tokens
+    0..ends[b]-1 and pads at 2**30 (the Engine's bucket), its query 0 of
+    batch row 0 at position -1, a row with no valid key."""
+    q, k, _, q_pos, kv_pos = _inputs(seed, B, S, T, H, K, dk, ends)
+    rng = np.random.default_rng(seed + 1)
+    v = rng.standard_normal((B, T, K, dv)).astype(np.float32)
+    q_pos[0, 0] = -1
+    return q.astype(qdt), k, v, q_pos, kv_pos
+
+
+SHORT_CASES = {  # name: (B, S, T, H, K, D, window, ends)
+    "D256-bucket64-40-tokens": (2, 64, 64, 4, 4, 256, 0, [40, 64]),
+    "D256-window-20": (2, 64, 64, 4, 2, 256, 20, [64, 23]),
+    "D256-two-tiles": (1, 128, 128, 2, 2, 256, 0, [100]),
+    "D64-G8-bucket16": (2, 16, 16, 16, 2, 64, 0, [16, 9]),
+    "D128-three-tiles-window": (1, 150, 150, 8, 4, 128, 50, [150]),
+    # gemma3's bucket 128 (96 tokens, G 2) and olmoe's bucket 64 (40, MHA)
+    # at D 128, fewer heads
+    "D128-G2-bucket128-96-tokens": (1, 128, 128, 4, 2, 128, 0, [96]),
+    "D128-bucket64-window-24": (2, 64, 64, 2, 2, 128, 24, [40, 64]),
+}
+
+
+@pytest.mark.parametrize("rows", [None, 32, 64])
+@pytest.mark.parametrize("name", sorted(SHORT_CASES))
+def test_short_form_emulation_holds_the_reference(name, rows):
+    """``ref.prefill_short_ref``, CTA by CTA as the short form computes
+    (its rows, its output half, Q scaled as the kernel scales it, each
+    warp's keys of a tile apart, then combined), against the reference's
+    ``chunked_attention`` at 3e-5: head dim 256 in halves, ragged pads at
+    2**30, a window, T past one tile, and a row with no valid key (0); at
+    the plan's rows (16 at these shapes: four warps a row block) and at
+    32 and 64 (two, one)."""
+    B, S, T, H, K, D, window, ends = SHORT_CASES[name]
+    q, k, v, q_pos, kv_pos = _short_inputs(sum(map(ord, name)), B, S, T, H,
+                                           K, D, D, ends)
+    plan = _short_plan(S, T, H, K, D, D, B=B, rows=rows)
+    assert plan.form == "short"
+    assert (_cell_coverage(plan, B, S, H, K, D) == 1).all()
+    want = np.asarray(RA.chunked_attention(
+        *(jnp.asarray(x) for x in (q, k, v, q_pos, kv_pos)), window=window))
+    got = P_ref.prefill_short_ref(
+        *(torch.from_numpy(x) for x in (q, k, v, q_pos, kv_pos)), plan,
+        window=window)
+    assert float(np.abs(got.numpy() - want).max()) < TOL
+    assert not got[0, 0].any()
+
+
+@pytest.mark.parametrize("rows", [16, 32, 64])
+def test_short_form_rows_forced_and_refused(rows):
+    """``short_rows`` lays out the short form at that many rows a CTA where
+    the criterion would not (gemma-7b's bucket 512, between half a wave and
+    one) and the same layout the criterion picks where it picks that many;
+    fewer rows than a whole group, or a count it has no instantiation of,
+    is refused."""
+    plan = _short_plan(512, 512, 16, 16, 256, 256, rows=rows)
+    assert plan.form == "short" and plan.rows == rows
+    assert plan.bq == rows and plan.grid == (-(-512 // rows) * 2, 16, 1)
+    assert (_cell_coverage(plan, 1, 512, 16, 16, 256) == 1).all()
+    picked = _short_plan(64, 64, 16, 16, 256, 256)
+    assert _short_plan(64, 64, 16, 16, 256, 256, rows=picked.rows) == picked
+    if rows < 64:                                   # a group of 64 heads
+        with pytest.raises(ValueError):
+            _short_plan(16, 16, 64, 1, 64, 64, rows=rows)
+    with pytest.raises(ValueError):                 # no such instantiation
+        _short_plan(16, 16, 4, 4, 64, 64, rows=rows + 8)
