@@ -8,7 +8,10 @@ Needs one CUDA card.  The shapes (:func:`shapes`) are those whose device ms
 the port's configs: tinyllama's decode and prefill buckets, gemma3's
 (and its f32 bucket 128, local and global), gemma-7b's, deepseek-v2's MLA
 (bf16 and f32), olmoe's f32 buckets 1024 and 64, jamba's and qwen2-vl's
-prefills, and the published head shapes of phase 26 (bf16 and f32); and
+prefills, and the published head shapes of phase 26 (bf16 and f32); the
+other decode rows of phase 2 (K3d's int8 cache, qwen1.5's and jamba's bf16
+q over f32 K/V, olmoe, seamless's self and cross attention, the published
+head shapes' decode in bf16 and f32); and
 K2's three rows: the paging gather
 of phase 2 (45,144 pages of 1 KiB, every entry live), and phase 20's
 hops over 8 stacked shards of 549,978,112 B, the shift (every shard
@@ -17,7 +20,8 @@ and the one-pair hop (K2 alone into a zeroed stack), each at its own
 checkout's hop rows (``launch/mesh.py::hop_rows``).  Starts one worker
 process per checkout; each imports that checkout's ``chip_smoke`` (and so
 its own ``repro_torch``, which builds and runs its own kernels) and draws
-the same inputs from a seed.  K3e's two rows, at phase 2's training
+the same inputs from a seed (an int8 row's K/V through the model's
+quantiser, with their scales).  K3e's two rows, at phase 2's training
 shape (tinyllama's heads, B T_BATCH x S T_SEQ, f32): forward plus backward
 under autograd, and the backward alone (the gradients of one recorded
 output, its graph kept), whatever backward each checkout runs.  Last,
@@ -112,6 +116,29 @@ def shapes() -> dict:
         for dt in ("bf16", "f32"):
             out[f"{name}_prefill_{cs.HS_MAX_LEN}_{dt}"] = (
                 1, cs.HS_MAX_LEN, cs.HS_MAX_LEN, H, K, D, D, W, dt, dt)
+    # the other decode rows of phase 2: K3d's int8 cache, the bf16 q over
+    # f32 K/V of qwen1.5 and jamba, olmoe, seamless's self and cross
+    # attention, the published head shapes
+    qw, sm = get_config("qwen1.5-110b"), get_config("seamless-m4t-medium")
+    out[f"k3d_decode_{cs.I8_B}x{cs.MAX_LEN}_int8"] = (
+        cs.I8_B, 1, cs.MAX_LEN, tl.n_heads, tl.n_kv_heads, tl.head_dim,
+        tl.head_dim, 0, "f32", "int8")
+    for name, c, rows, T in (("qwen", qw, len(cs.Q_PROMPTS), cs.Q_MAX_LEN),
+                             ("jamba", jb, len(cs.J_PROMPTS), cs.J_MAX_LEN)):
+        out[f"{name}_decode_{rows}x{T}_bf16_q"] = (
+            rows, 1, T, c.n_heads, c.n_kv_heads, c.head_dim, c.head_dim, 0,
+            "bf16", "f32")
+    out[f"olmoe_decode_{len(cs.O_PROMPTS)}x{cs.O_MAX_LEN}"] = (
+        len(cs.O_PROMPTS), 1, cs.O_MAX_LEN, om.n_heads, om.n_kv_heads,
+        om.head_dim, om.head_dim, 0, "f32", "f32")
+    for name, T in (("self", cs.S_MAX_LEN), ("cross", cs.S_FRAMES)):
+        out[f"seamless_{name}_decode_{cs.S_B}x{T}"] = (
+            cs.S_B, 1, T, sm.n_heads, sm.n_heads, sm.head_dim, sm.head_dim,
+            0, "f32", "f32")
+    for name, (H, K, D, W) in cs.HS_SHAPES.items():
+        for dt in ("bf16", "f32"):
+            out[f"{name}_decode_{cs.HS_ROWS}x{cs.HS_MAX_LEN}_{dt}"] = (
+                cs.HS_ROWS, 1, cs.HS_MAX_LEN, H, K, D, D, W, dt, dt)
     for kind in ("train", "backward"):
         out[f"k3e_{kind}_{cs.T_BATCH}x{cs.T_SEQ}"] = (
             kind, cs.T_BATCH, cs.T_SEQ, tl.n_heads, tl.n_kv_heads,
@@ -132,6 +159,7 @@ def worker(tree: str, table: dict) -> None:
     import chip_smoke as cs
     import torch
     from repro_torch.kernels import _build, ops
+    from repro_torch.models.attention import quantise
 
     _build.build_all()
     dev = torch.device("cuda")
@@ -149,8 +177,14 @@ def worker(tree: str, table: dict) -> None:
             continue
         B, S, T, H, K, dk, dv, w, qd, kd = spec
         q = torch.randn((B, S, H, dk), device=dev, generator=g).to(dts[qd])
-        k = torch.randn((B, T, K, dk), device=dev, generator=g).to(dts[kd])
-        v = torch.randn((B, T, K, dv), device=dev, generator=g).to(dts[kd])
+        k = torch.randn((B, T, K, dk), device=dev, generator=g)
+        v = torch.randn((B, T, K, dv), device=dev, generator=g)
+        kw = dict(window=w)
+        if kd == "int8":         # the model's quantiser: codes and scales
+            (k, ks), (v, vs) = quantise(k), quantise(v)
+            kw.update(k_scale=ks, v_scale=vs)
+        else:
+            k, v = k.to(dts[kd]), v.to(dts[kd])
         kp = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
         if S == 1:                   # ragged rows: row b holds T - 97 b keys
             kp = kp.clone()
@@ -160,7 +194,7 @@ def worker(tree: str, table: dict) -> None:
                 torch.int32)[:, None]
         else:
             qp = kp[:, T - S:].contiguous()
-        cases[name] = (q, k, v, qp, kp.contiguous(), w)
+        cases[name] = (q, k, v, qp, kp.contiguous(), kw)
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     print("ready", flush=True)
     for line in sys.stdin:
@@ -169,10 +203,10 @@ def worker(tree: str, table: dict) -> None:
             print(cs.enqueue_us(cases[name]), flush=True)
             continue
         if reps == "enqueue":
-            q, k, v, qp, kp, w = cases[name]
+            q, k, v, qp, kp, kw = cases[name]
             try:
                 print(cs.enqueue_us(lambda: ops.chunked_attention(
-                    q, k, v, qp, kp, window=w)), flush=True)
+                    q, k, v, qp, kp, **kw)), flush=True)
             except ValueError:
                 print(math.nan, flush=True)
             continue
@@ -181,10 +215,10 @@ def worker(tree: str, table: dict) -> None:
             print(cs.timed(call, int(reps), lambda: scratch.fill_(1),
                            device=True), flush=True)
             continue
-        q, k, v, qp, kp, w = cases[name]
+        q, k, v, qp, kp, kw = cases[name]
 
         def call():
-            ops.chunked_attention(q, k, v, qp, kp, window=w)
+            ops.chunked_attention(q, k, v, qp, kp, **kw)
         try:
             call()
         except ValueError:

@@ -29,7 +29,13 @@ nvcc (sm_90a), then:
                 gemma3's bucket 128 must take the short form of the f32
                 prefill, ``prefill_plan``'s form "short"; every prefill
                 row prints its plan's form); every
-                decode shape through the split-KV kernel; and the decode
+                decode shape through the split-KV kernel in the form
+                ``decode_layout`` gives it (each decode row prints its
+                form, cluster size and CTAs, and is bit-equal call to
+                call; tinyllama's and K3d's must take the cluster form,
+                a cluster of splits combined through distributed shared
+                memory); K4 against ``clone()`` in 8 alternating pairs of
+                windows; and the decode
                 kernel over int8 K/V with per-token, per-head scales, K3d,
                 at tinyllama's, gemma3's ring and global and jamba's
                 attention shapes, beside SDPA over K/V dequantised outside
@@ -775,21 +781,26 @@ def main() -> int:
     print(f"attention prefill bucket 32 (24 valid): max_abs_err "
           f"{errs[-1]:.3g}")
     slens = [int(x) for x in rng.integers(7, 57, SLOTS)]
-    errs.append(attn_err(attn_case(SLOTS, 1, SERVE_LEN, slens,
-                                   empty_row=True))[0])
+    dec = attn_case(SLOTS, 1, SERVE_LEN, slens, empty_row=True)
+    errs.append(attn_err(dec)[0])
+    _, text = decode_form(dec[0], dec[1], f"tinyllama decode T={SERVE_LEN}",
+                          due="cluster")
     print(f"attention decode S=1 T={SERVE_LEN} B={SLOTS}: max_abs_err "
-          f"{errs[-1]:.3g}")
+          f"{errs[-1]:.3g}; {text}")
     dlens = [int(x) for x in rng.integers(17, 333, SLOTS)]
     dec = attn_case(SLOTS, 1, MAX_LEN, dlens, empty_row=True)
+    n_cluster = FA.chunked_attention.decode_cluster
     err, out = attn_err(dec)
     check(not out[0].any(), "a row with no valid key must give 0")
+    check(bit_equal(out, ops.chunked_attention(*dec[:5])),
+          "tinyllama decode: two calls differ")
+    check(FA.chunked_attention.decode_cluster - n_cluster == 2,
+          "tinyllama decode: not counted as cluster launches")
     errs.append(err)
-    _, groups, n_split, split_len = FA.decode_plan(
-        SLOTS, K, H // K, MAX_LEN, 4,
-        torch.cuda.get_device_properties(dev).multi_processor_count, D)
+    _, text = decode_form(dec[0], dec[1], f"tinyllama decode T={MAX_LEN}",
+                          due="cluster")
     print(f"attention decode S=1 T={MAX_LEN} B={SLOTS}: max_abs_err {err:.3g}"
-          f"; {n_split} splits of {split_len} slots, "
-          f"{n_split * groups * K * SLOTS} CTAs")
+          f"; {text}")
     bf = attn_case(2, 64, 64, [40, 64], dtype=torch.bfloat16)
     print(f"attention bf16 prefill 64: max_abs_err {attn_err(bf)[0]:.3g}")
 
@@ -858,6 +869,15 @@ def main() -> int:
                        flush),
         bound_ms=c_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         max_abs_err=copy_err)
+    # K4 against clone() in alternating windows (kernel, clone, clone,
+    # kernel, ...): whether its gap to the call passes the windows' spread
+    ab = alternating(lambda: ops.rbm_copy(leaf), lambda: leaf.clone(), flush)
+    rows["rbm_copy"]["against_clone"] = ab
+    print(f"rbm_copy against clone(), 8 alternating pairs: device ms "
+          f"kernel {ab['a_ms']:.4f} (spread {ab['a_spread']:.2%}), clone "
+          f"{ab['b_ms']:.4f} (spread {ab['b_spread']:.2%}), kernel / clone "
+          f"{ab['a_ms'] / ab['b_ms']:.4f}; windows kernel {ab['a_windows']}, "
+          f"clone {ab['b_windows']} [{tag}]")
     del scratch, leaf
     torch.cuda.synchronize()
     wall(2)
@@ -1402,7 +1422,9 @@ def check_sass(built) -> None:
     all-bf16 prefill at each of its widths (``WGMMA_WIDTHS``), with warpgroup MMAs (HGMMA: at least Dk/16 for
     QK^T and BN/16 for PV) and TMA tensor loads (UTMALDG: at least one a
     64-column panel of K and of V); every kernel of the decode library one
-    of the split-KV kernel; K4 issues bulk copies (UBLKCP).  Prints how
+    of the split-KV kernel or of its cluster form, one of the latter at
+    each of ``flash_attention.CLUSTER_DECODE``; K4 issues bulk copies
+    (UBLKCP).  Prints how
     many instantiations each library holds.  Reads the SASS with the
     toolkit's cuobjdump."""
     import shutil
@@ -1483,8 +1505,13 @@ def check_sass(built) -> None:
         got[(dk, dv)] = c
     check(set(got) == set(due), f"wgmma prefill instantiations {sorted(got)}"
                                 f", {sorted(due)} due")
-    check(decode and all("decode_split_kernel" in k for k in decode),
+    check(decode and all("decode_split_kernel" in k
+                         or "decode_cluster_kernel" in k for k in decode),
           f"decode library outside the design: {sorted(decode)}")
+    clusters = [k for k in decode if "decode_cluster_kernel" in k]
+    check(len(clusters) == len(FA.CLUSTER_DECODE),
+          f"{len(clusters)} cluster-form decode kernels, "
+          f"{len(FA.CLUSTER_DECODE)} due (flash_attention.CLUSTER_DECODE)")
     bulk = [c["UBLKCP"] for k, c in counts["rbm_copy"].items()
             if "bulk_copy" in k]
     check(bulk and all(n > 0 for n in bulk), "K4 issues no bulk copies")
@@ -1503,7 +1530,8 @@ def check_sass(built) -> None:
           f"{len(short)} of its short form, all with HMMA; "
           f"{len(grads)} backward kernels, all with HMMA; "
           f"{len(wg)} wgmma prefill kernels, all with HGMMA and UTMALDG; "
-          f"{len(decode)} split-KV decode kernels; bulk_copy_kernel: "
+          f"{len(decode) - len(clusters)} split-KV decode kernels and "
+          f"{len(clusters)} of its cluster form; bulk_copy_kernel: "
           f"{bulk[0]} UBLKCP")
 
 
@@ -1520,11 +1548,9 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
 
     cfg = get_config("gemma3-27b")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     H, K, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
     ends = np.array(G_PROMPTS) + G_MAX_NEW - 1   # the last decode's positions
     B, P = len(ends), max(G_PROMPTS)
@@ -1557,10 +1583,7 @@ def window_attention_rows(dev, gen, flush, tag) -> dict:
         v = torch.randn((nb, T, K, D), device=dev, generator=gen)
         plan = ""
         if S == 1:
-            gc, groups, n_split, split_len = FA.decode_plan(
-                nb, K, H // K, T, k.element_size(), n_sm, D)
-            plan = (f", {n_split} splits of {split_len} slots, "
-                    f"{n_split * groups * K * nb} CTAs")
+            plan = ", " + decode_form(q, k, f"gemma3 {name}")[1]
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
             if dt == torch.bfloat16 and not bf16:
@@ -1650,6 +1673,39 @@ def short_due(row, label) -> None:
                                   f"the short form is due")
 
 
+def decode_form(q, k, label, due=None):
+    """A phase-2 decode row's layout (``FA.decode_launch_plan``): returns
+    ``(plan, text)``, the text naming its form, head group, splits, the
+    CTAs a cluster and the grid's CTAs; fails the run where ``due`` names
+    a form and another runs."""
+    from repro_torch.kernels import flash_attention as FA
+
+    plan = FA.decode_launch_plan(q, k)
+    check(due is None or plan.form == due,
+          f"{label}: the {plan.form} decode form ran; the {due} form is due")
+    return plan, (f"{plan.form} form, head group {plan.head_group}, "
+                  f"{plan.n_split} splits of {plan.split_len} slots, "
+                  f"cluster {plan.cluster}, {plan.ctas} CTAs")
+
+
+def alternating(a, b, flush, pairs=8) -> dict:
+    """Device ms of ``a`` and ``b`` (``timed(device=True)`` windows) in
+    alternating order, ``pairs`` pairs: a b, b a, a b, ...  Returns each
+    side's median and windows and the spread of each (max over min of its
+    windows, minus 1)."""
+    got = {"a": [], "b": []}
+    for i in range(pairs):
+        for side in (("a", "b") if i % 2 == 0 else ("b", "a")):
+            got[side].append(timed(a if side == "a" else b, flush=flush,
+                                   device=True))
+    out = {}
+    for side in ("a", "b"):
+        w = got[side]
+        out.update({f"{side}_ms": statistics.median(w), f"{side}_windows": w,
+                    f"{side}_spread": max(w) / min(w) - 1})
+    return out
+
+
 def attention_row(label, q, k, v, qp, kp, window, flush, tag,
                   causal=True) -> dict:
     """One attention shape: the kernel held to its plain version
@@ -1667,13 +1723,22 @@ def attention_row(label, q, k, v, qp, kp, window, flush, tag,
     route = ("decode" if q.shape[1] == 1 else
              FA.prefill_route(q.dtype, k.dtype, q.shape[-1], v.shape[-1]))
     form = FA.launch_plan(q, k, v).form if q.shape[1] > 1 else None
+    dplan = dtext = None
+    if q.shape[1] == 1:
+        dplan, dtext = decode_form(q, k, label)
+        form = dplan.form
     n0 = FA.chunked_attention.prefill_wgmma
     n1 = FA.chunked_attention.prefill_short
+    n2 = FA.chunked_attention.decode_cluster
     got = ops.chunked_attention(q, k, v, qp, kp, **kw)
     check(FA.chunked_attention.prefill_wgmma - n0 == (route == "wgmma")
-          and FA.chunked_attention.prefill_short - n1 == (form == "short"),
+          and FA.chunked_attention.prefill_short - n1 == (form == "short")
+          and FA.chunked_attention.decode_cluster - n2 == (form == "cluster"),
           f"attention {label}: the {route} route's launch ({form} form) was "
           f"not counted as such")
+    if dplan is not None:
+        check(bit_equal(got, ops.chunked_attention(q, k, v, qp, kp, **kw)),
+              f"attention {label}: two decode calls differ")
     err, share = attention_err(label, got, q, k, v, qp, kp, **kw)
     mixed = q.dtype != k.dtype
     lq, lk, lv = ((x.float() if mixed else x).transpose(1, 2)
@@ -1696,12 +1761,15 @@ def attention_row(label, q, k, v, qp, kp, window, flush, tag,
         bound_ms=bound, bound_by=by, max_abs_err=err, err_share_of_bar=share,
         dtypes=f"q {str(q.dtype)[6:]}, k/v {str(k.dtype)[6:]}",
         route=ROUTE_SOURCES[route], form=form)
+    if dplan is not None:
+        r.update(plan=dtext, cluster=dplan.cluster, ctas=dplan.ctas)
     if mixed:
         r["library_operands"] = "promoted to float32 outside its timed window"
     if q.shape[1] > 1:
         r["tc_bound_ms"] = tc_bound(q, k, qp, kp, window, dv, causal)
     print(f"attention {label} ({r['dtypes']}; {r['route']}"
-          + (f", {form} form" if form else "") + f") "
+          + (f", {dtext}" if dtext else f", {form} form" if form else "")
+          + f") "
           f"S={q.shape[1]} T={k.shape[1]} "
           f"B={q.shape[0]} window {window}"
           f"{'' if causal else ' non-causal'}: max_abs_err {err:.3g} "
@@ -2318,12 +2386,10 @@ def int8_rows(dev, gen, flush, tag) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
     from repro_torch.models.attention import quantise
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     g3 = get_config("gemma3-27b")
     W = g3.window
     ends = np.array(G_PROMPTS) + G_MAX_NEW - 1
@@ -2368,8 +2434,11 @@ def int8_rows(dev, gen, flush, tag) -> dict:
             mask &= kp[:, None, None, :] > qp[:, None, :, None] - window
         qt, kt, vt = q.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
         bound, by = attention_bound(q, k8, qp, kp, window, scale_bytes=8)
-        gc, groups, n_split, split_len = FA.decode_plan(B, K, H // K, T, 1,
-                                                        n_sm, D)
+        dplan, text = decode_form(q, k8, f"int8 decode {name}",
+                                  due="cluster" if name == "tinyllama"
+                                  else None)
+        check(bit_equal(got, ops.chunked_attention(*args, **kw)),
+              f"int8 decode {name}: two calls differ")
         r = out[name] = dict(
             **kernel_times(lambda: ops.chunked_attention(*args, **kw),
                            lambda: ref.chunked_attention_ref(*args, **kw),
@@ -2380,8 +2449,8 @@ def int8_rows(dev, gen, flush, tag) -> dict:
             library_operands="SDPA over K/V dequantised to float32 outside "
                              "its timed window (no PyTorch call takes int8 "
                              "K/V with scales)",
-            plan=f"head group {gc}, {n_split} splits of {split_len} slots, "
-                 f"{n_split * groups * K * B} CTAs")
+            plan=text, form=dplan.form, cluster=dplan.cluster,
+            ctas=dplan.ctas)
         print(f"attention int8 decode {name} (B={B} T={T} {H}/{K} heads "
               f"D={D} window {window}; {r['plan']}): max_abs_err {err:.3g}; "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "

@@ -13,9 +13,13 @@ q's device's current stream, allocates its output with ``torch.empty``,
 raises if the launch reports an error, and counts its calls in
 ``chunked_attention.launches``, one a launch, and by route in
 ``chunked_attention.prefill`` and ``chunked_attention.decode``.  Decode
-(S = 1) runs the split-KV kernel, laid out by :func:`decode_plan`, with its
-partials and tickets in a workspace kept per device and stream
-(:func:`_workspace`).  Prefill (S > 1) runs one of two tensor-core kernels,
+(S = 1) runs the split-KV kernel in the form :func:`decode_layout` gives
+it: the cluster form (the splits of a head group one thread-block cluster,
+combined through distributed shared memory: no workspace; also counted in
+``chunked_attention.decode_cluster``) at the shapes it is instantiated at,
+else the split form laid out by :func:`decode_plan`, with its partials and
+tickets in a workspace kept per device and stream (:func:`_workspace`).
+Prefill (S > 1) runs one of two tensor-core kernels,
 picked by shape (:func:`prefill_route`) and laid out by
 :func:`prefill_plan`: q, k and v all bf16 at tile widths 64, 128 and 256
 or at Dk 192 / Dv 128 the warpgroup-MMA kernel fed by TMA (``"wgmma"``,
@@ -91,6 +95,22 @@ INT8_DECODE = ((torch.float32, 64, 8), (torch.float32, 128, 2),
 DECODE_CTAS_PER_SM = 4      # the grid aims at this many CTAs an SM
 SPLIT_ALIGN = 16            # a split's length is a multiple of this
 MAX_SPLITS = 512            # the most splits the kernel's combine takes
+# the decode kernel's cluster form (csrc/flash_decode.cu,
+# decode_cluster_kernel): the (q dtype, K/V dtype, head dim, head group) it
+# is instantiated at, the shapes the serving paths decode at: f32 at D 64
+# and head group 8 (tinyllama) and its int8 twin (K3d), bf16 q over f32 K/V
+# at D 128 and head groups 8 (qwen1.5, qwen2-vl) and 4 (jamba), and int8 at
+# D 128 and head group 4 (jamba's int8 cache; at head group 2, groups of 1
+# or 2 heads, the split form was the faster on an H100: PERF.md §6); the
+# most CTAs a cluster (the portable size) and slots a split
+CLUSTER_DECODE = frozenset([
+    (torch.float32, torch.float32, 64, 8), (torch.float32, torch.int8, 64, 8),
+    (torch.bfloat16, torch.float32, 128, 8),
+    (torch.bfloat16, torch.float32, 128, 4),
+    (torch.float32, torch.int8, 128, 4)])
+CLUSTER_MAX = 8
+CLUSTER_MAX_LEN = 1024
+CLUSTER_CTAS_PER_SM = 2     # the cluster form's grid aims at one wave of this
 # the kernels' tile widths: a head dim that is one of TILE_WIDTHS runs in
 # that width's unpadded template; any other in the padded template (its
 # loads and stores masked past the head dim, the tile's other columns zero
@@ -197,15 +217,34 @@ def _backward_lib() -> ctypes.CDLL:
 
 
 def _decode_lib() -> ctypes.CDLL:
-    """The split-KV decode kernel's library (``csrc/flash_decode.cu``)."""
+    """The decode kernel's library (``csrc/flash_decode.cu``): the split
+    form and the cluster form."""
     global _DECODE_LIB
     if _DECODE_LIB is None:
         lib = _build.library("flash_decode")
         lib.flash_decode_launch.argtypes = (
             [_P] * 10 + [_I] * 8 + [ctypes.c_float] + [_I] * 5 + [_P])
-        lib.flash_decode_launch.restype = ctypes.c_int
+        lib.flash_decode_cluster_launch.argtypes = (
+            [_P] * 8 + [_I] * 7 + [ctypes.c_float] + [_I] * 5 + [_P])
+        lib.flash_decode_prepare.argtypes = []
+        lib.flash_decode_cluster_smem.argtypes = [_I] * 4
+        for fn in (lib.flash_decode_launch, lib.flash_decode_cluster_launch,
+                   lib.flash_decode_prepare, lib.flash_decode_cluster_smem):
+            fn.restype = ctypes.c_int
         _DECODE_LIB = lib
     return _DECODE_LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_ready(index: int) -> ctypes.CDLL:
+    """The decode library, after the cluster form's shared-memory opt-in
+    on CUDA device ``index`` (once a device)."""
+    lib = _decode_lib()
+    with torch.cuda.device(index):
+        err = lib.flash_decode_prepare()
+    if err:
+        raise RuntimeError(f"cluster decode opt-in failed: error {err}")
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,7 +253,12 @@ def decode_plan(B: int, K: int, G: int, T: int, itemsize: int, n_sm: int,
     """``(head_group, n_groups, n_split, split_len)`` of the split-KV
     decode kernel for B batch rows, K kv heads of G query heads each, T
     cache slots of ``itemsize``-byte elements (the cache's: q may be
-    another dtype) and ``head_dim`` on ``n_sm`` SMs.
+    another dtype) and ``head_dim`` on ``n_sm`` SMs: the split form's
+    layout.  Which shapes take which form is :func:`decode_layout`'s: the
+    cluster form the serving paths' groups of 3 to 8 heads
+    (:data:`CLUSTER_DECODE`, T up to 8192), the split form every other
+    shape (groups of 1 or 2 heads, other dtypes and head dims, longer
+    caches).
 
     The kernel runs at ``tile_width(head_dim)``.  A lane holds F floats of
     a head's q and accumulator (:func:`_lanes`), in loads of ``vec``
@@ -240,6 +284,68 @@ def decode_plan(B: int, K: int, G: int, T: int, itemsize: int, n_sm: int,
     per = -(-max(T, 1) // want)
     split_len = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
     return head_group, n_groups, -(-max(T, 1) // split_len), split_len
+
+
+class DecodePlan(NamedTuple):
+    form: str                    # "cluster" or "split" (decode_layout)
+    head_group: int              # query heads a CTA
+    n_groups: int                # CTAs a kv head's heads take
+    n_split: int                 # splits of the cache slots
+    split_len: int               # slots a split
+    cluster: int                 # CTAs a cluster: n_split, or 1 ("split")
+    ctas: int                    # the grid's CTAs
+
+
+@functools.lru_cache(maxsize=None)
+def decode_layout(B: int, K: int, G: int, T: int, q_dtype: torch.dtype,
+                  kv_dtype: torch.dtype, n_sm: int,
+                  head_dim: int) -> DecodePlan:
+    """The decode kernel's form and layout for B batch rows, K kv heads of
+    G query heads each, T cache slots, q of ``q_dtype`` over K/V of
+    ``kv_dtype`` at ``head_dim`` on ``n_sm`` SMs.
+
+    The head group is :func:`decode_plan`'s whatever the form.  The
+    ``"cluster"`` form (csrc/flash_decode.cu, ``decode_cluster_kernel``)
+    takes the shapes whose (q dtype, K/V dtype, head dim, head group) is in
+    :data:`CLUSTER_DECODE`: the serving paths' groups of 3 to 8 heads
+    (tinyllama and K3d at D 64 in f32 and int8; qwen1.5, qwen2-vl and
+    jamba at D 128, bf16 q over f32 K/V, and jamba's int8 cache).  Its
+    splits form one thread-block cluster a (batch row, kv head, head
+    group), so ``n_split`` is at most CLUSTER_MAX: as many as keep the
+    grid within one wave of CLUSTER_CTAS_PER_SM CTAs an SM (its CTAs'
+    shared memory and registers hold two or three on an H100), at least
+    one, and at least T / CLUSTER_MAX_LEN; each ``split_len`` (a multiple
+    of SPLIT_ALIGN) at most CLUSTER_MAX_LEN slots and nonempty.  Where T
+    needs more than CLUSTER_MAX such splits (T above 8192) the shape keeps
+    the split form.  Every other shape (groups of 1 or 2 heads: gemma3,
+    gemma-7b, olmoe, seamless; other head dims and head groups, such as
+    Zamba2's padded 224 and V4's 512; all-bf16 and f32 q over bf16 K/V)
+    takes the ``"split"`` form: :func:`decode_plan`'s layout, run by
+    ``decode_split_kernel``.  ``cluster`` is the CTAs a cluster (1 in the
+    split form) and ``ctas`` the grid's CTAs."""
+    itemsize = torch.empty((), dtype=kv_dtype).element_size()
+    gc, n_groups, n_split, split_len = decode_plan(B, K, G, T, itemsize,
+                                                   n_sm, head_dim)
+    if (q_dtype, kv_dtype, head_dim, gc) in CLUSTER_DECODE:
+        fit = CLUSTER_CTAS_PER_SM * n_sm // max(1, B * K * n_groups)
+        ns = max(1, min(CLUSTER_MAX, fit), -(-T // CLUSTER_MAX_LEN))
+        per = -(-max(T, 1) // ns)
+        length = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
+        if ns <= CLUSTER_MAX and length <= CLUSTER_MAX_LEN:
+            ns = -(-max(T, 1) // length)
+            return DecodePlan("cluster", gc, n_groups, ns, length, ns,
+                              ns * K * n_groups * B)
+    return DecodePlan("split", gc, n_groups, n_split, split_len, 1,
+                      n_split * K * n_groups * B)
+
+
+def decode_launch_plan(q: torch.Tensor, k: torch.Tensor) -> DecodePlan:
+    """The :class:`DecodePlan` :func:`chunked_attention` launches for CUDA
+    tensors q (B,1,H,D) and k (B,T,K,D), on q's device's SM count."""
+    B, _, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    return decode_layout(B, K, H // K, T, q.dtype, k.dtype,
+                         _device(q.device.index), D)
 
 
 def prefill_route(q_dtype: torch.dtype, kv_dtype: torch.dtype,
@@ -561,8 +667,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.dtype}, k/v {k.dtype})")
     n_sm = _device(q.device.index)
     if S == 1:
-        gc, groups, n_split, split_len = decode_plan(
-            B, K, H // K, T, k.element_size(), n_sm, D)
+        dplan = decode_layout(B, K, H // K, T, q.dtype, k.dtype, n_sm, D)
+        gc, groups = dplan.head_group, dplan.n_groups
+        n_split, split_len = dplan.n_split, dplan.split_len
         if int8 and (q.dtype, D, gc) not in INT8_DECODE:
             raise ValueError(
                 f"int8 K/V decode at q {q.dtype}, head_dim {D}, head group "
@@ -576,7 +683,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_pos = kv_pos.to(torch.int32).contiguous()
     out = q.new_empty((B, S, H, Dv))
     stream = torch._C._cuda_getCurrentRawStream(q.device.index)
-    if S == 1:
+    if S == 1 and dplan.form == "cluster":
+        err = _decode_ready(q.device.index).flash_decode_cluster_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if int8 else None,
+            v_scale.data_ptr() if int8 else None, q_pos.data_ptr(),
+            kv_pos.data_ptr(), out.data_ptr(), B, T, H, K, D, int(causal),
+            int(window), D ** -0.5, _DTYPES[q.dtype], _KV_DTYPES[k.dtype],
+            gc, n_split, split_len, stream)
+    elif S == 1:
         part, tickets = _workspace(q.device, stream,
                                    B * H * n_split * (width + 2),
                                    B * K * groups)
@@ -619,6 +734,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if S == 1:
         chunked_attention.decode += 1
         chunked_attention.decode_int8 += int8
+        chunked_attention.decode_cluster += dplan.form == "cluster"
     else:
         chunked_attention.prefill += 1
         chunked_attention.prefill_wgmma += plan.route == "wgmma"
@@ -632,6 +748,7 @@ chunked_attention.prefill_wgmma = 0
 chunked_attention.prefill_short = 0
 chunked_attention.decode = 0
 chunked_attention.decode_int8 = 0
+chunked_attention.decode_cluster = 0
 chunked_attention.backward = 0
 
 

@@ -62,6 +62,7 @@ PORT_KERNELS = (("dedupe_kernel", "villa_scatter", "K1"),
                 ("prefill_short_kernel", "flash_attention", "K3"),
                 ("prefill_wgmma_kernel", "flash_attention", "K3"),
                 ("decode_split_kernel", "flash_attention", "K3"),
+                ("decode_cluster_kernel", "flash_attention", "K3"),
                 ("prep_kernel", "flash_attention_backward", "K3e"),
                 ("widen_kernel", "flash_attention_backward", "K3e"),
                 ("grads_kernel", "flash_attention_backward", "K3e"),

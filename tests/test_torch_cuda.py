@@ -5,21 +5,22 @@ run time).  On a machine with one, run them with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-They cover shapes the smoke run does not: odd page counts, masked and
-out-of-range page tables, tables longer than the page gather's persistent
-grid and mostly -1 (a hop's), pages of 16 B to 64 KiB, the all-bf16
-prefill route (csrc/flash_prefill_wgmma.cu) at each of its widths, other
-head dims (256 included), group sizes and dtypes (q over k/v
-of another dtype included), sequence lengths that are not multiples of the
-kernels' tiles or splits, the decode kernel's dispatch
-rule, int8 K/V with their scales on the decode route (K3d) at every
-instantiated head dim and group, and the Engine on the card against the
-Engine on the CPU (the dense, sliding-window, MoE, MLA and recurrent
-families), and the mesh's split train, prefill and decode steps (MLA's
-and rwkv's among them) on the card against the CPU, and the entry-point
-audit's card checks (syncs, launches, allocations), and the roofline's
-profile capture (every launch of its region recorded).
-"""
+They cover shapes the smoke run does not: odd page counts, masked and out-
+of-range page tables, tables longer than the page gather's persistent grid
+and mostly -1 (a hop's), pages of 16 B to 64 KiB, the all-bf16 prefill
+route (csrc/flash_prefill_wgmma.cu) at each of its widths, other head dims
+(256 included), group sizes and dtypes (q over k/v of another dtype
+included), sequence lengths that are not multiples of the kernels' tiles
+or splits, the decode kernel's dispatch rule, its cluster form
+(``decode_layout``'s form "cluster") at every instantiation, at T off its
+splits and shorter than one, with dead splits and rows, a window and views
+off 16-byte boundaries, int8 K/V with their scales on the decode route
+(K3d) at every instantiated head dim and group, and the Engine on the card
+against the Engine on the CPU (the dense, sliding-window, MoE, MLA and
+recurrent families), and the mesh's split train, prefill and decode steps
+(MLA's and rwkv's among them) on the card against the CPU, and the entry-
+point audit's card checks (syncs, launches, allocations), and the
+roofline's profile capture (every launch of its region recorded)."""
 import math
 
 import numpy as np
@@ -338,6 +339,162 @@ def test_decode_of_k_v_off_16_byte_boundaries(dev):
     want = ref.chunked_attention_ref(q, k, v, qp, kp)
     assert float((out - want).abs().max()) < 3e-5
     assert not out[0].any()
+
+
+# ---- the decode kernel's cluster form ----------------------------------
+
+def _cluster_case(dev, B, T, H, K, D, qdt, kvdt, window, ring, seed):
+    """A decode case in q dtype ``qdt`` over K/V of ``kvdt`` (int8: the
+    model's quantiser's codes and scales); row 0 has no valid key.
+    Returns (q, k, v, q_pos, kv_pos, kwargs)."""
+    from repro_torch.models.attention import quantise
+
+    q, k, v, qp, kp = _decode_case(dev, B, T, H, K, D, torch.float32, window,
+                                   ring, seed)
+    if kvdt == torch.int8:
+        (k, ks), (v, vs) = quantise(k), quantise(v)
+        return q.to(qdt), k, v, qp, kp, dict(window=window, k_scale=ks,
+                                             v_scale=vs)
+    return q.to(qdt), k.to(kvdt), v.to(kvdt), qp, kp, dict(window=window)
+
+
+def _hold_cluster(q, k, v, qp, kp, kw):
+    """The decode call in the cluster form: one launch a call, counted as
+    a cluster launch, the same bits twice, within ref.attention_bar of the
+    plain version (3e-5 over an int8 cache, whose output is f32) and of
+    the plain twin of its splits; a row with no valid key exactly 0.
+    Returns its plan."""
+    from repro_torch.kernels import flash_attention as FA
+
+    plan = FA.decode_launch_plan(q, k)
+    assert plan.form == "cluster" and 1 <= plan.cluster <= FA.CLUSTER_MAX
+    fn = ops.KERNELS["flash_attention"]
+    n = (fn.launches, fn.decode, fn.decode_cluster)
+    out = ops.chunked_attention(q, k, v, qp, kp, **kw)
+    again = ops.chunked_attention(q, k, v, qp, kp, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.decode, fn.decode_cluster) == (
+        n[0] + 2, n[1] + 2, n[2] + 2)
+    assert torch.equal(_bytes(out), _bytes(again))
+    assert not out[0].float().any()
+    assert bool(torch.isfinite(out.float()).all())
+    want = ref.chunked_attention_ref(q, k, v, qp, kp, **kw)
+    twin = ref.split_decode_ref(q, k, v, qp, kp, n_split=plan.n_split,
+                                split_len=plan.split_len, **kw)
+    window = kw.get("window", 0)
+    for w in (want, twin):
+        if k.dtype == torch.int8:
+            assert float((out - w).abs().max()) < 3e-5
+        else:
+            _assert_within_bar(out, w, q, k, v, qp, kp, window=window)
+    return plan
+
+
+def _cluster_shapes():
+    """Each instantiation of the cluster form as (q dtype, K/V dtype, head
+    dim, head group, G): the group at the head group's size, and one
+    below it where the group is then the same (G 1 and 3)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    out = []
+    for qd, kd, D, gc in sorted(FA.CLUSTER_DECODE, key=str):
+        for G in sorted({gc, gc - 1 if gc > 2 else 1}):
+            out.append((qd, kd, D, gc, G))
+    return out
+
+
+@pytest.mark.parametrize("qd,kd,D,gc,G", _cluster_shapes(), ids=str)
+def test_cluster_decode_takes_each_instantiation(dev, qd, kd, D, gc, G):
+    """Every (q dtype, K/V dtype, head dim, head group) of the cluster
+    form, at T 300 (not a multiple of its splits), ragged rows, the
+    later splits of short rows dead."""
+    K, B, T = 2, 3, 300
+    case = _cluster_case(dev, B, T, G * K, K, D, qd, kd, 0, False,
+                         seed=D + 10 * G + 100 * gc)
+    plan = _hold_cluster(*case)
+    assert plan.head_group == gc and T % plan.split_len
+
+
+@pytest.mark.parametrize("B,T,H,K,D,window,ring,qd,kd", [
+    (8, 1024, 32, 4, 64, 0, False, torch.float32, torch.float32),  # tinyllama
+    (8, 256, 32, 4, 64, 0, False, torch.float32, torch.float32),
+    (4, 1024, 32, 4, 64, 0, False, torch.float32, torch.int8),     # K3d
+    (4, 1024, 64, 8, 128, 0, False, torch.bfloat16, torch.float32),  # qwen
+    (4, 1024, 32, 8, 128, 0, False, torch.bfloat16, torch.float32),  # jamba
+    (4, 1024, 32, 8, 128, 1024, True, torch.float32, torch.int8),  # K3d G 4
+    (4, 1024, 32, 8, 128, 1024, True, torch.bfloat16, torch.float32),
+    (4, 2048, 32, 8, 128, 1024, False, torch.bfloat16, torch.float32),
+    (8, 128, 16, 4, 128, 0, False, torch.bfloat16, torch.float32),  # 2 x 2
+    (4, 4096, 32, 4, 64, 0, False, torch.float32, torch.float32),
+    (2, 9, 32, 4, 64, 0, False, torch.float32, torch.float32),     # T < split
+    (2, 9, 32, 8, 128, 0, False, torch.float32, torch.int8),
+    (3, 500, 12, 4, 128, 100, True, torch.bfloat16, torch.float32),  # G 3
+    (3, 8192, 8, 2, 128, 0, False, torch.bfloat16, torch.float32),  # 8 x 1024
+])
+def test_cluster_decode_matches_plain(dev, B, T, H, K, D, window, ring, qd,
+                                      kd):
+    """The cluster form at the serving shapes it takes (tinyllama, K3d,
+    qwen1.5, jamba on one card and on 2 x 2), windows over wrapped rings,
+    T shorter than one split and the longest splits it takes."""
+    case = _cluster_case(dev, B, T, H, K, D, qd, kd, window, ring,
+                         seed=B * T + H + D)
+    _hold_cluster(*case)
+
+
+@pytest.mark.parametrize("qd,kd,D", [(torch.float32, torch.float32, 64),
+                                     (torch.float32, torch.int8, 64),
+                                     (torch.bfloat16, torch.float32, 128)])
+def test_cluster_decode_with_dead_splits_and_rows(dev, qd, kd, D):
+    """Rows whose every split is dead (no valid key: exactly 0), rows
+    whose only valid keys lie in the last split, and a window that leaves
+    the first splits of a row dead."""
+    B, T, H, K = 4, 1000, 32, 4
+    case = list(_cluster_case(dev, B, T, H, K, D, qd, kd, 0, False, seed=7))
+    kv = np.full((B, T), 2**30, np.int32)
+    kv[1, T - 5:] = np.arange(5)             # only the last split
+    kv[2] = np.arange(T)                     # every slot, window 100 below
+    qpos = np.array([[0], [4], [T - 1], [0]], np.int32)
+    case[3] = torch.from_numpy(qpos).to(dev)
+    case[4] = torch.from_numpy(kv).to(dev)
+    out = ops.chunked_attention(*case[:5], **case[5])
+    assert not out[3].float().any()
+    _hold_cluster(*case[:5], case[5])
+    case[5]["window"] = 100
+    _hold_cluster(*case[:5], case[5])
+
+
+@pytest.mark.parametrize("qd,kd,D", [(torch.float32, torch.float32, 64),
+                                     (torch.bfloat16, torch.float32, 128),
+                                     (torch.float32, torch.int8, 64)])
+def test_cluster_decode_of_q_off_16_byte_boundaries(dev, qd, kd, D):
+    """q, K and V views that do not start on a 16-byte boundary: the
+    wrapper copies them for the form's 16-byte copies, and the result
+    matches the plain version."""
+    q, k, v, qp, kp, kw = _cluster_case(dev, 3, 200, 16, 2, D, qd, kd, 0,
+                                        False, seed=31)
+    flat = torch.empty(q.numel() + 1, device=dev, dtype=qd)
+    off_q = flat[1:].view(q.shape)
+    off_q.copy_(q)
+    assert off_q.data_ptr() % 16
+    flat_k = torch.empty(k.numel() + 4, device=dev, dtype=kd)
+    off_k = flat_k[4 // k.element_size() or 1:][:k.numel()].view(k.shape)
+    off_k.copy_(k)
+    assert off_k.data_ptr() % 16
+    _hold_cluster(off_q, off_k, v, qp, kp, kw)
+
+
+def test_cluster_decode_fits_shared_memory(dev):
+    """Every instantiation of the cluster form, as the library reports
+    its CTA's static and dynamic shared memory, fits an H100 CTA's 227
+    KB, and its opt-in succeeds."""
+    from repro_torch.kernels import flash_attention as FA
+
+    lib = FA._decode_ready(torch.cuda.current_device())
+    for qd, kd, D, gc in sorted(FA.CLUSTER_DECODE, key=str):
+        smem = lib.flash_decode_cluster_smem(FA._DTYPES[qd],
+                                             FA._KV_DTYPES[kd], D, gc)
+        assert 0 < smem <= 227 * 1024, (qd, kd, D, gc, smem)
+    assert lib.flash_decode_cluster_smem(0, 0, 64, 2) == -1
 
 
 def test_attention_still_raises_outside_its_shapes(dev):

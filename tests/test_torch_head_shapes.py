@@ -228,6 +228,39 @@ def test_decode_plan_covers_every_head_once(G, D, itemsize):
     assert n_split * split_len >= T_ > (n_split - 1) * split_len
 
 
+@pytest.mark.parametrize("pair", ["f32", "bf16-q", "bf16", "int8"])
+@pytest.mark.parametrize("D", [64, 72, 128, 224, 256, 512])
+@pytest.mark.parametrize("G", [1, 3, 8, 64, 128])
+def test_decode_layout_form_at_every_head_shape(G, D, pair):
+    """The decode kernel's form by shape: the cluster form exactly where
+    its (q dtype, K/V dtype, head dim, head group) is instantiated
+    (CLUSTER_DECODE: never at the padded 72 and 224 nor at 512), with the
+    split form's head group and every head of a kv head in one of its
+    groups; else the split form, decode_plan's layout unchanged."""
+    qd, kd = {"f32": (torch.float32, torch.float32),
+              "bf16-q": (torch.bfloat16, torch.float32),
+              "bf16": (torch.bfloat16, torch.bfloat16),
+              "int8": (torch.float32, torch.int8)}[pair]
+    B, K, T_ = 3, 2, 1000
+    plan = FA.decode_layout(B, K, G, T_, qd, kd, N_SM, D)
+    itemsize = torch.empty((), dtype=kd).element_size()
+    split = FA.decode_plan(B, K, G, T_, itemsize, N_SM, D)
+    assert plan.head_group == split[0] and plan.n_groups == split[1]
+    cluster = (qd, kd, D, plan.head_group) in FA.CLUSTER_DECODE
+    assert plan.form == ("cluster" if cluster else "split")
+    if D not in (64, 128, 256):
+        assert plan.form == "split"
+    if plan.form == "split":
+        assert plan[1:5] == split
+    else:
+        assert plan.n_split <= FA.CLUSTER_MAX
+        assert (plan.n_split - 1) * plan.split_len < T_ <= (
+            plan.n_split * plan.split_len)
+    heads = [hg * plan.head_group + i for hg in range(plan.n_groups)
+             for i in range(plan.head_group) if hg * plan.head_group + i < G]
+    assert heads == list(range(G))
+
+
 def test_tile_widths():
     """Each head dim that is a multiple of 8 from 8 to 512 runs in its own
     width where it is an unpadded one (the old five widths and 512), else
